@@ -1,0 +1,100 @@
+"""Turn the JAX package's parameter tree into this port's state dict.
+
+Input: the flax variables of ``MSR3DNetwork`` as nested dicts of numpy
+arrays (``{"params": ..., "batch_stats": ...}``). Rules, per leaf:
+
+  * a path segment ``name_<i>`` (``layer_3``, ``sa_0``, ``dense_1``) is
+    entry ``i`` of the port's ``nn.ModuleList`` ``name``;
+  * ``kernel`` (Dense, flax (in, out)) → ``weight``, transposed to torch's
+    (out, in); ``lora_a`` (in, r) and ``lora_b`` (r, out) are transposed
+    the same way;
+  * ``scale`` (LayerNorm, BatchNorm, RMSNorm) → ``weight``; ``embedding``
+    (Embed) → ``weight``; ``bias`` and ``object_orientation_feat`` keep
+    their names;
+  * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
+
+Subtrees the port does not run are skipped and listed: the point
+encoder's semantic head (its output is discarded on the generation path)
+and the image encoder with its projection (images are not ported yet).
+Any other key raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+SKIPPED_SUBTREES = (
+    "params/visual_prompter/obj_encoder/sem_head/",
+    "params/image_encoder/",
+    "params/llm_proj_img/",
+    "batch_stats/image_encoder/",
+)
+
+_PARAM_LEAVES = {
+    "kernel": ("weight", True),
+    "lora_a": ("lora_a", True),
+    "lora_b": ("lora_b", True),
+    "scale": ("weight", False),
+    "embedding": ("weight", False),
+    "bias": ("bias", False),
+    "object_orientation_feat": ("object_orientation_feat", False),
+}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            flat.update(_flatten(val, path + "/"))
+        else:
+            flat[path] = val
+    return flat
+
+
+def _to_tensor(arr: Any, transpose: bool) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.kind not in "fiu":  # e.g. ml_dtypes bfloat16
+        arr = arr.astype(np.float32)
+    if transpose:
+        if arr.ndim != 2:
+            raise ValueError(f"expected a 2-D kernel, got shape {arr.shape}")
+        arr = arr.T
+    return torch.from_numpy(np.array(arr, order="C"))  # a writable copy
+
+
+def jax_to_torch_state_dict(
+    variables: Mapping[str, Any],
+) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Returns (state dict, skipped JAX keys). Raises KeyError on a key it
+    does not know."""
+    state: Dict[str, torch.Tensor] = {}
+    skipped: List[str] = []
+    for path, arr in sorted(_flatten(variables).items()):
+        if path.startswith(SKIPPED_SUBTREES):
+            skipped.append(path)
+            continue
+        collection, *mods, leaf = path.split("/")
+        if collection == "params" and leaf in _PARAM_LEAVES:
+            name, transpose = _PARAM_LEAVES[leaf]
+        elif collection == "batch_stats" and leaf in _STAT_LEAVES:
+            name, transpose = _STAT_LEAVES[leaf], False
+        else:
+            raise KeyError(f"unknown JAX parameter {path!r}")
+        mods = [re.sub(r"_(\d+)$", r".\1", m) for m in mods]
+        state[".".join(mods + [name])] = _to_tensor(arr, transpose)
+    return state, skipped
+
+
+def load_jax_params(module: torch.nn.Module, variables: Mapping[str, Any]) -> List[str]:
+    """Load converted JAX variables into ``module`` (strict: every port
+    parameter and buffer must be covered, nothing extra). Values are cast
+    to each parameter's dtype and device. Returns the skipped JAX keys."""
+    state, skipped = jax_to_torch_state_dict(variables)
+    module.load_state_dict(state, strict=True)
+    return skipped

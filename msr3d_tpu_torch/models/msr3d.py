@@ -1,0 +1,305 @@
+"""MSR3D: the 3D-scene multimodal LLM, greedy generation path.
+
+Counterpart of ``msr3d_tpu/models/msr3d.py``:
+
+  * ``MSR3DNetwork`` holds the device compute: the scene prompter
+    (``OSE3DSituation``, kernel K1 inside), the scene projection, the
+    rank-gather splice of scene embeddings into the token embeddings, the
+    Llama prefill (kernel K2f with ``flash_attention``) and the split-cache
+    decode step;
+  * ``MSR3D`` is the host side: prompt building with placeholder
+    expansion, tokenization into left-padded 32-multiple buckets, the
+    greedy decode loop and detokenization.
+
+Not ported yet (raise, see ROADMAP.md): beam search, requests with images,
+training.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from msr3d_tpu_torch.convert import load_jax_params
+from msr3d_tpu_torch.device import resolve_device
+from msr3d_tpu_torch.models.llm.llama import (
+    LlamaConfig,
+    LlamaModel,
+    LoraDense,
+    RMSNorm,
+    _make_cache,
+)
+from msr3d_tpu_torch.models.llm.sampling import greedy_decode_shared
+from msr3d_tpu_torch.models.llm.tokenizer import (
+    IMAGE_PLACEHOLDER,
+    SCENE_PLACEHOLDER,
+    BaseTokenizer,
+    ByteTokenizer,
+)
+from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, OSE3DSituation
+from msr3d_tpu_torch.nn.pointnet import BatchNormInference
+
+_SCENE_KEYS = ("obj_fts", "obj_masks", "obj_locs", "anchor_locs", "anchor_orientation")
+
+
+@dataclasses.dataclass(frozen=True)
+class MSR3DNetworkConfig:
+    prompter: OSE3DConfig
+    llm: LlamaConfig
+    scene_token_id: int = 6
+    img_token_id: int = 4
+
+
+def splice_embeddings(
+    token_embeds: torch.Tensor,  # (B, T, D)
+    input_ids: torch.Tensor,  # (B, T)
+    placeholder_id: int,
+    insert_embeds: torch.Tensor,  # (B, N, D)
+    insert_mask: Optional[torch.Tensor],  # (B, N) 1 = valid
+    attention_mask: torch.Tensor,  # (B, T)
+):
+    """The k-th ``placeholder_id`` of a row receives ``insert_embeds[row,
+    k]`` and the attention mask ``insert_mask[row, k]``."""
+    is_ph = input_ids == placeholder_id
+    rank = (torch.cumsum(is_ph.long(), dim=1) - 1).clamp(0, insert_embeds.shape[1] - 1)
+    gathered = torch.gather(
+        insert_embeds, 1, rank[..., None].expand(-1, -1, insert_embeds.shape[-1])
+    )
+    embeds = torch.where(is_ph[..., None], gathered.to(token_embeds.dtype), token_embeds)
+    if insert_mask is not None:
+        gathered_mask = torch.gather(insert_mask.to(attention_mask.dtype), 1, rank)
+        attention_mask = torch.where(is_ph, gathered_mask, attention_mask)
+    return embeds, attention_mask
+
+
+class MSR3DNetwork(nn.Module):
+    def __init__(self, cfg: MSR3DNetworkConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.visual_prompter = OSE3DSituation(cfg.prompter, device)
+        self.llm = LlamaModel(cfg.llm, device)
+        self.llm_proj = nn.Linear(cfg.prompter.hidden_size, cfg.llm.hidden_size, device=device)
+
+    def build_embeds(self, input_ids, attention_mask, obj_fts, obj_masks, obj_locs,
+                     anchor_locs, anchor_orientation):
+        scene = self.visual_prompter(obj_fts, obj_masks, obj_locs, anchor_locs,
+                                     anchor_orientation)
+        return splice_embeddings(
+            self.llm.embed(input_ids), input_ids, self.cfg.scene_token_id,
+            self.llm_proj(scene["obj_tokens"]), scene["obj_masks"], attention_mask,
+        )
+
+    def prefill(self, input_ids, attention_mask, obj_fts, obj_masks, obj_locs,
+                anchor_locs, anchor_orientation, *, bos_id: int, max_cache_len: int):
+        """Spliced embeds + trailing bos → (first-token logits (B, V) fp32,
+        prompt KV cache, cache mask, next positions)."""
+        embeds, attn = self.build_embeds(input_ids, attention_mask, obj_fts, obj_masks,
+                                         obj_locs, anchor_locs, anchor_orientation)
+        b = embeds.shape[0]
+        bos = torch.full((b, 1), bos_id, dtype=input_ids.dtype, device=input_ids.device)
+        embeds = torch.cat([embeds, self.llm.embed(bos)], dim=1)
+        attn = torch.cat([attn, torch.ones((b, 1), dtype=attn.dtype, device=attn.device)], dim=1)
+        logits, _, caches, cache_mask, next_pos = self.llm.prefill_with_cache(
+            embeds, attn, max_cache_len, logits_last_only=True
+        )
+        return logits[:, -1, :].float(), caches, cache_mask, next_pos
+
+    def decode_step_shared(self, token_ids, positions, prompt_kv, prompt_mask, gen_kv,
+                           gen_index, gen_mask):
+        return self.llm.decode_step_shared(
+            self.llm.embed(token_ids), positions, prompt_kv, prompt_mask, gen_kv,
+            gen_index, gen_mask,
+        )
+
+
+@torch.no_grad()
+def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> None:
+    """Random weights of the JAX initialisers' kinds, drawn from
+    ``generator``: Dense ~ N(0, 1/fan_in), Llama projections, embeddings
+    and head ~ N(0, 0.02), LoRA A ~ He-uniform, LoRA B = 0, norms 1/0,
+    BatchNorm statistics 0/1, the orientation feature 0."""
+    g = dict(generator=generator)
+    for mod in network.modules():
+        if isinstance(mod, LoraDense):
+            mod.weight.normal_(0.0, 0.02, **g)
+            if mod.scale:
+                limit = math.sqrt(6.0 / mod.lora_a.shape[1])
+                mod.lora_a.uniform_(-limit, limit, **g)
+                mod.lora_b.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, 0.02, **g)
+        elif isinstance(mod, nn.Linear):
+            if mod is network.llm.lm_head:
+                mod.weight.normal_(0.0, 0.02, **g)
+            else:
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), **g)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, BatchNormInference)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, BatchNormInference):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
+    network.visual_prompter.object_orientation_feat.zero_()
+
+
+class MSR3D:
+    """Host wrapper: ``generate(data_dict) → data_dict['output_tokens']``
+    (and ``'output_text'``), greedy only."""
+
+    def __init__(
+        self,
+        network_cfg: MSR3DNetworkConfig,
+        tokenizer: Optional[BaseTokenizer] = None,
+        *,
+        scene_token_len: int = 60,
+        image_token_len: int = 1,
+        max_out_len: int = 256,
+        num_beams: int = 5,
+        repetition_penalty: float = 3.0,
+        seed: int = 0,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.tokenizer = tokenizer or ByteTokenizer()
+        self.cfg = dataclasses.replace(
+            network_cfg,
+            scene_token_id=self.tokenizer.scene_token_id,
+            img_token_id=self.tokenizer.img_token_id,
+        )
+        self.network = MSR3DNetwork(self.cfg, device=self.device).eval().requires_grad_(False)
+        self.scene_token_len = scene_token_len
+        self.image_token_len = image_token_len
+        self.max_out_len = max_out_len
+        self.num_beams = num_beams
+        self.repetition_penalty = repetition_penalty
+        self._seed = seed
+
+    # -- weights -----------------------------------------------------------
+
+    def init_params(self, seed: Optional[int] = None) -> None:
+        """Random weights on the model's device from a seeded generator
+        (the JAX package's shapes; no checkpoint needed)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._seed if seed is None else seed)
+        init_network_params(self.network, gen)
+
+    def load_jax_params(self, variables: Mapping[str, Any]) -> List[str]:
+        """Load the JAX package's flax variables (nested numpy dicts).
+        Returns the JAX keys skipped as not on this path."""
+        return load_jax_params(self.network, variables)
+
+    # -- prompts -----------------------------------------------------------
+
+    def build_text_prompt(self, data_dict: Dict[str, Any]) -> List[str]:
+        scene_holder = SCENE_PLACEHOLDER * self.scene_token_len
+        image_holder = IMAGE_PLACEHOLDER * self.image_token_len
+        if "msr3d_prompt" in data_dict:
+            return [
+                p.replace(SCENE_PLACEHOLDER, scene_holder).replace(IMAGE_PLACEHOLDER, image_holder)
+                for p in data_dict["msr3d_prompt"]
+            ]
+        return [
+            f"{before} {mid1}{image_holder}. {mid2} {scene_holder}. {after}"
+            for before, mid1, mid2, after in zip(
+                data_dict["prompt_before_obj"], data_dict["prompt_middle_1"],
+                data_dict["prompt_middle_2"], data_dict["prompt_after_obj"],
+            )
+        ]
+
+    def _encode_prompts(self, prompts: List[str]):
+        enc = self.tokenizer.encode_batch(prompts, padding_side="left", add_bos=True)
+        return enc.input_ids, enc.attention_mask
+
+    def _pad_to_bucket(self, ids: np.ndarray, mask: np.ndarray, *, side: str):
+        """Pad ids + mask to the next multiple of 32 with pad_id / mask 0."""
+        pad_to = max(32, -(-ids.shape[1] // 32) * 32)
+        if ids.shape[1] >= pad_to:
+            return ids, mask
+        b, extra = ids.shape[0], pad_to - ids.shape[1]
+        pad_ids = np.full((b, extra), self.tokenizer.pad_id, ids.dtype)
+        pad_mask = np.zeros((b, extra), mask.dtype)
+        if side == "left":
+            return np.concatenate([pad_ids, ids], 1), np.concatenate([pad_mask, mask], 1)
+        return np.concatenate([ids, pad_ids], 1), np.concatenate([mask, pad_mask], 1)
+
+    def _scene_batch(self, data_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        for key in ("msr3d_imgs", "img_fts"):
+            if data_dict.get(key) is not None:
+                raise NotImplementedError(
+                    "requests with images are not ported yet (ROADMAP.md, queue 1: "
+                    "Backbone2D images)"
+                )
+        dtypes = {"obj_masks": torch.bool}
+        return {
+            k: torch.as_tensor(np.asarray(data_dict[k]), device=self.device).to(
+                dtypes.get(k, torch.float32)
+            )
+            for k in _SCENE_KEYS
+        }
+
+    # -- generation ----------------------------------------------------------
+
+    @torch.no_grad()
+    def generate(
+        self,
+        data_dict: Dict[str, Any],
+        *,
+        use_beam: Optional[bool] = None,
+        max_new_tokens: Optional[int] = None,
+    ) -> Dict[str, Any]:
+        """Greedy generation: prefill over the prompt segment, then the
+        split-cache decode loop. Sets ``output_tokens`` (B, max_new) and
+        ``output_text``."""
+        beams = self.num_beams if use_beam is None else (self.num_beams if use_beam else 1)
+        if beams > 1:
+            raise NotImplementedError(
+                "beam search is not ported yet (ROADMAP.md, queue 1: beam-5 decode); "
+                "call generate(use_beam=False)"
+            )
+        input_ids, attn = self._encode_prompts(self.build_text_prompt(data_dict))
+        input_ids, attn = self._pad_to_bucket(input_ids, attn, side="left")
+        scene = self._scene_batch(data_dict)
+        max_new = max_new_tokens or self.max_out_len
+        eos_id = self.tokenizer.eos_id
+
+        first, prompt_kv, prompt_mask, next_pos = self.network.prefill(
+            torch.as_tensor(input_ids, dtype=torch.long, device=self.device),
+            torch.as_tensor(attn, dtype=torch.int32, device=self.device),
+            **scene, bos_id=self.tokenizer.bos_id, max_cache_len=input_ids.shape[1] + 1,
+        )
+        gen_kv = _make_cache(self.cfg.llm, first.shape[0], max_new, self.device)
+
+        def decode_shared(token_ids, positions, gkv, gidx, gmask):
+            return self.network.decode_step_shared(
+                token_ids, positions, prompt_kv, prompt_mask, gkv, gidx, gmask
+            )
+
+        tokens = greedy_decode_shared(
+            decode_shared, next_pos, first, gen_kv, max_new_tokens=max_new,
+            eos_id=eos_id, pad_id=eos_id, min_length=1,
+            repetition_penalty=self.repetition_penalty,
+        )
+        data_dict["output_tokens"] = tokens.cpu().numpy()
+        data_dict["output_text"] = self.batch_detokenize(data_dict["output_tokens"])
+        return data_dict
+
+    def batch_detokenize(self, tokens: np.ndarray) -> List[str]:
+        """Decode generated ids, stopping at the first EOS."""
+        out = []
+        for row in tokens:
+            ids = []
+            for t in row:
+                if t == self.tokenizer.eos_id:
+                    break
+                ids.append(int(t))
+            out.append(self.tokenizer.decode(ids).strip())
+        return out

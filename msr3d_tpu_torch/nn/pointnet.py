@@ -1,0 +1,125 @@
+"""PointNet++ set-abstraction encoder, channels-last.
+
+Counterpart of ``msr3d_tpu/nn/pointnet.py``: FPS (kernel K1) → gather →
+ball query → group → shared MLP (per-point Linear + inference BatchNorm +
+ReLU) → max-pool per group, three stages, then flatten + fc. The MLPs run
+in ``compute_dtype`` (bfloat16 in the flagship config); FPS and ball-query
+geometry stay fp32 so the sampled indices do not depend on it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from msr3d_tpu_torch.ops.pointnet2 import fps, gather_points, group_all, query_and_group
+
+
+class BatchNormInference(nn.Module):
+    """BatchNorm from running statistics (the encoder is frozen), computed
+    in fp32 as flax does: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``,
+    then cast back to the input's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("running_mean", torch.zeros(channels, device=device))
+        self.register_buffer("running_var", torch.ones(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+
+
+class SharedMLP(nn.Module):
+    """Per-point Linear (no bias) + BatchNorm + ReLU stack on the trailing
+    channel dim, in ``dtype``."""
+
+    def __init__(self, in_channels: int, widths: Sequence[int], dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        dims = [in_channels, *widths]
+        self.dense = nn.ModuleList(
+            nn.Linear(a, b, bias=False, device=device) for a, b in zip(dims[:-1], dims[1:])
+        )
+        self.bn = nn.ModuleList(BatchNormInference(w, device=device) for w in widths)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for dense, bn in zip(self.dense, self.bn):
+            x = F.relu(bn(F.linear(x, dense.weight.to(self.dtype))))
+        return x
+
+
+class PointnetSAModule(nn.Module):
+    """One single-scale set-abstraction stage; ``npoint=None`` groups all."""
+
+    def __init__(self, npoint: Optional[int], nsample: Optional[int],
+                 radius: Optional[float], in_channels: int, mlp: Sequence[int],
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.npoint, self.nsample, self.radius = npoint, nsample, radius
+        self.mlp = SharedMLP(in_channels, mlp, dtype, device)
+
+    def forward(
+        self, xyz: torch.Tensor, features: Optional[torch.Tensor]
+    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        if self.npoint is not None:
+            new_xyz = gather_points(xyz, fps(xyz, self.npoint))
+            grouped = query_and_group(xyz, new_xyz, features, self.radius, self.nsample)
+        else:
+            new_xyz = None
+            grouped = group_all(xyz, features)
+        return new_xyz, self.mlp(grouped).amax(dim=2)
+
+
+class PointNetPP(nn.Module):
+    """Stacked SA stages + flatten + fc: (B, P, 3 + C) → (B, sa_mlps[-1][-1])."""
+
+    def __init__(self, sa_n_points, sa_n_samples, sa_radii, sa_mlps, in_features: int = 3,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        stages = []
+        feat = in_features
+        for npoint, nsample, radius, widths in zip(sa_n_points, sa_n_samples, sa_radii, sa_mlps):
+            # use_xyz: each stage's input is center-relative xyz ‖ features
+            stages.append(PointnetSAModule(npoint, nsample, radius, 3 + feat,
+                                           list(widths[1:]), dtype, device))
+            feat = widths[-1]
+        self.sa = nn.ModuleList(stages)
+        self.fc = nn.Linear(feat, sa_mlps[-1][-1], device=device)
+
+    def forward(self, pc: torch.Tensor) -> torch.Tensor:
+        xyz = pc[..., :3]
+        features = pc[..., 3:] if pc.shape[-1] > 3 else None
+        for stage in self.sa:
+            xyz, features = stage(xyz, features)
+        # fc runs in fp32 on the upcast features, as flax promotes bf16 × fp32
+        return self.fc(features.reshape(features.shape[0], -1).float())
+
+
+class PcdObjEncoder(nn.Module):
+    """Object-centric point-cloud encoder: (B, O, P, 6) → (B, O, D).
+
+    The semantic-class head of the JAX module is not ported: its output
+    is discarded on every path this package runs (the converter lists its
+    keys as skipped)."""
+
+    def __init__(self, sa_n_points=(32, 16, None), sa_n_samples=(32, 32, None),
+                 sa_radii=(0.2, 0.4, None),
+                 sa_mlps=((3, 64, 64, 128), (128, 128, 128, 256), (256, 256, 512, 768)),
+                 compute_dtype=torch.float32, device=None):
+        super().__init__()
+        self.pcd_net = PointNetPP(sa_n_points, sa_n_samples, sa_radii, sa_mlps,
+                                  in_features=sa_mlps[0][0], dtype=compute_dtype,
+                                  device=device)
+
+    def forward(self, obj_pcds: torch.Tensor) -> torch.Tensor:
+        b, o, p, d = obj_pcds.shape
+        return self.pcd_net(obj_pcds.reshape(b * o, p, d)).reshape(b, o, -1)

@@ -1,0 +1,152 @@
+"""The port's kernel wrappers, device rules and import boundary.
+
+This file imports no JAX, so it also runs on the GPU host, where there is
+none. There the ``cuda`` tests build the CUDA kernels and hold each against
+its plain PyTorch version (the repository's ``tests/conftest.py`` imports
+JAX, so run it there with ``--noconftest``):
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+Without a GPU the ``cuda`` tests skip and the rest check that a CPU tensor
+takes the plain version and that other devices are refused.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from msr3d_tpu_torch import resolve_device
+from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from msr3d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_reference
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def cuda_device():
+    """The GPU, for tests of the CUDA kernels; they skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels build and run only there)")
+    return torch.device("cuda", 0)
+
+
+def _clouds(seed, b=6, n=64):
+    r = np.random.default_rng(seed)
+    xyz = (r.normal(size=(b, n, 3)) * 0.5).astype(np.float32)
+    xyz[1, 40:] = 0.0  # trailing padding points
+    xyz[2] = 0.0  # all padding: every index is 0
+    xyz[3, ::3] *= 1e-3  # points inside the padding radius, interleaved
+    return xyz
+
+
+def test_fps_wrapper_takes_plain_version_on_cpu():
+    xyz = torch.from_numpy(_clouds(1))
+    assert torch.equal(furthest_point_sample(xyz, 16), furthest_point_sample_reference(xyz, 16))
+
+
+def test_flash_wrapper_takes_plain_version_on_cpu():
+    r = np.random.default_rng(6)
+    q = torch.from_numpy(r.normal(size=(1, 9, 2, 16)).astype(np.float32))
+    got = flash_attention(q, q, q)
+    want = flash_attention_reference(q, q, q)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    meta = torch.empty((2, 8, 3), device="meta")
+    with pytest.raises(ValueError):
+        furthest_point_sample(meta, 4)
+    q = torch.empty((1, 4, 2, 64), device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# The kernels on the card (skip without a GPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_fps_kernel_equals_plain_version(cuda_device):
+    xyz = torch.from_numpy(_clouds(7, b=16, n=1024)).to(cuda_device)
+    for npoint in (32, 16):
+        got = furthest_point_sample(xyz, npoint)
+        torch.cuda.synchronize()
+        assert torch.equal(got, furthest_point_sample_reference(xyz, npoint))
+
+
+@pytest.mark.cuda
+def test_fps_kernel_refuses_what_it_does_not_take(cuda_device):
+    xyz = torch.zeros((2, 64, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        furthest_point_sample(xyz.double(), 8)
+    with pytest.raises(ValueError):
+        furthest_point_sample(xyz.transpose(0, 1), 8)  # not contiguous
+    with pytest.raises(ValueError):
+        furthest_point_sample(torch.zeros((1, 4097, 3), device=cuda_device), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,n_rep", [(torch.bfloat16, 128, 1), (torch.float16, 64, 4)])
+def test_flash_kernel_matches_plain_version(cuda_device, dtype, d, n_rep):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    b, t, hkv = 2, 150, 4
+    q = torch.randn((b, t, hkv * n_rep, d), generator=g, device=cuda_device).to(dtype)
+    k = torch.randn((b, t, hkv, d), generator=g, device=cuda_device).to(dtype)
+    v = torch.randn((b, t, hkv, d), generator=g, device=cuda_device).to(dtype)
+    valid = torch.ones((b, t), dtype=torch.bool, device=cuda_device)
+    valid[1, :20] = False
+    out, lse = flash_attention(q, k, v, key_valid=valid)
+    ref, ref_lse = flash_attention_reference(q, k, v, key_valid=valid)
+    torch.cuda.synchronize()
+    # bf16/fp16 outputs: one ulp is up to 2^-7 of the value (bf16)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert bool((out[1, :20] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)  # head dim 32
+    q = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)  # float32
+
+
+# ---------------------------------------------------------------------------
+# Device rules and the import boundary
+# ---------------------------------------------------------------------------
+
+
+def test_default_device_is_cuda_and_raises_without_gpu():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted((REPO / "msr3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        for mod in _imports(path):
+            root = mod.split(".")[0]
+            if root in ("jax", "jaxlib", "flax", "optax", "msr3d_tpu"):
+                bad.append(f"{path.relative_to(REPO)}: {mod}")
+    assert not bad, bad

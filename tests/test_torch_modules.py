@@ -1,0 +1,168 @@
+"""Parity of the port's modules with the JAX package: the point encoder,
+the scene prompter and a Llama prefill plus decode step.
+
+Weights are the JAX modules' own, perturbed with numpy noise (so BatchNorm
+statistics, norm scales and LoRA B are not at their trivial initial
+values) and converted with ``msr3d_tpu_torch.convert``. fp32 outputs agree
+within 1e-5 (relative to the output's scale where it exceeds 1)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from msr3d_tpu.models.llm.llama import LlamaConfig as JaxLlamaConfig
+from msr3d_tpu.models.llm.llama import LlamaModel as JaxLlamaModel
+from msr3d_tpu.models.llm.llama import _make_cache as jax_make_cache
+from msr3d_tpu.models.ose3d_situation import OSE3DSituation as JaxOSE3DSituation
+from msr3d_tpu.nn.pointnet import PcdObjEncoder as JaxPcdObjEncoder
+from msr3d_tpu_torch.convert import jax_to_torch_state_dict
+from msr3d_tpu_torch.models.llm.llama import LlamaModel, _make_cache
+from msr3d_tpu_torch.models.ose3d_situation import OSE3DSituation
+from msr3d_tpu_torch.nn.pointnet import PcdObjEncoder
+
+from torch_parity_utils import (
+    TINY_PROMPTER,
+    perturbed,
+    scene_inputs,
+    torch_llama_config,
+    torch_prompter_config,
+)
+
+ATOL = 1e-5
+
+
+def load(module, variables, drop=None):
+    """Convert and load strictly, leaving out keys under ``drop`` (the
+    semantic head, which the port does not have)."""
+    state, _ = jax_to_torch_state_dict(variables)
+    if drop:
+        state = {k: v for k, v in state.items() if not k.startswith(drop)}
+    module.load_state_dict(state, strict=True)
+    return module.eval()
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 3e-2)])
+def test_pcd_obj_encoder_matches_jax(dtype, atol):
+    """bf16: both frameworks round each Dense/BN output to bf16 (8-bit
+    mantissa) but accumulate in other orders, so a few elements land one
+    bf16 ulp apart and the fp32 fc carries that: atol 3e-2 on outputs of
+    magnitude ~1."""
+    cfg = TINY_PROMPTER
+    pcds = scene_inputs(0)["obj_fts"]
+    jmod = JaxPcdObjEncoder(
+        sa_n_points=cfg.sa_n_points, sa_n_samples=cfg.sa_n_samples, sa_radii=cfg.sa_radii,
+        sa_mlps=cfg.sa_mlps, compute_dtype=jnp.dtype(dtype),
+    )
+    variables = perturbed(jmod.init(jax.random.key(0), jnp.asarray(pcds)))
+    want = np.asarray(jmod.apply(variables, jnp.asarray(pcds))[0])
+    tmod = load(
+        PcdObjEncoder(cfg.sa_n_points, cfg.sa_n_samples, cfg.sa_radii, cfg.sa_mlps,
+                      compute_dtype=getattr(torch, dtype)),
+        variables, drop="sem_head.",
+    )
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(pcds)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=atol)
+
+
+def test_ose3d_situation_matches_jax():
+    cfg = TINY_PROMPTER
+    inputs = scene_inputs(1)
+    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
+    jmod = JaxOSE3DSituation(cfg)
+    variables = perturbed(jmod.init(jax.random.key(1), **jin), seed=1)
+    want = jmod.apply(variables, **jin)
+    tmod = load(OSE3DSituation(torch_prompter_config(cfg)), variables,
+                drop="obj_encoder.sem_head.")
+    with torch.no_grad():
+        got = tmod(**{k: torch.from_numpy(v) for k, v in inputs.items()})
+    np.testing.assert_allclose(got["obj_tokens"].numpy(), np.asarray(want["obj_tokens"]),
+                               atol=ATOL)
+    np.testing.assert_array_equal(got["obj_masks"].numpy(), np.asarray(want["obj_masks"]))
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["dense", "flash"])
+def test_llama_prefill_and_decode_step_match_jax(flash):
+    jcfg = JaxLlamaConfig.tiny(dtype=jnp.float32, lora_rank=4, num_key_value_heads=2,
+                               flash_attention=flash)
+    b, t, new = 2, 11, 3
+    r = np.random.default_rng(2)
+    embeds = (r.normal(size=(b, t, jcfg.hidden_size)) * 0.5).astype(np.float32)
+    mask = np.ones((b, t), np.int32)
+    mask[1, :4] = 0  # left padding
+    jmod = JaxLlamaModel(jcfg)
+    variables = jmod.init(  # through embed_tokens too, so the table exists
+        jax.random.key(2), jnp.asarray(embeds), jnp.asarray(mask),
+        method=lambda m, e, a: (m.embed_tokens(jnp.zeros((1, 1), jnp.int32)), m(e, a)),
+    )
+    variables = perturbed(variables, seed=2, std=0.02)
+    logits, _, caches, cache_mask, next_pos = jmod.apply(
+        variables, jnp.asarray(embeds), jnp.asarray(mask), t,
+        method=JaxLlamaModel.prefill_with_cache,
+    )
+    tmod = load(LlamaModel(torch_llama_config(jcfg)), variables)
+    with torch.no_grad():
+        t_logits, _, t_caches, t_cache_mask, t_next = tmod.prefill_with_cache(
+            torch.from_numpy(embeds), torch.from_numpy(mask), t
+        )
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(logits), atol=ATOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(t_caches[key].numpy(), np.asarray(caches[key]), atol=ATOL)
+    np.testing.assert_array_equal(t_cache_mask.numpy(), np.asarray(cache_mask))
+    np.testing.assert_array_equal(t_next.numpy(), np.asarray(next_pos))
+
+    # one decode token over the split cache, written at slot 0 of the
+    # generated segment
+    tok = (r.normal(size=(b, 1, jcfg.hidden_size)) * 0.5).astype(np.float32)
+    gen_mask = np.zeros((b, new), bool)
+    gen_mask[:, 0] = True
+    pos = np.array(next_pos)[:, None]
+    j_logits, j_gen = jmod.apply(
+        variables, jnp.asarray(tok), jnp.asarray(pos), caches, cache_mask,
+        jax_make_cache(jcfg, b, new), 0, jnp.asarray(gen_mask),
+        method=JaxLlamaModel.decode_step_shared,
+    )
+    t_gen = _make_cache(tmod.cfg, b, new, "cpu")
+    with torch.no_grad():
+        got = tmod.decode_step_shared(
+            torch.from_numpy(tok), torch.from_numpy(pos), t_caches, t_cache_mask, t_gen, 0,
+            torch.from_numpy(gen_mask),
+        )
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_logits), atol=ATOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(t_gen[key].numpy(), np.asarray(j_gen[key]), atol=ATOL)
+
+
+def test_converter_lists_skipped_keys_and_rejects_unknown():
+    variables = {
+        "params": {
+            "visual_prompter": {"obj_encoder": {"sem_head": {"fc1": {"kernel": np.ones((2, 3))}}}},
+            "llm_proj": {"kernel": np.arange(6, dtype=np.float32).reshape(2, 3),
+                         "bias": np.zeros(3, np.float32)},
+        },
+        "batch_stats": {"sa_0": {"mlp": {"bn_1": {"mean": np.zeros(4, np.float32)}}}},
+    }
+    state, skipped = jax_to_torch_state_dict(variables)
+    assert skipped == ["params/visual_prompter/obj_encoder/sem_head/fc1/kernel"]
+    assert sorted(state) == ["llm_proj.bias", "llm_proj.weight", "sa.0.mlp.bn.1.running_mean"]
+    assert state["llm_proj.weight"].shape == (3, 2)  # (in, out) → (out, in)
+    assert torch.equal(state["llm_proj.weight"], torch.arange(6.0).reshape(2, 3).T)
+    with pytest.raises(KeyError):
+        jax_to_torch_state_dict({"params": {"x": {"mystery": np.zeros(2)}}})
+    with pytest.raises(KeyError):
+        jax_to_torch_state_dict({"cache": {"x": {"kernel": np.zeros((2, 2))}}})
+
+
+def test_unported_llama_options_raise():
+    with pytest.raises(NotImplementedError):
+        torch_llama_config(JaxLlamaConfig.tiny(quantize=True))
+    with pytest.raises(NotImplementedError):
+        torch_llama_config(JaxLlamaConfig.tiny(), kv_quantize=True)
+    with pytest.raises(NotImplementedError):
+        OSE3DSituation(dataclasses.replace(torch_prompter_config(TINY_PROMPTER),
+                                           situation_type="as_object"))
