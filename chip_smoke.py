@@ -5,24 +5,29 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``msr3d_tpu_torch/csrc`` with
-``nvcc`` for ``sm_90a`` (one process per source, in parallel), holds each
-kernel against its plain PyTorch version at the shapes of the main path,
-then drives greedy ``MSR3D.generate`` at the flagship width (OSE3D
-prompter: 60 objects x 1024 points; Vicuna-7B-geometry Llama, bf16, LoRA
-r16, flash prefill) with random weights from a seed, and checks that the
-path launched each kernel. Any failed check exits non-zero. The last two
-lines of standard output are the per-kernel JSON line and the result line
-``{"ok": true, "device": {...}}``; without a GPU, or without the package
-beside it, it exits non-zero and prints no result. ``--profile`` adds the
-device time by kernel of one more generate (``torch.profiler``).
+``nvcc`` for ``sm_90a`` (one process per source, in parallel) and holds each
+kernel against its plain PyTorch version at the shapes of the main paths
+(phases 2, 3 and 5). Then it drives the port's two paths at the flagship
+width (OSE3D prompter: 60 objects x 1024 points; Vicuna-7B-geometry Llama,
+bf16, LoRA r16 on all seven projections, flash attention) with random
+weights from a seed: greedy ``MSR3D.generate`` (phase 4) and two optimizer
+steps of ``LeoTrainer`` at the flagship's solver (phase 6), and checks that
+each path launched its kernels. Any failed check exits non-zero. The last
+two lines of standard output are the per-kernel JSON line and the result
+line ``{"ok": true, "device": {...}}``; without a GPU, or without the
+package beside it, it exits non-zero and prints no result. ``--profile``
+adds the device time by kernel of one more generate and the device busy
+share of one more optimizer step (``torch.profiler``).
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -48,7 +53,24 @@ LSE_ATOL = 1e-3  # fp32 on both sides; only the summation order differs
 # is held layer by layer at the kernel tolerance above; this gate catches a
 # wiring fault (wrong head, layout or mask), which moves the logits by O(1)
 E2E_RTOL = 0.1
+# K2dq/K2dkv vs their plain version: |grad - plain| <= BWD_ATOL + BWD_RTOL *
+# |plain|. Both sides take the same fp32 math (the 16-bit products are exact
+# in fp32) in other summation orders and round dq, dk and dv to bf16/fp16
+# once, so they land at most one ulp apart: 2^-7 of the value in bf16; the
+# absolute term covers gradients near 0 (of order 1 here)
+BWD_ATOL, BWD_RTOL = 1e-2, 1e-2
+# All trainable gradients of one flagship micro-batch, the backward through
+# K2dq/K2dkv against the backward through their plain version (relative L2).
+# Each layer's attention gradients differ by at most one bf16 ulp (held layer
+# by layer at the kernel tolerance above); the backward carries such changes
+# through 32 bf16 layers, so they reach the gradients at the percent level
+# at most. A wiring fault (head, layout, mask or a missing term) moves them
+# by O(1); this gate catches that, not rounding
+GRAD_RTOL = 0.1
 N_REQUESTS, NEW_TOKENS, REP_PENALTY = 4, 32, 3.0
+# the flagship's solver (configs/msr3d.yaml:32-47): batch 4 x accumulation 5
+TRAIN_ACCUM, TRAIN_STEPS = 5, 2
+WIRING_LR, WIRING_STEPS = 1e-3, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -98,9 +120,10 @@ def phase_card_and_build():
     from msr3d_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build_all(["fps", "flash_attn_fwd"])
+    sources = ["fps", "flash_attn_fwd", "flash_attn_bwd"]
+    paths = _build.build_all(sources)
     print(f"  built {[p.name for p in paths]} in {time.perf_counter() - t0:.1f} s")
-    for name in ("fps", "flash_attn_fwd"):
+    for name in sources:
         log = (_build.BUILD_DIR / f"{name}.log")
         if log.exists():
             for line in log.read_text().splitlines():
@@ -223,6 +246,141 @@ def phase_flash(dev):
                 library_ms=library_ms, max_abs_err=worst)
 
 
+def bwd_against_plain(q, k, v, do, lse, delta, valid, kernels):
+    """K2dq and K2dkv (``kernels``: their two wrappers) and their plain
+    version on the same inputs: the errors on query rows with a valid key
+    (dq) and on keys some query reaches (dk, dv), and whether the others are
+    exactly 0, as the TPU kernels leave them."""
+    from msr3d_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq_reference,
+    )
+
+    args = (q, k, v, do, lse, delta)
+    dq = kernels[0](*args, key_valid=valid)
+    dk, dv = kernels[1](*args, key_valid=valid)
+    want_dq = flash_attention_bwd_dq_reference(*args, key_valid=valid)
+    want_dk, want_dv = flash_attention_bwd_dkv_reference(*args, key_valid=valid)
+    torch.cuda.synchronize()
+    t, s = q.shape[1], k.shape[1]
+    causal = torch.ones((t, s), dtype=torch.bool, device=q.device).tril()
+    has_key = (causal[None] & valid.bool()[:, None, :]).any(-1)  # (B, T)
+    reached = valid.bool() & (torch.arange(s, device=q.device) < t)  # (B, S)
+    err = ratio = 0.0
+    zeros = finite = True
+    for got, want, live in ((dq, want_dq, has_key), (dk, want_dk, reached),
+                            (dv, want_dv, reached)):
+        delta_abs = (got.float() - want.float()).abs()[live]
+        err = max(err, delta_abs.max().item())
+        ratio = max(ratio, (delta_abs / (BWD_ATOL + BWD_RTOL * want.float().abs()[live]))
+                    .max().item())
+        zeros = zeros and bool((got[~live] == 0).all())
+        finite = finite and bool(torch.isfinite(got.float()).all())
+    return dict(dq=dq, dk=dk, dv=dv, err=err, ratio=ratio, zeros=zeros, finite=finite)
+
+
+def phase_flash_backward(dev):
+    print("== phase 5: K2dq and K2dkv (flash-attention backward) against their plain version")
+    import torch.nn.functional as F
+
+    from msr3d_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def make(b, t, s, hq, hkv, d, dtype, pads):
+        q, do = (torch.randn((b, t, hq, d), generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+        for row, p in enumerate(pads):
+            valid[row, :p] = False  # left padding, as the prompt buckets have
+        out, lse = flash_attention(q, k, v, key_valid=valid)  # K2f, as the path has it
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        return q, k, v, do, lse, delta, valid
+
+    cases = {
+        "path 4x256x32x128 bf16": make(4, 256, 256, 32, 32, 128, torch.bfloat16,
+                                       (17, 0, 5, 40)),
+        "GQA n_rep=4": make(2, 300, 300, 32, 8, 128, torch.bfloat16, (0, 33)),
+        "ragged T=100 S=333 D=64 fp16": make(2, 100, 333, 8, 8, 64, torch.float16, (3, 70)),
+    }
+    worst = 0.0
+    for name, inputs in cases.items():
+        res = bwd_against_plain(*inputs, (flash_attention_bwd_dq, flash_attention_bwd_dkv))
+        worst = max(worst, res["err"])
+        print(f"  {name}: max |grad - plain| {res['err']:.3e} over dq/dk/dv, max |grad - plain|"
+              f" / ({BWD_ATOL} + {BWD_RTOL}|plain|) {res['ratio']:.3f}")
+        check(res["finite"], f"K2dq/K2dkv outputs finite ({name})")
+        check(res["ratio"] <= 1.0, f"K2dq/K2dkv within tolerance ({name})")
+        check(res["zeros"], f"dq of rows without a valid key and dk/dv of keys no query "
+                            f"reaches are exactly 0 ({name})")
+
+    q, k, v, do, lse, delta, valid = cases["path 4x256x32x128 bf16"]
+    args = (q, k, v, do, lse, delta)
+    dq_ms = time_ms(lambda: flash_attention_bwd_dq(*args, key_valid=valid), iters=50)
+    dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(*args, key_valid=valid), iters=50)
+    dq_plain = time_ms(lambda: flash_attention_bwd_dq_reference(*args, key_valid=valid))
+    dkv_plain = time_ms(lambda: flash_attention_bwd_dkv_reference(*args, key_valid=valid))
+
+    b, t, hq, d = q.shape
+    mask = torch.ones((t, t), dtype=torch.bool, device=dev).tril()[None, None] \
+        & valid[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # outside the timing
+    dout = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dout, retain_graph=True)
+
+    library_ms = time_ms(library, iters=50)
+    backend = sdpa_backend(library)
+
+    pairs = mask[:, 0].sum().item() * hq  # unmasked (row, key) pairs over batch and heads
+    elem = q.element_size()
+    reads = (2 * q.numel() + k.numel() + v.numel()) * elem + 2 * b * hq * t * 4 + valid.numel()
+    dq_bound = bound(reads + q.numel() * elem, pairs * 3 * 2 * d, H100_BF16_FLOPS)
+    dkv_bound = bound(reads + 2 * b * t * hq * d * elem, pairs * 4 * 2 * d, H100_BF16_FLOPS)
+    print(f"  K2dq at the path shape: {dq_ms:.4f} ms, plain {dq_plain:.4f} ms, bound "
+          f"{dq_bound[0]:.6f} ms ({dq_bound[1]})")
+    print(f"  K2dkv at the path shape: {dkv_ms:.4f} ms, plain {dkv_plain:.4f} ms, bound "
+          f"{dkv_bound[0]:.6f} ms ({dkv_bound[1]})")
+    print(f"  the pair {dq_ms + dkv_ms:.4f} ms; SDPA backward (boolean mask, backend: "
+          f"{backend}) {library_ms:.4f} ms for dq, dk and dv together")
+    return (
+        dict(ms=dq_ms, plain_ms=dq_plain, bound_ms=dq_bound[0], bound_by=dq_bound[1],
+             library_ms=library_ms, max_abs_err=worst),
+        dict(ms=dkv_ms, plain_ms=dkv_plain, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+             library_ms=library_ms, max_abs_err=worst),
+    )
+
+
+def sdpa_backend(fn) -> str:
+    """Which of PyTorch's attention backends ``fn`` ran, from its kernels' names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(ev.key.lower() for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA)
+    for tag, label in (("cudnn", "cuDNN"), ("flash", "flash"),
+                       ("fmha", "memory-efficient (CUTLASS fmha)"),
+                       ("efficient", "memory-efficient")):
+        if tag in names:
+            return label
+    return "math (plain ops)"
+
+
 def make_requests(seed: int):
     """Four requests built like bench_qa.py's (60 objects x 1024 points)."""
     r = np.random.default_rng(seed)
@@ -242,24 +400,23 @@ def make_requests(seed: int):
     }
 
 
-def phase_generate(dev, profile: bool):
-    print("== phase 4: greedy MSR3D.generate at the flagship width")
-    import dataclasses
-
-    import msr3d_tpu_torch.models.llm.llama as llama
-    import msr3d_tpu_torch.nn.pointnet as pointnet
+def build_flagship_model(dev):
+    """OSE3DConfig() (spatial dropout 0.1) and the Vicuna-7B-geometry Llama
+    (bf16 base, LoRA r16 on all seven projections, LoRA dropout 0.0 as
+    configs/msr3d.yaml, flash attention), answer-window loss, random weights
+    from seed 0."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig
     from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
     from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
     from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
-    from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL, flash_attention_reference
-    from msr3d_tpu_torch.ops.fps import FPS_KERNEL, furthest_point_sample_reference
 
-    llm = llama.LlamaConfig(
+    llm = LlamaConfig(
         vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
         num_attention_heads=32, lora_rank=16,
         dtype=torch.bfloat16, param_dtype=torch.bfloat16, flash_attention=True,
     )
-    cfg = MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm)
+    cfg = MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm, answer_window_loss=True)
+    print("== the flagship model of phases 4 and 6")
     t0 = time.perf_counter()
     model = MSR3D(cfg, ByteTokenizer(), scene_token_len=60, max_out_len=NEW_TOKENS,
                   repetition_penalty=REP_PENALTY, device=dev)
@@ -267,6 +424,19 @@ def phase_generate(dev, profile: bool):
     torch.cuda.synchronize()
     print(f"  built and initialised in {time.perf_counter() - t0:.1f} s, "
           f"{sum(p.numel() for p in model.network.parameters()) / 1e9:.3f} B parameters")
+    return model
+
+
+def phase_generate(model, dev, profile: bool):
+    print("== phase 4: greedy MSR3D.generate at the flagship width")
+    import dataclasses
+
+    import msr3d_tpu_torch.models.llm.llama as llama
+    import msr3d_tpu_torch.nn.pointnet as pointnet
+    from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL, flash_attention_reference
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL, furthest_point_sample_reference
+
+    llm = model.cfg.llm
     data = make_requests(seed=0)
     model.generate(dict(data), use_beam=False)  # warm-up: cuBLAS handles, allocator
 
@@ -347,12 +517,13 @@ def phase_generate(dev, profile: bool):
           f"decode {decode_ms:.2f} ms/token over {decode_steps} steps, "
           f"generate {gen_ms:.2f} ms, {N_REQUESTS / gen_ms * 1e3:.3f} QA/s")
     if profile:
-        profile_generate(model, data)
+        profile_device("generate", lambda: model.generate(dict(data), use_beam=False))
     return launches
 
 
-def profile_generate(model, data) -> None:
-    """Device time by kernel over one generate (``--profile``)."""
+def profile_device(what: str, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (``--profile``), and the
+    device's busy share of its wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -360,7 +531,7 @@ def profile_generate(model, data) -> None:
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.generate(dict(data), use_beam=False)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -373,10 +544,204 @@ def profile_generate(model, data) -> None:
         rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"  profile: generate {wall:.2f} ms wall, device busy {busy:.2f} ms "
+    print(f"  profile: {what} {wall:.2f} ms wall, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
     for ms, count, key in rows[:12]:
         print(f"    {ms:9.3f} ms {count:6d}x  {key[:100]}")
+
+
+def make_train_batches(n: int):
+    """``n`` batches of four requests built like phase 4's, each with answers
+    of at most 30 characters: with bos and eos one 32-token bucket, so T =
+    224 + 32 = 256."""
+    batches = []
+    for i in range(n):
+        data = make_requests(seed=100 + i)
+        data["text_output"] = [f"the lamp left of chair {i}-{j}" for j in range(N_REQUESTS)]
+        batches.append(data)
+    return batches
+
+
+def frozen_checksums(model):
+    """fp64 sum of every frozen LLM tensor: base projections, norms,
+    embeddings and lm_head."""
+    return torch.stack([torch.sum(p, dtype=torch.float64)
+                        for n, p in model.network.named_parameters()
+                        if n.startswith("llm.") and "lora_" not in n])
+
+
+def trainer_cfg(exp_dir: Path, *, accum: int, lr: float, warmup: int, epochs: int = 1):
+    return {
+        "exp_dir": str(exp_dir), "rng_seed": 0, "save_frequency": 0,
+        "solver": {
+            "gradient_accumulation_steps": accum, "grad_norm": 5.0, "epochs": epochs,
+            "optim": {"name": "AdamW",
+                      "args": {"lr": lr, "betas": [0.9, 0.999], "weight_decay": 0.05}},
+            "sched": {"name": "warmup_cosine_instructblip", "args": {"warmup_steps": warmup}},
+        },
+    }
+
+
+def phase_train(model, dev, exp_root: Path, profile: bool):
+    print(f"== phase 6: LoRA training at the flagship width ({TRAIN_STEPS} optimizer steps of "
+          f"batch {N_REQUESTS} x accumulation {TRAIN_ACCUM})")
+    import dataclasses
+
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch.models.llm.llama import LoraDense
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
+
+    net = model.network
+    llm = model.cfg.llm
+    loader = make_train_batches(TRAIN_STEPS * TRAIN_ACCUM)
+    # the flagship's solver: AdamW 3e-5, betas (0.9, 0.999), wd 0.05, clip 5.0,
+    # warmup_cosine_instructblip with 400 warm-up steps
+    trainer = LeoTrainer(trainer_cfg(exp_root / "flagship", accum=TRAIN_ACCUM, lr=3e-5,
+                                     warmup=400),
+                         loaders={"msr3d_train": {"train": loader}}, model=model)
+    frozen_before = frozen_checksums(model)
+    encoder_before = {n: t.clone() for n, t in net.visual_prompter.obj_encoder.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    micro_batches = TRAIN_STEPS * TRAIN_ACCUM
+
+    kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL)
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {kernel.symbol.replace("_launch", ""): kernel.launches for kernel in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches during {TRAIN_STEPS} optimizer steps ({micro_batches} micro-batches): "
+          f"{launches}")
+    layers = llm.num_hidden_layers
+    check(launches["flash_attn_fwd"] == layers * micro_batches
+          and launches["flash_attn_bwd_dq"] == layers * micro_batches
+          and launches["flash_attn_bwd_dkv"] == layers * micro_batches,
+          f"K2f, K2dq and K2dkv each launched {layers} times per micro-batch")
+    check(launches["fps"] == 2 * micro_batches,
+          "K1 launched twice per micro-batch (the frozen scene encode)")
+
+    with open(exp_root / "flagship" / "metrics.jsonl") as fh:
+        metrics = [json.loads(line) for line in fh]
+    for m in metrics:
+        print(f"  step {m['step']}: loss {m['train/loss']:.6f}, grad norm "
+              f"{m['train/grad_norm']:.6f}, lr {m['train/lr']:.4e}, {m['train/step_time_s']:.3f} s")
+    check(len(metrics) == TRAIN_STEPS and all(
+        np.isfinite(m["train/loss"]) and np.isfinite(m["train/grad_norm"]) for m in metrics),
+        "loss and grad norm finite at every step")
+    loras = [m for m in net.modules() if isinstance(m, LoraDense) and m.scale]
+    check(len(loras) == 7 * layers and all(bool((m.lora_b != 0).any()) for m in loras),
+          f"every LoRA B tensor ({len(loras)}) moved from 0")
+    check(torch.equal(frozen_checksums(model), frozen_before),
+          "checksums of the frozen base weights, norms, embeddings and lm_head unchanged")
+    check(all(torch.equal(t, encoder_before[n])
+              for n, t in net.visual_prompter.obj_encoder.state_dict().items()),
+          "the frozen obj_encoder weights and statistics unchanged")
+    check(trainer.ckpt.has_weights("latest") and trainer.ckpt.latest_step() == TRAIN_STEPS,
+          "learnable 'latest' weights and the full state saved")
+    step_s = trainer.timer.history
+    print(f"  step time {' / '.join(f'{1e3 * t:.1f}' for t in step_s)} ms "
+          f"({N_REQUESTS * TRAIN_ACCUM / step_s[-1]:.3f} samples/s at the last step), "
+          f"run() {run_s:.1f} s, peak memory allocated {peak_gb:.2f} GiB")
+
+    # one micro-batch, forward and backward timed apart (eval mode: no dropout)
+    batch = trainer._device_batch([loader[0]])[0]
+    params = trainer.params
+
+    def loss_and_grads():
+        for p in params.values():
+            p.grad = None
+        holder = {}
+        fwd = wall_ms(lambda: holder.update(loss=net(**batch)["loss"].mean()))
+        bwd = wall_ms(lambda: holder["loss"].backward())
+        grads = torch.cat([p.grad.float().flatten() for p in params.values()])
+        for p in params.values():
+            p.grad = None
+        return fwd, bwd, grads
+
+    fwd_ms, bwd_ms, grads = loss_and_grads()
+    print(f"  one micro-batch (4 x 256 positions): forward {fwd_ms:.2f} ms, backward "
+          f"{bwd_ms:.2f} ms")
+
+    # K2dq/K2dkv on each layer's own q, k, v, o, lse and do, held against the
+    # plain backward
+    held = []
+    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+
+    def held_dq(q, k, v, do, lse, delta, *, key_valid):
+        res = bwd_against_plain(q, k, v, do, lse, delta, key_valid, wrappers)
+        held.append(res)
+        return res["dq"]
+
+    def held_dkv(q, k, v, do, lse, delta, *, key_valid):
+        return held[-1]["dk"], held[-1]["dv"]
+
+    with mock.patch.object(fa, "flash_attention_bwd_dq", held_dq), \
+            mock.patch.object(fa, "flash_attention_bwd_dkv", held_dkv):
+        loss_and_grads()
+    print(f"  K2dq/K2dkv on the backward's own inputs, {len(held)} layers: max |grad - plain| "
+          f"{max(r['err'] for r in held):.3e}, max |grad - plain| / ({BWD_ATOL} + "
+          f"{BWD_RTOL}|plain|) {max(r['ratio'] for r in held):.3f}")
+    check(len(held) == layers and all(r["finite"] and r["zeros"] and r["ratio"] <= 1.0
+                                      for r in held),
+          "K2dq/K2dkv within tolerance of their plain version in every layer of the backward, "
+          "rows without a valid key and unreached keys exactly 0")
+
+    with mock.patch.object(fa, "flash_attention_bwd_dq", fa.flash_attention_bwd_dq_reference), \
+            mock.patch.object(fa, "flash_attention_bwd_dkv",
+                              fa.flash_attention_bwd_dkv_reference):
+        grads_plain = loss_and_grads()[2]
+    net.llm.cfg = dataclasses.replace(llm, flash_attention=False)
+    try:
+        grads_dense = loss_and_grads()[2]
+    finally:
+        net.llm.cfg = llm
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    err_k, err_dense = rel(grads, grads_plain), rel(grads_dense, grads_plain)
+    print(f"  trainable gradients ({grads.numel()} values), |kernels - plain| / |plain| "
+          f"{err_k:.4e}, |dense - plain| / |plain| {err_dense:.4e} (the JAX package's dense "
+          f"route)")
+    check(bool(torch.isfinite(grads).all()) and err_k <= GRAD_RTOL,
+          f"trainable gradients through K2dq/K2dkv within {GRAD_RTOL} (relative L2) of those "
+          "through their plain version")
+
+    # wiring: a few steps on one repeated group must lower the loss
+    wiring = LeoTrainer(trainer_cfg(exp_root / "wiring", accum=1, lr=WIRING_LR, warmup=1,
+                                    epochs=100),
+                        loaders={"msr3d_train": {"train": [loader[0]] * WIRING_STEPS}},
+                        model=model)
+    with torch.no_grad():
+        before = net(**batch)["loss"].mean().item()
+    wiring.train_one_epoch(0)
+    with torch.no_grad():
+        after = net(**batch)["loss"].mean().item()
+    print(f"  wiring: {WIRING_STEPS} AdamW steps at lr {WIRING_LR} (warm-up 1, cosine over 400) "
+          f"on one repeated micro-batch: loss {before:.6f} -> {after:.6f}")
+    check(after < before, "a few steps on one repeated group lower the loss")
+    tokens = model.generate(make_requests(seed=0), use_beam=False,
+                            max_new_tokens=4)["output_tokens"]
+    check(tokens.shape == (N_REQUESTS, 4) and bool(((tokens >= 0) & (tokens < llm.vocab_size))
+                                                   .all()),
+          "greedy generate still runs on the trained model")
+    if profile:
+        group = trainer._device_batch(loader[:TRAIN_ACCUM])
+
+        def one_step():
+            net.train()
+            try:
+                trainer._train_step(group)
+            finally:
+                net.eval()
+
+        profile_device(f"one optimizer step ({TRAIN_ACCUM} micro-batches)", one_step)
+    return launches
 
 
 def main() -> int:
@@ -391,21 +756,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    profile = "--profile" in sys.argv[1:]
+    exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     t0 = time.perf_counter()
     try:
         phase_card_and_build()
         fps_row = phase_fps(dev)
         flash_row = phase_flash(dev)
-        launches = phase_generate(dev, profile="--profile" in sys.argv[1:])
+        dq_row, dkv_row = phase_flash_backward(dev)
+        model = build_flagship_model(dev)
+        launches = phase_generate(model, dev, profile)
+        shutil.rmtree(exp_root, ignore_errors=True)
+        train_launches = phase_train(model, dev, exp_root, profile)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    source = "msr3d_tpu_torch/csrc/flash_attn_bwd.cu"
     rows = [
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"], **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"], **flash_row),
+        dict(name="flash_attn_bwd_dq", route="cuda", source=source,
+             replaces="msr3d_tpu/ops/flash_attention.py:152",
+             launches=train_launches["flash_attn_bwd_dq"], **dq_row),
+        dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
+             replaces="msr3d_tpu/ops/flash_attention.py:193",
+             launches=train_launches["flash_attn_bwd_dkv"], **dkv_row),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -68,6 +68,21 @@ def _to_tensor(arr: Any, transpose: bool) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C"))  # a writable copy
 
 
+def torch_name(path: str) -> Tuple[str, bool]:
+    """A JAX leaf path (``params/llm/layer_0/attn/q_proj/kernel``) → (the
+    port's state-dict name, whether the value is transposed). Raises
+    KeyError on a leaf it does not know."""
+    collection, *mods, leaf = path.split("/")
+    if collection == "params" and leaf in _PARAM_LEAVES:
+        name, transpose = _PARAM_LEAVES[leaf]
+    elif collection == "batch_stats" and leaf in _STAT_LEAVES:
+        name, transpose = _STAT_LEAVES[leaf], False
+    else:
+        raise KeyError(f"unknown JAX parameter {path!r}")
+    mods = [re.sub(r"_(\d+)$", r".\1", m) for m in mods]
+    return ".".join(mods + [name]), transpose
+
+
 def jax_to_torch_state_dict(
     variables: Mapping[str, Any],
 ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
@@ -79,15 +94,8 @@ def jax_to_torch_state_dict(
         if path.startswith(SKIPPED_SUBTREES):
             skipped.append(path)
             continue
-        collection, *mods, leaf = path.split("/")
-        if collection == "params" and leaf in _PARAM_LEAVES:
-            name, transpose = _PARAM_LEAVES[leaf]
-        elif collection == "batch_stats" and leaf in _STAT_LEAVES:
-            name, transpose = _STAT_LEAVES[leaf], False
-        else:
-            raise KeyError(f"unknown JAX parameter {path!r}")
-        mods = [re.sub(r"_(\d+)$", r".\1", m) for m in mods]
-        state[".".join(mods + [name])] = _to_tensor(arr, transpose)
+        name, transpose = torch_name(path)
+        state[name] = _to_tensor(arr, transpose)
     return state, skipped
 
 

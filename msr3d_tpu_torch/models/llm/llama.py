@@ -1,12 +1,18 @@
-"""Llama (Vicuna-7B family) with LoRA adapters, for generation.
+"""Llama (Vicuna-7B family) with LoRA adapters, for training and generation.
 
-Counterpart of ``msr3d_tpu/models/llm/llama.py`` on the greedy serving
-path: RMSNorm (fp32 inside), rotary embeddings in the HF half-split
-layout, unquantized LoRA projections, SwiGLU MLP, a prefill that captures
-each layer's rope'd k/v, and the split-cache decode step (a prompt KV
-segment plus a generated segment, T = 1). Prefill attention goes through
-kernel K2f when ``flash_attention`` is set; otherwise, and in decode, it
+Counterpart of ``msr3d_tpu/models/llm/llama.py`` on the LoRA training and
+greedy serving paths: RMSNorm (fp32 inside), rotary embeddings in the HF
+half-split layout, unquantized LoRA projections (with LoRA dropout),
+SwiGLU MLP, the training forward (``LlamaModel.forward``), a prefill that
+captures each layer's rope'd k/v, and the split-cache decode step (a prompt
+KV segment plus a generated segment, T = 1). With ``flash_attention`` the
+training forward runs through the autograd Function of kernels K2f, K2dq
+and K2dkv, and the prefill through K2f; otherwise, and in decode, attention
 is dense with a -1e30 additive bias, as in the JAX package.
+
+The base LLM is frozen as in the JAX package (``stop_gradient``): the
+embeddings, RMSNorm scales, base projection weights and ``lm_head`` are
+created with ``requires_grad=False``; only the LoRA A/B matrices train.
 
 Not ported yet (raise): int8/int4 weights, the int8 KV cache, sequence
 parallelism, activation checkpointing.
@@ -21,7 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from msr3d_tpu_torch.ops.flash_attention import flash_attention
+from msr3d_tpu_torch.nn.layers import dropout
+from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention_train
 
 _NEG_INF = -1e30
 
@@ -38,12 +45,13 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     lora_rank: int = 0  # 0 → no LoRA
     lora_alpha: float = 16.0
+    lora_dropout: float = 0.0
     lora_targets: Tuple[str, ...] = (
         "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
     )
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32  # storage of the frozen base
-    flash_attention: bool = False  # prefill attention through kernel K2f
+    flash_attention: bool = False  # training/prefill attention through K2f (+ K2dq, K2dkv)
     # JAX-package options this port does not run yet; setting one raises
     quantize: bool = False
     kv_quantize: bool = False
@@ -81,7 +89,8 @@ class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float, dtype: torch.dtype, param_dtype, device=None):
         super().__init__()
         self.eps, self.dtype = eps, dtype
-        self.weight = nn.Parameter(torch.empty(dim, dtype=param_dtype, device=device))
+        self.weight = nn.Parameter(torch.empty(dim, dtype=param_dtype, device=device),
+                                   requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -102,28 +111,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 class LoraDense(nn.Module):
     """Frozen base projection plus a LoRA delta, PEFT semantics:
-    ``y = x·Wᵀ + (α/r)·(x·Aᵀ)·Bᵀ``, all in the compute dtype. Weights are
-    torch-layout (out, in); LoRA A is (r, in), B is (out, r), fp32."""
+    ``y = x·Wᵀ + (α/r)·(dropout(x)·Aᵀ)·Bᵀ``, all in the compute dtype.
+    Weights are torch-layout (out, in); LoRA A is (r, in), B is (out, r),
+    fp32. LoRA dropout is active only in ``train()`` mode."""
 
     def __init__(self, in_features: int, out_features: int, cfg: LlamaConfig,
                  use_lora: bool, device=None):
         super().__init__()
         self.dtype = cfg.dtype
         self.weight = nn.Parameter(
-            torch.empty(out_features, in_features, dtype=cfg.param_dtype, device=device)
+            torch.empty(out_features, in_features, dtype=cfg.param_dtype, device=device),
+            requires_grad=False,
         )
         self.scale = 0.0
+        self.lora_dropout = cfg.lora_dropout
         if use_lora:
             r = cfg.lora_rank
             self.lora_a = nn.Parameter(torch.empty(r, in_features, device=device))
             self.lora_b = nn.Parameter(torch.empty(out_features, r, device=device))
             self.scale = cfg.lora_alpha / r
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = F.linear(x, self.weight.to(self.dtype))
         if self.scale:
+            h = dropout(x, self.lora_dropout, self.training, generator)
             y = y + F.linear(
-                F.linear(x, self.lora_a.to(self.dtype)), self.lora_b.to(self.dtype)
+                F.linear(h, self.lora_a.to(self.dtype)), self.lora_b.to(self.dtype)
             ) * self.scale
         return y
 
@@ -147,21 +161,42 @@ class LlamaAttention(nn.Module):
         self.v_proj = _proj(cfg, "v_proj", h, cfg.kv_heads * hd, device)
         self.o_proj = _proj(cfg, "o_proj", cfg.num_attention_heads * hd, h, device)
 
-    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor, generator=None):
         cfg = self.cfg
         b, t, _ = x.shape
-        q = self.q_proj(x).view(b, t, cfg.num_attention_heads, cfg.head_dim)
-        k = self.k_proj(x).view(b, t, cfg.kv_heads, cfg.head_dim)
-        v = self.v_proj(x).view(b, t, cfg.kv_heads, cfg.head_dim)
+        q = self.q_proj(x, generator).view(b, t, cfg.num_attention_heads, cfg.head_dim)
+        k = self.k_proj(x, generator).view(b, t, cfg.kv_heads, cfg.head_dim)
+        v = self.v_proj(x, generator).view(b, t, cfg.kv_heads, cfg.head_dim)
         return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
     def _rep(self, x: torch.Tensor) -> torch.Tensor:
         n_rep = self.cfg.num_attention_heads // self.cfg.kv_heads
         return x.repeat_interleave(n_rep, dim=2) if n_rep > 1 else x
 
-    def _out(self, out: torch.Tensor) -> torch.Tensor:
+    def _out(self, out: torch.Tensor, generator=None) -> torch.Tensor:
         b, t = out.shape[:2]
-        return self.o_proj(out.reshape(b, t, -1))
+        return self.o_proj(out.reshape(b, t, -1), generator)
+
+    def _dense(self, q, k, v, attn_bias: torch.Tensor) -> torch.Tensor:
+        """Dense attention with the (B, 1, T, S) additive bias; the scores
+        are rounded to the compute dtype before the fp32 softmax, as the
+        JAX dense route does."""
+        scale = _attn_scale(self.cfg.head_dim, q.device)
+        logits = torch.einsum("bthd,bshd->bhts", q, self._rep(k)).float() * scale
+        weights = torch.softmax(logits + attn_bias, dim=-1)
+        return torch.einsum("bhts,bshd->bthd", weights.to(self.cfg.dtype), self._rep(v))
+
+    def forward(self, x, positions, attn_bias: Optional[torch.Tensor],
+                key_valid: Optional[torch.Tensor], generator=None) -> torch.Tensor:
+        """Training attention. ``attn_bias`` None → the flash autograd
+        Function (K2f forward, K2dq/K2dkv backward) with causality and
+        ``key_valid`` applied inside; else dense with the additive bias."""
+        q, k, v = self._qkv(x, positions, generator)
+        if attn_bias is None:
+            out = flash_attention_train(q, k, v, key_valid=key_valid)
+        else:
+            out = self._dense(q, k, v, attn_bias)
+        return self._out(out, generator)
 
     def prefill(self, x, positions, attn_bias: Optional[torch.Tensor],
                 key_valid: Optional[torch.Tensor]):
@@ -171,11 +206,8 @@ class LlamaAttention(nn.Module):
         q, k, v = self._qkv(x, positions)
         if attn_bias is None:
             out, _ = flash_attention(q, k, v, key_valid=key_valid)
-            return self._out(out), k, v
-        scale = _attn_scale(self.cfg.head_dim, x.device)
-        logits = torch.einsum("bthd,bshd->bhts", q, self._rep(k)).float() * scale
-        weights = torch.softmax(logits + attn_bias, dim=-1)
-        out = torch.einsum("bhts,bshd->bthd", weights.to(self.cfg.dtype), self._rep(v))
+        else:
+            out = self._dense(q, k, v, attn_bias)
         return self._out(out), k, v
 
     def decode_shared(self, x, positions, attn_bias, prompt_k, prompt_v, gen_k, gen_v,
@@ -206,8 +238,9 @@ class LlamaMLP(nn.Module):
         self.up_proj = _proj(cfg, "up_proj", h, m, device)
         self.down_proj = _proj(cfg, "down_proj", m, h, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        h = F.silu(self.gate_proj(x, generator)) * self.up_proj(x, generator)
+        return self.down_proj(h, generator)
 
 
 class LlamaBlock(nn.Module):
@@ -220,8 +253,12 @@ class LlamaBlock(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
         self.mlp = LlamaMLP(cfg, device)
 
-    def _mlp_residual(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.mlp(self.post_attn_norm(x))
+    def _mlp_residual(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return x + self.mlp(self.post_attn_norm(x), generator)
+
+    def forward(self, x, positions, attn_bias, key_valid, generator=None):
+        h = self.attn(self.input_norm(x), positions, attn_bias, key_valid, generator)
+        return self._mlp_residual(x + h, generator)
 
     def prefill(self, x, positions, attn_bias, key_valid):
         h, k, v = self.attn.prefill(self.input_norm(x), positions, attn_bias, key_valid)
@@ -261,17 +298,54 @@ class LlamaModel(nn.Module):
             _weight=torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=cfg.param_dtype,
                                 device=device),
         )
+        self.embed_tokens.weight.requires_grad_(False)
         self.layer = nn.ModuleList(LlamaBlock(cfg, device) for _ in range(cfg.num_hidden_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype,
                                   cfg.param_dtype, device)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                                  dtype=cfg.param_dtype, device=device)
+        self.lm_head.weight.requires_grad_(False)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids).to(self.cfg.dtype)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return F.linear(hidden, self.lm_head.weight.to(self.cfg.dtype))
+
+    def _positions(self, attention_mask: torch.Tensor) -> torch.Tensor:
+        """HF left-padding positions: cumsum(mask) - 1, floored at 0."""
+        return (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp(min=0)
+
+    def _attention_masks(self, attention_mask: torch.Tensor):
+        """(attn_bias, key_valid) of a causal pass over the whole sequence:
+        the flash kernels take the key mask and apply causality themselves;
+        the dense route takes the (B, 1, T, T) additive bias."""
+        mask = attention_mask.bool()
+        if self.cfg.flash_attention:
+            return None, mask
+        t = mask.shape[1]
+        causal = torch.ones((t, t), dtype=torch.bool, device=mask.device).tril()
+        return _bias(causal[None, None] & mask[:, None, None, :]), None
+
+    def forward(
+        self,
+        inputs_embeds: torch.Tensor,  # (B, T, H)
+        attention_mask: torch.Tensor,  # (B, T) 1 = attend
+        *,
+        answer_start: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Training forward → logits (B, T, V). ``answer_start`` computes
+        logits only for positions ``answer_start-1 .. T-2``, the
+        answer-predicting window (every target before it is -100).
+        ``generator`` feeds LoRA dropout in ``train()`` mode."""
+        positions = self._positions(attention_mask)
+        attn_bias, key_valid = self._attention_masks(attention_mask)
+        x = inputs_embeds.to(self.cfg.dtype)
+        for block in self.layer:
+            x = block(x, positions, attn_bias, key_valid, generator)
+        x = self.final_norm(x)
+        return self.logits(x if answer_start is None else x[:, answer_start - 1:-1])
 
     def prefill_with_cache(
         self,
@@ -290,12 +364,8 @@ class LlamaModel(nn.Module):
         if t > max_cache_len:
             raise ValueError(f"prompt length {t} exceeds max_cache_len {max_cache_len}")
         mask = attention_mask.bool()
-        positions = (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp(min=0)
-        if cfg.flash_attention:
-            attn_bias, key_valid = None, mask  # the kernel masks causality + padding
-        else:
-            causal = torch.ones((t, t), dtype=torch.bool, device=mask.device).tril()
-            attn_bias, key_valid = _bias(causal[None, None] & mask[:, None, None, :]), None
+        positions = self._positions(attention_mask)
+        attn_bias, key_valid = self._attention_masks(attention_mask)
 
         x = inputs_embeds.to(cfg.dtype)
         ks: List[torch.Tensor] = []

@@ -1,18 +1,19 @@
-"""MSR3D: the 3D-scene multimodal LLM, greedy generation path.
+"""MSR3D: the 3D-scene multimodal LLM, training loss and greedy generation.
 
 Counterpart of ``msr3d_tpu/models/msr3d.py``:
 
   * ``MSR3DNetwork`` holds the device compute: the scene prompter
     (``OSE3DSituation``, kernel K1 inside), the scene projection, the
     rank-gather splice of scene embeddings into the token embeddings, the
-    Llama prefill (kernel K2f with ``flash_attention``) and the split-cache
-    decode step;
+    training forward with the per-sequence answer CE (kernels K2f, K2dq and
+    K2dkv with ``flash_attention``), the Llama prefill (K2f) and the
+    split-cache decode step;
   * ``MSR3D`` is the host side: prompt building with placeholder
-    expansion, tokenization into left-padded 32-multiple buckets, the
-    greedy decode loop and detokenization.
+    expansion, tokenization into 32-multiple buckets (prompts left-padded,
+    answers with bos + eos right-padded), ``forward`` → per-sequence loss,
+    the greedy decode loop and detokenization, and the trainable set.
 
-Not ported yet (raise, see ROADMAP.md): beam search, requests with images,
-training.
+Not ported yet (raise, see ROADMAP.md): beam search, requests with images.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, OSE3DSituation
 from msr3d_tpu_torch.nn.pointnet import BatchNormInference
 
 _SCENE_KEYS = ("obj_fts", "obj_masks", "obj_locs", "anchor_locs", "anchor_orientation")
+_IGNORE = -100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +55,9 @@ class MSR3DNetworkConfig:
     llm: LlamaConfig
     scene_token_id: int = 6
     img_token_id: int = 4
+    # training loss over the answer window only: exactly equal (prompt
+    # targets are -100), but the fp32 logits shrink from T to T_out
+    answer_window_loss: bool = False
 
 
 def splice_embeddings(
@@ -77,6 +82,41 @@ def splice_embeddings(
     return embeds, attention_mask
 
 
+def build_targets(input_ids: torch.Tensor, output_ids: torch.Tensor,
+                  output_mask: torch.Tensor) -> torch.Tensor:
+    """CE targets (B, T_in + T_out): -100 everywhere except answer tokens;
+    the first output position (bos) is conditioning, not predicted."""
+    prompt = torch.full(input_ids.shape, _IGNORE, dtype=torch.long, device=input_ids.device)
+    answer = torch.where(output_mask.bool(), output_ids.long(), _IGNORE)
+    answer[:, 0] = _IGNORE
+    return torch.cat([prompt, answer], dim=1)
+
+
+def _per_sequence_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean NLL over each row's targets >= 0; logits and targets aligned."""
+    valid = targets >= 0
+    safe = torch.where(valid, targets, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum(dim=1) / valid.sum(dim=1).clamp(min=1)
+
+
+def sequence_ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-sequence mean CE over target positions >= 0. ``logits`` fp32
+    (B, T, V); returns (B,)."""
+    return _per_sequence_nll(logits[:, :-1], targets[:, 1:])
+
+
+def sequence_ce_loss_windowed(window_logits: torch.Tensor, targets: torch.Tensor,
+                              start: int) -> torch.Tensor:
+    """Per-sequence CE from logits covering only positions ``start-1 ..
+    start-1+W`` (the answer window). Equals :func:`sequence_ce_loss` on the
+    full-width logits, since every target outside the window is -100."""
+    w = window_logits.shape[1]
+    return _per_sequence_nll(window_logits, targets[:, start:start + w])
+
+
 class MSR3DNetwork(nn.Module):
     def __init__(self, cfg: MSR3DNetworkConfig, device=None):
         super().__init__()
@@ -86,13 +126,41 @@ class MSR3DNetwork(nn.Module):
         self.llm_proj = nn.Linear(cfg.prompter.hidden_size, cfg.llm.hidden_size, device=device)
 
     def build_embeds(self, input_ids, attention_mask, obj_fts, obj_masks, obj_locs,
-                     anchor_locs, anchor_orientation):
+                     anchor_locs, anchor_orientation, generator=None):
         scene = self.visual_prompter(obj_fts, obj_masks, obj_locs, anchor_locs,
-                                     anchor_orientation)
+                                     anchor_orientation, generator)
         return splice_embeddings(
             self.llm.embed(input_ids), input_ids, self.cfg.scene_token_id,
             self.llm_proj(scene["obj_tokens"]), scene["obj_masks"], attention_mask,
         )
+
+    def embeds_for_loss(self, input_ids, attention_mask, output_ids, output_mask, obj_fts,
+                        obj_masks, obj_locs, anchor_locs, anchor_orientation, generator=None):
+        """Spliced prompt+answer embeds, the joint attention mask and the CE
+        targets: everything before the LLM blocks."""
+        embeds, attn = self.build_embeds(input_ids, attention_mask, obj_fts, obj_masks,
+                                         obj_locs, anchor_locs, anchor_orientation, generator)
+        full_embeds = torch.cat([embeds, self.llm.embed(output_ids)], dim=1)
+        full_attn = torch.cat([attn, output_mask.to(attn.dtype)], dim=1)
+        return full_embeds, full_attn, build_targets(input_ids, output_ids, output_mask)
+
+    def forward(self, input_ids, attention_mask, output_ids, output_mask, obj_fts, obj_masks,
+                obj_locs, anchor_locs, anchor_orientation, *,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Teacher-forced pass over ``[prompt ‖ answer]`` → {"loss": per-
+        sequence CE (B,), "logits": fp32}. In ``train()`` mode dropout draws
+        from ``generator``."""
+        full_embeds, full_attn, targets = self.embeds_for_loss(
+            input_ids, attention_mask, output_ids, output_mask, obj_fts, obj_masks, obj_locs,
+            anchor_locs, anchor_orientation, generator,
+        )
+        if self.cfg.answer_window_loss:
+            start = input_ids.shape[1]
+            logits = self.llm(full_embeds, full_attn, answer_start=start,
+                              generator=generator).float()
+            return {"loss": sequence_ce_loss_windowed(logits, targets, start), "logits": logits}
+        logits = self.llm(full_embeds, full_attn, generator=generator).float()
+        return {"loss": sequence_ce_loss(logits, targets), "logits": logits}
 
     def prefill(self, input_ids, attention_mask, obj_fts, obj_masks, obj_locs,
                 anchor_locs, anchor_orientation, *, bos_id: int, max_cache_len: int):
@@ -152,8 +220,10 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
 
 
 class MSR3D:
-    """Host wrapper: ``generate(data_dict) → data_dict['output_tokens']``
-    (and ``'output_text'``), greedy only."""
+    """Host wrapper with the reference's model contract:
+    ``forward(data_dict) → data_dict['loss']`` and, greedy only,
+    ``generate(data_dict) → data_dict['output_tokens']`` (and
+    ``'output_text'``)."""
 
     def __init__(
         self,
@@ -175,7 +245,10 @@ class MSR3D:
             scene_token_id=self.tokenizer.scene_token_id,
             img_token_id=self.tokenizer.img_token_id,
         )
-        self.network = MSR3DNetwork(self.cfg, device=self.device).eval().requires_grad_(False)
+        self.network = MSR3DNetwork(self.cfg, device=self.device).eval()
+        trainable = set(self.trainable_parameter_names())
+        for name, param in self.network.named_parameters():
+            param.requires_grad_(name in trainable)
         self.scene_token_len = scene_token_len
         self.image_token_len = image_token_len
         self.max_out_len = max_out_len
@@ -219,6 +292,13 @@ class MSR3D:
         enc = self.tokenizer.encode_batch(prompts, padding_side="left", add_bos=True)
         return enc.input_ids, enc.attention_mask
 
+    def _encode_answers(self, answers: List[str]):
+        enc = self.tokenizer.encode_batch(
+            answers, padding_side="right", add_bos=True, add_eos=True,
+            max_length=self.max_out_len, truncation_side="right",
+        )
+        return enc.input_ids, enc.attention_mask
+
     def _pad_to_bucket(self, ids: np.ndarray, mask: np.ndarray, *, side: str):
         """Pad ids + mask to the next multiple of 32 with pad_id / mask 0."""
         pad_to = max(32, -(-ids.shape[1] // 32) * 32)
@@ -235,7 +315,7 @@ class MSR3D:
         for key in ("msr3d_imgs", "img_fts"):
             if data_dict.get(key) is not None:
                 raise NotImplementedError(
-                    "requests with images are not ported yet (ROADMAP.md, queue 1: "
+                    "requests with images are not ported yet (ROADMAP.md, queue: "
                     "Backbone2D images)"
                 )
         dtypes = {"obj_masks": torch.bool}
@@ -245,6 +325,49 @@ class MSR3D:
             )
             for k in _SCENE_KEYS
         }
+
+    def loss_batch(self, data_dict: Dict[str, Any], input_ids: np.ndarray, attn: np.ndarray,
+                   output_ids: np.ndarray, output_mask: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The network's loss inputs on the model's device."""
+        batch = self._scene_batch(data_dict)
+        for key, val in (("input_ids", input_ids), ("attention_mask", attn),
+                         ("output_ids", output_ids), ("output_mask", output_mask)):
+            batch[key] = torch.as_tensor(val, dtype=torch.long if "ids" in key else torch.int32,
+                                         device=self.device)
+        return batch
+
+    # -- training contract ---------------------------------------------------
+
+    def forward(self, data_dict: Dict[str, Any], *,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Sets ``data_dict['loss']``, the per-sequence answer CE (B,), with
+        prompt and answer widths bucketed to multiples of 32. The network's
+        mode decides dropout (``eval()`` after construction, as the JAX
+        package's deterministic ``forward``); in ``train()`` mode it draws
+        from ``generator``."""
+        input_ids, attn = self._encode_prompts(self.build_text_prompt(data_dict))
+        output_ids, output_mask = self._encode_answers(data_dict["text_output"])
+        input_ids, attn = self._pad_to_bucket(input_ids, attn, side="left")
+        output_ids, output_mask = self._pad_to_bucket(output_ids, output_mask, side="right")
+        batch = self.loss_batch(data_dict, input_ids, attn, output_ids, output_mask)
+        data_dict["loss"] = self.network(**batch, generator=generator)["loss"]
+        return data_dict
+
+    def trainable_parameter_names(self) -> List[str]:
+        """The parameters that train, the counterpart of the JAX
+        ``get_opt_params_mask``: LoRA A/B, ``llm_proj`` and the scene
+        prompter, except the point encoder when ``vision_freeze``; never the
+        base LLM (embeddings, norms, base projections, ``lm_head``)."""
+        def trainable(name: str) -> bool:
+            if "lora_a" in name or "lora_b" in name:
+                return True
+            if name.startswith("llm."):
+                return False
+            if "obj_encoder" in name and self.cfg.prompter.vision_freeze:
+                return False
+            return True
+
+        return [name for name, _ in self.network.named_parameters() if trainable(name)]
 
     # -- generation ----------------------------------------------------------
 
@@ -262,9 +385,10 @@ class MSR3D:
         beams = self.num_beams if use_beam is None else (self.num_beams if use_beam else 1)
         if beams > 1:
             raise NotImplementedError(
-                "beam search is not ported yet (ROADMAP.md, queue 1: beam-5 decode); "
+                "beam search is not ported yet (ROADMAP.md, queue: beam-5 decode); "
                 "call generate(use_beam=False)"
             )
+        self.network.eval()  # no dropout, also right after training steps
         input_ids, attn = self._encode_prompts(self.build_text_prompt(data_dict))
         input_ids, attn = self._pad_to_bucket(input_ids, attn, side="left")
         scene = self._scene_batch(data_dict)

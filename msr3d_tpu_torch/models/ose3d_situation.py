@@ -7,7 +7,9 @@ rotated into the agent frame and Fourier-embedded, and three spatial
 attention layers in ``cond`` fusion mix the objects. The other situation
 modes raise and are queued in ROADMAP.md.
 
-Masks at this interface are valid-convention (1 = real object).
+Masks at this interface are valid-convention (1 = real object). The
+spatial layers' dropout is active only in ``train()`` mode and draws from
+the ``generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class SpatialEncoderConfig:
     num_attention_heads: int = 8
     dim_feedforward: int = 2048
+    dropout: float = 0.1
     activation: str = "gelu"
     spatial_multihead: bool = True
     spatial_dim: int = 5
@@ -59,6 +62,8 @@ class OSE3DConfig:
         (128, 128, 128, 256),
         (256, 256, 512, 768),
     )
+    vision_dropout: float = 0.1  # the JAX point encoder's semantic head only
+    vision_freeze: bool = True  # the point encoder runs without autograd
     # the reference runs the frozen point encoder under bf16 autocast and
     # the spatial encoder in fp32; the parity tests pin "float32"
     obj_encoder_dtype: str = "bfloat16"
@@ -93,7 +98,8 @@ class OSE3DSituation(nn.Module):
         h = cfg.hidden_size
         self.obj_encoder = PcdObjEncoder(
             cfg.sa_n_points, cfg.sa_n_samples, cfg.sa_radii, cfg.sa_mlps,
-            compute_dtype=_DTYPES[cfg.obj_encoder_dtype], device=device,
+            compute_dtype=_DTYPES[cfg.obj_encoder_dtype], freeze=cfg.vision_freeze,
+            device=device,
         )
         self.obj_linear_projection = nn.Linear(cfg.sa_mlps[-1][-1], h, device=device)
         self.object_type_embedding = nn.Embedding(2, h, device=device)
@@ -103,7 +109,8 @@ class OSE3DSituation(nn.Module):
         self.spatial_layer = nn.ModuleList(
             TransformerSpatialEncoderLayer(
                 h, se.num_attention_heads, se.dim_feedforward, se.activation,
-                se.spatial_multihead, se.spatial_dim, se.spatial_attn_fusion, device,
+                se.spatial_multihead, se.spatial_dim, se.spatial_attn_fusion, se.dropout,
+                device,
             )
             for _ in range(se.num_layers)
         )
@@ -115,6 +122,7 @@ class OSE3DSituation(nn.Module):
         obj_locs: torch.Tensor,  # (B, N, 6) center ‖ size
         anchor_locs: torch.Tensor,  # (B, 3)
         anchor_orientation: torch.Tensor,  # (B, 4) xyzw
+        generator: Optional[torch.Generator] = None,  # dropout in train() mode
     ) -> Dict[str, torch.Tensor]:
         se = self.cfg.spatial_encoder
         object_feat = self.obj_linear_projection(self.obj_encoder(obj_fts))
@@ -136,5 +144,5 @@ class OSE3DSituation(nn.Module):
         for i, layer in enumerate(self.spatial_layer):
             if se.obj_loc_encoding == "same_all" or i == 0:
                 feat = feat + query_pos
-            feat, _ = layer(feat, pairwise_locs, pad)
+            feat, _ = layer(feat, pairwise_locs, pad, generator)
         return {"obj_tokens": feat, "obj_masks": ~pad}

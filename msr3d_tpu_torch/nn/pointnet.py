@@ -107,19 +107,24 @@ class PointNetPP(nn.Module):
 class PcdObjEncoder(nn.Module):
     """Object-centric point-cloud encoder: (B, O, P, 6) → (B, O, D).
 
-    The semantic-class head of the JAX module is not ported: its output
-    is discarded on every path this package runs (the converter lists its
-    keys as skipped)."""
+    ``freeze`` (the flagship's) runs it without autograd, the counterpart of
+    the JAX module's ``stop_gradient``, and BatchNorm always reads its
+    running statistics; training it unfrozen (batch statistics) is not
+    ported. The semantic-class head of the JAX module is not ported: its
+    output is discarded on every path this package runs (the converter lists
+    its keys as skipped)."""
 
     def __init__(self, sa_n_points=(32, 16, None), sa_n_samples=(32, 32, None),
                  sa_radii=(0.2, 0.4, None),
                  sa_mlps=((3, 64, 64, 128), (128, 128, 128, 256), (256, 256, 512, 768)),
-                 compute_dtype=torch.float32, device=None):
+                 compute_dtype=torch.float32, freeze: bool = True, device=None):
         super().__init__()
+        self.freeze = freeze
         self.pcd_net = PointNetPP(sa_n_points, sa_n_samples, sa_radii, sa_mlps,
                                   in_features=sa_mlps[0][0], dtype=compute_dtype,
                                   device=device)
 
     def forward(self, obj_pcds: torch.Tensor) -> torch.Tensor:
         b, o, p, d = obj_pcds.shape
-        return self.pcd_net(obj_pcds.reshape(b * o, p, d)).reshape(b, o, -1)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze):
+            return self.pcd_net(obj_pcds.reshape(b * o, p, d)).reshape(b, o, -1)

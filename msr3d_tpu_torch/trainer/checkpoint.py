@@ -1,0 +1,97 @@
+"""Checkpoints: the full training state, and learnable-only weights.
+
+Counterpart of ``msr3d_tpu/trainer/checkpoint.py`` with ``torch.save`` in
+place of orbax (which the GPU host does not have):
+
+  1. The full training state (the trainable parameters, the optimizer
+     state and step, and the ``Tracker``), one file per step under
+     ``state/``, keeping only the newest, as the JAX trainer does. The
+     frozen base is not part of it: nothing changes it, so it is rebuilt
+     as it was.
+  2. Weights-only learnable parameters by name (``latest``, ``best``),
+     restored by overlaying them on a model.
+
+Files are read back with ``torch.load(weights_only=True)``: tensors,
+numbers and strings only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class Tracker:
+    """Checkpointable progress record."""
+
+    run_id: str = ""
+    epoch: int = 0
+    loader_step: int = 0
+    overall_best_result: float = 0.0
+
+    def state_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for k, v in state.items():
+            if hasattr(self, k):
+                setattr(self, k, v)
+
+    def step_epoch(self) -> None:
+        self.epoch += 1
+        self.loader_step = 0
+
+
+def _save(obj: Any, path: Path) -> None:
+    """Write through a temporary file so a reader never sees half a file."""
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    def __init__(self, ckpt_dir: str | Path):
+        self.dir = Path(ckpt_dir).resolve()
+        self.state_dir = self.dir / "state"
+        self.state_dir.mkdir(parents=True, exist_ok=True)
+
+    # -- full training state -------------------------------------------------
+
+    def _steps(self):
+        return sorted(int(p.stem) for p in self.state_dir.glob("*.pt") if p.stem.isdigit())
+
+    def save_state(self, step: int, state: Dict[str, Any], tracker: Tracker) -> None:
+        """``state``: {"params", "opt_state", "step"}; overwrites ``step``."""
+        _save({"state": state, "tracker": tracker.state_dict()},
+              self.state_dir / f"{step}.pt")
+        for old in self._steps()[:-1]:
+            (self.state_dir / f"{old}.pt").unlink()
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def restore_state(self, tracker: Tracker) -> Optional[Dict[str, Any]]:
+        step = self.latest_step()
+        if step is None:
+            return None
+        saved = torch.load(self.state_dir / f"{step}.pt", map_location="cpu",
+                           weights_only=True)
+        tracker.load_state_dict(saved["tracker"])
+        return saved["state"]
+
+    # -- weights-only (learnable params) -------------------------------------
+
+    def save_weights(self, name: str, learnable: Dict[str, torch.Tensor]) -> None:
+        _save(learnable, self.dir / f"{name}.pt")
+
+    def load_weights(self, name: str) -> Dict[str, torch.Tensor]:
+        return torch.load(self.dir / f"{name}.pt", map_location="cpu", weights_only=True)
+
+    def has_weights(self, name: str) -> bool:
+        return (self.dir / f"{name}.pt").exists()

@@ -19,7 +19,14 @@ import pytest
 import torch
 
 from msr3d_tpu_torch import resolve_device
-from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from msr3d_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference,
+    flash_attention_reference,
+)
 from msr3d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_reference
 
 REPO = Path(__file__).resolve().parents[1]
@@ -55,6 +62,36 @@ def test_flash_wrapper_takes_plain_version_on_cpu():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _bwd_inputs(gen_or_seed, b, t, s, hq, hkv, d, dtype, device, pads=()):
+    """q/do (B, T, Hq, D), k/v (B, S, Hkv, D), left-padded key_valid, and the
+    forward's lse plus delta = rowsum(do·o) from the plain forward."""
+    if isinstance(gen_or_seed, int):
+        gen_or_seed = torch.Generator(device=device).manual_seed(gen_or_seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen_or_seed, device=device).to(dtype)
+
+    q, k, v, do = randn(b, t, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, t, hq, d)
+    valid = torch.ones((b, s), dtype=torch.bool, device=device)
+    for row, p in enumerate(pads):
+        valid[row, :p] = False
+    out, lse = flash_attention_reference(q, k, v, key_valid=valid)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, valid
+
+
+def test_flash_backward_wrappers_take_plain_version_on_cpu():
+    q, k, v, do, lse, delta, valid = _bwd_inputs(8, 2, 9, 9, 4, 2, 16, torch.float32, "cpu",
+                                                 pads=(0, 3))
+    args = (q, k, v, do, lse, delta)
+    assert torch.equal(flash_attention_bwd_dq(*args, key_valid=valid),
+                       flash_attention_bwd_dq_reference(*args, key_valid=valid))
+    got, want = (flash_attention_bwd_dkv(*args, key_valid=valid),
+                 flash_attention_bwd_dkv_reference(*args, key_valid=valid))
+    assert got[0].shape == (2, 9, 4, 16)  # per q head, group-summed by the caller
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_kernel_wrappers_refuse_other_devices():
     meta = torch.empty((2, 8, 3), device="meta")
     with pytest.raises(ValueError):
@@ -62,6 +99,10 @@ def test_kernel_wrappers_refuse_other_devices():
     q = torch.empty((1, 4, 2, 64), device="meta")
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+    rows = torch.empty((1, 2, 4), device="meta")
+    for bwd in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+        with pytest.raises(ValueError):
+            bwd(q, q, q, q, rows, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +159,40 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         flash_attention(q, q, q)  # float32
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,n_rep", [(torch.bfloat16, 128, 1), (torch.float16, 64, 4)])
+def test_flash_backward_kernels_match_plain_version(cuda_device, dtype, d, n_rep):
+    b, t, hkv = 2, 150, 4
+    q, k, v, do, lse, delta, valid = _bwd_inputs(0, b, t, t, hkv * n_rep, hkv, d, dtype,
+                                                 cuda_device, pads=(0, 20))
+    args = (q, k, v, do, lse, delta)
+    dq = flash_attention_bwd_dq(*args, key_valid=valid)
+    dk, dv = flash_attention_bwd_dkv(*args, key_valid=valid)
+    want_dq = flash_attention_bwd_dq_reference(*args, key_valid=valid)
+    want_dk, want_dv = flash_attention_bwd_dkv_reference(*args, key_valid=valid)
+    torch.cuda.synchronize()
+    # 16-bit outputs of the same fp32 sums in another order: one ulp apart at
+    # most (2^-7 of the value in bf16), 1e-2 absolute near zero
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    # no valid key → dq exactly 0; invalid keys → dk = dv = 0 exactly
+    assert bool((dq[1, :20] == 0).all())
+    assert bool((dk[1, :20] == 0).all()) and bool((dv[1, :20] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_refuse_what_they_do_not_take(cuda_device):
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda_device)
+    rows = torch.zeros((1, 2, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_dq(q, q, q, q.half(), rows, rows)  # do of another dtype
+    with pytest.raises(ValueError):
+        flash_attention_bwd_dkv(q, q, q, q, rows.double(), rows)  # lse not fp32
+    q32 = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_dq(q32, q32, q32, q32, rows, rows)  # head dim 32
+
+
 # ---------------------------------------------------------------------------
 # Device rules and the import boundary
 # ---------------------------------------------------------------------------
@@ -147,6 +222,6 @@ def test_port_imports_no_jax():
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "flax", "optax", "msr3d_tpu"):
+            if root in ("jax", "jaxlib", "flax", "optax", "orbax", "msr3d_tpu"):
                 bad.append(f"{path.relative_to(REPO)}: {mod}")
     assert not bad, bad

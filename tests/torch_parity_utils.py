@@ -50,7 +50,9 @@ def scene_inputs(seed: int, b: int = 2, n_obj: int = 6, n_pts: int = 32):
 
 
 def torch_prompter_config(cfg: JaxOSE3DConfig) -> OSE3DConfig:
-    """The port's prompter config with the JAX config's values."""
+    """The port's prompter config with the JAX config's values (every field
+    the port has: ``spatial_encoder.dropout``, ``vision_freeze`` and
+    ``vision_dropout`` included)."""
     se = SpatialEncoderConfig(**{
         f.name: getattr(cfg.spatial_encoder, f.name)
         for f in dataclasses.fields(SpatialEncoderConfig)
@@ -62,7 +64,8 @@ def torch_prompter_config(cfg: JaxOSE3DConfig) -> OSE3DConfig:
 
 
 def torch_llama_config(cfg, **overrides):
-    """The port's LlamaConfig with a JAX LlamaConfig's values."""
+    """The port's LlamaConfig with a JAX LlamaConfig's values (every field
+    the port has, ``lora_dropout`` included)."""
     from msr3d_tpu_torch.models.llm.llama import LlamaConfig
 
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(LlamaConfig)
@@ -71,6 +74,20 @@ def torch_llama_config(cfg, **overrides):
     kw["param_dtype"] = _TORCH_DTYPES[np.dtype(cfg.param_dtype).name]
     kw.update(overrides)
     return LlamaConfig(**kw)
+
+
+def torch_network_config(cfg, **llm_overrides):
+    """The port's MSR3DNetworkConfig with a JAX MSR3DNetworkConfig's values
+    (``answer_window_loss`` included; the image fields are not ported)."""
+    from msr3d_tpu_torch.models.msr3d import MSR3DNetworkConfig
+
+    return MSR3DNetworkConfig(
+        prompter=torch_prompter_config(cfg.prompter),
+        llm=torch_llama_config(cfg.llm, **llm_overrides),
+        scene_token_id=cfg.scene_token_id,
+        img_token_id=cfg.img_token_id,
+        answer_window_loss=cfg.answer_window_loss,
+    )
 
 
 def to_numpy_tree(variables):
