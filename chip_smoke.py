@@ -7,21 +7,27 @@ Run from the repository root on a machine with an NVIDIA H100:
 It builds the hand-written CUDA kernels from ``msr3d_tpu_torch/csrc`` with
 ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and holds each
 kernel against its plain PyTorch version at the shapes of the main paths
-(phases 2, 3 and 5). Then it drives the port's two paths at the flagship
+(phases 2, 3, 5 and 7). Then it drives the port's paths at the flagship
 width (OSE3D prompter: 60 objects x 1024 points; Vicuna-7B-geometry Llama,
 bf16, LoRA r16 on all seven projections, flash attention) with random
-weights from a seed: greedy ``MSR3D.generate`` (phase 4) and two optimizer
-steps of ``LeoTrainer`` at the flagship's solver (phase 6), and checks that
-each path launched its kernels. Any failed check exits non-zero. The last
-two lines of standard output are the per-kernel JSON line and the result
-line ``{"ok": true, "device": {...}}``; without a GPU, or without the
-package beside it, it exits non-zero and prints no result. ``--profile``
-adds the device time by kernel of one more generate and the device busy
-share of one more optimizer step (``torch.profiler``).
+weights from a seed: greedy ``MSR3D.generate`` (phase 4), two optimizer
+steps of ``LeoTrainer`` at the flagship's solver (phase 6), and greedy
+generation with the LLM quantized on the card in four serving
+configurations (phase 8, int8/int4 weights, int8 KV cache, s8xs8), and
+checks that each path launched its kernels. Any failed check exits
+non-zero. The last two lines of standard output are the per-kernel JSON
+line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
+or without the package beside it, it exits non-zero and prints no result.
+``--profile`` adds the device time by kernel of one more generate (bf16 and
+int8) and the device busy share of one more optimizer step
+(``torch.profiler``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
+import itertools
 import json
 import shutil
 import subprocess
@@ -67,6 +73,27 @@ BWD_ATOL, BWD_RTOL = 1e-2, 1e-2
 # at most. A wiring fault (head, layout, mask or a missing term) moves them
 # by O(1); this gate catches that, not rounding
 GRAD_RTOL = 0.1
+# K3/K4 vs their plain version: |y - plain| <= DEQ_ATOL + DEQ_RTOL * |plain|. Both
+# take the same exact fp32 products (bf16 x int8) in other summation orders and
+# round once to bf16: one bf16 ulp (2^-7 of the value) apart, 1e-2 near 0. K4's
+# plain version sums the +8-biased low nibbles and subtracts 8 * rowsum(x_lo)
+# after, the kernel does not: the rounding of that larger biased sum is allowed
+# for as DEQ_W4_BIAS * sum_k |x_k| * |scale_n| (2^-16 of its bound 16 sum|x|)
+DEQ_ATOL, DEQ_RTOL, DEQ_W4_BIAS = 1e-2, 2.0 ** -7, 2.0 ** -12
+# Each int4 projection of a decode step against the fp32 dequant oracle
+# x @ (q * bf16(s)), relative L2: LoraDense rounds two half-products, their
+# sum, the scale product (per channel) or each scaled weight (by group) to
+# bf16, a few roundings of 2^-9 each. A wrong nibble, half or group moves it
+# by O(1)
+QUANT_ORACLE_RTOL = 1e-2
+# s8xs8 adds the per-token int8 rounding of x (a step of amax/127, some 1e-2
+# of the values' spread); the gate catches a wrong scale or layout, O(1)
+ACT_ORACLE_RTOL = 0.1
+SHAPES_7B = ((4096, 4096), (4096, 11008), (11008, 4096))  # (K, N): q/k/v/o, gate/up, down
+# Phase 7 times each shape over copies of its weights that together span this
+# many bytes, five times the H100's 50 MB L2, so each timed launch reads its
+# weight from HBM as a decode step does
+L2_SPAN_BYTES = 256 * 2**20
 N_REQUESTS, NEW_TOKENS, REP_PENALTY = 4, 32, 3.0
 # the flagship's solver (configs/msr3d.yaml:32-47): batch 4 x accumulation 5
 TRAIN_ACCUM, TRAIN_STEPS = 5, 2
@@ -97,6 +124,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rotating(fn, operands):
+    """``fn`` on the next set of ``operands`` at each call, round and round."""
+    it = itertools.cycle(operands)
+    return lambda: fn(*next(it))
+
+
+def past_l2(*tensors):
+    """Copies of ``tensors`` (the first is kept) that together span
+    L2_SPAN_BYTES, as argument tuples."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(1, -(-L2_SPAN_BYTES // nbytes))
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
 def wall_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -120,7 +161,7 @@ def phase_card_and_build():
     from msr3d_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    sources = ["fps", "flash_attn_fwd", "flash_attn_bwd"]
+    sources = ["fps", "flash_attn_fwd", "flash_attn_bwd", "w8_matmul", "w4_matmul"]
     paths = _build.build_all(sources)
     print(f"  built {[p.name for p in paths]} in {time.perf_counter() - t0:.1f} s")
     for name in sources:
@@ -381,10 +422,10 @@ def sdpa_backend(fn) -> str:
     return "math (plain ops)"
 
 
-def make_requests(seed: int):
-    """Four requests built like bench_qa.py's (60 objects x 1024 points)."""
+def make_requests(seed: int, b: int = N_REQUESTS):
+    """``b`` requests built like bench_qa.py's (60 objects x 1024 points)."""
     r = np.random.default_rng(seed)
-    b, n_obj, n_pts = N_REQUESTS, 60, 1024
+    n_obj, n_pts = 60, 1024
     return {
         "msr3d_prompt": [
             "You are an AI visual assistant situated in a 3D scene. "
@@ -400,7 +441,7 @@ def make_requests(seed: int):
     }
 
 
-def build_flagship_model(dev):
+def build_flagship_model(dev, lora_rank: int = 16, what: str = "the flagship model of phases 4 and 6"):
     """OSE3DConfig() (spatial dropout 0.1) and the Vicuna-7B-geometry Llama
     (bf16 base, LoRA r16 on all seven projections, LoRA dropout 0.0 as
     configs/msr3d.yaml, flash attention), answer-window loss, random weights
@@ -412,11 +453,11 @@ def build_flagship_model(dev):
 
     llm = LlamaConfig(
         vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
-        num_attention_heads=32, lora_rank=16,
+        num_attention_heads=32, lora_rank=lora_rank,
         dtype=torch.bfloat16, param_dtype=torch.bfloat16, flash_attention=True,
     )
     cfg = MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm, answer_window_loss=True)
-    print("== the flagship model of phases 4 and 6")
+    print(f"== {what}")
     t0 = time.perf_counter()
     model = MSR3D(cfg, ByteTokenizer(), scene_token_len=60, max_out_len=NEW_TOKENS,
                   repetition_penalty=REP_PENALTY, device=dev)
@@ -429,8 +470,6 @@ def build_flagship_model(dev):
 
 def phase_generate(model, dev, profile: bool):
     print("== phase 4: greedy MSR3D.generate at the flagship width")
-    import dataclasses
-
     import msr3d_tpu_torch.models.llm.llama as llama
     import msr3d_tpu_torch.nn.pointnet as pointnet
     from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL, flash_attention_reference
@@ -585,8 +624,6 @@ def trainer_cfg(exp_dir: Path, *, accum: int, lr: float, warmup: int, epochs: in
 def phase_train(model, dev, exp_root: Path, profile: bool):
     print(f"== phase 6: LoRA training at the flagship width ({TRAIN_STEPS} optimizer steps of "
           f"batch {N_REQUESTS} x accumulation {TRAIN_ACCUM})")
-    import dataclasses
-
     import msr3d_tpu_torch.ops.flash_attention as fa
     from msr3d_tpu_torch.models.llm.llama import LoraDense
     from msr3d_tpu_torch.ops.fps import FPS_KERNEL
@@ -744,6 +781,341 @@ def phase_train(model, dev, exp_root: Path, profile: bool):
     return launches
 
 
+def dequant_against_plain(x, wq, scale, bits):
+    """K3 (bits 8) or K4 (bits 4) and its plain version on the same inputs:
+    max |Δ|, max |Δ| over the tolerance, and whether the output is finite."""
+    from msr3d_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_reference
+    from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference
+
+    kernel, plain = (matmul_w8, matmul_w8_reference) if bits == 8 else (matmul_w4,
+                                                                         matmul_w4_reference)
+    got, want = kernel(x, wq, scale), plain(x, wq, scale)
+    torch.cuda.synchronize()
+    return dequant_errors(got, want, x, scale, bits)
+
+
+def dequant_errors(got, want, x, scale, bits):
+    delta = (got.float() - want.float()).abs()
+    tol = DEQ_ATOL + DEQ_RTOL * want.float().abs()
+    if bits == 4:
+        tol = tol + DEQ_W4_BIAS * x.float().abs().sum(1, keepdim=True) * scale.float().abs()
+    return dict(err=delta.max().item(), ratio=(delta / tol).max().item(),
+                finite=bool(torch.isfinite(got.float()).all()))
+
+
+def dequant_bound(b, k, n, bits):
+    """The weight (K·N bytes, half for int4), x and y in bf16 and the fp32
+    scale, each crossing device memory once; 2·B·K·N products at the bf16
+    tensor-core rate."""
+    return bound(k * n * bits // 8 + 2 * b * k + 4 * n + 2 * b * n, 2 * b * k * n,
+                 H100_BF16_FLOPS)
+
+
+def phase_dequant(dev):
+    print("== phase 7: K3 (int8) and K4 (int4) against their plain versions at the 7B shapes")
+    from msr3d_tpu_torch.models.llm.convert import quantize_kernel
+    from msr3d_tpu_torch.ops.w4_matmul import (
+        matmul_w4,
+        matmul_w4_reference,
+        repack_from_splitnibble,
+    )
+    from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = [(b, k, n) for b in (4, 16) for k, n in SHAPES_7B] + [(7, 4096, 1000)]
+    ok = True
+    for b, k, n in cases:
+        x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
+        kernel = torch.randn((k, n), generator=gen, device=dev) * 0.02  # flax layout (in, out)
+        for bits in (8, 4):
+            q, s = quantize_kernel(kernel, bits)  # the serving path's quantizer, on the card
+            wq = q if bits == 8 else repack_from_splitnibble(q)
+            res = dequant_against_plain(x, wq, s, bits)
+            ok = ok and res["finite"] and res["ratio"] <= 1.0
+            fn, plain = (matmul_w8, matmul_w8_reference) if bits == 8 else (matmul_w4,
+                                                                             matmul_w4_reference)
+            w_deq = (dequant_oracle_weight(q, s, bits, None)).to(torch.bfloat16)
+            # every timed launch reads its weight from HBM (see L2_SPAN_BYTES)
+            ops = past_l2(wq, s)
+            ms = time_ms(rotating(lambda w, sc: fn(x, w, sc), ops), iters=50)
+            plain_ms = time_ms(rotating(lambda w, sc: plain(x, w, sc), ops), iters=10)
+            lib_ms = time_ms(rotating(lambda w: x @ w, past_l2(w_deq)), iters=50)
+            b_ms, b_by = dequant_bound(b, k, n, bits)
+            print(f"  {'K3' if bits == 8 else 'K4'} B={b:2d} K={k:5d} N={n:5d}: max |Δ| "
+                  f"{res['err']:.3e} ({res['ratio']:.3f} of the tolerance), {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, cuBLAS x @ w_bf16 {lib_ms:.4f} ms (reads {16 // bits}x the "
+                  f"weight bytes), bound {b_ms:.6f} ms ({b_by}); weights from HBM")
+            del ops
+        del kernel, q, wq, w_deq
+    check(ok, "K3 and K4 within tolerance of their plain versions at every 7B shape and the "
+              "ragged case (B 7, N 1000)")
+
+
+def dequant_oracle_weight(q, s, bits, group):
+    """The fp32 dequantized (in, out) weight of a LoraDense layout: int8, or
+    int4 split-nibble with per-channel or group scales, the scale at bf16."""
+    from msr3d_tpu_torch.models.llm.convert import unpack_int4
+
+    s = s.to(torch.bfloat16).float()
+    if bits == 8:
+        return q.float() * s
+    w = unpack_int4(q).float()
+    if group:
+        return (w.reshape(-1, group, w.shape[1]) * s[:, None, :]).reshape(w.shape)
+    return w * s
+
+
+QUANT_RUNS = (
+    # (label, what, batch, LoRA rank, quantize_llm arguments)
+    ("a", "int8 per channel, merged LoRA (rank 0), int8 KV cache: bench_qa.py's record "
+          "configuration", 16, 0, dict(bits=8, kv_quantize=True)),
+    ("b", "int4 per channel", 16, 16, dict(bits=4)),
+    ("c", "int4 with group 128, int8 KV cache", 4, 16, dict(bits=4, group=128, kv_quantize=True)),
+    ("d", "int8 with s8xs8 activations", 16, 16, dict(bits=8, act_quantize=True)),
+)
+
+
+def quantized_modules(net):
+    from msr3d_tpu_torch.models.llm.llama import LoraDense
+
+    return [m for m in net.llm.modules() if isinstance(m, LoraDense) and m.bits]
+
+
+def capture_decode_inputs(model, data):
+    """The input of every quantized projection in one decode step (forward
+    pre-hooks; one generate with two new tokens), as (module, x (B, in))."""
+    captured = []
+
+    def hook(mod, args):
+        if args[0].shape[1] == 1:  # decode, T = 1; the prefill has the prompt
+            captured.append((mod, args[0].reshape(-1, mod.in_features)))
+
+    handles = [m.register_forward_pre_hook(hook) for m in quantized_modules(model.network)]
+    try:
+        model.generate(dict(data), use_beam=False, max_new_tokens=2)
+    finally:
+        for h in handles:
+            h.remove()
+    return captured
+
+
+def kernel_on_path(captured, bits, kernel, plain_fn, wrap):
+    """Launch K3/K4 on each captured projection's own operands (``wrap``
+    gives its weight in the kernel's layout), counted from 0; then hold each
+    output against its plain version and print its distance to LoraDense's
+    base output (the XLA-order product). The times are per launch, the mean
+    over the decode step's 224 projections in order (6.5 GB of int8 weights,
+    3.3 GB of int4, so each launch reads its weight from HBM)."""
+    from msr3d_tpu_torch.ops.w4_matmul import matmul_w4
+    from msr3d_tpu_torch.ops.w8_matmul import matmul_w8
+
+    fn = matmul_w8 if bits == 8 else matmul_w4
+    operands = [(x, wrap(m), m.weight_scale) for m, x in captured]
+    kernel.launches = 0
+    outs = [fn(*ops) for ops in operands]
+    torch.cuda.synchronize()
+    held = kernel.launches
+    errs = [dequant_errors(out, plain_fn(*ops), ops[0], ops[2], bits)
+            for out, ops in zip(outs, operands)]
+    rel_base = max(((out.float() - m.base_forward(x).float()).norm()
+                    / m.base_forward(x).float().norm()).item()
+                   for out, (m, x) in zip(outs, captured))
+    name = "K3" if bits == 8 else "K4"
+    print(f"  {name} on the {len(operands)} projections' own decode inputs: {held} launches, "
+          f"max |Δ| {max(e['err'] for e in errs):.3e}, max {max(e['ratio'] for e in errs):.3f} of "
+          f"the tolerance; relative L2 to LoraDense's base output (the XLA order) at most "
+          f"{rel_base:.3e} (not gated)")
+    check(len(operands) == 224 and held == 224
+          and all(e["finite"] and e["ratio"] <= 1.0 for e in errs),
+          f"{name} within tolerance of its plain version on all 224 projections of a decode step")
+    del outs
+    n = len(operands)
+    ms = time_ms(lambda: [fn(*ops) for ops in operands], iters=10) / n
+    plain_ms = time_ms(lambda: [plain_fn(*ops) for ops in operands], iters=2, warmup=1) / n
+    w_deq = [dequant_oracle_weight(m.weight_q, m.weight_scale, m.bits, m.group).to(torch.bfloat16)
+             for m, _ in captured]
+    lib_ms = time_ms(lambda: [x @ w for (x, _, _), w in zip(operands, w_deq)], iters=10) / n
+    del w_deq
+    bounds = [dequant_bound(x.shape[0], x.shape[1], w.shape[1], bits) for x, w, _ in operands]
+    b_ms = sum(t for t, _ in bounds) / n
+    b_by = "bytes" if all(by == "bytes" for _, by in bounds) else "operations"
+    print(f"  {name} per launch, mean over the {n} projections at B={operands[0][0].shape[0]}: "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS x @ w_bf16 on the pre-dequantized "
+          f"weights {lib_ms:.4f} ms (reads {16 // bits}x the weight bytes), bound {b_ms:.6f} ms "
+          f"({b_by}); the decode step's {n} launches take {ms * n:.3f} ms")
+    return held, dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=lib_ms, max_abs_err=max(e["err"] for e in errs))
+
+
+def oracle_gate(captured, rtol, what):
+    """Each captured projection's base output against x @ (q · bf16(s)) in
+    fp32, relative L2."""
+    worst = 0.0
+    for m, x in captured:
+        want = x.float() @ dequant_oracle_weight(m.weight_q, m.weight_scale, m.bits, m.group)
+        got = m.base_forward(x).float()
+        worst = max(worst, ((got - want).norm() / want.norm()).item())
+    print(f"  {len(captured)} projections of a decode step against the fp32 dequant oracle: "
+          f"relative L2 at most {worst:.4e}")
+    check(len(captured) == 224 and worst <= rtol,
+          f"every quantized projection ({what}) within {rtol} (relative L2) of the oracle")
+
+
+def kv_roundtrip_gate(prefill):
+    """Every layer's prefill k/v against the int8 cache they quantize to:
+    |q · s − k| <= amax / 127 (+1e-5), per (position, head)."""
+    import msr3d_tpu_torch.models.llm.llama as llama
+
+    recorded = []
+    orig = llama.quantize_kv_cache
+
+    def record(cache):
+        out = orig(cache)
+        recorded.append((cache, out))
+        return out
+
+    with mock.patch.object(llama, "quantize_kv_cache", record):
+        prefill()
+    ok = len(recorded) == 32
+    worst = 0.0
+    for cache, out in recorded:
+        for key in ("k", "v"):
+            ref = cache[key].float()
+            deq = out[key].float() * out[f"{key}_scale"].float()[..., None]
+            amax = ref.abs().amax(dim=-1, keepdim=True)
+            worst = max(worst, ((deq - ref).abs() / (amax / 127.0 + 1e-5)).max().item())
+    print(f"  int8 KV cache: {len(recorded)} layers' prefill k/v round-trip within "
+          f"{worst:.3f} of amax/127")
+    check(ok and worst <= 1.0, "every layer's prefill k/v round-trips within amax/127")
+
+
+def generate_stages(model, data, gen_ms, tokens, dev):
+    """Scene-encode and prefill ms (host clock around one call each) and
+    decode ms/token = (generate - prefill) / decode steps."""
+    net = model.network
+    ids, attn = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
+                                     side="left")
+    scene = model._scene_batch(data)
+    ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    attn_t = torch.as_tensor(attn, dtype=torch.int32, device=dev)
+
+    def prefill():
+        with torch.no_grad():
+            return net.prefill(ids_t, attn_t, **scene, bos_id=model.tokenizer.bos_id,
+                               max_cache_len=ids.shape[1] + 1)
+
+    with torch.no_grad():
+        encode_ms = wall_ms(lambda: net.visual_prompter(**scene))
+    prefill_ms = wall_ms(prefill)
+    finished_at = [list(row).index(model.tokenizer.eos_id) if model.tokenizer.eos_id in row
+                   else NEW_TOKENS for row in tokens]
+    steps = max(1, min(NEW_TOKENS, max(finished_at) + 1) - 1)
+    return prefill, dict(encode_ms=encode_ms, prefill_ms=prefill_ms,
+                         decode_ms=(gen_ms - prefill_ms) / steps, steps=steps)
+
+
+def phase_quantized(dev, profile: bool):
+    print("== phase 8: quantized greedy serving at the flagship width")
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.ops.w4_matmul import (
+        W4_MATMUL_KERNEL,
+        matmul_w4_reference,
+        repack_from_splitnibble,
+    )
+    from msr3d_tpu_torch.ops.w8_matmul import W8_MATMUL_KERNEL, matmul_w8_reference
+
+    counted = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, W8_MATMUL_KERNEL, W4_MATMUL_KERNEL)
+    out = {}
+    for label, what, batch, rank, quant in QUANT_RUNS:
+        print(f"-- ({label}) {what}, batch {batch}")
+        model = build_flagship_model(dev, lora_rank=rank, what=f"({label}): the flagship, LoRA "
+                                                              f"rank {rank}, bf16 from seed 0")
+        t0 = time.perf_counter()
+        model.quantize_llm(**quant)
+        torch.cuda.synchronize()
+        print(f"  quantized on the card in {time.perf_counter() - t0:.2f} s: "
+              f"{model.network.llm.cfg}")
+        net = model.network
+        data = make_requests(seed=0, b=batch)
+        model.generate(dict(data), use_beam=False)  # warm-up: cuBLAS handles, allocator
+        for kernel in counted:
+            kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        gen_ms = wall_ms(lambda: data.update(model.generate(dict(data), use_beam=False)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches = {k.symbol.replace("_launch", ""): k.launches for k in counted}
+        print(f"  launches during generate: {launches} (K3/K4: 0 on generate, as in the JAX "
+              f"package, whose serving path computes LoraDense in XLA)")
+        check(launches["fps"] == 2 and launches["flash_attn_fwd"] == 32,
+              "K1 launched twice and K2f 32 times per generate")
+        tokens = data["output_tokens"]
+        check(tokens.shape == (batch, NEW_TOKENS)
+              and bool(((tokens >= 0) & (tokens < net.llm.cfg.vocab_size)).all()),
+              f"generated tokens of shape {tokens.shape} inside the vocabulary")
+        prefill, st = generate_stages(model, data, gen_ms, tokens, dev)
+        row = dict(st, gen_ms=gen_ms, qa_s=batch / gen_ms * 1e3, peak_gb=peak_gb,
+                   launches=launches)
+        print(f"  ({label}) scene encode {st['encode_ms']:.2f} ms, prefill (encode included) "
+              f"{st['prefill_ms']:.2f} ms, decode {st['decode_ms']:.2f} ms/token over "
+              f"{st['steps']} steps, generate {gen_ms:.2f} ms, {row['qa_s']:.3f} QA/s, peak "
+              f"memory allocated {peak_gb:.2f} GiB")
+        if profile and label == "a":
+            profile_device("quantized generate (a)",
+                           lambda: model.generate(dict(data), use_beam=False))
+        with torch.no_grad():
+            first = prefill()[0]
+        check(bool(torch.isfinite(first).all()), "first-token logits finite")
+        if quant.get("kv_quantize"):
+            kv_roundtrip_gate(prefill)
+            llm = net.llm.cfg
+            net.llm.cfg = dataclasses.replace(llm, kv_quantize=False)
+            try:
+                bf16_cache = model.generate(dict(data), use_beam=False)["output_tokens"]
+            finally:
+                net.llm.cfg = llm
+            row["same_as_bf16_cache"] = float((bf16_cache == tokens).mean())
+            print(f"  tokens equal to a bf16-cache run: {row['same_as_bf16_cache']:.3f} "
+                  f"(not gated)")
+        with torch.no_grad():
+            captured = capture_decode_inputs(model, data)
+            if label in ("b", "c"):
+                oracle_gate(captured, QUANT_ORACLE_RTOL, what)
+            if label == "d":
+                oracle_gate(captured, ACT_ORACLE_RTOL, what)
+            if label == "a":
+                out["w8"] = kernel_on_path(captured, 8, W8_MATMUL_KERNEL, matmul_w8_reference,
+                                           lambda m: m.weight_q)
+            if label == "b":
+                out["w4"] = kernel_on_path(captured, 4, W4_MATMUL_KERNEL, matmul_w4_reference,
+                                           lambda m: repack_from_splitnibble(m.weight_q))
+            if label == "a":
+                bf16_twin_gate(model, prefill, first)
+        out[label] = row
+        del model, net, captured, prefill, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_twin_gate(model, prefill, first):
+    """Wiring check of the int8 LoraDense: give every projection the bf16
+    weight bf16(q) · bf16(s) it computes with (stored as the transpose of that
+    (in, out) product, so the product runs as the same cuBLAS call) and run
+    the model's own bf16 path: the first-token logits must be equal bit for
+    bit. This ends the int8 model."""
+    for m in quantized_modules(model.network):
+        w = m.weight_q.to(m.dtype) * m.weight_scale.to(m.dtype)
+        del m.weight_q, m.weight_scale
+        m.bits = 0
+        m.weight = torch.nn.Parameter(w.t(), requires_grad=False)
+    bf16 = prefill()[0]
+    print(f"  first-token logits of the int8 model against its bf16 twin: max |Δ| "
+          f"{(first - bf16).abs().max().item():.3e}")
+    check(torch.equal(first, bf16), "first-token logits of (a) equal, bit for bit, those of the "
+                                    "bf16 model with the weights bf16(q)·bf16(s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU host", file=sys.stderr)
@@ -764,10 +1136,15 @@ def main() -> int:
         fps_row = phase_fps(dev)
         flash_row = phase_flash(dev)
         dq_row, dkv_row = phase_flash_backward(dev)
+        phase_dequant(dev)
         model = build_flagship_model(dev)
         launches = phase_generate(model, dev, profile)
         shutil.rmtree(exp_root, ignore_errors=True)
         train_launches = phase_train(model, dev, exp_root, profile)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        quantized = phase_quantized(dev, profile)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -786,6 +1163,17 @@ def main() -> int:
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"], **dkv_row),
+        # K3/K4: no serving path calls them, in either package, so their
+        # launches over generate (a) and (b) are 0; held_on_path_operands
+        # counts the launches on the 224 projections' own decode operands
+        dict(name="w8_matmul", route="cuda", source="msr3d_tpu_torch/csrc/w8_matmul.cu",
+             replaces="msr3d_tpu/ops/pallas/w8_matmul.py:36",
+             launches=quantized["a"]["launches"]["w8_matmul"],
+             held_on_path_operands=quantized["w8"][0], **quantized["w8"][1]),
+        dict(name="w4_matmul", route="cuda", source="msr3d_tpu_torch/csrc/w4_matmul.cu",
+             replaces="msr3d_tpu/ops/pallas/w4_matmul.py:94",
+             launches=quantized["b"]["launches"]["w4_matmul"],
+             held_on_path_operands=quantized["w4"][0], **quantized["w4"][1]),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

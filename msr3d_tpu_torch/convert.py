@@ -8,6 +8,15 @@ arrays (``{"params": ..., "batch_stats": ...}``). Rules, per leaf:
   * ``kernel`` (Dense, flax (in, out)) → ``weight``, transposed to torch's
     (out, in); ``lora_a`` (in, r) and ``lora_b`` (r, out) are transposed
     the same way;
+  * a quantized projection's ``kernel_q`` → ``weight_q`` and
+    ``kernel_scale`` → ``weight_scale``, NOT transposed: the port keeps the
+    JAX layout for the quantized base, int8 (in, out) or int4 split-nibble
+    packed (in/2, out), with scales (out,) or, by group, (in/G, out), since
+    that is the layout kernels K3/K4 read (contiguous along the outputs).
+    The bytes are copied exactly: the int8 values as they are, the scale
+    into an fp32 buffer (a bf16 scale converts exactly), so trees quantized
+    without LoRA (``lora_rank=0``, the merged-LoRA deployment) and with it
+    load alike;
   * ``scale`` (LayerNorm, BatchNorm, RMSNorm) → ``weight``; ``embedding``
     (Embed) → ``weight``; ``bias`` and ``object_orientation_feat`` keep
     their names;
@@ -36,6 +45,8 @@ SKIPPED_SUBTREES = (
 
 _PARAM_LEAVES = {
     "kernel": ("weight", True),
+    "kernel_q": ("weight_q", False),
+    "kernel_scale": ("weight_scale", False),
     "lora_a": ("lora_a", True),
     "lora_b": ("lora_b", True),
     "scale": ("weight", False),

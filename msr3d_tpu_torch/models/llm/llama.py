@@ -2,20 +2,27 @@
 
 Counterpart of ``msr3d_tpu/models/llm/llama.py`` on the LoRA training and
 greedy serving paths: RMSNorm (fp32 inside), rotary embeddings in the HF
-half-split layout, unquantized LoRA projections (with LoRA dropout),
-SwiGLU MLP, the training forward (``LlamaModel.forward``), a prefill that
-captures each layer's rope'd k/v, and the split-cache decode step (a prompt
-KV segment plus a generated segment, T = 1). With ``flash_attention`` the
-training forward runs through the autograd Function of kernels K2f, K2dq
-and K2dkv, and the prefill through K2f; otherwise, and in decode, attention
-is dense with a -1e30 additive bias, as in the JAX package.
+half-split layout, LoRA projections (with LoRA dropout) over a bf16/fp32 or
+weight-only quantized base, SwiGLU MLP, the training forward
+(``LlamaModel.forward``), a prefill that captures each layer's rope'd k/v,
+and the split-cache decode step (a prompt KV segment plus a generated
+segment, T = 1). With ``flash_attention`` the training forward runs through
+the autograd Function of kernels K2f, K2dq and K2dkv, and the prefill
+through K2f; otherwise, and in decode, attention is dense with a -1e30
+additive bias, as in the JAX package.
+
+Quantized serving (``quantize``, ``act_quantize``, ``kv_quantize``) is
+plain PyTorch on every device, as the JAX package computes it in XLA
+outside any Pallas kernel, in the same rounding order (see ``LoraDense``).
+Kernels K3 and K4 (``ops/w8_matmul.py``, ``ops/w4_matmul.py``) are not
+called here: the JAX package does not call its own either.
 
 The base LLM is frozen as in the JAX package (``stop_gradient``): the
 embeddings, RMSNorm scales, base projection weights and ``lm_head`` are
-created with ``requires_grad=False``; only the LoRA A/B matrices train.
+created with ``requires_grad=False`` (quantized weights are buffers); only
+the LoRA A/B matrices train.
 
-Not ported yet (raise): int8/int4 weights, the int8 KV cache, sequence
-parallelism, activation checkpointing.
+Not ported yet (raise): sequence parallelism, activation checkpointing.
 """
 
 from __future__ import annotations
@@ -52,19 +59,39 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32  # storage of the frozen base
     flash_attention: bool = False  # training/prefill attention through K2f (+ K2dq, K2dkv)
-    # JAX-package options this port does not run yet; setting one raises
+    # weight-only quantized base (serving): int8 per output channel, or int4
+    # split-nibble packed with per-channel or ``quantize_group`` scales along
+    # the input dim; ``act_quantize`` adds per-token int8 activations (s8×s8)
     quantize: bool = False
-    kv_quantize: bool = False
+    quantize_bits: int = 8
+    quantize_group: Optional[int] = None
+    act_quantize: bool = False
+    kv_quantize: bool = False  # int8 KV cache with a per-(position, head) bf16 scale
+    # JAX-package options this port does not run yet; setting one raises
     sp_axis: Optional[str] = None
     remat: bool = False
 
     def __post_init__(self):
-        unported = [f for f in ("quantize", "kv_quantize", "sp_axis", "remat")
-                    if getattr(self, f)]
+        unported = [f for f in ("sp_axis", "remat") if getattr(self, f)]
         if unported:
             raise NotImplementedError(
                 f"LlamaConfig options {unported} are not ported yet (see ROADMAP.md)"
             )
+        if self.act_quantize and not self.quantize:
+            raise ValueError(
+                "act_quantize (s8×s8) requires quantize=True — without the "
+                "int8 base it would silently run the plain bf16 path"
+            )
+        if self.quantize_bits not in (4, 8):
+            raise ValueError("quantize_bits must be 4 or 8")
+        if self.quantize_group is not None:
+            if self.quantize_bits != 4:
+                raise ValueError("quantize_group is an int4-only knob")
+            if self.act_quantize:
+                raise ValueError(
+                    "quantize_group + act_quantize unsupported: group "
+                    "scales do not commute out of the s8×s8 dot"
+                )
 
     @property
     def kv_heads(self) -> int:
@@ -111,18 +138,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 class LoraDense(nn.Module):
     """Frozen base projection plus a LoRA delta, PEFT semantics:
-    ``y = x·Wᵀ + (α/r)·(dropout(x)·Aᵀ)·Bᵀ``, all in the compute dtype.
-    Weights are torch-layout (out, in); LoRA A is (r, in), B is (out, r),
-    fp32. LoRA dropout is active only in ``train()`` mode."""
+    ``y = base(x) + (α/r)·(dropout(x)·Aᵀ)·Bᵀ``, all in the compute dtype.
+    LoRA A is (r, in), B is (out, r), fp32. LoRA dropout is active only in
+    ``train()`` mode.
+
+    The base is one of (``bits``):
+
+    * 0: ``weight`` (out, in) in torch's layout, ``base(x) = x·Wᵀ``;
+    * 8: buffers ``weight_q`` int8 (in, out) and ``weight_scale`` fp32
+      (out,), the JAX package's ``kernel_q``/``kernel_scale`` layout (the
+      layout kernel K3 takes). ``base(x) = x @ (bf16(q) · bf16(s))``: the
+      weight is dequantized and rounded to the compute dtype before the
+      product;
+    * 4: ``weight_q`` int8 (in/2, out), split-nibble packed (low nibbles
+      input rows [0, in/2), high nibbles [in/2, in), both two's
+      complement), and ``weight_scale`` fp32 (out,) or (in/G, out) with
+      ``group`` G. Per channel: ``(x_lo @ lo + x_hi @ hi) · s``, the scale
+      on the sum of the two half-products in the compute dtype; by group:
+      each half's weights scaled per group, then the two products summed.
+
+    With ``act_quant`` (s8×s8, per-channel scales only) x is quantized per
+    token by absmax/127, the product is exact in int32 and rescaled in
+    fp32. The scale is kept as loaded (fp32, or a bf16 value) and rounded to
+    the compute dtype inside the forward, as the JAX module does.
+    """
 
     def __init__(self, in_features: int, out_features: int, cfg: LlamaConfig,
                  use_lora: bool, device=None):
         super().__init__()
+        self.in_features, self.out_features = in_features, out_features
         self.dtype = cfg.dtype
-        self.weight = nn.Parameter(
-            torch.empty(out_features, in_features, dtype=cfg.param_dtype, device=device),
-            requires_grad=False,
-        )
+        self.param_dtype = cfg.param_dtype
+        self.bits, self.group, self.act_quant = 0, None, False
+        if cfg.quantize:
+            self._quantized_buffers(cfg.quantize_bits, cfg.quantize_group, cfg.act_quantize,
+                                    device)
+        else:
+            self.weight = nn.Parameter(
+                torch.empty(out_features, in_features, dtype=cfg.param_dtype, device=device),
+                requires_grad=False,
+            )
         self.scale = 0.0
         self.lora_dropout = cfg.lora_dropout
         if use_lora:
@@ -131,15 +186,110 @@ class LoraDense(nn.Module):
             self.lora_b = nn.Parameter(torch.empty(out_features, r, device=device))
             self.scale = cfg.lora_alpha / r
 
+    def _quantized_buffers(self, bits: int, group: Optional[int], act_quant: bool,
+                           device) -> None:
+        n_in, n_out = self.in_features, self.out_features
+        if bits == 4:
+            if n_in % 2 or (group and (n_in // 2) % group):
+                raise ValueError(
+                    f"int4 packing needs an even input dim and a group dividing its half, "
+                    f"got in={n_in}, group={group}"
+                )
+            rows, scale_shape = n_in // 2, ((n_in // group, n_out) if group else (n_out,))
+        else:
+            rows, scale_shape = n_in, (n_out,)
+        self.bits, self.group, self.act_quant = bits, group, act_quant
+        self.register_buffer("weight_q", torch.empty(rows, n_out, dtype=torch.int8,
+                                                     device=device))
+        self.register_buffer("weight_scale", torch.empty(scale_shape, dtype=torch.float32,
+                                                         device=device))
+
+    @torch.no_grad()
+    def quantize_(self, bits: int, group: Optional[int] = None, act_quant: bool = False,
+                  weight: Optional[torch.Tensor] = None) -> None:
+        """Replace the bf16/fp32 base by its quantized form, in place, through
+        :func:`msr3d_tpu_torch.models.llm.convert.quantize_kernel` on the
+        weight's device. ``weight`` (out, in) overrides the module's own (the
+        initialiser of a quantized module passes the weight it drew)."""
+        from msr3d_tpu_torch.models.llm.convert import quantize_kernel
+
+        if weight is None:
+            if self.bits:
+                raise ValueError("LoraDense.quantize_: the base is quantized already")
+            weight = self.weight
+            del self.weight
+        q, s = quantize_kernel(weight.t(), bits, group)
+        del weight
+        if not self.bits:
+            self._quantized_buffers(bits, group, act_quant, q.device)
+        self.weight_q.copy_(q)
+        self.weight_scale.copy_(s)
+
+    def _act_quant(self, x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-token absmax int8 quantization of x (rows, in): the max stays
+        in x's dtype (as ``jnp.maximum`` of a bf16 amax does), the divide is
+        fp32."""
+        amax = x2.abs().amax(dim=-1, keepdim=True)
+        x_scale = torch.clamp_min(amax, 1e-6).float() / 127.0
+        xq = torch.clamp(torch.round(x2.float() / x_scale), -127, 127).to(torch.int8)
+        return xq, x_scale
+
+    def _unpack(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sign-extending nibble unpack (int8 arithmetic shifts) → (lo, hi)."""
+        return (self.weight_q << 4) >> 4, self.weight_q >> 4
+
+    def base_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The frozen base's output, without LoRA."""
+        if not self.bits:
+            return F.linear(x, self.weight.to(self.dtype))
+        half = self.in_features // 2
+        if self.act_quant:
+            lead = x.shape[:-1]
+            xq, x_scale = self._act_quant(x.reshape(-1, self.in_features))
+            if self.bits == 4:
+                lo, hi = self._unpack()
+                y32 = int8_matmul(xq[:, :half], lo) + int8_matmul(xq[:, half:], hi)
+            else:
+                y32 = int8_matmul(xq, self.weight_q)
+            y = (y32.float() * x_scale * self.weight_scale.float()[None, :]).to(self.dtype)
+            return y.reshape(*lead, self.out_features)
+        if self.bits == 8:
+            return x @ (self.weight_q.to(self.dtype) * self.weight_scale.to(self.dtype))
+        lo, hi = self._unpack()
+        x_lo, x_hi = x[..., :half], x[..., half:]
+        if self.group:
+            g, n_g = self.group, half // self.group
+            gs = self.weight_scale.to(self.dtype)
+            k_lo = (lo.to(self.dtype).reshape(n_g, g, -1) * gs[:n_g, None, :]).reshape(half, -1)
+            k_hi = (hi.to(self.dtype).reshape(n_g, g, -1) * gs[n_g:, None, :]).reshape(half, -1)
+            return x_lo @ k_lo + x_hi @ k_hi
+        return (x_lo @ lo.to(self.dtype) + x_hi @ hi.to(self.dtype)) * self.weight_scale.to(
+            self.dtype)
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = F.linear(x, self.weight.to(self.dtype))
+        y = self.base_forward(x)
         if self.scale:
             h = dropout(x, self.lora_dropout, self.training, generator)
             y = y + F.linear(
                 F.linear(h, self.lora_a.to(self.dtype)), self.lora_b.to(self.dtype)
             ) * self.scale
         return y
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact int8 × int8 → int32 product (rows, K) @ (K, N). On the CPU as
+    int32 operands (an int8 ``torch.mm`` returns int8 and overflows); on
+    the card through ``torch._int_mm``, which takes more than 16 rows and K,
+    N multiples of 8, so the rows are padded with zeros (the JAX package
+    leaves this product to XLA, outside any Pallas kernel)."""
+    if xq.device.type != "cuda":
+        return torch.mm(xq.to(torch.int32), wq.to(torch.int32))
+    rows = xq.shape[0]
+    padded = max(24, -(-rows // 8) * 8)
+    if padded != rows:
+        xq = F.pad(xq, (0, 0, 0, padded - rows))
+    return torch._int_mm(xq, wq)[:rows]
 
 
 def _proj(cfg: LlamaConfig, name: str, n_in: int, n_out: int, device) -> LoraDense:
@@ -210,24 +360,44 @@ class LlamaAttention(nn.Module):
             out = self._dense(q, k, v, attn_bias)
         return self._out(out), k, v
 
-    def decode_shared(self, x, positions, attn_bias, prompt_k, prompt_v, gen_k, gen_v,
-                      gen_index: int):
-        """One decode token over a split cache: the prompt segment (B, S_p,
-        hkv, D) and the generated segment (B, S_g, hkv, D), into which this
-        token's k/v are written in place at ``gen_index``. ``attn_bias``
-        (B, 1, 1, S_p + S_g) masks both segments."""
+    def decode_shared(self, x, positions, attn_bias, prompt: Dict[str, torch.Tensor],
+                      gen: Dict[str, torch.Tensor], gen_index: int):
+        """One decode token over a split cache: the prompt segment (k/v of
+        (B, S_p, hkv, D)) and the generated segment (B, S_g, hkv, D), into
+        which this token's k/v are written in place at ``gen_index``.
+        ``attn_bias`` (B, 1, 1, S_p + S_g) masks both segments.
+
+        An int8 segment carries ``k_scale``/``v_scale`` (B, S, hkv) bf16 and
+        is read without a dequantized copy (``llama.py:642-714`` of the JAX
+        package): the scores are ``fp32(q·bf16(kq)) · scale · k_scale``, the
+        softmax weights times ``v_scale`` in fp32, cast to the compute dtype
+        before the product with bf16(vq)."""
         q, k, v = self._qkv(x, positions)
-        gen_k[:, gen_index] = k[:, 0]
-        gen_v[:, gen_index] = v[:, 0]
+        _cache_write(gen, k, v, gen_index)
+        dtype = self.cfg.dtype
         scale = _attn_scale(self.cfg.head_dim, x.device)
-        lp = torch.einsum("bthd,bshd->bhts", q, self._rep(prompt_k)).float() * scale
-        lg = torch.einsum("bthd,bshd->bhts", q, self._rep(gen_k)).float() * scale
-        weights = torch.softmax(torch.cat([lp, lg], dim=-1) + attn_bias, dim=-1)
-        weights = weights.to(self.cfg.dtype)
-        s_p = prompt_k.shape[1]
-        out = torch.einsum("bhts,bshd->bthd", weights[..., :s_p], self._rep(prompt_v))
-        out = out + torch.einsum("bhts,bshd->bthd", weights[..., s_p:], self._rep(gen_v))
+
+        def scores(seg):
+            logits = torch.einsum("bthd,bshd->bhts", q, self._rep(seg["k"].to(dtype))).float()
+            logits = logits * scale
+            if "k_scale" in seg:
+                logits = logits * self._rep_scale(seg["k_scale"])
+            return logits
+
+        weights = torch.softmax(torch.cat([scores(prompt), scores(gen)], dim=-1) + attn_bias,
+                                dim=-1)
+        s_p = prompt["k"].shape[1]
+        out = 0
+        for seg, w in ((prompt, weights[..., :s_p]), (gen, weights[..., s_p:])):
+            if "v_scale" in seg:
+                w = w * self._rep_scale(seg["v_scale"])
+            out = out + torch.einsum("bhts,bshd->bthd", w.to(dtype),
+                                     self._rep(seg["v"].to(dtype)))
         return self._out(out)
+
+    def _rep_scale(self, scale: torch.Tensor) -> torch.Tensor:
+        """A (B, S, hkv) cache scale → (B, H, 1, S) fp32 against the scores."""
+        return self._rep(scale[..., None])[..., 0].float().permute(0, 2, 1)[:, :, None, :]
 
 
 class LlamaMLP(nn.Module):
@@ -264,19 +434,55 @@ class LlamaBlock(nn.Module):
         h, k, v = self.attn.prefill(self.input_norm(x), positions, attn_bias, key_valid)
         return self._mlp_residual(x + h), k, v
 
-    def decode_shared(self, x, positions, attn_bias, prompt_k, prompt_v, gen_k, gen_v,
-                      gen_index):
-        h = self.attn.decode_shared(self.input_norm(x), positions, attn_bias, prompt_k,
-                                    prompt_v, gen_k, gen_v, gen_index)
+    def decode_shared(self, x, positions, attn_bias, prompt, gen, gen_index):
+        h = self.attn.decode_shared(self.input_norm(x), positions, attn_bias, prompt, gen,
+                                    gen_index)
         return self._mlp_residual(x + h)
 
 
 def _make_cache(cfg: LlamaConfig, batch: int, max_len: int, device) -> Dict[str, torch.Tensor]:
+    """An empty cache, k/v (L, B, max_len, hkv, D) zeros in the compute
+    dtype, or with ``kv_quantize`` the int8 layout of the zeros: values 0
+    and every scale bf16(1e-6 / 127), as ``quantize_kv_cache`` gives them."""
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-    }
+    if cfg.kv_quantize:
+        zero_scale = (torch.tensor(1e-6, dtype=torch.float32) / 127.0).to(torch.bfloat16)
+        cache = {key: torch.zeros(shape, dtype=torch.int8, device=device) for key in ("k", "v")}
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.full(shape[:-1], zero_scale.item(), dtype=torch.bfloat16,
+                                    device=device)
+        return cache
+    return {key: torch.zeros(shape, dtype=cfg.dtype, device=device) for key in ("k", "v")}
+
+
+def _quantize_kv(arr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., h, d) → (int8 values, per-(..., h) bf16 scale): absmax / 127
+    over the head dim, the scale rounded to bf16 BEFORE the fp32 divide, so
+    that quantization and dequantization use the same value."""
+    amax = arr.float().abs().amax(dim=-1)
+    scale = (torch.clamp_min(amax, 1e-6) / 127.0).to(torch.bfloat16)
+    q = torch.clamp(torch.round(arr.float() / scale.float()[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_kv_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """{"k", "v"} → the int8 layout {"k", "v", "k_scale", "v_scale"}."""
+    kq, ks = _quantize_kv(cache["k"])
+    vq, vs = _quantize_kv(cache["v"])
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _cache_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+                 index: int) -> None:
+    """Write one token's k/v (B, 1, hkv, D) at slot ``index`` of a (B, S,
+    hkv, D) cache, in place; into an int8 cache quantized, with its scales
+    (the scalar-index path of the JAX ``_cache_write``)."""
+    if "k_scale" in cache:
+        new = quantize_kv_cache({"k": k, "v": v})
+    else:
+        new = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    for key, val in new.items():
+        cache[key][:, index] = val[:, 0]
 
 
 def _bias(valid: torch.Tensor) -> torch.Tensor:
@@ -358,7 +564,10 @@ class LlamaModel(nn.Module):
         """Prefill and capture the KV cache. Returns (logits, hidden,
         {"k","v"}: (L, B, max_cache_len, hkv, D), cache_mask (B,
         max_cache_len), next_positions (B,)). Positions follow HF left
-        padding: cumsum(mask) - 1."""
+        padding: cumsum(mask) - 1. With ``kv_quantize`` each layer's k/v are
+        quantized before padding and the cache also holds ``k_scale`` and
+        ``v_scale`` (L, B, max_cache_len, hkv); padding slots are 0, scales
+        included."""
         cfg = self.cfg
         b, t, _ = inputs_embeds.shape
         if t > max_cache_len:
@@ -368,19 +577,19 @@ class LlamaModel(nn.Module):
         attn_bias, key_valid = self._attention_masks(attention_mask)
 
         x = inputs_embeds.to(cfg.dtype)
-        ks: List[torch.Tensor] = []
-        vs: List[torch.Tensor] = []
+        pad = max_cache_len - t
+        layers: List[Dict[str, torch.Tensor]] = []
         for block in self.layer:
             x, k, v = block.prefill(x, positions, attn_bias, key_valid)
-            ks.append(k)
-            vs.append(v)
+            layer = {"k": k, "v": v}
+            if cfg.kv_quantize:
+                layer = quantize_kv_cache(layer)
+            # zero-pad the sequence axis (1): values and, int8, scales alike
+            layers.append({key: F.pad(val, (0, 0) * (val.dim() - 2) + (0, pad))
+                           for key, val in layer.items()})
         x = self.final_norm(x)
         logits = self.logits(x[:, -1:] if logits_last_only else x)
-        pad = max_cache_len - t
-        caches = {
-            name: F.pad(torch.stack(seq), (0, 0, 0, 0, 0, pad))
-            for name, seq in (("k", ks), ("v", vs))
-        }
+        caches = {key: torch.stack([layer[key] for layer in layers]) for key in layers[0]}
         cache_mask = F.pad(mask, (0, pad))
         return logits, x, caches, cache_mask, positions[:, -1] + 1
 
@@ -388,9 +597,9 @@ class LlamaModel(nn.Module):
         self,
         inputs_embeds: torch.Tensor,  # (B, 1, H)
         positions: torch.Tensor,  # (B, 1)
-        prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D), read-only
+        prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
         prompt_mask: torch.Tensor,  # (B, S_p)
-        gen_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_g, hkv, D), written in place
+        gen_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_g, hkv, D) [+ scales], written in place
         gen_index: int,
         gen_mask: torch.Tensor,  # (B, S_g), including the slot written now
     ) -> torch.Tensor:
@@ -410,7 +619,7 @@ class LlamaModel(nn.Module):
         x = inputs_embeds.to(self.cfg.dtype)
         for i, block in enumerate(self.layer):
             x = block.decode_shared(
-                x, positions, attn_bias, prompt_kv["k"][i], prompt_kv["v"][i],
-                gen_kv["k"][i], gen_kv["v"][i], gen_index,
+                x, positions, attn_bias, {key: val[i] for key, val in prompt_kv.items()},
+                {key: val[i] for key, val in gen_kv.items()}, gen_index,
             )
         return self.logits(self.final_norm(x))

@@ -11,7 +11,9 @@ Counterpart of ``msr3d_tpu/models/msr3d.py``:
   * ``MSR3D`` is the host side: prompt building with placeholder
     expansion, tokenization into 32-multiple buckets (prompts left-padded,
     answers with bos + eos right-padded), ``forward`` → per-sequence loss,
-    the greedy decode loop and detokenization, and the trainable set.
+    the greedy decode loop (over a bf16 or int8 KV cache) and
+    detokenization, the trainable set, and in-place weight-only
+    quantization of the LLM for serving (``quantize_llm``).
 
 Not ported yet (raise, see ROADMAP.md): beam search, requests with images.
 """
@@ -190,11 +192,21 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
     """Random weights of the JAX initialisers' kinds, drawn from
     ``generator``: Dense ~ N(0, 1/fan_in), Llama projections, embeddings
     and head ~ N(0, 0.02), LoRA A ~ He-uniform, LoRA B = 0, norms 1/0,
-    BatchNorm statistics 0/1, the orientation feature 0."""
+    BatchNorm statistics 0/1, the orientation feature 0.
+
+    A quantized projection draws the same N(0, 0.02) weight as its bf16
+    counterpart and quantizes it (the JAX initialiser's int8 zeros with
+    scale 1 would make a dead base), so a quantized model initialised from
+    a seed equals the bf16 one initialised from it, then quantized."""
     g = dict(generator=generator)
     for mod in network.modules():
         if isinstance(mod, LoraDense):
-            mod.weight.normal_(0.0, 0.02, **g)
+            if mod.bits:
+                weight = torch.empty((mod.out_features, mod.in_features), dtype=mod.param_dtype,
+                                     device=mod.weight_q.device).normal_(0.0, 0.02, **g)
+                mod.quantize_(mod.bits, mod.group, mod.act_quant, weight=weight)
+            else:
+                mod.weight.normal_(0.0, 0.02, **g)
             if mod.scale:
                 limit = math.sqrt(6.0 / mod.lora_a.shape[1])
                 mod.lora_a.uniform_(-limit, limit, **g)
@@ -269,6 +281,27 @@ class MSR3D:
         """Load the JAX package's flax variables (nested numpy dicts).
         Returns the JAX keys skipped as not on this path."""
         return load_jax_params(self.network, variables)
+
+    @torch.no_grad()
+    def quantize_llm(self, bits: int = 8, group: Optional[int] = None, *,
+                     act_quantize: bool = False, kv_quantize: bool = False) -> None:
+        """Quantize the LLM's base projections of an initialised or loaded
+        bf16/fp32 model in place, on its device, through
+        ``models/llm/convert.py::quantize_kernel`` (each projection's weight
+        is freed as its quantized form lands, so the peak is one projection
+        above the quantized model), and switch the config to the quantized
+        serving options."""
+        llm = dataclasses.replace(self.cfg.llm, quantize=True, quantize_bits=bits,
+                                  quantize_group=group, act_quantize=act_quantize,
+                                  kv_quantize=kv_quantize)
+        for mod in self.network.llm.modules():
+            if isinstance(mod, LoraDense):
+                mod.quantize_(bits, group, act_quantize)
+        self.cfg = dataclasses.replace(self.cfg, llm=llm)
+        self.network.cfg = self.cfg
+        for mod in self.network.llm.modules():
+            if hasattr(mod, "cfg"):
+                mod.cfg = llm
 
     # -- prompts -----------------------------------------------------------
 
@@ -400,7 +433,9 @@ class MSR3D:
             torch.as_tensor(attn, dtype=torch.int32, device=self.device),
             **scene, bos_id=self.tokenizer.bos_id, max_cache_len=input_ids.shape[1] + 1,
         )
-        gen_kv = _make_cache(self.cfg.llm, first.shape[0], max_new, self.device)
+        # the prompt cache is int8 with scales when the LLM's config says
+        # kv_quantize, and so is the generated segment
+        gen_kv = _make_cache(self.network.llm.cfg, first.shape[0], max_new, self.device)
 
         def decode_shared(token_ids, positions, gkv, gidx, gmask):
             return self.network.decode_step_shared(

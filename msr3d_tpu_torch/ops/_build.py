@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes plain C entry points (every pointer and
 the stream as ``void*``) and is compiled on its own with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` at the repository root. The library
-name carries a hash of the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. Nothing is built when a
+name carries a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited kernel is rebuilt and an unchanged one is
+loaded as it is. Nothing is built when a
 module is imported: the first launch builds, or :func:`build_all` builds
 every kernel at once with one ``nvcc`` process per source, all started
 together.
@@ -51,8 +52,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

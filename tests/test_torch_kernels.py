@@ -28,6 +28,8 @@ from msr3d_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from msr3d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_reference
+from msr3d_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_reference, pack_w4
+from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -92,6 +94,27 @@ def test_flash_backward_wrappers_take_plain_version_on_cpu():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _dequant_inputs(seed, b, k, n, bits, device):
+    """x (B, K) bf16, the weight (int8, or int4 packed by ``pack_w4``) and a
+    per-channel scale of the size quantization gives N(0, 0.02) weights."""
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.normal(size=(b, k)).astype(np.float32)).to(torch.bfloat16)
+    if bits == 8:
+        wq = torch.from_numpy(r.integers(-127, 128, size=(k, n)).astype(np.int8))
+        scale = r.uniform(0.5, 1.5, size=n) * 0.09 / 127
+    else:
+        wq = pack_w4(torch.from_numpy(r.integers(-8, 8, size=(k, n)).astype(np.int8)))
+        scale = r.uniform(0.5, 1.5, size=n) * 0.09 / 7
+    return x.to(device), wq.to(device), torch.from_numpy(scale.astype(np.float32)).to(device)
+
+
+def test_dequant_matmul_wrappers_take_plain_version_on_cpu():
+    x, wq, scale = _dequant_inputs(9, 3, 64, 40, 8, "cpu")
+    assert torch.equal(matmul_w8(x, wq, scale), matmul_w8_reference(x, wq, scale))
+    x, wq, scale = _dequant_inputs(9, 3, 64, 40, 4, "cpu")
+    assert torch.equal(matmul_w4(x, wq, scale), matmul_w4_reference(x, wq, scale))
+
+
 def test_kernel_wrappers_refuse_other_devices():
     meta = torch.empty((2, 8, 3), device="meta")
     with pytest.raises(ValueError):
@@ -103,6 +126,13 @@ def test_kernel_wrappers_refuse_other_devices():
     for bwd in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
         with pytest.raises(ValueError):
             bwd(q, q, q, q, rows, rows)
+    x = torch.empty((2, 8), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        matmul_w8(x, torch.empty((8, 4), dtype=torch.int8, device="meta"),
+                  torch.empty(4, device="meta"))
+    with pytest.raises(ValueError):
+        matmul_w4(x, torch.empty((4, 4), dtype=torch.int8, device="meta"),
+                  torch.empty(4, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +221,48 @@ def test_flash_backward_kernels_refuse_what_they_do_not_take(cuda_device):
     q32 = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError):
         flash_attention_bwd_dq(q32, q32, q32, q32, rows, rows)  # head dim 32
+
+
+def _dequant_tolerance(x, scale, want, bits):
+    """|kernel - plain| allowed: both take the same exact fp32 products in
+    other summation orders and round once to bf16, so one bf16 ulp (2^-7 of
+    the value) plus 1e-2 near 0. K4's plain version sums the +8-biased low
+    nibbles and subtracts 8·rowsum(x_lo) after, which the kernel does not:
+    the rounding of that larger biased sum is allowed for as 2^-16 of its
+    bound 16·Σ|x|, times the scale."""
+    tol = 1e-2 + 2.0 ** -7 * want.float().abs()
+    if bits == 4:
+        tol = tol + 2.0 ** -12 * x.float().abs().sum(1, keepdim=True) * scale.float().abs()
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b,k,n", [
+    (4, 4096, 4096),  # decode rows at a 7B shape
+    (16, 4096, 1000),  # N not a multiple of the 32-column tile
+    (1, 512, 1001),  # odd N: the byte-wise loads
+    (37, 256, 640),  # more rows than one 16-row tile
+])
+def test_dequant_matmul_kernels_match_plain_version(cuda_device, bits, b, k, n):
+    x, wq, scale = _dequant_inputs(b * n + bits, b, k, n, bits, cuda_device)
+    fns = {8: (matmul_w8, matmul_w8_reference), 4: (matmul_w4, matmul_w4_reference)}[bits]
+    got, want = fns[0](x, wq, scale), fns[1](x, wq, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n) and got.dtype == torch.bfloat16
+    assert bool(((got.float() - want.float()).abs() <= _dequant_tolerance(x, scale, want, bits)).all())
+
+
+@pytest.mark.cuda
+def test_dequant_matmul_kernels_refuse_what_they_do_not_take(cuda_device):
+    x = torch.zeros((2, 64), dtype=torch.bfloat16, device=cuda_device)
+    scale = torch.ones(32, device=cuda_device)
+    with pytest.raises(TypeError):
+        matmul_w8(x, torch.zeros((64, 32), device=cuda_device), scale)  # float weight
+    with pytest.raises(ValueError):
+        matmul_w8(x, torch.zeros((32, 64), dtype=torch.int8, device=cuda_device).t(), scale)
+    with pytest.raises(ValueError):
+        matmul_w4(x, torch.zeros((32, 32), dtype=torch.int8, device=cuda_device), scale.cpu())
 
 
 # ---------------------------------------------------------------------------

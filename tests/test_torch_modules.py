@@ -160,9 +160,14 @@ def test_converter_lists_skipped_keys_and_rejects_unknown():
 
 def test_unported_llama_options_raise():
     with pytest.raises(NotImplementedError):
-        torch_llama_config(JaxLlamaConfig.tiny(quantize=True))
+        torch_llama_config(JaxLlamaConfig.tiny(sp_axis="sp"))
     with pytest.raises(NotImplementedError):
-        torch_llama_config(JaxLlamaConfig.tiny(), kv_quantize=True)
+        torch_llama_config(JaxLlamaConfig.tiny(), remat=True)
+    # the quantization options are ported, and carried over field by field
+    cfg = torch_llama_config(JaxLlamaConfig.tiny(quantize=True, quantize_bits=4,
+                                                 kv_quantize=True))
+    assert (cfg.quantize, cfg.quantize_bits, cfg.quantize_group, cfg.kv_quantize) == (
+        True, 4, None, True)
     with pytest.raises(NotImplementedError):
         OSE3DSituation(dataclasses.replace(torch_prompter_config(TINY_PROMPTER),
                                            situation_type="as_object"))
