@@ -7,7 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 It builds the hand-written CUDA kernels from ``msr3d_tpu_torch/csrc`` with
 ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and holds each
 kernel against its plain PyTorch version at the shapes of the main paths
-(phases 2, 3, 5 and 7). Then it drives the port's paths at the flagship
+(phases 2, 3, 5 and 7; phase 5 times K2dq, K2dkv and the library's backward
+L2-warm and from HBM, and the whole body of ``FlashAttention.backward``).
+Then it drives the port's paths at the flagship
 width (OSE3D prompter: 60 objects x 1024 points; Vicuna-7B-geometry Llama,
 bf16, LoRA r16 on all seven projections, flash attention) with random
 weights from a seed: greedy ``MSR3D.generate`` (phase 4), two optimizer
@@ -29,11 +31,13 @@ import dataclasses
 import gc
 import itertools
 import json
+import re
 import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -124,6 +128,43 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_rows(prof):
+    """(device ms, launches, name) of every kernel in a ``torch.profiler``
+    profile; ops are left out, they would count their kernels twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append((dev_us / 1e3, ev.count, ev.key))
+    return rows
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn``: the summed durations of the
+    kernels it launches, from ``torch.profiler``, over ``iters`` calls. Unlike
+    an event loop it holds no host time, so it is right for a kernel shorter
+    than its wrapper's Python (some tens of microseconds)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ms for ms, _, _ in kernel_rows(prof))
+    if total <= 0:
+        raise SmokeFailure("torch.profiler recorded no device time")
+    return total / iters
+
+
 def rotating(fn, operands):
     """``fn`` on the next set of ``operands`` at each call, round and round."""
     it = itertools.cycle(operands)
@@ -166,10 +207,28 @@ def phase_card_and_build():
     print(f"  built {[p.name for p in paths]} in {time.perf_counter() - t0:.1f} s")
     for name in sources:
         log = (_build.BUILD_DIR / f"{name}.log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+        if not log.exists():
+            continue
+        entry, spills = "", []
+        for line in log.read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = kernel_label(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.strip().replace('ptxas info    : ', '')}")
+                if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    spills.append(entry)
+        if name == "flash_attn_bwd":
+            check(not spills, f"no register spills in K2dq and K2dkv {spills or ''}")
+
+
+def kernel_label(mangled: str) -> str:
+    """A mangled template instantiation as 'kernel<type, ints>', enough to
+    tell the ptxas lines apart."""
+    m = re.search(r"[a-z_]+_kernel", mangled)
+    name = m.group(0).lstrip("_") if m else mangled[:40]
+    dtype = "bf16" if "bfloat16" in mangled else "fp16" if "6__half" in mangled else ""
+    ints = re.findall(r"Li(\d+)E", mangled)
+    return f"{name}<{', '.join(filter(None, [dtype, *ints]))}>"
 
 
 def phase_fps(dev):
@@ -324,7 +383,9 @@ def phase_flash_backward(dev):
     print("== phase 5: K2dq and K2dkv (flash-attention backward) against their plain version")
     import torch.nn.functional as F
 
+    from msr3d_tpu_torch.ops import _build
     from msr3d_tpu_torch.ops.flash_attention import (
+        FlashAttention,
         flash_attention,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_reference,
@@ -351,6 +412,10 @@ def phase_flash_backward(dev):
                                        (17, 0, 5, 40)),
         "GQA n_rep=4": make(2, 300, 300, 32, 8, 128, torch.bfloat16, (0, 33)),
         "ragged T=100 S=333 D=64 fp16": make(2, 100, 333, 8, 8, 64, torch.float16, (3, 70)),
+        # more query rows than keys, and a batch row without any valid key
+        "T=333 S=100 D=128 fp16": make(2, 333, 100, 4, 4, 128, torch.float16, (3, 70)),
+        "T=70 S=70, one batch row all invalid": make(3, 70, 70, 4, 2, 128, torch.bfloat16,
+                                                     (0, 5, 70)),
     }
     worst = 0.0
     for name, inputs in cases.items():
@@ -363,48 +428,95 @@ def phase_flash_backward(dev):
         check(res["zeros"], f"dq of rows without a valid key and dk/dv of keys no query "
                             f"reaches are exactly 0 ({name})")
 
+    occupancy = _build.load_library("flash_attn_bwd").flash_attn_bwd_blocks_per_sm
+    blocks = {name: occupancy(which) for which, name in enumerate(("K2dq", "K2dkv"))}
+    print(f"  blocks of 4 warps an SM at D 128 bf16, by the runtime's occupancy calculation: "
+          f"{blocks}")
+    check(min(blocks.values()) >= 2, "two blocks of K2dq and of K2dkv share an SM")
+
     q, k, v, do, lse, delta, valid = cases["path 4x256x32x128 bf16"]
     args = (q, k, v, do, lse, delta)
-    dq_ms = time_ms(lambda: flash_attention_bwd_dq(*args, key_valid=valid), iters=50)
-    dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(*args, key_valid=valid), iters=50)
+
+    def dq_fn(*a):
+        return flash_attention_bwd_dq(*a, key_valid=valid)
+
+    def dkv_fn(*a):
+        return flash_attention_bwd_dkv(*a, key_valid=valid)
+
+    # three timings of each kernel: the event loop as before (it holds the
+    # wrapper's Python, which outlasts these kernels), the kernel's own device
+    # time on one L2-warm operand set, and on sets rotating past the L2
+    sets = past_l2(*args)
+    dq_loop = time_ms(lambda: dq_fn(*args), iters=50)
+    dkv_loop = time_ms(lambda: dkv_fn(*args), iters=50)
+    dq_warm = device_ms(lambda: dq_fn(*args), iters=50)
+    dkv_warm = device_ms(lambda: dkv_fn(*args), iters=50)
+    dq_ms = device_ms(rotating(dq_fn, sets), iters=6 * len(sets))
+    dkv_ms = device_ms(rotating(dkv_fn, sets), iters=6 * len(sets))
     dq_plain = time_ms(lambda: flash_attention_bwd_dq_reference(*args, key_valid=valid))
     dkv_plain = time_ms(lambda: flash_attention_bwd_dkv_reference(*args, key_valid=valid))
 
     b, t, hq, d = q.shape
     mask = torch.ones((t, t), dtype=torch.bool, device=dev).tril()[None, None] \
         & valid[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # outside the timing
-    dout = do.transpose(1, 2)
 
-    def library():
-        return torch.autograd.grad(out, (qt, kt, vt), dout, retain_graph=True)
+    def library_on(q_, k_, v_, do_, *_):
+        """SDPA's backward on one operand set: the forward outside the timing."""
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q_, k_, v_))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dout = do_.transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (qt, kt, vt), dout, retain_graph=True)
 
-    library_ms = time_ms(library, iters=50)
+    library = library_on(*args)
+    library_loop = time_ms(library, iters=50)
+    library_warm = device_ms(library, iters=50)
+    library_sets = [library_on(*ops) for ops in sets]
+    library_ms = device_ms(rotating(lambda fn: fn(), [(fn,) for fn in library_sets]),
+                           iters=6 * len(sets))
     backend = sdpa_backend(library)
+    del library_sets, sets
 
     pairs = mask[:, 0].sum().item() * hq  # unmasked (row, key) pairs over batch and heads
     elem = q.element_size()
     reads = (2 * q.numel() + k.numel() + v.numel()) * elem + 2 * b * hq * t * 4 + valid.numel()
     dq_bound = bound(reads + q.numel() * elem, pairs * 3 * 2 * d, H100_BF16_FLOPS)
     dkv_bound = bound(reads + 2 * b * t * hq * d * elem, pairs * 4 * 2 * d, H100_BF16_FLOPS)
-    print(f"  K2dq at the path shape: {dq_ms:.4f} ms, plain {dq_plain:.4f} ms, bound "
-          f"{dq_bound[0]:.6f} ms ({dq_bound[1]})")
-    print(f"  K2dkv at the path shape: {dkv_ms:.4f} ms, plain {dkv_plain:.4f} ms, bound "
+    print(f"  K2dq at the path shape: {dq_ms:.4f} ms from HBM, {dq_warm:.4f} ms L2-warm (device "
+          f"time of the kernel), {dq_loop:.4f} ms a call in an event loop; plain {dq_plain:.4f} "
+          f"ms, bound {dq_bound[0]:.6f} ms ({dq_bound[1]})")
+    print(f"  K2dkv at the path shape: {dkv_ms:.4f} ms from HBM, {dkv_warm:.4f} ms L2-warm, "
+          f"{dkv_loop:.4f} ms a call in an event loop; plain {dkv_plain:.4f} ms, bound "
           f"{dkv_bound[0]:.6f} ms ({dkv_bound[1]})")
-    print(f"  the pair {dq_ms + dkv_ms:.4f} ms; SDPA backward (boolean mask, backend: "
-          f"{backend}) {library_ms:.4f} ms for dq, dk and dv together")
+    print(f"  the pair {dq_ms + dkv_ms:.4f} ms from HBM, {dq_warm + dkv_warm:.4f} ms L2-warm; SDPA "
+          f"backward (boolean mask, backend: {backend}) for dq, dk and dv together "
+          f"{library_ms:.4f} ms from HBM, {library_warm:.4f} ms L2-warm (device time of its "
+          f"kernels), {library_loop:.4f} ms a call in an event loop")
+
+    # the whole body of FlashAttention.backward: delta, K2dq, K2dkv and the
+    # GQA group-sum, on the saved tensors of a forward
+    whole = {}
+    for name in ("path 4x256x32x128 bf16", "GQA n_rep=4"):
+        q, k, v, do, lse, _, valid = cases[name]
+        ctx = SimpleNamespace(saved_tensors=(q, k, v, valid, flash_attention(
+            q, k, v, key_valid=valid)[0], lse))
+        whole[name] = (device_ms(lambda: FlashAttention.backward(ctx, do), iters=50),
+                       time_ms(lambda: FlashAttention.backward(ctx, do), iters=50))
+        print(f"  FlashAttention.backward, whole body ({name}): {whole[name][0]:.4f} ms of device "
+              f"time L2-warm (delta, K2dq, K2dkv, group-sum), {whole[name][1]:.4f} ms a call in "
+              f"an event loop")
+    whole_ms = whole["path 4x256x32x128 bf16"][0]
+    shared = dict(library_ms=library_ms, library_ms_warm=library_warm, max_abs_err=worst,
+                  whole_backward_ms_warm=whole_ms, blocks_per_sm=min(blocks.values()))
     return (
-        dict(ms=dq_ms, plain_ms=dq_plain, bound_ms=dq_bound[0], bound_by=dq_bound[1],
-             library_ms=library_ms, max_abs_err=worst),
-        dict(ms=dkv_ms, plain_ms=dkv_plain, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
-             library_ms=library_ms, max_abs_err=worst),
+        dict(ms=dq_ms, ms_warm=dq_warm, ms_warm_event_loop=dq_loop, plain_ms=dq_plain,
+             bound_ms=dq_bound[0], bound_by=dq_bound[1], **shared),
+        dict(ms=dkv_ms, ms_warm=dkv_warm, ms_warm_event_loop=dkv_loop, plain_ms=dkv_plain,
+             bound_ms=dkv_bound[0], bound_by=dkv_bound[1], **shared),
     )
 
 
 def sdpa_backend(fn) -> str:
     """Which of PyTorch's attention backends ``fn`` ran, from its kernels' names."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -412,8 +524,7 @@ def sdpa_backend(fn) -> str:
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = " ".join(ev.key.lower() for ev in prof.key_averages()
-                     if ev.device_type == DeviceType.CUDA)
+    names = " ".join(name.lower() for _, _, name in kernel_rows(prof))
     for tag, label in (("cudnn", "cuDNN"), ("flash", "flash"),
                        ("fmha", "memory-efficient (CUTLASS fmha)"),
                        ("efficient", "memory-efficient")):
@@ -563,7 +674,6 @@ def phase_generate(model, dev, profile: bool):
 def profile_device(what: str, fn) -> None:
     """Device time by kernel over one call of ``fn`` (``--profile``), and the
     device's busy share of its wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -573,20 +683,14 @@ def profile_device(what: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # kernels only; ops would count them twice
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = sorted(kernel_rows(prof), reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"  profile: {what} {wall:.2f} ms wall, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
-    for ms, count, key in rows[:12]:
-        print(f"    {ms:9.3f} ms {count:6d}x  {key[:100]}")
+    # the twelve longest, and the port's own kernels wherever they rank
+    for rank, (ms, count, key) in enumerate(rows):
+        if rank < 12 or any(tag in key for tag in ("flash_", "fps_kernel", "matmul_kernel")):
+            print(f"    {ms:9.3f} ms {count:6d}x  {key[:100]}")
 
 
 def make_train_batches(n: int):
@@ -1131,20 +1235,29 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     t0 = time.perf_counter()
+    def timed(phase, *args):
+        """Run one phase and print the seconds it took, so a growing script
+        shows where its time limit goes."""
+        start = time.perf_counter()
+        out = phase(*args)
+        torch.cuda.synchronize()
+        print(f"  {phase.__name__} took {time.perf_counter() - start:.1f} s")
+        return out
+
     try:
-        phase_card_and_build()
-        fps_row = phase_fps(dev)
-        flash_row = phase_flash(dev)
-        dq_row, dkv_row = phase_flash_backward(dev)
-        phase_dequant(dev)
+        timed(phase_card_and_build)
+        fps_row = timed(phase_fps, dev)
+        flash_row = timed(phase_flash, dev)
+        dq_row, dkv_row = timed(phase_flash_backward, dev)
+        timed(phase_dequant, dev)
         model = build_flagship_model(dev)
-        launches = phase_generate(model, dev, profile)
+        launches = timed(phase_generate, model, dev, profile)
         shutil.rmtree(exp_root, ignore_errors=True)
-        train_launches = phase_train(model, dev, exp_root, profile)
+        train_launches = timed(phase_train, model, dev, exp_root, profile)
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        quantized = phase_quantized(dev, profile)
+        quantized = timed(phase_quantized, dev, profile)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

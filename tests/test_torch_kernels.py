@@ -31,6 +31,15 @@ from msr3d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample
 from msr3d_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_reference, pack_w4
 from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference
 
+from torch_flash_bwd_model import (
+    CASE_IDS,
+    CASES,
+    kernel_model_backward,
+    make_case,
+    split16,
+    torch_inputs,
+)
+
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -92,6 +101,62 @@ def test_flash_backward_wrappers_take_plain_version_on_cpu():
                  flash_attention_bwd_dkv_reference(*args, key_valid=valid))
     assert got[0].shape == (2, 9, 4, 16)  # per q head, group-summed by the caller
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _live_rows_and_keys(valid, t):
+    """(B, T) query rows with a valid key at or before them, and (B, S) valid
+    keys that some query row reaches; the backward leaves the others at 0."""
+    s = valid.shape[1]
+    causal = torch.ones((t, s), dtype=torch.bool, device=valid.device).tril()
+    has_key = (causal[None] & valid[:, None, :]).any(-1)
+    reached = valid & (torch.arange(s, device=valid.device) < t)
+    return has_key, reached
+
+
+def _assert_backward_matches_plain(got, inputs):
+    """(dq, dk, dv) against the plain versions: 16-bit outputs of the same
+    fp32 sums in another order, one ulp apart at most (2^-7 of the value in
+    bf16), 1e-2 absolute near zero; rows without a valid key and keys no query
+    reaches exactly 0."""
+    q, k, v, do, lse, delta, valid = inputs
+    args = (q, k, v, do, lse, delta)
+    want_dq = flash_attention_bwd_dq_reference(*args, key_valid=valid)
+    want_dk, want_dv = flash_attention_bwd_dkv_reference(*args, key_valid=valid)
+    for g, want in zip(got, (want_dq, want_dk, want_dv)):
+        assert g.dtype == want.dtype and bool(torch.isfinite(g.float()).all())
+        torch.testing.assert_close(g.float(), want.float(), atol=1e-2, rtol=1e-2)
+    has_key, reached = _live_rows_and_keys(valid, q.shape[1])
+    assert bool((got[0][~has_key] == 0).all())
+    assert bool((got[1][~reached] == 0).all()) and bool((got[2][~reached] == 0).all())
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_flash_backward_kernel_arithmetic_matches_plain_version(case):
+    """The kernels' arithmetic (p and ds as hi + lo 16-bit parts, products
+    accumulated in fp32, one rounding of each gradient), modelled in plain
+    PyTorch, against the plain versions K2dq and K2dkv are held to."""
+    inputs = torch_inputs(case, make_case(case))
+    _assert_backward_matches_plain(kernel_model_backward(*inputs), inputs)
+    if case[0].endswith("row-without-valid-key"):
+        dq, dk, dv = kernel_model_backward(*inputs)
+        assert bool((dq[1] == 0).all()) and bool((dk[1] == 0).all()) and bool((dv[1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2.0 ** -17), (torch.float16, 2.0 ** -23)],
+                         ids=["bf16", "fp16"])
+def test_hi_lo_split_carries_fp32(dtype, rel):
+    """hi + lo reproduces an fp32 value to 2^-17 relative in bf16 (each part
+    rounds to 8 bits: 2^-9 of 2^-9) and 2^-23 in fp16 (11 bits each), plus
+    2^-25 absolute where fp16's lo part underflows; one rounding alone keeps
+    2^-9 (bf16) or 2^-12 (fp16)."""
+    r = np.random.default_rng(3)
+    x = torch.from_numpy((r.normal(size=4096) * 10.0 ** r.uniform(-4, 1, size=4096))
+                         .astype(np.float32))
+    hi, lo = split16(x, dtype)
+    err = (x.double() - (hi.double() + lo.double())).abs()
+    assert bool((err <= rel * x.double().abs() + 2.0 ** -25).all())
+    one = (x.double() - hi.double()).abs()
+    assert bool((err <= one).all()) and float(one.max()) > 100 * float(err.max())
 
 
 def _dequant_inputs(seed, b, k, n, bits, device):
@@ -190,24 +255,23 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,n_rep", [(torch.bfloat16, 128, 1), (torch.float16, 64, 4)])
-def test_flash_backward_kernels_match_plain_version(cuda_device, dtype, d, n_rep):
-    b, t, hkv = 2, 150, 4
-    q, k, v, do, lse, delta, valid = _bwd_inputs(0, b, t, t, hkv * n_rep, hkv, d, dtype,
-                                                 cuda_device, pads=(0, 20))
+@pytest.mark.parametrize("dtype,d,n_rep,t,s,pads", [
+    (torch.bfloat16, 128, 1, 150, 150, (0, 20)),  # T not a multiple of the 64-row tile
+    (torch.float16, 64, 4, 150, 150, (0, 20)),
+    (torch.bfloat16, 128, 4, 100, 333, (3, 70)),  # S > T: key tiles no query reaches
+    (torch.float16, 128, 2, 333, 100, (3, 70)),  # T > S: query tiles past the last key
+    (torch.bfloat16, 64, 2, 70, 70, (0, 70)),  # a batch row without any valid key
+], ids=["bf16-D128", "fp16-D64-gqa", "S-over-T", "T-over-S", "row-without-valid-key"])
+def test_flash_backward_kernels_match_plain_version(cuda_device, dtype, d, n_rep, t, s, pads):
+    b, hkv = 2, 4
+    inputs = _bwd_inputs(0, b, t, s, hkv * n_rep, hkv, d, dtype, cuda_device, pads=pads)
+    q, k, v, do, lse, delta, valid = inputs
     args = (q, k, v, do, lse, delta)
     dq = flash_attention_bwd_dq(*args, key_valid=valid)
     dk, dv = flash_attention_bwd_dkv(*args, key_valid=valid)
-    want_dq = flash_attention_bwd_dq_reference(*args, key_valid=valid)
-    want_dk, want_dv = flash_attention_bwd_dkv_reference(*args, key_valid=valid)
     torch.cuda.synchronize()
-    # 16-bit outputs of the same fp32 sums in another order: one ulp apart at
-    # most (2^-7 of the value in bf16), 1e-2 absolute near zero
-    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
-        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
-    # no valid key → dq exactly 0; invalid keys → dk = dv = 0 exactly
-    assert bool((dq[1, :20] == 0).all())
-    assert bool((dk[1, :20] == 0).all()) and bool((dv[1, :20] == 0).all())
+    assert dk.shape == (b, s, hkv * n_rep, d)  # per q head, group-summed by the caller
+    _assert_backward_matches_plain((dq, dk, dv), inputs)
 
 
 @pytest.mark.cuda

@@ -38,6 +38,7 @@ from msr3d_tpu_torch.models.msr3d import (
     sequence_ce_loss_windowed,
 )
 from msr3d_tpu_torch.ops.flash_attention import (
+    _group_sum,
     flash_attention,
     flash_attention_backward_reference,
     flash_attention_train,
@@ -45,6 +46,7 @@ from msr3d_tpu_torch.ops.flash_attention import (
 from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
 from msr3d_tpu_torch.trainer.train_state import merge_learnable
 
+from torch_flash_bwd_model import CASE_IDS, CASES, kernel_model_backward, make_case, torch_inputs
 from torch_parity_utils import TINY_PROMPTER, perturbed, scene_inputs, torch_network_config
 
 SCENE_TOKENS = 6
@@ -100,6 +102,42 @@ def test_flash_backward_matches_jax_vjp():
     assert bool((dq[1, :5] == 0).all())
     assert bool((dk[1, :5] == 0).all()) and bool((dv[1, :5] == 0).all())
     assert bool((dk[0, 7] == 0).all()) and bool((dv[0, 7] == 0).all())
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_flash_backward_kernel_arithmetic_matches_jax_kernels(case):
+    """The CUDA kernels' arithmetic (p and ds as hi + lo 16-bit parts, see
+    ``torch_flash_bwd_model``) against the JAX package's own backward kernels
+    in Pallas interpret mode, on 16-bit inputs. Both keep fp32 sums of exact
+    products and round each gradient once to the 16-bit dtype, so they land
+    one ulp apart at most (2^-7 of the value in bf16) plus 1e-2 near zero:
+    the tolerance the kernels are held to on the card. The JAX side sums the
+    GQA group after rounding per q head, as the port does."""
+    arrays = make_case(case)
+    q, k, v, do, valid = arrays
+    jdtype = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[case[1]]
+
+    def f(q_, k_, v_):
+        return jax_flash_attention(q_, k_, v_, key_valid=jnp.asarray(valid), block_q=16,
+                                   block_k=16, interpret=True)
+
+    out_j, vjp = jax.vjp(f, *(jnp.asarray(x).astype(jdtype) for x in (q, k, v)))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do).astype(jdtype))]
+
+    # delta from the JAX forward's 16-bit output, as its backward takes it
+    inputs = torch_inputs(case, arrays, out=np.asarray(out_j.astype(jnp.float32)))
+    dq, dk, dv = kernel_model_backward(*inputs)
+    hkv = k.shape[2]
+    got = (dq, _group_sum(dk, hkv), _group_sum(dv, hkv))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.float().numpy(), w, atol=1e-2, rtol=1e-2, err_msg=name)
+    # the contract's exact zeros, on both sides
+    t = q.shape[1]
+    has_key = (np.tril(np.ones((t, valid.shape[1]), bool))[None] & valid[:, None, :]).any(-1)
+    dead_key = ~(valid & (np.arange(valid.shape[1]) < t))
+    assert not want[0][~has_key].any() and not dq.float().numpy()[~has_key].any()
+    for g, w in zip(got[1:], want[1:]):
+        assert not w[dead_key].any() and not g.float().numpy()[dead_key].any()
 
 
 # ---------------------------------------------------------------------------
