@@ -7,8 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 It builds the hand-written CUDA kernels from ``msr3d_tpu_torch/csrc`` with
 ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and holds each
 kernel against its plain PyTorch version at the shapes of the main paths
-(phases 2, 3, 5 and 7; phase 5 times K2dq, K2dkv and the library's backward
-L2-warm and from HBM, and the whole body of ``FlashAttention.backward``).
+(phases 2, 3, 5 and 7; phases 3 and 5 time K2f, K2dq, K2dkv and the
+library's forward and backward L2-warm and from HBM, and the whole body of
+``FlashAttention.backward``).
 Then it drives the port's paths at the flagship
 width (OSE3D prompter: 60 objects x 1024 points; Vicuna-7B-geometry Llama,
 bf16, LoRA r16 on all seven projections, flash attention) with random
@@ -148,21 +149,28 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call of ``fn``: the summed durations of the
     kernels it launches, from ``torch.profiler``, over ``iters`` calls. Unlike
     an event loop it holds no host time, so it is right for a kernel shorter
-    than its wrapper's Python (some tens of microseconds)."""
+    than its wrapper's Python (some tens of microseconds). Now and then a
+    profile on the H100 comes back without device events (once, in phase 5,
+    in this script's runs so far); it is then taken again, and after three
+    empty ones the mean time by CUDA events stands in, with a note in the
+    log."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ms for ms, _, _ in kernel_rows(prof))
-    if total <= 0:
-        raise SmokeFailure("torch.profiler recorded no device time")
-    return total / iters
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ms for ms, _, _ in kernel_rows(prof))
+        if total > 0:
+            return total / iters
+        print("  torch.profiler recorded no device time; profiling again")
+    print("  three empty profiles: this time is by CUDA events, which hold host time")
+    return time_ms(fn, iters, warmup=0)
 
 
 def rotating(fn, operands):
@@ -217,8 +225,9 @@ def phase_card_and_build():
                 print(f"  ptxas {name} {entry}: {line.strip().replace('ptxas info    : ', '')}")
                 if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                     spills.append(entry)
-        if name == "flash_attn_bwd":
-            check(not spills, f"no register spills in K2dq and K2dkv {spills or ''}")
+        if name.startswith("flash_attn"):
+            which = "K2f" if name == "flash_attn_fwd" else "K2dq and K2dkv"
+            check(not spills, f"no register spills in {which} {spills or ''}")
 
 
 def kernel_label(mangled: str) -> str:
@@ -295,6 +304,7 @@ def phase_flash(dev):
     print("== phase 3: K2f (flash-attention forward) against its plain version")
     import torch.nn.functional as F
 
+    from msr3d_tpu_torch.ops import _build
     from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -313,6 +323,12 @@ def phase_flash(dev):
         "path 4x225x32x128 bf16": make(4, 225, 225, 32, 32, 128, torch.bfloat16, path_pads),
         "GQA n_rep=4": make(2, 300, 300, 32, 8, 128, torch.bfloat16, (0, 33)),
         "ragged T=100 S=333 D=64 fp16": make(2, 100, 333, 8, 8, 64, torch.float16, (3, 70)),
+        # a left pad over a whole 64-key tile: rows whose first key tile is all masked
+        "pad 70 > 64, T=S=150 D=64": make(2, 150, 150, 8, 2, 64, torch.bfloat16, (70, 0)),
+        # more query rows than keys, and a batch row without any valid key
+        "T=333 S=100 D=128 fp16": make(2, 333, 100, 4, 4, 128, torch.float16, (3, 70)),
+        "T=70 S=70, one batch row all invalid": make(3, 70, 70, 4, 2, 128, torch.bfloat16,
+                                                     (0, 5, 70)),
     }
     worst = 0.0
     for name, (q, k, v, valid) in cases.items():
@@ -326,13 +342,34 @@ def phase_flash(dev):
               f"K2f within tolerance ({name})")
         check(res["zeros"], f"K2f rows without a valid key are exactly 0 ({name})")
 
+    blocks = _build.load_library("flash_attn_fwd").flash_attn_fwd_blocks_per_sm()
+    print(f"  blocks of K2f an SM at D 128 bf16, by the runtime's occupancy calculation: {blocks}")
+    check(blocks >= 2, "two blocks of K2f share an SM")
+
     q, k, v, valid = cases["path 4x225x32x128 bf16"]
-    ms = time_ms(lambda: flash_attention(q, k, v, key_valid=valid), iters=50)
-    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, key_valid=valid))
     t = q.shape[1]
     mask = torch.ones((t, t), dtype=torch.bool, device=dev).tril()[None, None] & valid[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters=50)
+
+    def k2f(q_, k_, v_):
+        return flash_attention(q_, k_, v_, key_valid=valid)
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_.transpose(1, 2), k_.transpose(1, 2),
+                                              v_.transpose(1, 2), attn_mask=mask)
+
+    # three timings of each: a call in an event loop (it holds the wrapper's
+    # Python, which outlasts the kernel), the kernels' own device time on one
+    # L2-warm operand set, and on sets rotating past the L2
+    sets = past_l2(q, k, v)
+    loop_ms = time_ms(lambda: k2f(q, k, v), iters=50)
+    warm_ms = device_ms(lambda: k2f(q, k, v), iters=50)
+    ms = device_ms(rotating(k2f, sets), iters=6 * len(sets))
+    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, key_valid=valid))
+    library_loop = time_ms(lambda: sdpa(q, k, v), iters=50)
+    library_warm = device_ms(lambda: sdpa(q, k, v), iters=50)
+    library_ms = device_ms(rotating(sdpa, sets), iters=6 * len(sets))
+    backend = sdpa_backend(lambda: sdpa(q, k, v))
+    del sets
     b, _, hq, d = q.shape
     pairs = (mask[:, 0].sum().item()) * hq  # unmasked (row, key) pairs over batch and heads
     # q, k, v and key_valid read once; the output and lse written once
@@ -340,10 +377,15 @@ def phase_flash(dev):
         + b * hq * t * 4
     flops = pairs * 4 * d  # q.k and p.v, 2 flops per multiply-add
     b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
-    print(f"  K2f at the path shape: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA {library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, max_abs_err=worst)
+    print(f"  K2f at the path shape: {ms:.4f} ms from HBM, {warm_ms:.4f} ms L2-warm (device time "
+          f"of the kernel), {loop_ms:.4f} ms a call in an event loop; plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by})")
+    print(f"  SDPA forward (boolean mask, backend: {backend}): {library_ms:.4f} ms from HBM, "
+          f"{library_warm:.4f} ms L2-warm (device time of its kernels), {library_loop:.4f} ms a "
+          f"call in an event loop")
+    return dict(ms=ms, ms_warm=warm_ms, ms_warm_event_loop=loop_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                library_ms_warm=library_warm, max_abs_err=worst, blocks_per_sm=blocks)
 
 
 def bwd_against_plain(q, k, v, do, lse, delta, valid, kernels):
@@ -615,6 +657,7 @@ def phase_generate(model, dev, profile: bool):
 
         encode_ms = wall_ms(lambda: net.visual_prompter(**scene))
         prefill_ms = wall_ms(prefill)
+        prefill_device = device_ms(prefill, iters=3, warmup=1)  # its kernels' summed time
         tokens_k = net.visual_prompter(**scene)["obj_tokens"]
         with mock.patch.object(pointnet, "fps", lambda xyz, m: furthest_point_sample_reference(
                 xyz.float().contiguous(), m)):
@@ -663,9 +706,9 @@ def phase_generate(model, dev, profile: bool):
                    else NEW_TOKENS for row in tokens]
     decode_steps = max(1, min(NEW_TOKENS, max(finished_at) + 1) - 1)
     decode_ms = (gen_ms - prefill_ms) / decode_steps
-    print(f"  scene encode {encode_ms:.2f} ms, prefill (encode included) {prefill_ms:.2f} ms, "
-          f"decode {decode_ms:.2f} ms/token over {decode_steps} steps, "
-          f"generate {gen_ms:.2f} ms, {N_REQUESTS / gen_ms * 1e3:.3f} QA/s")
+    print(f"  scene encode {encode_ms:.2f} ms, prefill (encode included) {prefill_ms:.2f} ms "
+          f"({prefill_device:.3f} ms of device time), decode {decode_ms:.2f} ms/token over "
+          f"{decode_steps} steps, generate {gen_ms:.2f} ms, {N_REQUESTS / gen_ms * 1e3:.3f} QA/s")
     if profile:
         profile_device("generate", lambda: model.generate(dict(data), use_beam=False))
     return launches

@@ -9,10 +9,12 @@ Replaces ``msr3d_tpu/ops/flash_attention.py``: ``_fwd_kernel`` (wrapper
 (q, k, v, o and their gradients cross device memory once), so the designs
 keep the (T, S) scores and probabilities on chip: one block per 64-row
 query tile (K2f, K2dq) or 64-key tile (K2dkv) streams the other side's
-tiles through shared memory and skips tiles above the causal diagonal. K2f
-runs q·kᵀ on the tensor cores; K2dq and K2dkv run all five products of the
-backward there (``mma.sync``, scores kept in registers, p and ds split into
-hi + lo 16-bit parts so the products keep fp32's accuracy; see the sources).
+tiles through shared memory and skips tiles above the causal diagonal. All
+three run their products on the tensor cores (``mma.sync``) with the scores
+kept in registers: K2f's q·kᵀ and p·v, with p rounded to the value dtype as
+the TPU kernel rounds it, and the five products of the backward, with p and
+ds split into hi + lo 16-bit parts so they keep fp32's accuracy (see the
+sources).
 
 Contract (the Pallas kernel's, as the model calls it): causal by absolute
 row/col index ∧ ``key_valid`` (B, S), scale 1/√D; scores and accumulators fp32; probabilities cast to

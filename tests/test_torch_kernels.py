@@ -39,6 +39,7 @@ from torch_flash_bwd_model import (
     split16,
     torch_inputs,
 )
+from torch_flash_fwd_model import forward_inputs, kernel_model_forward
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -71,6 +72,36 @@ def test_flash_wrapper_takes_plain_version_on_cpu():
     got = flash_attention(q, q, q)
     want = flash_attention_reference(q, q, q)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# K2f against its plain version: |out - plain| <= FLASH_ATOL + FLASH_RTOL * |plain|.
+# Both round to bf16/fp16 (p at another point, the output once); one bf16 ulp
+# is up to 2^-7 of the value. lse is fp32 on both sides, summed in another order
+FLASH_ATOL, FLASH_RTOL, LSE_ATOL = 1e-2, 1e-2, 1e-3
+
+
+def _assert_forward_matches(got, want, valid):
+    """(out, lse) of K2f or its model against ``want`` (the plain version's or
+    the model's) on query rows with a valid key; rows without one exactly 0,
+    output and lse."""
+    (out, lse), (ref, ref_lse) = got, want
+    assert out.dtype == ref.dtype and bool(torch.isfinite(out.float()).all())
+    has_key, _ = _live_rows_and_keys(valid, out.shape[1])
+    torch.testing.assert_close(out.float()[has_key], ref.float()[has_key], atol=FLASH_ATOL,
+                               rtol=FLASH_RTOL)
+    torch.testing.assert_close(lse.transpose(1, 2)[has_key], ref_lse.transpose(1, 2)[has_key],
+                               atol=LSE_ATOL, rtol=0)
+    assert bool((out[~has_key] == 0).all()) and bool((lse.transpose(1, 2)[~has_key] == 0).all())
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_flash_forward_kernel_arithmetic_matches_plain_version(case):
+    """K2f's arithmetic (64-key tiles, base-2 exponentials against the running
+    max, p rounded to the value dtype tile by tile, o = acc / l), modelled in
+    plain PyTorch, against the plain version K2f is held to on the card."""
+    q, k, v, valid = forward_inputs(case, make_case(case))
+    _assert_forward_matches(kernel_model_forward(q, k, v, valid),
+                            flash_attention_reference(q, k, v, key_valid=valid), valid)
 
 
 def _bwd_inputs(gen_or_seed, b, t, s, hq, hkv, d, dtype, device, pads=()):
@@ -226,22 +257,32 @@ def test_fps_kernel_refuses_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,n_rep", [(torch.bfloat16, 128, 1), (torch.float16, 64, 4)])
-def test_flash_kernel_matches_plain_version(cuda_device, dtype, d, n_rep):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    b, t, hkv = 2, 150, 4
-    q = torch.randn((b, t, hkv * n_rep, d), generator=g, device=cuda_device).to(dtype)
-    k = torch.randn((b, t, hkv, d), generator=g, device=cuda_device).to(dtype)
-    v = torch.randn((b, t, hkv, d), generator=g, device=cuda_device).to(dtype)
-    valid = torch.ones((b, t), dtype=torch.bool, device=cuda_device)
-    valid[1, :20] = False
-    out, lse = flash_attention(q, k, v, key_valid=valid)
-    ref, ref_lse = flash_attention_reference(q, k, v, key_valid=valid)
+@pytest.mark.parametrize("dtype,d,b,t,s,hq,hkv,pads", [
+    (torch.bfloat16, 128, 2, 150, 150, 4, 4, (0, 20)),  # T not a multiple of the 64-row tile
+    (torch.float16, 64, 2, 150, 150, 16, 4, (0, 20)),  # GQA n_rep 4
+    (torch.bfloat16, 128, 4, 225, 225, 32, 32, (17, 0, 5, 40)),  # the prefill's shape
+    (torch.bfloat16, 64, 2, 150, 150, 2, 1, (70, 0)),  # a pad over a whole 64-key tile
+    (torch.float16, 128, 2, 333, 100, 4, 2, (3, 70)),  # T > S: rows past the last key
+    (torch.bfloat16, 128, 2, 100, 333, 8, 2, (3, 70)),  # S > T: keys no query reaches
+    (torch.bfloat16, 64, 3, 70, 70, 4, 2, (0, 5, 70)),  # a batch row without any valid key
+], ids=["bf16-D128", "fp16-D64-gqa", "path-4x225x32x128", "pad-over-a-tile", "T-over-S",
+        "S-over-T", "row-without-valid-key"])
+def test_flash_kernel_matches_plain_version(cuda_device, dtype, d, b, t, s, hq, hkv, pads):
+    q, k, v, *_, valid = _bwd_inputs(0, b, t, s, hq, hkv, d, dtype, cuda_device, pads=pads)
+    got = flash_attention(q, k, v, key_valid=valid)
     torch.cuda.synchronize()
-    # bf16/fp16 outputs: one ulp is up to 2^-7 of the value (bf16)
-    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
-    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
-    assert bool((out[1, :20] == 0).all())
+    _assert_forward_matches(got, flash_attention_reference(q, k, v, key_valid=valid), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_flash_kernel_matches_its_model(cuda_device, case):
+    """K2f on the card against the plain model of its arithmetic, on the CPU."""
+    q, k, v, valid = forward_inputs(case, make_case(case))
+    qc, kc, vc, valid_c = (x.to(cuda_device) for x in (q, k, v, valid))
+    out, lse = flash_attention(qc, kc, vc, key_valid=valid_c)
+    torch.cuda.synchronize()
+    _assert_forward_matches((out.cpu(), lse.cpu()), kernel_model_forward(q, k, v, valid), valid)
 
 
 @pytest.mark.cuda

@@ -27,6 +27,8 @@ from msr3d_tpu.models.msr3d import MSR3DNetworkConfig as JaxMSR3DNetworkConfig
 from msr3d_tpu.models.msr3d import build_targets as jax_build_targets
 from msr3d_tpu.models.msr3d import sequence_ce_loss as jax_sequence_ce_loss
 from msr3d_tpu.models.msr3d import sequence_ce_loss_windowed as jax_sequence_ce_loss_windowed
+from msr3d_tpu.ops.flash_attention import _fwd_call as jax_fwd_call
+from msr3d_tpu.ops.flash_attention import _Spec as JaxFlashSpec
 from msr3d_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from msr3d_tpu.trainer.leo_trainer import LeoTrainer as JaxLeoTrainer
 from msr3d_tpu_torch.convert import jax_to_torch_state_dict, torch_name
@@ -47,6 +49,7 @@ from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
 from msr3d_tpu_torch.trainer.train_state import merge_learnable
 
 from torch_flash_bwd_model import CASE_IDS, CASES, kernel_model_backward, make_case, torch_inputs
+from torch_flash_fwd_model import forward_inputs, kernel_model_forward
 from torch_parity_utils import TINY_PROMPTER, perturbed, scene_inputs, torch_network_config
 
 SCENE_TOKENS = 6
@@ -138,6 +141,44 @@ def test_flash_backward_kernel_arithmetic_matches_jax_kernels(case):
     assert not want[0][~has_key].any() and not dq.float().numpy()[~has_key].any()
     for g, w in zip(got[1:], want[1:]):
         assert not w[dead_key].any() and not g.float().numpy()[dead_key].any()
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_flash_forward_kernel_arithmetic_matches_jax_kernel(case):
+    """K2f's arithmetic (see ``torch_flash_fwd_model``) against the JAX
+    package's forward kernel in Pallas interpret mode (16 x 16 blocks, as
+    ``flash_attention`` takes them off the TPU), on 16-bit inputs, output and
+    lse. Both keep fp32 scores and sums and round p to the value dtype
+    against the running max of their own key tiles (64 keys here, 16 there),
+    and the output once: 1e-2 + 1e-2·|out|, the tolerance K2f is held to on
+    the card; lse is fp32 on both sides, 1e-3. Rows without a valid key are
+    exactly 0 on both sides."""
+    arrays = make_case(case)
+    q, k, v, _, valid = arrays
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    jdtype = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[case[1]]
+    tp, sp = -(-t // 16) * 16, -(-s // 16) * 16
+    spec = JaxFlashSpec(causal=True, scale=float(1.0 / np.sqrt(d)), block_q=16, block_k=16,
+                        n_rep=hq // hkv, t=t, s=s, interpret=True)
+
+    def heads_first(x, n):  # (B, T, H, D) -> (B, H, n, D), zero-padded
+        x = jnp.asarray(x).astype(jdtype).transpose(0, 2, 1, 3)
+        return jnp.pad(x, ((0, 0), (0, 0), (0, n - x.shape[2]), (0, 0)))
+
+    valid_j = jnp.pad(jnp.asarray(valid, jnp.int32)[:, None, :], ((0, 0), (0, 0), (0, sp - s)))
+    out_j, lse_j = jax_fwd_call(spec, heads_first(q, tp), heads_first(k, sp), heads_first(v, sp),
+                                valid_j)
+    want_out = np.asarray(out_j[:, :, :t].transpose(0, 2, 1, 3).astype(jnp.float32))
+    want_lse = np.asarray(lse_j[:, :, :t, 0])
+
+    out, lse = kernel_model_forward(*forward_inputs(case, arrays))
+    np.testing.assert_allclose(out.float().numpy(), want_out, atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-3, rtol=0)
+    has_key = (np.tril(np.ones((t, s), bool))[None] & valid[:, None, :]).any(-1)  # (B, T)
+    for got, want in ((out.float().numpy(), want_out), (lse.numpy().transpose(0, 2, 1),
+                                                        want_lse.transpose(0, 2, 1))):
+        assert not want[~has_key].any() and not got[~has_key].any()
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,9 @@ CASES = [
     ("bf16-D128-nrep4", torch.bfloat16, 128, 2, 33, 33, 4, 1, (0, 5)),
     ("fp16-D64-ragged-leftpad", torch.float16, 64, 2, 24, 40, 2, 2, (3, 11)),
     ("bf16-D64-row-without-valid-key", torch.bfloat16, 64, 2, 20, 20, 2, 1, (4, 20)),
+    # left padding over a whole 64-key tile: rows whose first key tile is all
+    # masked, then valid keys in the next
+    ("bf16-D64-pad-over-a-tile", torch.bfloat16, 64, 2, 150, 150, 2, 1, (70, 0)),
 ]
 CASE_IDS = [c[0] for c in CASES]
 
