@@ -7,8 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 It builds the hand-written CUDA kernels from ``msr3d_tpu_torch/csrc`` with
 ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and holds each
 kernel against its plain PyTorch version at the shapes of the main paths
-(phases 2, 3, 5 and 7; phases 3 and 5 time K2f, K2dq, K2dkv and the
-library's forward and backward L2-warm and from HBM, and the whole body of
+(phases 2, 3, 5 and 7; phase 2 times K1 a launch at both SA stages at 240
+and 960 clouds, phases 3 and 5 time K2f, K2dq, K2dkv and the library's
+forward and backward L2-warm and from HBM, and the whole body of
 ``FlashAttention.backward``).
 Then it drives the port's paths at the flagship
 width (OSE3D prompter: 60 objects x 1024 points; Vicuna-7B-geometry Llama,
@@ -225,8 +226,8 @@ def phase_card_and_build():
                 print(f"  ptxas {name} {entry}: {line.strip().replace('ptxas info    : ', '')}")
                 if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                     spills.append(entry)
-        if name.startswith("flash_attn"):
-            which = "K2f" if name == "flash_attn_fwd" else "K2dq and K2dkv"
+        if name in ("fps", "flash_attn_fwd", "flash_attn_bwd"):
+            which = {"fps": "K1's instances", "flash_attn_fwd": "K2f"}.get(name, "K2dq and K2dkv")
             check(not spills, f"no register spills in {which} {spills or ''}")
 
 
@@ -240,41 +241,94 @@ def kernel_label(mangled: str) -> str:
     return f"{name}<{', '.join(filter(None, [dtype, *ints]))}>"
 
 
-def phase_fps(dev):
-    print("== phase 2: K1 (FPS) against its plain version")
-    from msr3d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_reference
+FPS_OBJECTS = 60  # object clouds a scene, so 240 clouds at batch 4 and 960 at batch 16
+
+
+def fps_path_inputs(dev, clouds: int, seed: int):
+    """The two launches of one scene encode at ``clouds`` clouds: SA stage 1
+    (1024 points -> 32) and stage 2 (the 32 picked points -> 16)."""
+    from msr3d_tpu_torch.ops.fps import furthest_point_sample_reference
     from msr3d_tpu_torch.ops.pointnet2 import gather_points
 
-    gen = torch.Generator(device=dev).manual_seed(1)
-    clouds = N_REQUESTS * 60
+    gen = torch.Generator(device=dev).manual_seed(seed)
     xyz1 = torch.randn((clouds, 1024, 3), generator=gen, device=dev) * 0.3
-    idx1 = furthest_point_sample(xyz1, 32)
-    xyz2 = gather_points(xyz1, idx1).contiguous()  # the stage-2 input: 32 points
-    cases = {"240x1024->32": (xyz1, 32), "240x32->16": (xyz2, 16)}
-    padded = xyz1[:8].clone()
+    xyz2 = gather_points(xyz1, furthest_point_sample_reference(xyz1, 32)).contiguous()
+    return {f"{clouds}x1024->32": (xyz1, 32), f"{clouds}x32->16": (xyz2, 16)}
+
+
+def fps_tie_cases(dev, seed: int):
+    """Clouds that make K1's ties and padding rules bite, as (xyz, npoint)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def lattice(b, n):  # step 0.25: exact squares, many equal distances; the origin is padding
+        return torch.randint(-3, 4, (b, n, 3), generator=gen, device=dev).float() * 0.25
+
+    pair = torch.tensor([[0.5, -0.25, 0.75], [-1.0, 0.5, 0.25]], device=dev)
+    padded = torch.randn((8, 1024, 3), generator=gen, device=dev) * 0.3
     padded[:, 700:] = 0.0  # trailing padding points
     padded[3] = 0.0  # a cloud of padding only
     padded[5, :, :] *= 1e-3  # every point inside the padding radius
-    cases["padded"] = (padded, 32)
-    cases["4096 points"] = (torch.randn((3, 4096, 3), generator=gen, device=dev), 64)
+    padded[6, ::3] *= 1e-3  # every third point inside it
+    return {
+        "lattice 240x1024 (equal distances across lanes and warps)": (lattice(240, 1024), 32),
+        # every point at one of two positions: after two rounds every valid
+        # point is at distance 0, and the first of them wins
+        "two positions (valid points at distance 0)": (
+            pair[torch.randint(0, 2, (16, 1024), generator=gen, device=dev)], 40),
+        "padded": (padded, 32),
+        "N=33": (lattice(60, 33), 33),
+        "N=50": (lattice(60, 50), 40),
+        "N=1000": (lattice(60, 1000), 40),
+        "4096 points": (torch.randn((3, 4096, 3), generator=gen, device=dev), 64),
+        "4096 lattice": (lattice(3, 4096), 64),
+    }
+
+
+def fps_bound(*launches):
+    """(ms, 'bytes' or 'operations') for the (xyz, npoint) launches together:
+    each xyz read once, the picks written once; nine fp32 operations per
+    point and round."""
+    nbytes = sum(x.numel() * 4 + x.shape[0] * m * 4 for x, m in launches)
+    flops = sum(x.shape[0] * x.shape[1] * (m - 1) * 9 for x, m in launches)
+    return bound(nbytes, flops, H100_FP32_FLOPS)
+
+
+def phase_fps(dev):
+    print("== phase 2: K1 (FPS) against its plain version")
+    from msr3d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_reference
+
+    path = {**fps_path_inputs(dev, N_REQUESTS * FPS_OBJECTS, 1),
+            **fps_path_inputs(dev, 16 * FPS_OBJECTS, 3)}
+    cases = {**path, **fps_tie_cases(dev, 5)}
     worst = 0
     for name, (x, m) in cases.items():
         got, want = furthest_point_sample(x, m), furthest_point_sample_reference(x, m)
         torch.cuda.synchronize()
         worst = max(worst, (got - want).abs().max().item())
         check(torch.equal(got, want), f"K1 indices equal to the plain version ({name})")
-    check(bool((furthest_point_sample(padded, 32)[3] == 0).all()),
+    padded, m = cases["padded"]
+    check(bool((furthest_point_sample(padded, m)[3] == 0).all()),
           "K1 gives all zeros for an all-padding cloud")
-    path = [(xyz1, 32), (xyz2, 16)]
-    ms = time_ms(lambda: [furthest_point_sample(x, m) for x, m in path])
-    plain_ms = time_ms(lambda: [furthest_point_sample_reference(x, m) for x, m in path], iters=5)
-    nbytes = sum(x.numel() * 4 + x.shape[0] * m * 4 for x, m in path)
-    flops = sum(x.shape[0] * x.shape[1] * (m - 1) * 9 for x, m in path)
-    b_ms, b_by = bound(nbytes, flops, H100_FP32_FLOPS)
-    print(f"  K1 per scene encode (both launches): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.6f} ms ({b_by})")
+    # device time of each launch by torch.profiler (a wrapper's Python and
+    # ctypes call outlast the kernel, so an event loop would time the host)
+    per_launch = {name: device_ms(lambda x=x, m=m: furthest_point_sample(x, m), iters=50)
+                  for name, (x, m) in path.items()}
+    for name, ms in per_launch.items():
+        print(f"  K1 {name}: {ms:.5f} ms of device time a launch (L2-warm), bound "
+              f"{fps_bound(path[name])[0]:.6f} ms")
+    encode = {}  # batch -> (device ms, (bound ms, by what)) of both launches
+    for batch in (N_REQUESTS, 16):
+        names = [f"{batch * FPS_OBJECTS}x1024->32", f"{batch * FPS_OBJECTS}x32->16"]
+        encode[batch] = (sum(per_launch[n] for n in names), fps_bound(*(path[n] for n in names)))
+    stages = [path[f"{N_REQUESTS * FPS_OBJECTS}x1024->32"], path[f"{N_REQUESTS * FPS_OBJECTS}x32->16"]]
+    plain_ms = time_ms(lambda: [furthest_point_sample_reference(x, m) for x, m in stages], iters=5)
+    ms, (b_ms, b_by) = encode[N_REQUESTS]
+    print(f"  K1 per scene encode at batch {N_REQUESTS} (both launches): {ms:.5f} ms, plain "
+          f"{plain_ms:.4f} ms (an event loop), bound {b_ms:.6f} ms ({b_by}); at batch 16 "
+          f"{encode[16][0]:.5f} ms, bound {encode[16][1][0]:.6f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                max_abs_err=float(worst))
+                max_abs_err=float(worst), ms_per_launch=per_launch,
+                ms_batch16=encode[16][0], bound_ms_batch16=encode[16][1][0])
 
 
 def flash_against_plain(q, k, v, valid):

@@ -2,10 +2,13 @@
 
 Replaces ``msr3d_tpu/ops/pallas/fps.py::_fps_kernel`` (wrapper
 ``furthest_point_sample_pallas``) with ``csrc/fps.cu``. The kernel is
-bound by its npoint - 1 dependent rounds, not by bytes or arithmetic:
-one block per cloud keeps the points and running distances in registers
-for the whole loop (see the source for the design). It is bit-identical
-to :func:`furthest_point_sample_reference`, the loop of
+bound by its npoint - 1 dependent rounds, not by bytes or arithmetic. It
+is sized to N and B (one warp a cloud and several clouds a block for
+N <= 64; above, 8, 4 or 2 warps a cloud, fewer as the batch grows), keeps the cloud in shared memory and the
+points and running distances in registers, and reduces one 32-bit key a
+point with ``redux.sync``, with at most one barrier a round (see the
+source for the design). It is bit-identical to
+:func:`furthest_point_sample_reference`, the loop of
 ``msr3d_tpu/ops/pointnet2.py:42-64`` batched.
 """
 

@@ -28,6 +28,7 @@ from msr3d_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from msr3d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_reference
+from msr3d_tpu_torch.ops.pointnet2 import gather_points
 from msr3d_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_reference, pack_w4
 from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference
 
@@ -40,6 +41,7 @@ from torch_flash_bwd_model import (
     torch_inputs,
 )
 from torch_flash_fwd_model import forward_inputs, kernel_model_forward
+from torch_fps_model import kernel_model_fps, tie_clouds
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -64,6 +66,27 @@ def _clouds(seed, b=6, n=64):
 def test_fps_wrapper_takes_plain_version_on_cpu():
     xyz = torch.from_numpy(_clouds(1))
     assert torch.equal(furthest_point_sample(xyz, 16), furthest_point_sample_reference(xyz, 16))
+
+
+# N for K1's tie and padding cases (tests/torch_fps_model.py::tie_clouds): the
+# stage-2 input, one warp a cloud with two points a lane, ragged and full
+# stage-1 inputs, the largest N
+FPS_SIZES = (32, 33, 50, 64, 1000, 1024, 4096)
+
+
+def _fps_npoint(n):
+    return min(n, 40)  # past 32 rounds: the kernel stores its picks 32 at a time
+
+
+@pytest.mark.parametrize("warps", (1, 2, 4, 8))
+def test_fps_kernel_reduction_matches_plain_version(warps):
+    """K1's reduction (keys, each lane's first best, warp max then min index,
+    the W-slot reduce), modelled in plain PyTorch, against the plain version
+    K1 is held to on the card."""
+    for n in FPS_SIZES:
+        xyz = torch.from_numpy(tie_clouds(n, n))
+        assert torch.equal(kernel_model_fps(xyz, _fps_npoint(n), warps),
+                           furthest_point_sample_reference(xyz, _fps_npoint(n)))
 
 
 def test_flash_wrapper_takes_plain_version_on_cpu():
@@ -246,6 +269,54 @@ def test_fps_kernel_equals_plain_version(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", FPS_SIZES)
+def test_fps_kernel_equals_plain_version_on_ties(cuda_device, n):
+    xyz = torch.from_numpy(tie_clouds(n, n)).to(cuda_device)
+    got = furthest_point_sample(xyz, _fps_npoint(n))
+    torch.cuda.synchronize()
+    assert torch.equal(got, furthest_point_sample_reference(xyz, _fps_npoint(n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clouds", (240, 960), ids=["batch-4", "batch-16"])
+def test_fps_kernel_equals_plain_version_at_path_shapes(cuda_device, clouds):
+    """Both SA stages of a scene encode: 60 clouds a scene, 1024 -> 32, then
+    the 32 picked points -> 16."""
+    gen = torch.Generator(device=cuda_device).manual_seed(clouds)
+    xyz = torch.randn((clouds, 1024, 3), generator=gen, device=cuda_device) * 0.3
+    for npoint in (32, 16):
+        got = furthest_point_sample(xyz, npoint)
+        torch.cuda.synchronize()
+        assert torch.equal(got, furthest_point_sample_reference(xyz, npoint))
+        xyz = gather_points(xyz, got).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", (1, 2, 4, 8))
+def test_fps_kernel_every_instance_equals_plain_version(cuda_device, warps):
+    """``fps_launch_config`` at each number of warps a cloud (and, for one
+    warp and N <= 64, each number of clouds a block), as
+    ``scripts/fps_variants.py`` times them."""
+    import ctypes
+
+    from msr3d_tpu_torch.ops._build import load_library
+
+    fn = load_library("fps").fps_launch_config
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for n in FPS_SIZES:
+        xyz = torch.from_numpy(tie_clouds(n, n)).to(cuda_device)
+        want = furthest_point_sample_reference(xyz, _fps_npoint(n))
+        for per_block in ((1, 2, 4, 8) if warps == 1 and n <= 64 else (1,)):
+            got = torch.empty_like(want)
+            assert fn(xyz.data_ptr(), got.data_ptr(), xyz.shape[0], n, _fps_npoint(n), warps,
+                      per_block, stream) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (n, warps, per_block)
+
+
+@pytest.mark.cuda
 def test_fps_kernel_refuses_what_it_does_not_take(cuda_device):
     xyz = torch.zeros((2, 64, 3), device=cuda_device)
     with pytest.raises(TypeError):
@@ -393,8 +464,9 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "msr3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    files = sorted((REPO / "msr3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] \
+        + sorted((REPO / "scripts").glob("f*_variants.py"))
+    assert len(files) > 10 and REPO / "scripts" / "fps_variants.py" in files
     bad = []
     for path in files:
         for mod in _imports(path):
