@@ -35,6 +35,7 @@ import itertools
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -212,8 +213,11 @@ def phase_card_and_build():
 
     t0 = time.perf_counter()
     sources = ["fps", "flash_attn_fwd", "flash_attn_bwd", "w8_matmul", "w4_matmul"]
+    parent = start_w8_parent_build()  # K3's earlier design, timed beside it in phases 7 and 8
     paths = _build.build_all(sources)
-    print(f"  built {[p.name for p in paths]} in {time.perf_counter() - t0:.1f} s")
+    finish_w8_parent_build(parent)
+    print(f"  built {[p.name for p in paths]} and {W8_PARENT.name} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name in sources:
         log = (_build.BUILD_DIR / f"{name}.log")
         if not log.exists():
@@ -226,18 +230,86 @@ def phase_card_and_build():
                 print(f"  ptxas {name} {entry}: {line.strip().replace('ptxas info    : ', '')}")
                 if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                     spills.append(entry)
-        if name in ("fps", "flash_attn_fwd", "flash_attn_bwd"):
-            which = {"fps": "K1's instances", "flash_attn_fwd": "K2f"}.get(name, "K2dq and K2dkv")
+        if name in ("fps", "flash_attn_fwd", "flash_attn_bwd", "w8_matmul"):
+            which = {"fps": "K1's instances", "flash_attn_fwd": "K2f",
+                     "w8_matmul": "K3's instances"}.get(name, "K2dq and K2dkv")
             check(not spills, f"no register spills in {which} {spills or ''}")
+
+
+# K3's earlier design (the int8 instance of csrc/dequant_matmul.cuh, which K4
+# still uses), built from scripts/w8_parent.cu to be timed beside K3
+W8_PARENT_SOURCE = Path(__file__).resolve().parent / "scripts" / "w8_parent.cu"
+W8_PARENT = Path(__file__).resolve().parent / "build" / "kernels" / "libw8_parent.so"
+
+
+def start_w8_parent_build() -> subprocess.Popen:
+    from msr3d_tpu_torch.ops import _build
+
+    W8_PARENT.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(W8_PARENT),
+                             str(W8_PARENT_SOURCE)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_w8_parent_build(proc: subprocess.Popen) -> None:
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"K3's earlier design builds ({W8_PARENT_SOURCE.name})"
+                                + ("" if proc.returncode == 0 else f":\n{log}"))
+
+
+def w8_parent(x, wq, scale):
+    """K3's earlier design on CUDA tensors (bf16 x, contiguous int8 wq, fp32
+    scale) -> y (B, N) bf16."""
+    import ctypes
+
+    global _W8_PARENT_FN
+    if _W8_PARENT_FN is None:
+        fn = ctypes.CDLL(str(W8_PARENT)).w8_parent_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _W8_PARENT_FN = fn
+    (b, k), n = x.shape, wq.shape[1]
+    y = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
+    err = _W8_PARENT_FN(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(), b, k, n,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise SmokeFailure(f"K3's earlier design failed to launch: CUDA error {err}")
+    return y
+
+
+_W8_PARENT_FN = None
+
+
+def int8pack_call(x, scale):
+    """``torch._weight_int8pack_mm`` (PyTorch's own int8 weight-only product,
+    the weight as (N, K), scales in x's dtype) as fn(wq_t) -> y, or the
+    reason it does not run on this card."""
+    xb, sb = x.to(torch.bfloat16), scale.to(torch.bfloat16)
+    try:
+        probe = torch._weight_int8pack_mm(xb, torch.zeros((scale.shape[0], x.shape[1]),
+                                                          dtype=torch.int8, device=x.device), sb)
+        torch.cuda.synchronize()
+        assert probe.shape == (x.shape[0], scale.shape[0])
+    except (RuntimeError, NotImplementedError, AttributeError, AssertionError) as exc:
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    return (lambda wq_t: torch._weight_int8pack_mm(xb, wq_t, sb)), None
 
 
 def kernel_label(mangled: str) -> str:
     """A mangled template instantiation as 'kernel<type, ints>', enough to
     tell the ptxas lines apart."""
-    m = re.search(r"[a-z_]+_kernel", mangled)
-    name = m.group(0).lstrip("_") if m else mangled[:40]
+    name = None
+    for i in range(len(mangled)):  # a length-prefixed source name: 16w8_matmul_kernel
+        m = re.match(r"\d+", mangled[i:])
+        ident = mangled[i + len(m.group(0)):i + len(m.group(0)) + int(m.group(0))] if m else ""
+        if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+            name = ident
+            break
+    if name is None:
+        m = re.search(r"[a-z_]+_kernel", mangled)
+        name = m.group(0).lstrip("_") if m else mangled[:40]
     dtype = "bf16" if "bfloat16" in mangled else "fp16" if "6__half" in mangled else ""
-    ints = re.findall(r"Li(\d+)E", mangled)
+    ints = re.findall(r"L[ib](\d+)E", mangled)
     return f"{name}<{', '.join(filter(None, [dtype, *ints]))}>"
 
 
@@ -984,7 +1056,8 @@ def phase_train(model, dev, exp_root: Path, profile: bool):
 
 def dequant_against_plain(x, wq, scale, bits):
     """K3 (bits 8) or K4 (bits 4) and its plain version on the same inputs:
-    max |Δ|, max |Δ| over the tolerance, and whether the output is finite."""
+    max |Δ|, max |Δ| over the tolerance, whether the output is finite, and
+    the plain output."""
     from msr3d_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_reference
     from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference
 
@@ -992,7 +1065,7 @@ def dequant_against_plain(x, wq, scale, bits):
                                                                          matmul_w4_reference)
     got, want = kernel(x, wq, scale), plain(x, wq, scale)
     torch.cuda.synchronize()
-    return dequant_errors(got, want, x, scale, bits)
+    return dict(dequant_errors(got, want, x, scale, bits), want=want)
 
 
 def dequant_errors(got, want, x, scale, bits):
@@ -1020,11 +1093,11 @@ def phase_dequant(dev):
         matmul_w4_reference,
         repack_from_splitnibble,
     )
-    from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference
+    from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference, plan_w8
 
     gen = torch.Generator(device=dev).manual_seed(7)
     cases = [(b, k, n) for b in (4, 16) for k, n in SHAPES_7B] + [(7, 4096, 1000)]
-    ok = True
+    ok, rows = True, []
     for b, k, n in cases:
         x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
         kernel = torch.randn((k, n), generator=gen, device=dev) * 0.02  # flax layout (in, out)
@@ -1036,20 +1109,46 @@ def phase_dequant(dev):
             fn, plain = (matmul_w8, matmul_w8_reference) if bits == 8 else (matmul_w4,
                                                                              matmul_w4_reference)
             w_deq = (dequant_oracle_weight(q, s, bits, None)).to(torch.bfloat16)
-            # every timed launch reads its weight from HBM (see L2_SPAN_BYTES)
+            # device time by torch.profiler; "from HBM": each launch reads its weight
+            # from one of several copies spanning L2_SPAN_BYTES
             ops = past_l2(wq, s)
-            ms = time_ms(rotating(lambda w, sc: fn(x, w, sc), ops), iters=50)
-            plain_ms = time_ms(rotating(lambda w, sc: plain(x, w, sc), ops), iters=10)
-            lib_ms = time_ms(rotating(lambda w: x @ w, past_l2(w_deq)), iters=50)
-            b_ms, b_by = dequant_bound(b, k, n, bits)
+            hbm = lambda f, sets: device_ms(rotating(f, sets), iters=2 * len(sets))  # noqa: E731
+            row = dict(bits=bits, b=b, k=k, n=n, err=res["err"], ratio=res["ratio"],
+                       ms_warm=device_ms(lambda: fn(x, wq, s), iters=20),
+                       ms=hbm(lambda w, sc: fn(x, w, sc), ops),
+                       plain_ms=device_ms(rotating(lambda w, sc: plain(x, w, sc), ops),
+                                          iters=len(ops)),
+                       library_ms=hbm(lambda w: x @ w, past_l2(w_deq)))
+            row["bound_ms"], row["bound_by"] = dequant_bound(b, k, n, bits)
+            extra = ""
+            if bits == 8:
+                row["plan"] = plan_w8(b, k, n)
+                row["parent_ms"] = hbm(lambda w, sc: w8_parent(x, w, sc), ops)
+                int8pack, why = int8pack_call(x, s)
+                if int8pack is None:
+                    row["int8pack_ms"] = None
+                    extra = f", torch._weight_int8pack_mm does not run here ({why})"
+                else:
+                    got = int8pack(wq.t().contiguous())
+                    row["int8pack_ms"] = hbm(int8pack, past_l2(wq.t().contiguous()))
+                    extra = (f", torch._weight_int8pack_mm {row['int8pack_ms']:.4f} ms (max |Δ| "
+                             f"{(got.float() - res['want'].float()).abs().max().item():.3e} "
+                             f"from plain: bf16 scales)")
+                extra = (f"; split {row['plan'][0]}, tile {row['plan'][1]}, {row['plan'][2]} "
+                         f"stages; the earlier design {row['parent_ms']:.4f} ms "
+                         f"({row['parent_ms'] / row['ms']:.2f}x)" + extra)
             print(f"  {'K3' if bits == 8 else 'K4'} B={b:2d} K={k:5d} N={n:5d}: max |Δ| "
-                  f"{res['err']:.3e} ({res['ratio']:.3f} of the tolerance), {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, cuBLAS x @ w_bf16 {lib_ms:.4f} ms (reads {16 // bits}x the "
-                  f"weight bytes), bound {b_ms:.6f} ms ({b_by}); weights from HBM")
+                  f"{res['err']:.3e} ({res['ratio']:.3f} of the tolerance), device time "
+                  f"{row['ms']:.4f} ms from HBM, {row['ms_warm']:.4f} ms L2-warm, plain "
+                  f"{row['plain_ms']:.4f} ms, cuBLAS x @ w_bf16 {row['library_ms']:.4f} ms from "
+                  f"HBM (reads {16 // bits}x the weight bytes), bound {row['bound_ms']:.6f} ms "
+                  f"({row['bound_by']}){extra}")
+            rows.append(row)
             del ops
         del kernel, q, wq, w_deq
     check(ok, "K3 and K4 within tolerance of their plain versions at every 7B shape and the "
               "ragged case (B 7, N 1000)")
+    return rows
 
 
 def dequant_oracle_weight(q, s, bits, group):
@@ -1131,21 +1230,48 @@ def kernel_on_path(captured, bits, kernel, plain_fn, wrap):
           f"{name} within tolerance of its plain version on all 224 projections of a decode step")
     del outs
     n = len(operands)
-    ms = time_ms(lambda: [fn(*ops) for ops in operands], iters=10) / n
-    plain_ms = time_ms(lambda: [plain_fn(*ops) for ops in operands], iters=2, warmup=1) / n
+    # device time by torch.profiler, a launch: the mean over the decode step's n
+    # projections in order (each reads its weight from HBM), and L2-warm, the
+    # mean over layer 0's seven projections each launched again and again
+    ms = device_ms(lambda: [fn(*ops) for ops in operands], iters=3) / n
+    ms_warm = statistics.mean(device_ms(lambda: fn(*ops), iters=20) for ops in operands[:7])
+    plain_ms = device_ms(lambda: [plain_fn(*ops) for ops in operands], iters=1, warmup=1) / n
     w_deq = [dequant_oracle_weight(m.weight_q, m.weight_scale, m.bits, m.group).to(torch.bfloat16)
              for m, _ in captured]
-    lib_ms = time_ms(lambda: [x @ w for (x, _, _), w in zip(operands, w_deq)], iters=10) / n
+    lib_ms = device_ms(lambda: [x @ w for (x, _, _), w in zip(operands, w_deq)], iters=3) / n
     del w_deq
     bounds = [dequant_bound(x.shape[0], x.shape[1], w.shape[1], bits) for x, w, _ in operands]
     b_ms = sum(t for t, _ in bounds) / n
     b_by = "bytes" if all(by == "bytes" for _, by in bounds) else "operations"
-    print(f"  {name} per launch, mean over the {n} projections at B={operands[0][0].shape[0]}: "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS x @ w_bf16 on the pre-dequantized "
-          f"weights {lib_ms:.4f} ms (reads {16 // bits}x the weight bytes), bound {b_ms:.6f} ms "
-          f"({b_by}); the decode step's {n} launches take {ms * n:.3f} ms")
-    return held, dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      library_ms=lib_ms, max_abs_err=max(e["err"] for e in errs))
+    out = dict(ms=ms, ms_warm=ms_warm, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, max_abs_err=max(e["err"] for e in errs))
+    extra = ""
+    if bits == 8:
+        from msr3d_tpu_torch.ops.w8_matmul import plan_w8
+
+        out["plan"] = {f"{x.shape[1]}x{w.shape[1]}": list(plan_w8(*x.shape, w.shape[1]))
+                       for x, w, _ in operands}
+        args = [(x.to(torch.bfloat16).contiguous(), w, s.float().contiguous())
+                for x, w, s in operands]
+        out["parent_ms"] = device_ms(lambda: [w8_parent(*a) for a in args], iters=3) / n
+        int8pack, why = int8pack_call(operands[0][0], operands[0][2])
+        if int8pack is None:
+            out["library_ms_int8pack"] = None
+            extra = f"; torch._weight_int8pack_mm does not run here ({why})"
+        else:  # the weight as (N, K) and the scales in bf16, made outside the timed calls
+            args = [(x, w.t().contiguous(), s.to(torch.bfloat16)) for x, w, s in args]
+            out["library_ms_int8pack"] = device_ms(
+                lambda: [torch._weight_int8pack_mm(*a) for a in args], iters=3) / n
+            extra = f"; torch._weight_int8pack_mm {out['library_ms_int8pack']:.4f} ms"
+        del args
+        extra = (f"; the earlier design {out['parent_ms']:.4f} ms ({out['parent_ms'] / ms:.2f}x); "
+                 f"instances (split, tile, stages) {out['plan']}" + extra)
+    print(f"  {name} device time a launch, mean over the {n} projections at "
+          f"B={operands[0][0].shape[0]}: {ms:.4f} ms from HBM, {ms_warm:.4f} ms L2-warm (layer 0's "
+          f"seven), plain {plain_ms:.4f} ms, cuBLAS x @ w_bf16 on the pre-dequantized weights "
+          f"{lib_ms:.4f} ms (reads {16 // bits}x the weight bytes), bound {b_ms:.6f} ms ({b_by}); "
+          f"the decode step's {n} launches take {ms * n:.3f} ms{extra}")
+    return held, out
 
 
 def oracle_gate(captured, rtol, what):
@@ -1317,6 +1443,14 @@ def bf16_twin_gate(model, prefill, first):
                                     "bf16 model with the weights bf16(q)·bf16(s)")
 
 
+def phase7_rows(rows, bits):
+    """Phase 7's device times of K3 or K4 for the kernels line, one entry a
+    shape."""
+    keys = ("b", "k", "n", "ms", "ms_warm", "plain_ms", "library_ms", "bound_ms", "parent_ms",
+            "int8pack_ms", "plan")
+    return [{key: r[key] for key in keys if key in r} for r in rows if r["bits"] == bits]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU host", file=sys.stderr)
@@ -1346,7 +1480,7 @@ def main() -> int:
         fps_row = timed(phase_fps, dev)
         flash_row = timed(phase_flash, dev)
         dq_row, dkv_row = timed(phase_flash_backward, dev)
-        timed(phase_dequant, dev)
+        dequant_rows = timed(phase_dequant, dev)
         model = build_flagship_model(dev)
         launches = timed(phase_generate, model, dev, profile)
         shutil.rmtree(exp_root, ignore_errors=True)
@@ -1379,11 +1513,13 @@ def main() -> int:
         dict(name="w8_matmul", route="cuda", source="msr3d_tpu_torch/csrc/w8_matmul.cu",
              replaces="msr3d_tpu/ops/pallas/w8_matmul.py:36",
              launches=quantized["a"]["launches"]["w8_matmul"],
-             held_on_path_operands=quantized["w8"][0], **quantized["w8"][1]),
+             held_on_path_operands=quantized["w8"][0], **quantized["w8"][1],
+             phase7=phase7_rows(dequant_rows, 8)),
         dict(name="w4_matmul", route="cuda", source="msr3d_tpu_torch/csrc/w4_matmul.cu",
              replaces="msr3d_tpu/ops/pallas/w4_matmul.py:94",
              launches=quantized["b"]["launches"]["w4_matmul"],
-             held_on_path_operands=quantized["w4"][0], **quantized["w4"][1]),
+             held_on_path_operands=quantized["w4"][0], **quantized["w4"][1],
+             phase7=phase7_rows(dequant_rows, 4)),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,24 +1,23 @@
-// Weight-only dequant matrix product on Hopper, shared by kernels K3 (int8,
-// w8_matmul.cu) and K4 (int4, w4_matmul.cu).
+// Weight-only dequant matrix product on Hopper: the design of kernel K4
+// (int4, w4_matmul.cu). K3 (int8) has its own kernel in w8_matmul.cu; the
+// BITS = 8 instance here is its earlier design, kept only for
+// scripts/w8_parent.cu, which times it beside K3.
 //
 //   y[b, n] = bf16( (sum_k x[b, k] * w[k, n]) * scale[n] ),  fp32 accumulator
 //
-// x is (B, K) bf16, y (B, N) bf16, scale (N,) fp32. The weight is int8,
-// row-major along N:
-//   * BITS 8: wq (K, N), w = wq;
-//   * BITS 4: wq (K/2, N) in the kernel layout of the TPU kernel's pack_w4:
-//     the byte at packed row r holds input row r in its low nibble, biased by
-//     +8, and input row r + K/2 in its high nibble, two's complement.
+// x is (B, K) bf16, y (B, N) bf16, scale (N,) fp32. The weight wq is int8
+// (K/2, N), row-major along N, in the kernel layout of the TPU kernel's
+// pack_w4: the byte at packed row r holds input row r in its low nibble,
+// biased by +8, and input row r + K/2 in its high nibble, two's complement.
 //
-// Every product bf16(x) * w has at most 8 + 8 significant bits and is exact
+// Every product bf16(x) * w has at most 8 + 4 significant bits and is exact
 // in fp32, so the kernel and its plain version differ only in the order of
 // the fp32 sums, then by the one rounding to bf16.
 //
 // What bounds it: at decode (B = 4..16 rows) the weight is read once and is
-// almost all the bytes, 2 * B operations per weight byte (4 * B for int4),
-// far below the card's ratio of operations to bytes. The design streams the
-// weight once with every load coalesced along N and keeps everything else on
-// chip:
+// almost all the bytes, 4 * B operations per weight byte, far below the
+// card's ratio of operations to bytes. The design streams the weight once
+// with every load coalesced along N and keeps everything else on chip:
 //   * one block of 256 threads per tile of 32 output columns and up to 16
 //     rows of x; rows beyond 16 take more blocks along grid.y (a prefill is
 //     correct, if slow: each row tile reads the weight again);
@@ -33,14 +32,14 @@
 //   * the 32 lanes' partial sums meet through warp shuffles and one pass
 //     through shared memory; the scale is applied once, on the fp32 sum, and
 //     the output written in bf16.
-// int4 is unpacked with integer shifts: the high nibble by an arithmetic
+// The nibbles are unpacked with integer shifts: the high one by an arithmetic
 // shift, the low one by a mask minus 8.
 //
 // The function is bound by its weight bytes. This design is not: it does its
 // 2 * B * K * N operations as fp32 FMAs on the CUDA cores, and at B = 16 those
-// take longer than the weight's bytes (about 0.097 ms against 0.061 ms for one
-// decoder layer's 7 projections of int8, see PERF.md). The first lever is to
-// run the products on the tensor cores (mma / wgmma on the converted weights).
+// take longer than the weight's bytes (PERF.md). K3's redesign (w8_matmul.cu:
+// mma.sync over weights converted in registers, a cp.async ring, split K) is
+// the model for K4's.
 
 #pragma once
 

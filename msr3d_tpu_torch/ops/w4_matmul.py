@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from msr3d_tpu_torch.ops._build import CudaKernel
-from msr3d_tpu_torch.ops.w8_matmul import check_shapes, launch_dequant_matmul
+from msr3d_tpu_torch.ops.w8_matmul import check_shapes, dequant_operands
 
 W4_MATMUL_KERNEL = CudaKernel(
     "w4_matmul", "w4_matmul_launch",
@@ -90,4 +90,12 @@ def matmul_w4(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.T
     check_shapes(x, 2 * wq.shape[0], wq.shape[1], scale, "2 * packed rows")
     if x.device.type == "cpu":
         return matmul_w4_reference(x, wq, scale)
-    return launch_dequant_matmul(W4_MATMUL_KERNEL, x, wq, scale, x.shape[1], "matmul_w4")
+    xb, s, y = dequant_operands(x, wq, scale, "matmul_w4")
+    b, n = y.shape
+    if b == 0 or n == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        W4_MATMUL_KERNEL(xb.data_ptr(), wq.data_ptr(), s.data_ptr(), y.data_ptr(), b, x.shape[1],
+                         n, stream)
+    return y

@@ -47,6 +47,7 @@ from torch_parity_utils import (
     torch_llama_config,
     torch_prompter_config,
 )
+from torch_w8_model import kernel_model_w8
 
 ATOL = 1e-5  # fp32 outputs of the two frameworks: summation order only
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
@@ -125,6 +126,28 @@ def test_matmul_w8_reference_matches_pallas(b, k, n, bk, bn):
                          block_k=bk, block_n=bn, interpret=True)
     got = w8_matmul.matmul_w8(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(wq),
                               torch.from_numpy(scale))
+    assert got.shape == (b, n) and got.dtype == torch.bfloat16
+    _assert_one_bf16_ulp(got, want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("b", [1, 4, 7, 16, 37])
+@pytest.mark.parametrize("k,split,tile", [
+    (512, 4, 128),  # K a whole number of 64-row tiles
+    (384, 2, 32),  # 256-row tiles: the second is half padding
+    (640, 8, 64),  # 128-row tiles, 5 of them over 8 splits: three are empty
+])
+def test_w8_kernel_model_matches_pallas(b, k, split, tile):
+    """K3's split-K sum order (``tests/torch_w8_model.py``) against the
+    Pallas kernel in interpret mode: within one bf16 ulp."""
+    n = 640
+    r = np.random.default_rng(b * k + split)
+    x = (r.normal(size=(b, k)) * 0.1).astype(np.float32)
+    wq = r.integers(-127, 128, size=(k, n)).astype(np.int8)
+    scale = (r.uniform(0.5, 1.5, size=(n,)) / 127).astype(np.float32)
+    want = jw8.matmul_w8(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(wq), jnp.asarray(scale),
+                         block_k=128, block_n=128, interpret=True)
+    got = kernel_model_w8(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(wq),
+                          torch.from_numpy(scale), split, tile)
     assert got.shape == (b, n) and got.dtype == torch.bfloat16
     _assert_one_bf16_ulp(got, want.astype(jnp.float32))
 
