@@ -213,10 +213,12 @@ def phase_card_and_build():
 
     t0 = time.perf_counter()
     sources = ["fps", "flash_attn_fwd", "flash_attn_bwd", "w8_matmul", "w4_matmul"]
-    parent = start_w8_parent_build()  # K3's earlier design, timed beside it in phases 7 and 8
+    # K3's and K4's earlier design, timed beside them in phases 7 and 8
+    parents = {bits: start_parent_build(bits) for bits in PARENTS}
     paths = _build.build_all(sources)
-    finish_w8_parent_build(parent)
-    print(f"  built {[p.name for p in paths]} and {W8_PARENT.name} in "
+    for bits, proc in parents.items():
+        finish_parent_build(bits, proc)
+    print(f"  built {[p.name for p in paths]} and {[lib.name for _, lib in PARENTS.values()]} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in sources:
         log = (_build.BUILD_DIR / f"{name}.log")
@@ -230,54 +232,56 @@ def phase_card_and_build():
                 print(f"  ptxas {name} {entry}: {line.strip().replace('ptxas info    : ', '')}")
                 if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                     spills.append(entry)
-        if name in ("fps", "flash_attn_fwd", "flash_attn_bwd", "w8_matmul"):
-            which = {"fps": "K1's instances", "flash_attn_fwd": "K2f",
-                     "w8_matmul": "K3's instances"}.get(name, "K2dq and K2dkv")
-            check(not spills, f"no register spills in {which} {spills or ''}")
+        which = {"fps": "K1's instances", "flash_attn_fwd": "K2f",
+                 "flash_attn_bwd": "K2dq and K2dkv", "w8_matmul": "K3's instances",
+                 "w4_matmul": "K4's instances"}[name]
+        check(not spills, f"no register spills in {which} {spills or ''}")
 
 
-# K3's earlier design (the int8 instance of csrc/dequant_matmul.cuh, which K4
-# still uses), built from scripts/w8_parent.cu to be timed beside K3
-W8_PARENT_SOURCE = Path(__file__).resolve().parent / "scripts" / "w8_parent.cu"
-W8_PARENT = Path(__file__).resolve().parent / "build" / "kernels" / "libw8_parent.so"
+# K3's and K4's earlier design (the int8 and int4 instances of
+# scripts/dequant_matmul.cuh, fp32 products on the CUDA cores), built from
+# scripts/w8_parent.cu and scripts/w4_parent.cu to be timed beside them
+_ROOT = Path(__file__).resolve().parent
+PARENTS = {bits: (_ROOT / "scripts" / f"w{bits}_parent.cu",
+                  _ROOT / "build" / "kernels" / f"libw{bits}_parent.so") for bits in (8, 4)}
+_PARENT_FNS = {}
 
 
-def start_w8_parent_build() -> subprocess.Popen:
+def start_parent_build(bits: int) -> subprocess.Popen:
     from msr3d_tpu_torch.ops import _build
 
-    W8_PARENT.parent.mkdir(parents=True, exist_ok=True)
-    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(W8_PARENT),
-                             str(W8_PARENT_SOURCE)], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    source, lib = PARENTS[bits]
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def finish_w8_parent_build(proc: subprocess.Popen) -> None:
+def finish_parent_build(bits: int, proc: subprocess.Popen) -> None:
     log, _ = proc.communicate()
-    check(proc.returncode == 0, f"K3's earlier design builds ({W8_PARENT_SOURCE.name})"
+    check(proc.returncode == 0, f"K{3 if bits == 8 else 4}'s earlier design builds "
+                                f"({PARENTS[bits][0].name})"
                                 + ("" if proc.returncode == 0 else f":\n{log}"))
 
 
-def w8_parent(x, wq, scale):
-    """K3's earlier design on CUDA tensors (bf16 x, contiguous int8 wq, fp32
-    scale) -> y (B, N) bf16."""
+def parent_call(bits, x, wq, scale):
+    """K3's (bits 8) or K4's (bits 4) earlier design on CUDA tensors (bf16 x,
+    contiguous int8 wq, fp32 scale) -> y (B, N) bf16."""
     import ctypes
 
-    global _W8_PARENT_FN
-    if _W8_PARENT_FN is None:
-        fn = ctypes.CDLL(str(W8_PARENT)).w8_parent_launch
+    fn = _PARENT_FNS.get(bits)
+    if fn is None:
+        fn = getattr(ctypes.CDLL(str(PARENTS[bits][1])), f"w{bits}_parent_launch")
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _W8_PARENT_FN = fn
-    (b, k), n = x.shape, wq.shape[1]
+        _PARENT_FNS[bits] = fn
+    b, k, n = x.shape[0], x.shape[1], wq.shape[1]
     y = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
-    err = _W8_PARENT_FN(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(), b, k, n,
-                        torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(), b, k, n,
+             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise SmokeFailure(f"K3's earlier design failed to launch: CUDA error {err}")
+        raise SmokeFailure(f"K{3 if bits == 8 else 4}'s earlier design failed to launch: CUDA "
+                           f"error {err}")
     return y
-
-
-_W8_PARENT_FN = None
 
 
 def int8pack_call(x, scale):
@@ -293,6 +297,42 @@ def int8pack_call(x, scale):
     except (RuntimeError, NotImplementedError, AttributeError, AssertionError) as exc:
         return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
     return (lambda wq_t: torch._weight_int8pack_mm(xb, wq_t, sb)), None
+
+
+INT4PACK_GROUP = 256  # tinygemm's largest group; K 4096 and 11008 are multiples of it
+
+
+def int4pack_operands(wq, scale):
+    """K4's weight ((K/2, N) in ``pack_w4``'s layout) and scale as the
+    operands of ``torch._weight_int4pack_mm`` (PyTorch's own int4 weight-only
+    product, tinygemm, which computes x · ((u − 8) · s + z)): u = v + 8 of
+    each of the K rows as (N, K), two a byte, converted by
+    ``torch._convert_weight_to_int4pack`` (8 inner k tiles); the per-channel
+    scale at bf16 repeated over K / INT4PACK_GROUP groups, z = 0."""
+    half, n = wq.shape
+    byte = wq.view(torch.uint8).to(torch.int32)
+    u = torch.cat([byte & 0xF, ((byte >> 4) & 0xF) ^ 8]).t().contiguous()  # (N, K): v + 8
+    w = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.zeros((2 * half // INT4PACK_GROUP, n, 2), dtype=torch.bfloat16, device=wq.device)
+    sz[..., 0] = scale.to(torch.bfloat16)
+    return w, sz
+
+
+def int4pack_call(x, wq, scale):
+    """``torch._weight_int4pack_mm`` on x as fn(w, sz) -> y and the operands
+    of (wq, scale) for it (:func:`int4pack_operands`), or the reason it does
+    not run on this card."""
+    xb = x.to(torch.bfloat16)
+    try:
+        if x.shape[1] % INT4PACK_GROUP:
+            raise ValueError(f"K {x.shape[1]} is not a multiple of the group {INT4PACK_GROUP}")
+        ops = int4pack_operands(wq, scale)
+        probe = torch._weight_int4pack_mm(xb, ops[0], INT4PACK_GROUP, ops[1])
+        torch.cuda.synchronize()
+        assert probe.shape == (x.shape[0], wq.shape[1])
+    except (RuntimeError, NotImplementedError, AttributeError, AssertionError, ValueError) as exc:
+        return None, None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    return (lambda w, sz: torch._weight_int4pack_mm(xb, w, INT4PACK_GROUP, sz)), ops, None
 
 
 def kernel_label(mangled: str) -> str:
@@ -1065,7 +1105,7 @@ def dequant_against_plain(x, wq, scale, bits):
                                                                          matmul_w4_reference)
     got, want = kernel(x, wq, scale), plain(x, wq, scale)
     torch.cuda.synchronize()
-    return dict(dequant_errors(got, want, x, scale, bits), want=want)
+    return dict(dequant_errors(got, want, x, scale, bits), want=want, got=got)
 
 
 def dequant_errors(got, want, x, scale, bits):
@@ -1091,6 +1131,7 @@ def phase_dequant(dev):
     from msr3d_tpu_torch.ops.w4_matmul import (
         matmul_w4,
         matmul_w4_reference,
+        plan_w4,
         repack_from_splitnibble,
     )
     from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, matmul_w8_reference, plan_w8
@@ -1105,9 +1146,10 @@ def phase_dequant(dev):
             q, s = quantize_kernel(kernel, bits)  # the serving path's quantizer, on the card
             wq = q if bits == 8 else repack_from_splitnibble(q)
             res = dequant_against_plain(x, wq, s, bits)
-            ok = ok and res["finite"] and res["ratio"] <= 1.0
             fn, plain = (matmul_w8, matmul_w8_reference) if bits == 8 else (matmul_w4,
                                                                              matmul_w4_reference)
+            ok = ok and res["finite"] and res["ratio"] <= 1.0 and torch.equal(fn(x, wq, s),
+                                                                               res["got"])
             w_deq = (dequant_oracle_weight(q, s, bits, None)).to(torch.bfloat16)
             # device time by torch.profiler; "from HBM": each launch reads its weight
             # from one of several copies spanning L2_SPAN_BYTES
@@ -1120,10 +1162,9 @@ def phase_dequant(dev):
                                           iters=len(ops)),
                        library_ms=hbm(lambda w: x @ w, past_l2(w_deq)))
             row["bound_ms"], row["bound_by"] = dequant_bound(b, k, n, bits)
-            extra = ""
+            row["plan"] = (plan_w8 if bits == 8 else plan_w4)(b, k, n)
+            row["parent_ms"] = hbm(lambda w, sc: parent_call(bits, x, w, sc), ops)
             if bits == 8:
-                row["plan"] = plan_w8(b, k, n)
-                row["parent_ms"] = hbm(lambda w, sc: w8_parent(x, w, sc), ops)
                 int8pack, why = int8pack_call(x, s)
                 if int8pack is None:
                     row["int8pack_ms"] = None
@@ -1134,9 +1175,21 @@ def phase_dequant(dev):
                     extra = (f", torch._weight_int8pack_mm {row['int8pack_ms']:.4f} ms (max |Δ| "
                              f"{(got.float() - res['want'].float()).abs().max().item():.3e} "
                              f"from plain: bf16 scales)")
-                extra = (f"; split {row['plan'][0]}, tile {row['plan'][1]}, {row['plan'][2]} "
-                         f"stages; the earlier design {row['parent_ms']:.4f} ms "
-                         f"({row['parent_ms'] / row['ms']:.2f}x)" + extra)
+            else:
+                int4pack, int4ops, why = int4pack_call(x, wq, s)
+                if int4pack is None:
+                    row["int4pack_ms"] = None
+                    extra = f", torch._weight_int4pack_mm does not run here ({why})"
+                else:
+                    got = int4pack(*int4ops)
+                    row["int4pack_ms"] = hbm(int4pack, past_l2(*int4ops))
+                    extra = (f", torch._weight_int4pack_mm {row['int4pack_ms']:.4f} ms (max |Δ| "
+                             f"{(got.float() - res['want'].float()).abs().max().item():.3e} "
+                             f"from plain: bf16 scales; not gated)")
+                    del int4ops
+            extra = (f"; split {row['plan'][0]}, tile {row['plan'][1]}, {row['plan'][2]} "
+                     f"stages; the earlier design {row['parent_ms']:.4f} ms "
+                     f"({row['parent_ms'] / row['ms']:.2f}x)" + extra)
             print(f"  {'K3' if bits == 8 else 'K4'} B={b:2d} K={k:5d} N={n:5d}: max |Δ| "
                   f"{res['err']:.3e} ({res['ratio']:.3f} of the tolerance), device time "
                   f"{row['ms']:.4f} ms from HBM, {row['ms_warm']:.4f} ms L2-warm, plain "
@@ -1147,7 +1200,7 @@ def phase_dequant(dev):
             del ops
         del kernel, q, wq, w_deq
     check(ok, "K3 and K4 within tolerance of their plain versions at every 7B shape and the "
-              "ragged case (B 7, N 1000)")
+              "ragged case (B 7, N 1000), and two calls bit-identical")
     return rows
 
 
@@ -1206,8 +1259,8 @@ def kernel_on_path(captured, bits, kernel, plain_fn, wrap):
     base output (the XLA-order product). The times are per launch, the mean
     over the decode step's 224 projections in order (6.5 GB of int8 weights,
     3.3 GB of int4, so each launch reads its weight from HBM)."""
-    from msr3d_tpu_torch.ops.w4_matmul import matmul_w4
-    from msr3d_tpu_torch.ops.w8_matmul import matmul_w8
+    from msr3d_tpu_torch.ops.w4_matmul import matmul_w4, plan_w4
+    from msr3d_tpu_torch.ops.w8_matmul import matmul_w8, plan_w8
 
     fn = matmul_w8 if bits == 8 else matmul_w4
     operands = [(x, wrap(m), m.weight_scale) for m, x in captured]
@@ -1245,15 +1298,13 @@ def kernel_on_path(captured, bits, kernel, plain_fn, wrap):
     b_by = "bytes" if all(by == "bytes" for _, by in bounds) else "operations"
     out = dict(ms=ms, ms_warm=ms_warm, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=lib_ms, max_abs_err=max(e["err"] for e in errs))
-    extra = ""
+    plan = plan_w8 if bits == 8 else plan_w4
+    out["plan"] = {f"{x.shape[1]}x{w.shape[1]}": list(plan(*x.shape, w.shape[1]))
+                   for x, w, _ in operands}
+    args = [(x.to(torch.bfloat16).contiguous(), w, s.float().contiguous())
+            for x, w, s in operands]
+    out["parent_ms"] = device_ms(lambda: [parent_call(bits, *a) for a in args], iters=3) / n
     if bits == 8:
-        from msr3d_tpu_torch.ops.w8_matmul import plan_w8
-
-        out["plan"] = {f"{x.shape[1]}x{w.shape[1]}": list(plan_w8(*x.shape, w.shape[1]))
-                       for x, w, _ in operands}
-        args = [(x.to(torch.bfloat16).contiguous(), w, s.float().contiguous())
-                for x, w, s in operands]
-        out["parent_ms"] = device_ms(lambda: [w8_parent(*a) for a in args], iters=3) / n
         int8pack, why = int8pack_call(operands[0][0], operands[0][2])
         if int8pack is None:
             out["library_ms_int8pack"] = None
@@ -1263,9 +1314,24 @@ def kernel_on_path(captured, bits, kernel, plain_fn, wrap):
             out["library_ms_int8pack"] = device_ms(
                 lambda: [torch._weight_int8pack_mm(*a) for a in args], iters=3) / n
             extra = f"; torch._weight_int8pack_mm {out['library_ms_int8pack']:.4f} ms"
-        del args
-        extra = (f"; the earlier design {out['parent_ms']:.4f} ms ({out['parent_ms'] / ms:.2f}x); "
-                 f"instances (split, tile, stages) {out['plan']}" + extra)
+    else:
+        int4pack, _, why = int4pack_call(*operands[0])
+        if int4pack is None:
+            out["library_ms_int4pack"] = None
+            extra = f"; torch._weight_int4pack_mm does not run here ({why})"
+        else:  # tinygemm's operands, made outside the timed calls
+            args = [(x, *int4pack_operands(w, s)) for x, w, s in args]
+            errs4 = [(torch._weight_int4pack_mm(x, w, INT4PACK_GROUP, sz).float()
+                      - plain_fn(*ops).float()).abs().max().item()
+                     for (x, w, sz), ops in zip(args, operands)]
+            out["library_ms_int4pack"] = device_ms(
+                lambda: [torch._weight_int4pack_mm(x, w, INT4PACK_GROUP, sz)
+                         for x, w, sz in args], iters=3) / n
+            extra = (f"; torch._weight_int4pack_mm {out['library_ms_int4pack']:.4f} ms (max |Δ| "
+                     f"{max(errs4):.3e} from plain: bf16 scales; not gated)")
+    del args
+    extra = (f"; the earlier design {out['parent_ms']:.4f} ms ({out['parent_ms'] / ms:.2f}x); "
+             f"instances (split, tile, stages) {out['plan']}" + extra)
     print(f"  {name} device time a launch, mean over the {n} projections at "
           f"B={operands[0][0].shape[0]}: {ms:.4f} ms from HBM, {ms_warm:.4f} ms L2-warm (layer 0's "
           f"seven), plain {plain_ms:.4f} ms, cuBLAS x @ w_bf16 on the pre-dequantized weights "
@@ -1447,7 +1513,7 @@ def phase7_rows(rows, bits):
     """Phase 7's device times of K3 or K4 for the kernels line, one entry a
     shape."""
     keys = ("b", "k", "n", "ms", "ms_warm", "plain_ms", "library_ms", "bound_ms", "parent_ms",
-            "int8pack_ms", "plan")
+            "int8pack_ms", "int4pack_ms", "plan")
     return [{key: r[key] for key in keys if key in r} for r in rows if r["bits"] == bits]
 
 

@@ -2,8 +2,8 @@
 the kernel's packing.
 
 Replaces ``msr3d_tpu/ops/pallas/w4_matmul.py::_kernel`` (wrapper
-``matmul_w4``) with ``csrc/w4_matmul.cu`` (design in
-``csrc/dequant_matmul.cuh``).
+``matmul_w4``) with ``csrc/w4_matmul.cu`` (the int4 instance of
+``csrc/wq_matmul.cuh``, the design K3 runs on too).
 
 Packing (``pack_w4``): ``wq`` is int8 (K/2, N); the byte at packed row r
 holds input row r in its low nibble, biased by +8, and input row r + K/2 in
@@ -18,26 +18,51 @@ it.
 
 The plain version follows the TPU kernel's biased formula,
 ``y = ((x_lo · lo_u + x_hi · hi) − 8 · rowsum(x_lo)) · scale`` with
-``lo_u = lo + 8`` and fp32 sums; the CUDA kernel unpacks the low nibble to
-its signed value instead, so the two sum different terms: besides the order
+``lo_u = lo + 8`` and fp32 sums; the CUDA kernel converts each nibble to its
+signed value instead, so the two sum different terms: besides the order
 of the fp32 sums, they differ by the rounding of the biased sum before the
 −8 · rowsum cancels. The TPU kernel's three ``unpack`` modes give identical
 results and are not ported; there is one kernel.
+
+The kernel runs its products on the tensor cores (``mma.sync``, two a packed
+k16 step: the low nibbles against x's first half, the high ones against its
+second), streams the weight and both halves of x through warp-private
+``cp.async`` rings and splits the packed rows across blocks, the partials
+added in split order by the last block of each column tile (the counters are
+:func:`~msr3d_tpu_torch.ops.w8_matmul.split_counters`' buffer, shared with
+K3: launches of one stream run one after another), so two calls give the
+same bits. :func:`plan_w4` picks the instance for a shape (from
+``scripts/w4_variants.py``'s measurements, ``PERF.md``);
+:func:`matmul_w4_config` launches any of them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from msr3d_tpu_torch.ops._build import CudaKernel
-from msr3d_tpu_torch.ops.w8_matmul import check_shapes, dequant_operands
+from msr3d_tpu_torch.ops.w8_matmul import (
+    MAX_SPLIT,
+    ROW_TILE,
+    SMS,
+    STAGE_BYTES,
+    check_shapes,
+    launch_instance,
+)
 
 W4_MATMUL_KERNEL = CudaKernel(
     "w4_matmul", "w4_matmul_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+W4_STAGE_BYTES = 2 * STAGE_BYTES  # weight bytes a block stage: twice K3's
+# What K4's instances cost on an H100, fitted to scripts/w4_variants.py's
+# times (PERF.md): the cp.async copies move about 2.1 TB/s over the card and
+# 15 GB/s a block; x's two slices (4 bytes a row of x a packed row, from L2)
+# cost a quarter of the weight's bytes (from HBM); a split adds 0.4 us
+COPY_BYTES_PER_US, BLOCK_BYTES_PER_US, X_SHARE, SPLIT_US = 2.1e6, 1.5e4, 0.25, 0.4
 
 
 def _to_int8_bytes(byte: torch.Tensor) -> torch.Tensor:
@@ -83,19 +108,43 @@ def matmul_w4_reference(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) 
     return ((acc - 8.0 * rs) * scale.float()).to(torch.bfloat16)
 
 
+def plan_w4(b: int, k: int, n: int) -> Tuple[int, int, int]:
+    """(split, column tile, stages) for x (b, k) and wq (k/2, n): the split and
+    tile (64 or 128 columns) whose estimated time is least, with a 2-stage
+    ring. A block copies its packed rows' weight and both slices of x; the
+    estimate is the larger of all blocks' bytes at the card's copy rate and
+    a block's bytes at a block's rate times the waves of blocks over the
+    SMs, plus the splits' epilogue. On an H100 its instance is within 3 % of
+    the fastest at each 7B shape at B 4 and 16 (``scripts/w4_variants.py``,
+    PERF.md)."""
+    half, rows, best = k // 2, min(b, ROW_TILE), None
+    for tile in (64, 128):
+        tiles = -(-n // tile) * -(-b // ROW_TILE)
+        k_tiles = -(-half // (W4_STAGE_BYTES // tile))
+        for split in range(1, max(1, min(MAX_SPLIT, k_tiles // 2)) + 1):
+            blocks = tiles * split
+            per_block = half / split * (tile + X_SHARE * 4 * rows)
+            est = max(blocks * per_block / COPY_BYTES_PER_US,
+                      -(-blocks // SMS) * per_block / BLOCK_BYTES_PER_US) + SPLIT_US * split
+            if best is None or est < best[0]:
+                best = (est, split, tile)
+    return best[1], best[2], 2
+
+
+def matmul_w4_config(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, split: int,
+                     tile: int, stages: int) -> torch.Tensor:
+    """K4 on CUDA tensors with the packed rows split ``split`` ways, ``tile``
+    output columns a block and a ring of ``stages``; raises on what it does
+    not take."""
+    return launch_instance(W4_MATMUL_KERNEL, "matmul_w4", x, wq, scale, split, tile, stages)
+
+
 def matmul_w4(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (B, K) bf16/fp32, wq (K/2, N) int8 in :func:`pack_w4`'s layout,
     scale (N,) per output channel → (B, N) bf16. A CPU tensor takes the
-    plain version; a CUDA tensor launches K4 or raises."""
+    plain version; a CUDA tensor launches K4 (at :func:`plan_w4`'s instance)
+    or raises."""
     check_shapes(x, 2 * wq.shape[0], wq.shape[1], scale, "2 * packed rows")
     if x.device.type == "cpu":
         return matmul_w4_reference(x, wq, scale)
-    xb, s, y = dequant_operands(x, wq, scale, "matmul_w4")
-    b, n = y.shape
-    if b == 0 or n == 0:
-        return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        W4_MATMUL_KERNEL(xb.data_ptr(), wq.data_ptr(), s.data_ptr(), y.data_ptr(), b, x.shape[1],
-                         n, stream)
-    return y
+    return matmul_w4_config(x, wq, scale, *plan_w4(x.shape[0], x.shape[1], wq.shape[1]))

@@ -1,7 +1,9 @@
-"""int8 weight-only matrix product: kernel K3 and its plain PyTorch version.
+"""int8 weight-only matrix product: kernel K3 and its plain PyTorch version,
+and the launch plumbing that K3 and K4 share.
 
 Replaces ``msr3d_tpu/ops/pallas/w8_matmul.py::_kernel`` (wrapper
-``matmul_w8``) with ``csrc/w8_matmul.cu``::
+``matmul_w8``) with ``csrc/w8_matmul.cu`` (the int8 instance of
+``csrc/wq_matmul.cuh``)::
 
     y[b, n] = bf16((Σ_k bf16(x)[b, k] · wq[k, n]) · scale[n]),  fp32 accumulator
 
@@ -99,25 +101,26 @@ _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def split_counters(device: torch.device, tiles: int) -> torch.Tensor:
-    """The int32 counters a split launch needs, one a column and row tile:
-    zero when made, and the kernel sets each back to zero when its tile's
-    last split has added the partials, so one buffer a device serves every
-    launch (launches of one stream run one after another)."""
+    """The int32 counters a split launch of K3 or K4 needs, one a column and
+    row tile: zero when made, and the kernel sets each back to zero when its
+    tile's last split has added the partials, so one buffer a device serves
+    every launch of both kernels (launches of one stream run one after
+    another)."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < tiles:
         buf = _COUNTERS[device] = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
     return buf
 
 
-def matmul_w8_config(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, split: int,
-                     tile: int, stages: int) -> torch.Tensor:
-    """K3 on CUDA tensors with K split ``split`` ways, ``tile`` output
-    columns a block and a ring of ``stages``; raises on what it does not
-    take."""
+def launch_instance(kernel: CudaKernel, fn: str, x: torch.Tensor, wq: torch.Tensor,
+                    scale: torch.Tensor, split: int, tile: int, stages: int) -> torch.Tensor:
+    """K3 or K4 (``kernel``, wrapper name ``fn``) on CUDA tensors with K split
+    ``split`` ways, ``tile`` output columns a block and a ring of ``stages``;
+    raises on what it does not take. The split's counters are
+    :func:`split_counters`' buffer, which both kernels share."""
     if not (1 <= split <= MAX_SPLIT and tile in TILES and stages in STAGES):
-        raise ValueError(f"matmul_w8: no instance for split {split}, tile {tile}, "
-                         f"stages {stages}")
-    xb, s, y = dequant_operands(x, wq, scale, "matmul_w8")
+        raise ValueError(f"{fn}: no instance for split {split}, tile {tile}, stages {stages}")
+    xb, s, y = dequant_operands(x, wq, scale, fn)
     (b, k), n = xb.shape, y.shape[1]
     if b == 0 or n == 0:
         return y
@@ -127,11 +130,18 @@ def matmul_w8_config(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, spl
         cnt = split_counters(x.device, -(-n // tile) * -(-b // ROW_TILE))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        W8_MATMUL_KERNEL(xb.data_ptr(), wq.data_ptr(), s.data_ptr(), y.data_ptr(),
-                         ws.data_ptr() if split > 1 else None,
-                         cnt.data_ptr() if split > 1 else None, b, k, n, split, tile, stages,
-                         stream)
+        kernel(xb.data_ptr(), wq.data_ptr(), s.data_ptr(), y.data_ptr(),
+               ws.data_ptr() if split > 1 else None, cnt.data_ptr() if split > 1 else None,
+               b, k, n, split, tile, stages, stream)
     return y
+
+
+def matmul_w8_config(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, split: int,
+                     tile: int, stages: int) -> torch.Tensor:
+    """K3 on CUDA tensors with K split ``split`` ways, ``tile`` output
+    columns a block and a ring of ``stages``; raises on what it does not
+    take."""
+    return launch_instance(W8_MATMUL_KERNEL, "matmul_w8", x, wq, scale, split, tile, stages)
 
 
 def matmul_w8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,15 @@
-// Weight-only dequant matrix product on Hopper: the design of kernel K4
-// (int4, w4_matmul.cu). K3 (int8) has its own kernel in w8_matmul.cu; the
-// BITS = 8 instance here is its earlier design, kept only for
-// scripts/w8_parent.cu, which times it beside K3.
+// The earlier design of kernels K3 (int8) and K4 (int4): a weight-only
+// dequant matrix product with fp32 products on the CUDA cores. No kernel of
+// the port uses it: K3 and K4 are the instances of
+// msr3d_tpu_torch/csrc/wq_matmul.cuh. It is kept for scripts/w8_parent.cu and
+// scripts/w4_parent.cu, which time it beside them (chip_smoke.py,
+// scripts/w8_variants.py, scripts/w4_variants.py).
 //
 //   y[b, n] = bf16( (sum_k x[b, k] * w[k, n]) * scale[n] ),  fp32 accumulator
 //
-// x is (B, K) bf16, y (B, N) bf16, scale (N,) fp32. The weight wq is int8
-// (K/2, N), row-major along N, in the kernel layout of the TPU kernel's
-// pack_w4: the byte at packed row r holds input row r in its low nibble,
+// x is (B, K) bf16, y (B, N) bf16, scale (N,) fp32. The weight wq is int8,
+// row-major along N: (K, N) for BITS 8; for BITS 4 (K/2, N) in the kernel
+// layout of the TPU kernel's pack_w4: the byte at packed row r holds input row r in its low nibble,
 // biased by +8, and input row r + K/2 in its high nibble, two's complement.
 //
 // Every product bf16(x) * w has at most 8 + 4 significant bits and is exact
@@ -37,9 +39,7 @@
 //
 // The function is bound by its weight bytes. This design is not: it does its
 // 2 * B * K * N operations as fp32 FMAs on the CUDA cores, and at B = 16 those
-// take longer than the weight's bytes (PERF.md). K3's redesign (w8_matmul.cu:
-// mma.sync over weights converted in registers, a cp.async ring, split K) is
-// the model for K4's.
+// take longer than the weight's bytes (PERF.md).
 
 #pragma once
 

@@ -1,10 +1,9 @@
 // The earlier design of kernel K3 (int8 weight-only matrix product), kept
-// for scripts/w8_variants.py to time beside the current one: the int8
-// instance of the CUDA-core kernel in msr3d_tpu_torch/csrc/dequant_matmul.cuh
-// (one block of 256 threads per 32 output columns, fp32 FMAs, x staged in
-// shared memory between barriers), which K4 still uses for int4.
+// to time beside the current one: the int8 instance of the CUDA-core kernel
+// in dequant_matmul.cuh (one block of 256 threads per 32 output columns,
+// fp32 FMAs, x staged in shared memory between barriers).
 
-#include "../msr3d_tpu_torch/csrc/dequant_matmul.cuh"
+#include "dequant_matmul.cuh"
 
 // x (b, k) bf16, wq (k, n) int8, scale (n,) fp32, y (b, n) bf16, all
 // contiguous on the card. Returns the launch's cudaGetLastError().

@@ -29,7 +29,13 @@ from msr3d_tpu_torch.ops.flash_attention import (
 )
 from msr3d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_reference
 from msr3d_tpu_torch.ops.pointnet2 import gather_points
-from msr3d_tpu_torch.ops.w4_matmul import matmul_w4, matmul_w4_reference, pack_w4
+from msr3d_tpu_torch.ops.w4_matmul import (
+    matmul_w4,
+    matmul_w4_config,
+    matmul_w4_reference,
+    pack_w4,
+    plan_w4,
+)
 from msr3d_tpu_torch.ops.w8_matmul import (
     MAX_SPLIT,
     STAGES,
@@ -50,6 +56,7 @@ from torch_flash_bwd_model import (
 )
 from torch_flash_fwd_model import forward_inputs, kernel_model_forward
 from torch_fps_model import kernel_model_fps, tie_clouds
+from torch_w4_model import W4_STAGE_BYTES, kernel_model_w4
 from torch_w8_model import k_ranges, kernel_model_w8
 
 REPO = Path(__file__).resolve().parents[1]
@@ -279,6 +286,47 @@ def test_w8_plan_is_an_instance(b, k, n):
     split, tile, stages = plan_w8(b, k, n)
     assert 1 <= split <= MAX_SPLIT and tile in TILES and stages in STAGES
     assert split <= -(-k // (8192 // tile))  # every split has a k tile
+
+
+# K4's split-K model: (B, K, N, split, tile). B 1-37, N 640/1000/1001, K/2
+# with and without a partial k tile (tiles of 128, 256 and 512 packed rows),
+# K/2 odd or not a multiple of 8, 1-8 splits
+W4_MODEL_CASES = [
+    (1, 2048, 640, 1, 128), (4, 2064, 1000, 2, 128), (7, 2048, 1001, 3, 64),
+    (16, 2080, 640, 4, 32), (37, 4112, 1000, 5, 64), (16, 4096, 1001, 8, 128),
+    (4, 3106, 640, 6, 32), (37, 2048, 1001, 7, 128), (7, 6160, 1000, 8, 32),
+    (1, 1058, 1001, 2, 32),
+]
+
+
+@pytest.mark.parametrize("b,k,n,split,tile", W4_MODEL_CASES)
+def test_w4_kernel_model_matches_plain_version(b, k, n, split, tile):
+    x, wq, scale = _dequant_inputs(b + k + n + split, b, k, n, 4, "cpu")
+    want = matmul_w4_reference(x, wq, scale)
+    got = kernel_model_w4(x, wq, scale, split, tile)
+    assert got.shape == (b, n) and got.dtype == torch.bfloat16
+    assert bool(((got.float() - want.float()).abs() <= _dequant_tolerance(x, scale, want, 4)).all())
+
+
+@pytest.mark.parametrize("k,split,tile", [(2080, 3, 64), (8192, 16, 128), (22016, 9, 32),
+                                          (3106, 3, 32)])
+def test_w4_split_ranges_cover_k_once(k, split, tile):
+    """K4's ranges over the K/2 packed rows (16 KB stages) are contiguous,
+    tile-aligned, cover K/2 (the last tile's pad included) and none is empty
+    while there are tiles to spare."""
+    ranges = k_ranges(k // 2, split, tile, W4_STAGE_BYTES)
+    kt = W4_STAGE_BYTES // tile
+    assert ranges[0][0] == 0 and ranges[-1][1] == -(-(k // 2) // kt) * kt
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(s % kt == 0 and e > s for s, e in ranges)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16, 37])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096), (1040, 1001)])
+def test_w4_plan_is_an_instance(b, k, n):
+    split, tile, stages = plan_w4(b, k, n)
+    assert 1 <= split <= MAX_SPLIT and tile in TILES and stages in STAGES
+    assert split <= -(-(k // 2) // (W4_STAGE_BYTES // tile))  # every split has a k tile
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -534,6 +582,65 @@ def test_w8_kernel_two_calls_bit_identical(cuda_device, b, k, n):
     assert torch.equal(first, second) and torch.equal(*split_8)
 
 
+def _w4_close(got, x, wq, scale):
+    want = matmul_w4_reference(x, wq, scale)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    return bool(((got.float() - want.float()).abs() <= _dequant_tolerance(x, scale, want, 4)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 16])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_w4_kernel_matches_plain_version_at_7b_shapes(cuda_device, b, k, n):
+    x, wq, scale = _dequant_inputs(b * k + n + 4, b, k, n, 4, cuda_device)
+    got = matmul_w4(x, wq, scale)
+    torch.cuda.synchronize()
+    assert _w4_close(got, x, wq, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,n", [
+    (1, 1040, 1001),  # odd N: byte loads; a partial k tile
+    (7, 4112, 1000),  # N % 16 == 8: 4-byte copies
+    (37, 1040, 640),  # three row tiles
+    (16, 1554, 1001),  # K/2 = 777, not a multiple of 8: x loaded element by element
+    (16, 1036, 1024),  # K/2 = 518, even but not a multiple of 8: x loaded element by element
+    (5, 48, 96),  # K/2 shorter than one k tile
+])
+def test_w4_kernel_matches_plain_version_on_ragged_shapes(cuda_device, b, k, n):
+    x, wq, scale = _dequant_inputs(b + k + n + 4, b, k, n, 4, cuda_device)
+    got = matmul_w4(x, wq, scale)
+    torch.cuda.synchronize()
+    assert _w4_close(got, x, wq, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", STAGES)
+@pytest.mark.parametrize("tile", TILES)
+def test_w4_kernel_every_instance_matches_plain_version(cuda_device, tile, stages):
+    """Every split 1-16 of the instance, on an aligned and a ragged shape,
+    against the plain version and the model of its sum order."""
+    for b, k, n in ((16, 8192, 1024), (7, 5200, 1000)):
+        x, wq, scale = _dequant_inputs(tile + stages + k + 4, b, k, n, 4, cuda_device)
+        for split in range(1, MAX_SPLIT + 1):
+            got = matmul_w4_config(x, wq, scale, split, tile, stages)
+            torch.cuda.synchronize()
+            assert _w4_close(got, x, wq, scale), (b, k, n, split)
+            model = kernel_model_w4(x.cpu(), wq.cpu(), scale.cpu(), split, tile)
+            assert bool(((got.cpu().float() - model.float()).abs()
+                         <= _dequant_tolerance(x.cpu(), scale.cpu(), model, 4)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,n", [(16, 11008, 4096), (7, 1040, 1001)])
+def test_w4_kernel_two_calls_bit_identical(cuda_device, b, k, n):
+    x, wq, scale = _dequant_inputs(b + k + 4, b, k, n, 4, cuda_device)
+    first, second = matmul_w4(x, wq, scale), matmul_w4(x, wq, scale)
+    split_8 = (matmul_w4_config(x, wq, scale, 8, 64, 3), matmul_w4_config(x, wq, scale, 8, 64, 3))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(*split_8)
+
+
 @pytest.mark.cuda
 def test_dequant_matmul_kernels_refuse_what_they_do_not_take(cuda_device):
     x = torch.zeros((2, 64), dtype=torch.bfloat16, device=cuda_device)
@@ -573,6 +680,7 @@ def test_port_imports_no_jax():
         + sorted((REPO / "scripts").glob("*_variants.py"))
     assert len(files) > 10 and REPO / "scripts" / "fps_variants.py" in files
     assert REPO / "scripts" / "w8_variants.py" in files
+    assert REPO / "scripts" / "w4_variants.py" in files
     bad = []
     for path in files:
         for mod in _imports(path):

@@ -47,6 +47,7 @@ from torch_parity_utils import (
     torch_llama_config,
     torch_prompter_config,
 )
+from torch_w4_model import kernel_model_w4
 from torch_w8_model import kernel_model_w8
 
 ATOL = 1e-5  # fp32 outputs of the two frameworks: summation order only
@@ -167,6 +168,37 @@ def test_matmul_w4_reference_matches_pallas(unpack, b):
                               torch.from_numpy(scale))
     assert got.shape == (b, n) and got.dtype == torch.bfloat16
     _assert_one_bf16_ulp(got, want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("unpack", ["bf16", "f32", "i16"])
+@pytest.mark.parametrize("b", [1, 4, 7, 16, 37])
+@pytest.mark.parametrize("k,split,tile", [
+    (1024, 4, 128),  # K/2 a whole number of 128-row tiles
+    (1536, 2, 32),  # 512-row tiles: the second is half padding
+    (2560, 8, 64),  # 256-row tiles, 5 of them over 8 splits: three are empty
+])
+def test_w4_kernel_model_matches_pallas(unpack, b, k, split, tile):
+    """K4's split-K sum order over signed nibbles (``tests/torch_w4_model.py``)
+    against the Pallas kernel in interpret mode and the plain version, both of
+    which sum the +8-biased low nibbles and subtract 8·rowsum(x_lo) after:
+    within one bf16 ulp plus the rounding of that biased sum, 2^-12·Σ|x|·|s|
+    (as ``chip_smoke.py``'s DEQ_W4_BIAS)."""
+    n = 640
+    r = np.random.default_rng(b * k + split)
+    x = (r.normal(size=(b, k)) * 0.1).astype(np.float32)
+    packed = jw4.pack_w4(r.integers(-8, 8, size=(k, n)))
+    scale = (r.uniform(0.5, 1.5, size=(n,)) / 7).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = kernel_model_w4(xb, torch.from_numpy(packed), torch.from_numpy(scale), split, tile)
+    assert got.shape == (b, n) and got.dtype == torch.bfloat16
+    pallas = jw4.matmul_w4(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(packed),
+                           jnp.asarray(scale), block_kp=256, block_n=128, unpack=unpack,
+                           interpret=True)
+    plain = w4_matmul.matmul_w4_reference(xb, torch.from_numpy(packed), torch.from_numpy(scale))
+    bias = 2.0 ** -12 * xb.float().abs().sum(1, keepdim=True).numpy() * np.abs(scale)
+    for want in (np.asarray(pallas.astype(jnp.float32)), plain.float().numpy()):
+        err = np.abs(got.float().numpy() - want)
+        assert bool((err <= BF16_ULP * np.abs(want) + bias + 1e-6).all())
 
 
 def test_dequant_matmul_bad_shapes_raise_as_pallas():

@@ -21,10 +21,11 @@ STAGE_BYTES = 8192
 WARPS = 4
 
 
-def k_ranges(k: int, split: int, tile: int):
+def k_ranges(k: int, split: int, tile: int, stage_bytes: int = STAGE_BYTES):
     """The k rows [start, end) of each of the ``split`` ranges (the last
-    tile's rows past K included, as zeros)."""
-    kt = STAGE_BYTES // tile
+    tile's rows past K included, as zeros), for tiles of ``stage_bytes //
+    tile`` rows."""
+    kt = stage_bytes // tile
     tiles = -(-k // kt)
     return [((p * tiles // split) * kt, ((p + 1) * tiles // split) * kt) for p in range(split)]
 
