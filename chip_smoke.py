@@ -12,18 +12,20 @@ and 960 clouds, phases 3 and 5 time K2f, K2dq, K2dkv and the library's
 forward and backward L2-warm and from HBM, and the whole body of
 ``FlashAttention.backward``).
 Then it drives the port's paths at the flagship
-width (OSE3D prompter: 60 objects x 1024 points; Vicuna-7B-geometry Llama,
-bf16, LoRA r16 on all seven projections, flash attention) with random
-weights from a seed: greedy ``MSR3D.generate`` (phase 4), two optimizer
+width (OSE3D prompter: 60 objects x 1024 points; ConvNeXt-base image
+encoder, 60 images of 224² a request; Vicuna-7B-geometry Llama, bf16, LoRA
+r16 on all seven projections, flash attention) with random weights from a
+seed: greedy ``MSR3D.generate`` (phase 4), beam-5 ``MSR3D.generate`` with
+the ancestry map and with the reordered cache (phase 9), two optimizer
 steps of ``LeoTrainer`` at the flagship's solver (phase 6), and greedy
 generation with the LLM quantized on the card in four serving
-configurations (phase 8, int8/int4 weights, int8 KV cache, s8xs8), and
-checks that each path launched its kernels. Any failed check exits
+configurations (phase 8, int8/int4 weights, int8 KV cache, s8xs8; beam-5
+on the int8 KV cache), and checks that each path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
 or without the package beside it, it exits non-zero and prints no result.
-``--profile`` adds the device time by kernel of one more generate (bf16 and
-int8) and the device busy share of one more optimizer step
+``--profile`` adds the device time by kernel of one more generate (bf16
+greedy and beam, int8) and the device busy share of one more optimizer step
 (``torch.profiler``).
 """
 
@@ -102,6 +104,13 @@ SHAPES_7B = ((4096, 4096), (4096, 11008), (11008, 4096))  # (K, N): q/k/v/o, gat
 # weight from HBM as a decode step does
 L2_SPAN_BYTES = 256 * 2**20
 N_REQUESTS, NEW_TOKENS, REP_PENALTY = 4, 32, 3.0
+# the reference's eval decode (msr3d_tpu/models/build.py:101-105): beam 5,
+# repetition penalty 3.0, length penalty 1.0; cut from 256 to NEW_TOKENS tokens
+BEAMS, LENGTH_PENALTY = 5, 1.0
+# every MSQA sample carries msr3d_max_img_num images of img_size, padded with
+# zeros and masked by the dataset wrapper (configs/msr3d.yaml:109,144)
+MAX_IMAGES, IMAGE_SIZE = 60, 224
+_SCENE_KEYS = ("obj_fts", "obj_masks", "obj_locs", "anchor_locs", "anchor_orientation")
 # the flagship's solver (configs/msr3d.yaml:32-47): batch 4 x accumulation 5
 TRAIN_ACCUM, TRAIN_STEPS = 5, 2
 WIRING_LR, WIRING_STEPS = 1e-3, 4
@@ -741,11 +750,15 @@ def sdpa_backend(fn) -> str:
     return "math (plain ops)"
 
 
-def make_requests(seed: int, b: int = N_REQUESTS):
-    """``b`` requests built like bench_qa.py's (60 objects x 1024 points)."""
+def make_requests(seed: int, b: int = N_REQUESTS, images: bool = False):
+    """``b`` requests built like bench_qa.py's (60 objects x 1024 points).
+    With ``images``, as the flagship serves them: request i shows 1 + i % 4
+    images of 224², one 图 placeholder each in its prompt, padded with zeros
+    to 60 and masked as the dataset wrapper pads them (the prompt stays
+    inside the 224-token bucket)."""
     r = np.random.default_rng(seed)
     n_obj, n_pts = 60, 1024
-    return {
+    data = {
         "msr3d_prompt": [
             "You are an AI visual assistant situated in a 3D scene. "
             "Objects (including you) in the scene: 景 "
@@ -758,6 +771,20 @@ def make_requests(seed: int, b: int = N_REQUESTS):
         "anchor_locs": r.normal(size=(b, 3)).astype(np.float32),
         "anchor_orientation": np.tile(np.array([0, 0, 0, 1], np.float32), (b, 1)),
     }
+    if images:
+        shown = [1 + i % 4 for i in range(b)]
+        data["msr3d_prompt"] = [
+            f"You are an AI assistant in a 3D scene, seen in {'图' * n}. "
+            "Objects (including you) in the scene: 景 "
+            f"USER: What is behind the chair number {i}? ASSISTANT:"
+            for i, n in enumerate(shown)
+        ]
+        imgs = np.zeros((b, MAX_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3), np.float32)
+        for i, n in enumerate(shown):
+            imgs[i, :n] = r.standard_normal((n, IMAGE_SIZE, IMAGE_SIZE, 3), np.float32)
+        data["msr3d_imgs"] = imgs
+        data["msr3d_img_masks"] = np.arange(MAX_IMAGES)[None, :] < np.array(shown)[:, None]
+    return data
 
 
 def build_flagship_model(dev, lora_rank: int = 16, what: str = "the flagship model of phases 4 and 6"):
@@ -788,18 +815,22 @@ def build_flagship_model(dev, lora_rank: int = 16, what: str = "the flagship mod
 
 
 def phase_generate(model, dev, profile: bool):
-    print("== phase 4: greedy MSR3D.generate at the flagship width")
+    print(f"== phase 4: greedy MSR3D.generate at the flagship width, {MAX_IMAGES} images of "
+          f"{IMAGE_SIZE}² a request ({model.cfg.backbone_name}, {model.cfg.image_pooling} "
+          "pooling)")
     import msr3d_tpu_torch.models.llm.llama as llama
     import msr3d_tpu_torch.nn.pointnet as pointnet
     from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL, flash_attention_reference
     from msr3d_tpu_torch.ops.fps import FPS_KERNEL, furthest_point_sample_reference
 
     llm = model.cfg.llm
-    data = make_requests(seed=0)
+    data = make_requests(seed=0, images=True)
     model.generate(dict(data), use_beam=False)  # warm-up: cuBLAS handles, allocator
 
     FPS_KERNEL.launches = FLASH_FWD_KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     gen_ms = wall_ms(lambda: data.update(model.generate(dict(data), use_beam=False)))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     launches = {"fps": FPS_KERNEL.launches, "flash_attn_fwd": FLASH_FWD_KERNEL.launches}
     print(f"  launches during generate: {launches}")
     check(launches["fps"] == 2, "K1 launched twice per scene encode (SA stages 1 and 2)")
@@ -814,20 +845,23 @@ def phase_generate(model, dev, profile: bool):
     prompts = model.build_text_prompt(data)
     ids, attn = model._pad_to_bucket(*model._encode_prompts(prompts), side="left")
     scene = model._scene_batch(data)
+    points = {k: scene[k] for k in _SCENE_KEYS}
     ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
     attn_t = torch.as_tensor(attn, dtype=torch.int32, device=dev)
     with torch.no_grad():
-        def prefill():
-            return net.prefill(ids_t, attn_t, **scene, bos_id=model.tokenizer.bos_id,
-                               max_cache_len=ids.shape[1] + 1)
+        def prefill(**images):
+            return net.prefill(ids_t, attn_t, **dict(scene, **images),
+                               bos_id=model.tokenizer.bos_id, max_cache_len=ids.shape[1] + 1)
 
-        encode_ms = wall_ms(lambda: net.visual_prompter(**scene))
+        encode_ms = wall_ms(lambda: net.visual_prompter(**points))
+        image_ms = wall_ms(lambda: net.encode_images(scene["images"]))
+        image_device = device_ms(lambda: net.encode_images(scene["images"]), iters=3, warmup=1)
         prefill_ms = wall_ms(prefill)
         prefill_device = device_ms(prefill, iters=3, warmup=1)  # its kernels' summed time
-        tokens_k = net.visual_prompter(**scene)["obj_tokens"]
+        tokens_k = net.visual_prompter(**points)["obj_tokens"]
         with mock.patch.object(pointnet, "fps", lambda xyz, m: furthest_point_sample_reference(
                 xyz.float().contiguous(), m)):
-            tokens_plain = net.visual_prompter(**scene)["obj_tokens"]
+            tokens_plain = net.visual_prompter(**points)["obj_tokens"]
         check(torch.equal(tokens_k, tokens_plain),
               "scene tokens with K1 equal those with the plain FPS")
         layers = []
@@ -867,17 +901,121 @@ def phase_generate(model, dev, profile: bool):
           f"max |plain| {first_plain.abs().max().item():.4e}, top-1 agreement {same_top1:.2f}")
     check(err_k2f <= E2E_RTOL, f"first-token logits with K2f within {E2E_RTOL} (relative "
           "L2) of the prefill with K2f's plain version")
+    image_wiring_gate(prefill, scene)
 
     finished_at = [list(row).index(model.tokenizer.eos_id) if model.tokenizer.eos_id in row
                    else NEW_TOKENS for row in tokens]
     decode_steps = max(1, min(NEW_TOKENS, max(finished_at) + 1) - 1)
     decode_ms = (gen_ms - prefill_ms) / decode_steps
-    print(f"  scene encode {encode_ms:.2f} ms, prefill (encode included) {prefill_ms:.2f} ms "
+    print(f"  image encode ({N_REQUESTS * MAX_IMAGES} images, llm_proj_img included) "
+          f"{image_ms:.2f} ms ({image_device:.3f} ms of device time; TF32 flags: "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}), "
+          f"scene encode {encode_ms:.2f} ms, prefill (both encodes included) {prefill_ms:.2f} ms "
           f"({prefill_device:.3f} ms of device time), decode {decode_ms:.2f} ms/token over "
-          f"{decode_steps} steps, generate {gen_ms:.2f} ms, {N_REQUESTS / gen_ms * 1e3:.3f} QA/s")
+          f"{decode_steps} steps, generate {gen_ms:.2f} ms, {N_REQUESTS / gen_ms * 1e3:.3f} QA/s, "
+          f"peak memory allocated {peak_gb:.2f} GiB")
     if profile:
         profile_device("generate", lambda: model.generate(dict(data), use_beam=False))
     return launches
+
+
+def image_wiring_gate(prefill, scene) -> None:
+    """The images reach the first-token logits through their placeholders
+    only: other pixels in every masked (padding) image leave them equal bit
+    for bit; other pixels in one shown image move them."""
+    images, masks = scene["images"], scene["image_masks"]
+    first = prefill()[0]
+    padding = images.clone()
+    padding[~masks] = torch.randn_like(padding[~masks])
+    same = prefill(images=padding)[0]
+    shown = images.clone()
+    shown[0, 0] += 1.0
+    moved = prefill(images=shown)[0]
+    delta = (moved[0] - first[0]).abs().max().item()
+    print(f"  image wiring: {int((~masks).sum())} masked images changed: max |Δ logits| "
+          f"{(same - first).abs().max().item():.3e}; request 0's first image changed: "
+          f"max |Δ logits| {delta:.3e}")
+    check(torch.equal(same, first), "first-token logits bit-equal when the masked images change")
+    check(delta > 0 and torch.equal(moved[1:], first[1:]),
+          "first-token logits of request 0 move when its shown image changes, the others' not")
+
+
+def beam_runs(model, data, label: str):
+    """Beam generate of ``data`` (``num_beams`` BEAMS, length penalty 1.0, the
+    model's repetition penalty) with the ancestry map and with the reordered
+    generated cache, each timed once after a short warm-up, K1 and K2f
+    counted from 0 around it, decode steps counted and the peak memory read.
+    Gates: the tokens of the two runs are equal."""
+    from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    net = model.network
+    model.num_beams, model.length_penalty = BEAMS, LENGTH_PENALTY
+    runs = {}
+    for ancestry in (True, False):
+        model.beam_ancestry = ancestry
+        model.generate(dict(data), use_beam=True, max_new_tokens=2)  # warm-up
+        steps = []
+        step_fns = {}
+        for name in ("decode_step_shared", "decode_step_beam_anc"):
+            def counted(*args, _fn=getattr(net, name), **kw):
+                steps.append(1)
+                return _fn(*args, **kw)
+            step_fns[name] = counted
+        out = {}
+        FPS_KERNEL.launches = FLASH_FWD_KERNEL.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.multiple(net, **step_fns):
+            gen_ms = wall_ms(lambda: out.update(model.generate(dict(data), use_beam=True)))
+        runs[ancestry] = dict(
+            tokens=out["output_tokens"], gen_ms=gen_ms, steps=len(steps),
+            peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+            launches={"fps": FPS_KERNEL.launches, "flash_attn_fwd": FLASH_FWD_KERNEL.launches})
+        way = "ancestry" if ancestry else "reorder"
+        r = runs[ancestry]
+        print(f"  ({label}) beam {BEAMS}, {way}: generate {gen_ms:.2f} ms, {r['steps']} decode "
+              f"steps, {len(data['msr3d_prompt']) / gen_ms * 1e3:.3f} QA/s, peak memory "
+              f"allocated {r['peak_gb']:.2f} GiB, launches {r['launches']}")
+    tokens = runs[True]["tokens"]
+    check(tokens.shape == (len(data["msr3d_prompt"]), NEW_TOKENS)
+          and bool(((tokens >= 0) & (tokens < net.llm.cfg.vocab_size)).all()),
+          f"({label}) beam tokens of shape {tokens.shape} inside the vocabulary")
+    check(np.array_equal(tokens, runs[False]["tokens"]),
+          f"({label}) beam tokens with the ancestry map equal those with the reordered cache")
+    return runs
+
+
+def phase_beam(model, dev, profile: bool):
+    print(f"== phase 9: beam-{BEAMS} MSR3D.generate at the flagship width (repetition penalty "
+          f"{model.repetition_penalty}, length penalty {LENGTH_PENALTY}, {NEW_TOKENS} new tokens, "
+          f"the requests of phase 4 with their images)")
+    data = make_requests(seed=0, images=True)
+    runs = beam_runs(model, data, "bf16 KV")
+    for ancestry, r in runs.items():
+        check(r["launches"]["fps"] == 2 and r["launches"]["flash_attn_fwd"] == 32,
+              f"K1 launched twice and K2f 32 times per beam generate "
+              f"({'ancestry' if ancestry else 'reorder'})")
+    net = model.network
+    ids, attn = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
+                                     side="left")
+    scene = model._scene_batch(data)
+    with torch.no_grad():
+        prefill_ms = wall_ms(lambda: net.prefill(
+            torch.as_tensor(ids, dtype=torch.long, device=dev),
+            torch.as_tensor(attn, dtype=torch.int32, device=dev), **scene,
+            bos_id=model.tokenizer.bos_id, max_cache_len=ids.shape[1] + 1))
+    for ancestry, r in runs.items():
+        r["prefill_ms"] = prefill_ms
+        r["decode_ms"] = (r["gen_ms"] - prefill_ms) / max(1, r["steps"])
+        print(f"  {'ancestry' if ancestry else 'reorder'}: prefill (both encodes included) "
+              f"{prefill_ms:.2f} ms, decode {r['decode_ms']:.2f} ms a step (beam bookkeeping "
+              f"included) over {r['steps']} steps of {N_REQUESTS * BEAMS} rows")
+    if profile:
+        model.beam_ancestry = True
+        profile_device("beam generate (ancestry)",
+                       lambda: model.generate(dict(data), use_beam=True))
+    return runs
 
 
 def profile_device(what: str, fn) -> None:
@@ -903,12 +1041,12 @@ def profile_device(what: str, fn) -> None:
 
 
 def make_train_batches(n: int):
-    """``n`` batches of four requests built like phase 4's, each with answers
-    of at most 30 characters: with bos and eos one 32-token bucket, so T =
-    224 + 32 = 256."""
+    """``n`` batches of four requests built like phase 4's, images included,
+    each with answers of at most 30 characters: with bos and eos one 32-token
+    bucket, so T = 224 + 32 = 256."""
     batches = []
     for i in range(n):
-        data = make_requests(seed=100 + i)
+        data = make_requests(seed=100 + i, images=True)
         data["text_output"] = [f"the lamp left of chair {i}-{j}" for j in range(N_REQUESTS)]
         batches.append(data)
     return batches
@@ -952,6 +1090,8 @@ def phase_train(model, dev, exp_root: Path, profile: bool):
                          loaders={"msr3d_train": {"train": loader}}, model=model)
     frozen_before = frozen_checksums(model)
     encoder_before = {n: t.clone() for n, t in net.visual_prompter.obj_encoder.state_dict().items()}
+    image_encoder_before = [t.clone() for t in net.image_encoder.state_dict().values()]
+    proj_img_before = net.llm_proj_img.weight.detach().clone()
     torch.cuda.reset_peak_memory_stats()
     micro_batches = TRAIN_STEPS * TRAIN_ACCUM
 
@@ -991,6 +1131,10 @@ def phase_train(model, dev, exp_root: Path, profile: bool):
     check(all(torch.equal(t, encoder_before[n])
               for n, t in net.visual_prompter.obj_encoder.state_dict().items()),
           "the frozen obj_encoder weights and statistics unchanged")
+    check(all(torch.equal(t, b) for t, b in zip(net.image_encoder.state_dict().values(),
+                                                 image_encoder_before)),
+          "the frozen image encoder (ConvNeXt and pooling) unchanged")
+    check(not torch.equal(net.llm_proj_img.weight, proj_img_before), "llm_proj_img moved")
     check(trainer.ckpt.has_weights("latest") and trainer.ckpt.latest_step() == TRAIN_STEPS,
           "learnable 'latest' weights and the full state saved")
     step_s = trainer.timer.history
@@ -1014,8 +1158,10 @@ def phase_train(model, dev, exp_root: Path, profile: bool):
         return fwd, bwd, grads
 
     fwd_ms, bwd_ms, grads = loss_and_grads()
-    print(f"  one micro-batch (4 x 256 positions): forward {fwd_ms:.2f} ms, backward "
-          f"{bwd_ms:.2f} ms")
+    with torch.no_grad():
+        image_ms = wall_ms(lambda: net.encode_images(batch["images"]))
+    print(f"  one micro-batch (4 x 256 positions, {N_REQUESTS * MAX_IMAGES} images): forward "
+          f"{fwd_ms:.2f} ms (image encode {image_ms:.2f} ms of it), backward {bwd_ms:.2f} ms")
 
     # K2dq/K2dkv on each layer's own q, k, v, o, lse and do, held against the
     # plain backward
@@ -1483,6 +1629,7 @@ def phase_quantized(dev, profile: bool):
                 out["w4"] = kernel_on_path(captured, 4, W4_MATMUL_KERNEL, matmul_w4_reference,
                                            lambda m: repack_from_splitnibble(m.weight_q))
             if label == "a":
+                row["beam"] = beam_runs(model, make_requests(seed=0), "a, int8 KV, batch 4")
                 bf16_twin_gate(model, prefill, first)
         out[label] = row
         del model, net, captured, prefill, first
@@ -1549,6 +1696,7 @@ def main() -> int:
         dequant_rows = timed(phase_dequant, dev)
         model = build_flagship_model(dev)
         launches = timed(phase_generate, model, dev, profile)
+        beam = timed(phase_beam, model, dev, profile)
         shutil.rmtree(exp_root, ignore_errors=True)
         train_launches = timed(phase_train, model, dev, exp_root, profile)
         del model
@@ -1562,11 +1710,15 @@ def main() -> int:
         shutil.rmtree(exp_root, ignore_errors=True)
     source = "msr3d_tpu_torch/csrc/flash_attn_bwd.cu"
     rows = [
+        # launches: greedy generate (phase 4); launches_beam: the beam-5
+        # generate with the ancestry map (phase 9)
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
-             replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"], **fps_row),
+             replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
+             launches_beam=beam[True]["launches"]["fps"], **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
-             launches=launches["flash_attn_fwd"], **flash_row),
+             launches=launches["flash_attn_fwd"],
+             launches_beam=beam[True]["launches"]["flash_attn_fwd"], **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"], **dq_row),

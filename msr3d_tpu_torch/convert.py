@@ -7,7 +7,8 @@ arrays (``{"params": ..., "batch_stats": ...}``). Rules, per leaf:
     entry ``i`` of the port's ``nn.ModuleList`` ``name``;
   * ``kernel`` (Dense, flax (in, out)) → ``weight``, transposed to torch's
     (out, in); ``lora_a`` (in, r) and ``lora_b`` (r, out) are transposed
-    the same way;
+    the same way; a Conv ``kernel`` (kh, kw, I, O) becomes torch's (O, I,
+    kh, kw) (a depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw));
   * a quantized projection's ``kernel_q`` → ``weight_q`` and
     ``kernel_scale`` → ``weight_scale``, NOT transposed: the port keeps the
     JAX layout for the quantized base, int8 (in, out) or int4 split-nibble
@@ -18,14 +19,18 @@ arrays (``{"params": ..., "batch_stats": ...}``). Rules, per leaf:
     without LoRA (``lora_rank=0``, the merged-LoRA deployment) and with it
     load alike;
   * ``scale`` (LayerNorm, BatchNorm, RMSNorm) → ``weight``; ``embedding``
-    (Embed) → ``weight``; ``bias`` and ``object_orientation_feat`` keep
-    their names;
+    (Embed) → ``weight``; ``bias``, ``object_orientation_feat`` and
+    ConvNeXt's layer scale ``gamma`` keep their names;
   * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
 Subtrees the port does not run are skipped and listed: the point
-encoder's semantic head (its output is discarded on the generation path)
-and the image encoder with its projection (images are not ported yet).
+encoder's semantic head (its output is discarded on the generation path).
 Any other key raises.
+
+flax creates a submodule's parameters at its first call, so a JAX model
+initialised on a batch without images has no ``image_encoder`` and no
+``llm_proj_img``. ``load_jax_params`` then leaves the port's image encoder
+and projection as they are; a tree that holds either must hold all of both.
 """
 
 from __future__ import annotations
@@ -36,12 +41,9 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-SKIPPED_SUBTREES = (
-    "params/visual_prompter/obj_encoder/sem_head/",
-    "params/image_encoder/",
-    "params/llm_proj_img/",
-    "batch_stats/image_encoder/",
-)
+SKIPPED_SUBTREES = ("params/visual_prompter/obj_encoder/sem_head/",)
+# created by flax only when a batch with images reaches the network
+IMAGE_MODULES = ("image_encoder.", "llm_proj_img.")
 
 _PARAM_LEAVES = {
     "kernel": ("weight", True),
@@ -53,6 +55,7 @@ _PARAM_LEAVES = {
     "embedding": ("weight", False),
     "bias": ("bias", False),
     "object_orientation_feat": ("object_orientation_feat", False),
+    "gamma": ("gamma", False),
 }
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
@@ -73,9 +76,12 @@ def _to_tensor(arr: Any, transpose: bool) -> torch.Tensor:
     if arr.dtype.kind not in "fiu":  # e.g. ml_dtypes bfloat16
         arr = arr.astype(np.float32)
     if transpose:
-        if arr.ndim != 2:
-            raise ValueError(f"expected a 2-D kernel, got shape {arr.shape}")
-        arr = arr.T
+        if arr.ndim == 4:  # Conv (kh, kw, I, O) → (O, I, kh, kw)
+            arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 2:
+            arr = arr.T
+        else:
+            raise ValueError(f"expected a 2-D or 4-D kernel, got shape {arr.shape}")
     return torch.from_numpy(np.array(arr, order="C"))  # a writable copy
 
 
@@ -112,8 +118,13 @@ def jax_to_torch_state_dict(
 
 def load_jax_params(module: torch.nn.Module, variables: Mapping[str, Any]) -> List[str]:
     """Load converted JAX variables into ``module`` (strict: every port
-    parameter and buffer must be covered, nothing extra). Values are cast
-    to each parameter's dtype and device. Returns the skipped JAX keys."""
+    parameter and buffer must be covered, nothing extra, except that a tree
+    without images leaves the image encoder and ``llm_proj_img`` as they
+    are). Values are cast to each parameter's dtype and device. Returns the
+    skipped JAX keys."""
     state, skipped = jax_to_torch_state_dict(variables)
+    if not any(name.startswith(IMAGE_MODULES) for name in state):
+        state.update((name, val) for name, val in module.state_dict().items()
+                     if name.startswith(IMAGE_MODULES))
     module.load_state_dict(state, strict=True)
     return skipped

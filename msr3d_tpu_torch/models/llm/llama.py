@@ -1,15 +1,17 @@
 """Llama (Vicuna-7B family) with LoRA adapters, for training and generation.
 
-Counterpart of ``msr3d_tpu/models/llm/llama.py`` on the LoRA training and
-greedy serving paths: RMSNorm (fp32 inside), rotary embeddings in the HF
-half-split layout, LoRA projections (with LoRA dropout) over a bf16/fp32 or
-weight-only quantized base, SwiGLU MLP, the training forward
+Counterpart of ``msr3d_tpu/models/llm/llama.py`` on the LoRA training,
+greedy and beam serving paths: RMSNorm (fp32 inside), rotary embeddings in
+the HF half-split layout, LoRA projections (with LoRA dropout) over a
+bf16/fp32 or weight-only quantized base, SwiGLU MLP, the training forward
 (``LlamaModel.forward``), a prefill that captures each layer's rope'd k/v,
-and the split-cache decode step (a prompt KV segment plus a generated
-segment, T = 1). With ``flash_attention`` the training forward runs through
-the autograd Function of kernels K2f, K2dq and K2dkv, and the prefill
-through K2f; otherwise, and in decode, attention is dense with a -1e30
-additive bias, as in the JAX package.
+and the split-cache decode steps (a prompt KV segment at batch B shared by
+the K beams of each row plus a generated segment at batch B·K, T = 1),
+the generated segment read directly or through a beam ancestry map. With
+``flash_attention`` the training forward runs through the autograd
+Function of kernels K2f, K2dq and K2dkv, and the prefill through K2f;
+otherwise, and in decode, attention is dense with a -1e30 additive bias, as
+in the JAX package.
 
 Quantized serving (``quantize``, ``act_quantize``, ``kv_quantize``) is
 plain PyTorch on every device, as the JAX package computes it in XLA
@@ -361,43 +363,68 @@ class LlamaAttention(nn.Module):
         return self._out(out), k, v
 
     def decode_shared(self, x, positions, attn_bias, prompt: Dict[str, torch.Tensor],
-                      gen: Dict[str, torch.Tensor], gen_index: int):
+                      gen: Dict[str, torch.Tensor], gen_index: int,
+                      anc_rows: Optional[torch.Tensor] = None):
         """One decode token over a split cache: the prompt segment (k/v of
-        (B, S_p, hkv, D)) and the generated segment (B, S_g, hkv, D), into
-        which this token's k/v are written in place at ``gen_index``.
-        ``attn_bias`` (B, 1, 1, S_p + S_g) masks both segments.
+        (B', S_p, hkv, D)), shared by blocks of B / B' consecutive queries
+        (the beams of one request), and the generated segment (B, S_g, hkv,
+        D), into which this token's k/v are written in place at
+        ``gen_index``. ``attn_bias`` (B, 1, 1, S_p + S_g) masks both
+        segments.
+
+        With ``anc_rows`` (B·S_g,) (beam ancestry) query r reads slot s of
+        the generated segment from the flat (row, slot) entry
+        ``anc_rows[r·S_g + s]``: the segment is gathered into each query's
+        own history after the write, a layer at a time, and attended as
+        rows are.
 
         An int8 segment carries ``k_scale``/``v_scale`` (B, S, hkv) bf16 and
-        is read without a dequantized copy (``llama.py:642-714`` of the JAX
+        is read without a dequantized copy (``llama.py:592-714`` of the JAX
         package): the scores are ``fp32(q·bf16(kq)) · scale · k_scale``, the
         softmax weights times ``v_scale`` in fp32, cast to the compute dtype
         before the product with bf16(vq)."""
         q, k, v = self._qkv(x, positions)
         _cache_write(gen, k, v, gen_index)
-        dtype = self.cfg.dtype
-        scale = _attn_scale(self.cfg.head_dim, x.device)
-
-        def scores(seg):
-            logits = torch.einsum("bthd,bshd->bhts", q, self._rep(seg["k"].to(dtype))).float()
-            logits = logits * scale
-            if "k_scale" in seg:
-                logits = logits * self._rep_scale(seg["k_scale"])
-            return logits
-
-        weights = torch.softmax(torch.cat([scores(prompt), scores(gen)], dim=-1) + attn_bias,
-                                dim=-1)
-        s_p = prompt["k"].shape[1]
-        out = 0
-        for seg, w in ((prompt, weights[..., :s_p]), (gen, weights[..., s_p:])):
-            if "v_scale" in seg:
-                w = w * self._rep_scale(seg["v_scale"])
-            out = out + torch.einsum("bhts,bshd->bthd", w.to(dtype),
-                                     self._rep(seg["v"].to(dtype)))
+        if anc_rows is not None:
+            gen = {key: val.flatten(0, 1).index_select(0, anc_rows).view(val.shape)
+                   for key, val in gen.items()}
+        segments = (prompt, gen)
+        weights = torch.softmax(
+            torch.cat([self._seg_scores(q, seg) for seg in segments], dim=-1) + attn_bias,
+            dim=-1)
+        out, start = 0, 0
+        for seg in segments:
+            width = seg["k"].shape[1]
+            out = out + self._seg_out(weights[..., start:start + width], seg)
+            start += width
         return self._out(out)
 
-    def _rep_scale(self, scale: torch.Tensor) -> torch.Tensor:
-        """A (B, S, hkv) cache scale → (B, H, 1, S) fp32 against the scores."""
-        return self._rep(scale[..., None])[..., 0].float().permute(0, 2, 1)[:, :, None, :]
+    def _seg_scores(self, q: torch.Tensor, seg: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Scores (B, H, T, S) of the queries against a (B', S, hkv, D)
+        segment shared by blocks of B / B' consecutive queries."""
+        b, t, h, d = q.shape
+        k_seg = self._rep(seg["k"].to(self.cfg.dtype))
+        bp = k_seg.shape[0]
+        logits = torch.einsum("bkhd,bshd->bkhs", q.reshape(bp, b // bp * t, h, d), k_seg)
+        logits = logits.float() * _attn_scale(self.cfg.head_dim, q.device)
+        if "k_scale" in seg:
+            logits = logits * self._seg_scale(seg["k_scale"])
+        return logits.reshape(b, t, h, -1).transpose(1, 2)
+
+    def _seg_out(self, weights: torch.Tensor, seg: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, H, T, S) softmax weights times a (B', S, hkv, D) segment's
+        values → (B, T, H, D)."""
+        b, h, t, _ = weights.shape
+        v_seg = self._rep(seg["v"].to(self.cfg.dtype))
+        bp = v_seg.shape[0]
+        w = weights.transpose(1, 2).reshape(bp, b // bp * t, h, -1)
+        if "v_scale" in seg:
+            w = w * self._seg_scale(seg["v_scale"])
+        return torch.einsum("bkhs,bshd->bkhd", w.to(self.cfg.dtype), v_seg).reshape(b, t, h, -1)
+
+    def _seg_scale(self, scale: torch.Tensor) -> torch.Tensor:
+        """A (B', S, hkv) cache scale → (B', 1, H, S) fp32 against the scores."""
+        return self._rep(scale[..., None])[..., 0].float().transpose(1, 2)[:, None]
 
 
 class LlamaMLP(nn.Module):
@@ -434,9 +461,9 @@ class LlamaBlock(nn.Module):
         h, k, v = self.attn.prefill(self.input_norm(x), positions, attn_bias, key_valid)
         return self._mlp_residual(x + h), k, v
 
-    def decode_shared(self, x, positions, attn_bias, prompt, gen, gen_index):
+    def decode_shared(self, x, positions, attn_bias, prompt, gen, gen_index, anc_rows=None):
         h = self.attn.decode_shared(self.input_norm(x), positions, attn_bias, prompt, gen,
-                                    gen_index)
+                                    gen_index, anc_rows)
         return self._mlp_residual(x + h)
 
 
@@ -593,33 +620,88 @@ class LlamaModel(nn.Module):
         cache_mask = F.pad(mask, (0, pad))
         return logits, x, caches, cache_mask, positions[:, -1] + 1
 
-    def decode_step_shared(
-        self,
-        inputs_embeds: torch.Tensor,  # (B, 1, H)
-        positions: torch.Tensor,  # (B, 1)
-        prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
-        prompt_mask: torch.Tensor,  # (B, S_p)
-        gen_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_g, hkv, D) [+ scales], written in place
-        gen_index: int,
-        gen_mask: torch.Tensor,  # (B, S_g), including the slot written now
-    ) -> torch.Tensor:
-        """One greedy decode step over the split cache → logits (B, 1, V).
-
-        The generated segment is updated in place (the JAX loop carries it
-        functionally); only T = 1 with prompt and query batch equal (no
-        beams) is ported."""
-        b, t, _ = inputs_embeds.shape
-        if t != 1 or prompt_mask.shape[0] != b:
+    def _attn_bias(self, inputs_embeds, prompt_kv, prompt_mask, gen_mask) -> torch.Tensor:
+        """The (B·K, 1, 1, S_p + S_g) additive bias of a decode step: the
+        prompt's (B, S_p) mask repeated for the K queries of each prompt row,
+        then the generated segment's (B·K, S_g) mask. Raises on what is not
+        ported: a tuple of prompt segments or a per-query prompt mask (the
+        prefix-pool serving engines) and windows of T > 1 (speculative and
+        grouped-scene decoding)."""
+        if isinstance(prompt_kv, (list, tuple)):
             raise NotImplementedError(
-                "decode_step_shared: only T = 1 without beams is ported (see ROADMAP.md)"
-            )
-        attn_bias = torch.cat(
-            [_bias(prompt_mask.bool()), _bias(gen_mask.bool())], dim=-1
-        )[:, None, None, :]
+                "a tuple-of-segments prompt_kv (the prefix-pool serving engines) is not "
+                "ported yet (see ROADMAP.md)")
+        bk, t, _ = inputs_embeds.shape
+        b = prompt_kv["k"].shape[1]
+        if t != 1:
+            raise NotImplementedError(
+                "decode windows of T > 1 (speculative and grouped-scene decoding) are not "
+                "ported yet (see ROADMAP.md)")
+        if prompt_mask.shape[0] != b or bk % b:
+            raise NotImplementedError(
+                f"a prompt mask of batch {prompt_mask.shape[0]} for a prompt cache of batch "
+                f"{b} and {bk} queries: per-query prompt masks (the prefix-pool serving "
+                "engines) are not ported yet (see ROADMAP.md)")
+        prompt_bias = _bias(prompt_mask.bool().repeat_interleave(bk // b, dim=0))
+        return torch.cat([prompt_bias, _bias(gen_mask.bool())], dim=-1)[:, None, None, :]
+
+    def _decode_layers(self, inputs_embeds, positions, attn_bias, prompt_kv, gen_kv,
+                       gen_index, anc_rows=None) -> torch.Tensor:
         x = inputs_embeds.to(self.cfg.dtype)
         for i, block in enumerate(self.layer):
             x = block.decode_shared(
                 x, positions, attn_bias, {key: val[i] for key, val in prompt_kv.items()},
-                {key: val[i] for key, val in gen_kv.items()}, gen_index,
+                {key: val[i] for key, val in gen_kv.items()}, gen_index, anc_rows,
             )
         return self.logits(self.final_norm(x))
+
+    def decode_step_shared(
+        self,
+        inputs_embeds: torch.Tensor,  # (B·K, 1, H)
+        positions: torch.Tensor,  # (B·K, 1)
+        prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
+        prompt_mask: torch.Tensor,  # (B, S_p)
+        gen_kv: Dict[str, torch.Tensor],  # k/v (L, B·K, S_g, hkv, D) [+ scales], written in place
+        gen_index: int,
+        gen_mask: torch.Tensor,  # (B·K, S_g), including the slot written now
+    ) -> torch.Tensor:
+        """One decode step over the split cache → logits (B·K, 1, V): the
+        prompt segment at batch B, shared by the K beams of each row (K = 1
+        greedy), and the generated segment at batch B·K, updated in place
+        (the JAX loop carries it functionally)."""
+        return self._decode_layers(inputs_embeds, positions,
+                                   self._attn_bias(inputs_embeds, prompt_kv, prompt_mask, gen_mask),
+                                   prompt_kv, gen_kv, gen_index)
+
+    def decode_step_beam_anc(
+        self,
+        inputs_embeds: torch.Tensor,  # (B·K, 1, H)
+        positions: torch.Tensor,  # (B·K, 1)
+        prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
+        prompt_mask: torch.Tensor,  # (B, S_p)
+        gen_kv: Dict[str, torch.Tensor],  # k/v (L, B·K, S_g, hkv, D) [+ scales], written in place
+        gen_index: int,
+        gen_mask: torch.Tensor,  # (B·K, S_g) valid generated slots
+        anc: torch.Tensor,  # (B·K, S_g) int32, the ancestor row within the K block
+        num_beams: int,
+    ) -> torch.Tensor:
+        """One beam step whose generated rows never reorder → logits (B·K,
+        1, V). ``anc[r, s]`` names the row of query r's K block that wrote
+        r's history at slot s; the step's own k/v land in row r itself.
+
+        The JAX package attends over all K rows' slots of a block as one
+        (K·S_g) pair segment with a bias that admits the pairs on the path.
+        That sums the same terms in another order than the reordered cache
+        does, and in bf16 the two ways' tokens part (the flagship on an
+        H100, PERF.md §6, PR 11). Here each layer gathers every query's
+        history into a row after the step's write, and attends over it as
+        the reordered cache is attended: the same arithmetic, so the same
+        tokens, without moving the cache's rows (a layer's gathered copy is
+        the only extra memory)."""
+        bk, s_g = gen_mask.shape
+        block = torch.arange(bk, device=anc.device)[:, None] // num_beams * num_beams
+        slots = torch.arange(s_g, device=anc.device)[None, :]
+        anc_rows = ((block + anc.long()) * s_g + slots).reshape(-1)
+        return self._decode_layers(inputs_embeds, positions,
+                                   self._attn_bias(inputs_embeds, prompt_kv, prompt_mask, gen_mask),
+                                   prompt_kv, gen_kv, gen_index, anc_rows)

@@ -1,14 +1,15 @@
-"""Pretrained LLM weights: HF Llama checkpoints and PEFT adapters → the port's
-``MSR3DNetwork``.
+"""Pretrained weights: HF Llama checkpoints, PEFT adapters and timm ConvNeXt
+checkpoints → the port's ``MSR3DNetwork``.
 
-Counterpart of ``load_llm_weights`` and ``load_peft_lora`` in
-``msr3d_tpu/models/load_weights.py``. The JAX functions overlay a flax
-variables tree; these overlay the network's parameters and buffers, through
-the flax-layout tree of ``models/llm/convert.py`` and the names of
+Counterpart of ``load_llm_weights``, ``load_peft_lora`` and
+``load_convnext_weights`` in ``msr3d_tpu/models/load_weights.py``. The JAX
+functions overlay a flax variables tree; these overlay the network's
+parameters and buffers, through the flax-layout trees of
+``models/llm/convert.py`` and ``models/vision2d.py`` and the names of
 ``msr3d_tpu_torch.convert``. As in JAX, only entries the network has are
 written (shape-checked, cast to the destination's dtype and device);
-anything absent keeps its value. The point-encoder and ConvNeXt loaders are
-not ported yet.
+anything absent keeps its value. The point-encoder loader is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -25,21 +26,24 @@ from msr3d_tpu_torch.models.llm.convert import (
     merge_peft_lora,
     quantize_llm_params,
 )
+from msr3d_tpu_torch.models.vision2d import convert_convnext_state_dict
 
 
 @torch.no_grad()
-def _overlay_llm(network: torch.nn.Module, params: Dict[str, Any]) -> None:
-    """Copy a flax-layout LLM tree into ``network.llm`` where names match.
-    A ``kernel_scale`` lands rounded to bf16, the dtype the JAX model tree
-    stores it in (its overlay casts to that), so a loaded quantized model
-    equals the JAX one loaded from the same checkpoint."""
+def _overlay(network: torch.nn.Module, module: str, params: Dict[str, Any]) -> None:
+    """Copy a flax-layout tree of ``network.<module>`` into the network where
+    names match. A ``kernel_scale`` lands rounded to bf16, the dtype the JAX
+    model tree stores it in (its overlay casts to that), so a loaded
+    quantized model equals the JAX one loaded from the same checkpoint."""
     targets = dict(network.named_parameters())
     targets.update(network.named_buffers())
     for path, value in _flatten(params).items():
-        name, transpose = torch_name(f"params/llm/{path}")
+        name, transpose = torch_name(f"params/{module}/{path}")
         if name not in targets:
             continue
-        value = value.t() if transpose else value
+        value = torch.as_tensor(value)
+        if transpose:  # Dense (in, out) → (out, in); Conv (kh, kw, I, O) → (O, I, kh, kw)
+            value = value.permute(3, 2, 0, 1) if value.dim() == 4 else value.t()
         if path.endswith("kernel_scale"):
             value = value.to(torch.bfloat16)
         dst = targets[name]
@@ -59,7 +63,7 @@ def load_llm_weights(network: torch.nn.Module, cfg_path, llm_cfg,
     _, params = load_hf_checkpoint(cfg_path, dtype=dtype)
     if llm_cfg.quantize:
         params = quantize_llm_params(params, llm_cfg)
-    _overlay_llm(network, params)
+    _overlay(network, "llm", params)
     got = network.llm.embed_tokens.weight[:1, :4].float().cpu()
     want = params["embed_tokens"]["embedding"][:1, :4].float()
     if not torch.allclose(got, want, atol=1e-2):
@@ -80,4 +84,15 @@ def load_peft_lora(network: torch.nn.Module, adapter_path) -> None:
         sd = dict(_safetensors_tensors(path))
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
-    _overlay_llm(network, merge_peft_lora({}, sd))
+    _overlay(network, "llm", merge_peft_lora({}, sd))
+
+
+def load_convnext_weights(network: torch.nn.Module, path, depths) -> None:
+    """Overlay a local timm ConvNeXt checkpoint (a state dict saved with
+    ``torch.save``) into ``network.image_encoder`` in place. The prefixes
+    ``model.`` and ``module.`` are stripped; the block layers may carry
+    timm's names (``conv_dw``, ``mlp.fc1``, ``mlp.fc2``) or ``dwconv``,
+    ``pwconv1``, ``pwconv2``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k.replace("model.", "").replace("module.", ""): v for k, v in sd.items()}
+    _overlay(network, "image_encoder", convert_convnext_state_dict(sd, depths))

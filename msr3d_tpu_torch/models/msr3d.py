@@ -1,21 +1,24 @@
-"""MSR3D: the 3D-scene multimodal LLM, training loss and greedy generation.
+"""MSR3D: the 3D-scene multimodal LLM, training loss, greedy and beam generation.
 
 Counterpart of ``msr3d_tpu/models/msr3d.py``:
 
   * ``MSR3DNetwork`` holds the device compute: the scene prompter
-    (``OSE3DSituation``, kernel K1 inside), the scene projection, the
-    rank-gather splice of scene embeddings into the token embeddings, the
-    training forward with the per-sequence answer CE (kernels K2f, K2dq and
-    K2dkv with ``flash_attention``), the Llama prefill (K2f) and the
-    split-cache decode step;
+    (``OSE3DSituation``, kernel K1 inside), the scene projection, the image
+    encoder (ConvNeXt ``Backbone2D``, frozen) with its projection
+    ``llm_proj_img``, the rank-gather splices of scene and image embeddings
+    into the token embeddings, the training forward with the per-sequence
+    answer CE (kernels K2f, K2dq and K2dkv with ``flash_attention``), the
+    Llama prefill (K2f) and the split-cache decode steps (greedy, beam and
+    beam with ancestry);
   * ``MSR3D`` is the host side: prompt building with placeholder
     expansion, tokenization into 32-multiple buckets (prompts left-padded,
     answers with bos + eos right-padded), ``forward`` → per-sequence loss,
-    the greedy decode loop (over a bf16 or int8 KV cache) and
+    the greedy and beam decode loops (over a bf16 or int8 KV cache) and
     detokenization, the trainable set, and in-place weight-only
     quantization of the LLM for serving (``quantize_llm``).
 
-Not ported yet (raise, see ROADMAP.md): beam search, requests with images.
+Not ported yet (see ROADMAP.md): sampling, speculative and grouped-scene
+decoding, the prefix-pool serving engines.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from msr3d_tpu_torch.models.llm.llama import (
     RMSNorm,
     _make_cache,
 )
-from msr3d_tpu_torch.models.llm.sampling import greedy_decode_shared
+from msr3d_tpu_torch.models.llm.sampling import beam_search_decode_shared, greedy_decode_shared
 from msr3d_tpu_torch.models.llm.tokenizer import (
     IMAGE_PLACEHOLDER,
     SCENE_PLACEHOLDER,
@@ -45,6 +48,7 @@ from msr3d_tpu_torch.models.llm.tokenizer import (
     ByteTokenizer,
 )
 from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, OSE3DSituation
+from msr3d_tpu_torch.models.vision2d import Backbone2D, ConvNeXtBlock
 from msr3d_tpu_torch.nn.pointnet import BatchNormInference
 
 _SCENE_KEYS = ("obj_fts", "obj_masks", "obj_locs", "anchor_locs", "anchor_orientation")
@@ -55,6 +59,9 @@ _IGNORE = -100
 class MSR3DNetworkConfig:
     prompter: OSE3DConfig
     llm: LlamaConfig
+    backbone_name: str = "convnext_base"
+    image_pooling: str = "avg"
+    freeze_image_encoder: bool = True
     scene_token_id: int = 6
     img_token_id: int = 4
     # training loss over the answer window only: exactly equal (prompt
@@ -126,35 +133,59 @@ class MSR3DNetwork(nn.Module):
         self.visual_prompter = OSE3DSituation(cfg.prompter, device)
         self.llm = LlamaModel(cfg.llm, device)
         self.llm_proj = nn.Linear(cfg.prompter.hidden_size, cfg.llm.hidden_size, device=device)
+        self.image_encoder = Backbone2D(cfg.backbone_name, cfg.image_pooling,
+                                        cfg.freeze_image_encoder, device)
+        self.llm_proj_img = nn.Linear(self.image_encoder.out_channels, cfg.llm.hidden_size,
+                                      device=device)
+
+    def encode_images(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, M, H, W, 3) → projected image embeddings (B, M, ·), one token
+        an image with ``avg``, ``conv`` or ``attn`` pooling."""
+        b, m = images.shape[:2]
+        feats = self.image_encoder(images.reshape((b * m,) + images.shape[2:]))
+        return self.llm_proj_img(feats).reshape(b, m, -1)
 
     def build_embeds(self, input_ids, attention_mask, obj_fts, obj_masks, obj_locs,
-                     anchor_locs, anchor_orientation, generator=None):
+                     anchor_locs, anchor_orientation, images=None, image_masks=None,
+                     generator=None):
+        """Token embeddings with the scene tokens spliced at the scene
+        placeholders and, given ``images`` (B, M, H, W, 3) with
+        ``image_masks`` (B, M), the k-th image at the k-th image
+        placeholder, its mask in the attention mask."""
         scene = self.visual_prompter(obj_fts, obj_masks, obj_locs, anchor_locs,
                                      anchor_orientation, generator)
-        return splice_embeddings(
+        embeds, attention_mask = splice_embeddings(
             self.llm.embed(input_ids), input_ids, self.cfg.scene_token_id,
             self.llm_proj(scene["obj_tokens"]), scene["obj_masks"], attention_mask,
         )
+        if images is not None:
+            embeds, attention_mask = splice_embeddings(
+                embeds, input_ids, self.cfg.img_token_id, self.encode_images(images),
+                image_masks, attention_mask,
+            )
+        return embeds, attention_mask
 
     def embeds_for_loss(self, input_ids, attention_mask, output_ids, output_mask, obj_fts,
-                        obj_masks, obj_locs, anchor_locs, anchor_orientation, generator=None):
+                        obj_masks, obj_locs, anchor_locs, anchor_orientation, images=None,
+                        image_masks=None, generator=None):
         """Spliced prompt+answer embeds, the joint attention mask and the CE
         targets: everything before the LLM blocks."""
         embeds, attn = self.build_embeds(input_ids, attention_mask, obj_fts, obj_masks,
-                                         obj_locs, anchor_locs, anchor_orientation, generator)
+                                         obj_locs, anchor_locs, anchor_orientation, images,
+                                         image_masks, generator)
         full_embeds = torch.cat([embeds, self.llm.embed(output_ids)], dim=1)
         full_attn = torch.cat([attn, output_mask.to(attn.dtype)], dim=1)
         return full_embeds, full_attn, build_targets(input_ids, output_ids, output_mask)
 
     def forward(self, input_ids, attention_mask, output_ids, output_mask, obj_fts, obj_masks,
-                obj_locs, anchor_locs, anchor_orientation, *,
+                obj_locs, anchor_locs, anchor_orientation, images=None, image_masks=None, *,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Teacher-forced pass over ``[prompt ‖ answer]`` → {"loss": per-
         sequence CE (B,), "logits": fp32}. In ``train()`` mode dropout draws
         from ``generator``."""
         full_embeds, full_attn, targets = self.embeds_for_loss(
             input_ids, attention_mask, output_ids, output_mask, obj_fts, obj_masks, obj_locs,
-            anchor_locs, anchor_orientation, generator,
+            anchor_locs, anchor_orientation, images, image_masks, generator,
         )
         if self.cfg.answer_window_loss:
             start = input_ids.shape[1]
@@ -165,11 +196,13 @@ class MSR3DNetwork(nn.Module):
         return {"loss": sequence_ce_loss(logits, targets), "logits": logits}
 
     def prefill(self, input_ids, attention_mask, obj_fts, obj_masks, obj_locs,
-                anchor_locs, anchor_orientation, *, bos_id: int, max_cache_len: int):
+                anchor_locs, anchor_orientation, images=None, image_masks=None, *,
+                bos_id: int, max_cache_len: int):
         """Spliced embeds + trailing bos → (first-token logits (B, V) fp32,
         prompt KV cache, cache mask, next positions)."""
         embeds, attn = self.build_embeds(input_ids, attention_mask, obj_fts, obj_masks,
-                                         obj_locs, anchor_locs, anchor_orientation)
+                                         obj_locs, anchor_locs, anchor_orientation, images,
+                                         image_masks)
         b = embeds.shape[0]
         bos = torch.full((b, 1), bos_id, dtype=input_ids.dtype, device=input_ids.device)
         embeds = torch.cat([embeds, self.llm.embed(bos)], dim=1)
@@ -181,18 +214,31 @@ class MSR3DNetwork(nn.Module):
 
     def decode_step_shared(self, token_ids, positions, prompt_kv, prompt_mask, gen_kv,
                            gen_index, gen_mask):
+        """Split-cache decode step: the prompt KV at batch B, the generated
+        KV at batch B·K. See ``LlamaModel.decode_step_shared``."""
         return self.llm.decode_step_shared(
             self.llm.embed(token_ids), positions, prompt_kv, prompt_mask, gen_kv,
             gen_index, gen_mask,
+        )
+
+    def decode_step_beam_anc(self, token_ids, positions, prompt_kv, prompt_mask, gen_kv,
+                             gen_index, gen_mask, anc, num_beams: int):
+        """Beam decode step over a generated KV whose rows never reorder,
+        read through the ancestry map ``anc``. See
+        ``LlamaModel.decode_step_beam_anc``."""
+        return self.llm.decode_step_beam_anc(
+            self.llm.embed(token_ids), positions, prompt_kv, prompt_mask, gen_kv,
+            gen_index, gen_mask, anc, num_beams,
         )
 
 
 @torch.no_grad()
 def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> None:
     """Random weights of the JAX initialisers' kinds, drawn from
-    ``generator``: Dense ~ N(0, 1/fan_in), Llama projections, embeddings
-    and head ~ N(0, 0.02), LoRA A ~ He-uniform, LoRA B = 0, norms 1/0,
-    BatchNorm statistics 0/1, the orientation feature 0.
+    ``generator``: Dense and Conv ~ N(0, 1/fan_in) (a conv's fan_in is
+    kh·kw·I/groups), Llama projections, embeddings and head ~ N(0, 0.02),
+    LoRA A ~ He-uniform, LoRA B = 0, norms 1/0, BatchNorm statistics 0/1,
+    ConvNeXt's layer scale 1e-6, the orientation feature 0.
 
     A quantized projection draws the same N(0, 0.02) weight as its bf16
     counterpart and quantizes it (the JAX initialiser's int8 zeros with
@@ -213,6 +259,11 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
                 mod.lora_b.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, 0.02, **g)
+        elif isinstance(mod, nn.Conv2d):
+            mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.weight[0].numel()), **g)
+            mod.bias.zero_()
+        elif isinstance(mod, ConvNeXtBlock):
+            mod.gamma.fill_(mod.layer_scale_init)
         elif isinstance(mod, nn.Linear):
             if mod is network.llm.lm_head:
                 mod.weight.normal_(0.0, 0.02, **g)
@@ -233,9 +284,10 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
 
 class MSR3D:
     """Host wrapper with the reference's model contract:
-    ``forward(data_dict) → data_dict['loss']`` and, greedy only,
-    ``generate(data_dict) → data_dict['output_tokens']`` (and
-    ``'output_text'``)."""
+    ``forward(data_dict) → data_dict['loss']`` and ``generate(data_dict) →
+    data_dict['output_tokens']`` (and ``'output_text'``), beam search by
+    default (``num_beams`` 5, repetition penalty 3.0: the reference's eval
+    decode)."""
 
     def __init__(
         self,
@@ -247,6 +299,10 @@ class MSR3D:
         max_out_len: int = 256,
         num_beams: int = 5,
         repetition_penalty: float = 3.0,
+        length_penalty: float = 1.0,
+        beam_ancestry: bool = True,  # generated KV read through an ancestry
+        # map, no per-step reorder of it; False reorders it (index_select)
+        eos_logit_bias: float = 0.0,  # additive on the EOS logit, greedy and beam
         seed: int = 0,
         device=None,
     ):
@@ -266,6 +322,9 @@ class MSR3D:
         self.max_out_len = max_out_len
         self.num_beams = num_beams
         self.repetition_penalty = repetition_penalty
+        self.length_penalty = length_penalty
+        self.beam_ancestry = bool(beam_ancestry)
+        self.eos_logit_bias = eos_logit_bias
         self._seed = seed
 
     # -- weights -----------------------------------------------------------
@@ -345,19 +404,27 @@ class MSR3D:
         return np.concatenate([ids, pad_ids], 1), np.concatenate([mask, pad_mask], 1)
 
     def _scene_batch(self, data_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        for key in ("msr3d_imgs", "img_fts"):
-            if data_dict.get(key) is not None:
-                raise NotImplementedError(
-                    "requests with images are not ported yet (ROADMAP.md, queue: "
-                    "Backbone2D images)"
-                )
-        dtypes = {"obj_masks": torch.bool}
-        return {
-            k: torch.as_tensor(np.asarray(data_dict[k]), device=self.device).to(
-                dtypes.get(k, torch.float32)
-            )
-            for k in _SCENE_KEYS
-        }
+        """The scene inputs on the model's device and, where the request
+        carries them, ``images`` (B, M, H, W, 3) and ``image_masks`` (B, M):
+        the MSR3D ``msr3d_imgs`` with ``msr3d_img_masks``, or else the LEO
+        single view ``img_fts`` (B, H, W, 3) as M = 1 with ``img_masks``
+        (ones when absent)."""
+        batch = {k: np.asarray(data_dict[k]) for k in _SCENE_KEYS}
+        if data_dict.get("msr3d_imgs") is not None:
+            batch["images"] = np.asarray(data_dict["msr3d_imgs"])
+            batch["image_masks"] = np.asarray(data_dict["msr3d_img_masks"])
+        elif data_dict.get("img_fts") is not None:
+            imgs = np.asarray(data_dict["img_fts"])
+            if imgs.ndim == 4:  # (B, H, W, 3) → (B, 1, H, W, 3)
+                imgs = imgs[:, None]
+            batch["images"] = imgs
+            batch["image_masks"] = np.asarray(
+                data_dict.get("img_masks", np.ones(imgs.shape[:2], bool))
+            ).reshape(imgs.shape[:2])
+        bools = ("obj_masks", "image_masks")
+        return {k: torch.as_tensor(v, device=self.device).to(
+                    torch.bool if k in bools else torch.float32)
+                for k, v in batch.items()}
 
     def loss_batch(self, data_dict: Dict[str, Any], input_ids: np.ndarray, attn: np.ndarray,
                    output_ids: np.ndarray, output_mask: np.ndarray) -> Dict[str, torch.Tensor]:
@@ -388,13 +455,14 @@ class MSR3D:
 
     def trainable_parameter_names(self) -> List[str]:
         """The parameters that train, the counterpart of the JAX
-        ``get_opt_params_mask``: LoRA A/B, ``llm_proj`` and the scene
-        prompter, except the point encoder when ``vision_freeze``; never the
-        base LLM (embeddings, norms, base projections, ``lm_head``)."""
+        ``get_opt_params_mask``: LoRA A/B, ``llm_proj``, ``llm_proj_img`` and
+        the scene prompter, except the point encoder when ``vision_freeze``;
+        never the base LLM (embeddings, norms, base projections,
+        ``lm_head``) nor the image encoder (its pooling layers included)."""
         def trainable(name: str) -> bool:
             if "lora_a" in name or "lora_b" in name:
                 return True
-            if name.startswith("llm."):
+            if name.startswith(("llm.", "image_encoder.")):
                 return False
             if "obj_encoder" in name and self.cfg.prompter.vision_freeze:
                 return False
@@ -412,15 +480,11 @@ class MSR3D:
         use_beam: Optional[bool] = None,
         max_new_tokens: Optional[int] = None,
     ) -> Dict[str, Any]:
-        """Greedy generation: prefill over the prompt segment, then the
-        split-cache decode loop. Sets ``output_tokens`` (B, max_new) and
-        ``output_text``."""
+        """Prefill over the prompt segment, then the split-cache decode loop:
+        beam search with ``num_beams`` beams unless ``use_beam`` is False
+        (``None`` follows ``num_beams``), else greedy. Sets
+        ``output_tokens`` (B, max_new) and ``output_text``."""
         beams = self.num_beams if use_beam is None else (self.num_beams if use_beam else 1)
-        if beams > 1:
-            raise NotImplementedError(
-                "beam search is not ported yet (ROADMAP.md, queue: beam-5 decode); "
-                "call generate(use_beam=False)"
-            )
         self.network.eval()  # no dropout, also right after training steps
         input_ids, attn = self._encode_prompts(self.build_text_prompt(data_dict))
         input_ids, attn = self._pad_to_bucket(input_ids, attn, side="left")
@@ -433,20 +497,31 @@ class MSR3D:
             torch.as_tensor(attn, dtype=torch.int32, device=self.device),
             **scene, bos_id=self.tokenizer.bos_id, max_cache_len=input_ids.shape[1] + 1,
         )
-        # the prompt cache is int8 with scales when the LLM's config says
-        # kv_quantize, and so is the generated segment
-        gen_kv = _make_cache(self.network.llm.cfg, first.shape[0], max_new, self.device)
+        # the prompt cache stays at batch B; the generated segment holds a
+        # row a beam, int8 with scales when the LLM's config says kv_quantize
+        gen_kv = _make_cache(self.network.llm.cfg, first.shape[0] * beams, max_new, self.device)
 
         def decode_shared(token_ids, positions, gkv, gidx, gmask):
             return self.network.decode_step_shared(
                 token_ids, positions, prompt_kv, prompt_mask, gkv, gidx, gmask
             )
 
-        tokens = greedy_decode_shared(
-            decode_shared, next_pos, first, gen_kv, max_new_tokens=max_new,
-            eos_id=eos_id, pad_id=eos_id, min_length=1,
-            repetition_penalty=self.repetition_penalty,
-        )
+        common = dict(max_new_tokens=max_new, eos_id=eos_id, pad_id=eos_id, min_length=1,
+                      repetition_penalty=self.repetition_penalty,
+                      eos_logit_bias=self.eos_logit_bias)
+        if beams > 1:
+            def decode_anc(token_ids, positions, gkv, gidx, gmask, anc):
+                return self.network.decode_step_beam_anc(
+                    token_ids, positions, prompt_kv, prompt_mask, gkv, gidx, gmask, anc, beams
+                )
+
+            tokens = beam_search_decode_shared(
+                decode_shared, next_pos, first, gen_kv, num_beams=beams,
+                length_penalty=self.length_penalty,
+                decode_step_anc=decode_anc if self.beam_ancestry else None, **common,
+            )
+        else:
+            tokens = greedy_decode_shared(decode_shared, next_pos, first, gen_kv, **common)
         data_dict["output_tokens"] = tokens.cpu().numpy()
         data_dict["output_text"] = self.batch_detokenize(data_dict["output_tokens"])
         return data_dict

@@ -41,6 +41,7 @@ from msr3d_tpu_torch.ops import w4_matmul, w8_matmul
 
 from torch_parity_utils import (
     TINY_PROMPTER,
+    assert_beam_generate_matches,
     perturbed,
     scene_inputs,
     to_numpy_tree,
@@ -448,6 +449,24 @@ def test_quantized_greedy_generate_matches_jax(name):
         tok = torch.from_numpy(tokens[:, step]).long()
         seen[rows[~finished], tok[~finished]] = True
         finished |= tokens[:, step] == model.tokenizer.eos_id
+
+
+@pytest.mark.parametrize("name", ["int8-kv8", "int4-g32-kv8"])
+def test_quantized_beam_generate_matches_jax(name):
+    """Beam-5 generate with penalty 3.0 (the reference's eval decode) over
+    quantized weights and the int8 KV cache: the prompt cache shared by the
+    beams, the generated segment read through the ancestry map or
+    reordered; tokens equal to JAX's, both ways."""
+    jmodel = _jax_quantized_model(GENERATE_CONFIGS[name])
+    cfg = MSR3DNetworkConfig(prompter=torch_prompter_config(TINY_PROMPTER),
+                             llm=torch_llama_config(jmodel.cfg.llm),
+                             backbone_name="convnext_test")
+    model = MSR3D(cfg, ByteTokenizer(), scene_token_len=SCENE_TOKENS, max_out_len=NEW_TOKENS,
+                  repetition_penalty=3.0, device="cpu")
+    model.load_jax_params(jmodel.params)
+    jmodel.repetition_penalty = 3.0
+    assert jmodel.num_beams == model.num_beams == 5 and model.network.cfg.llm.kv_quantize
+    assert_beam_generate_matches(jmodel, model, _requests(), NEW_TOKENS)
 
 
 def test_quantized_init_equals_quantizing_the_bf16_init():

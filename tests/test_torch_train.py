@@ -11,6 +11,7 @@ it is used, with its reason.
 """
 
 import copy
+import functools
 import json
 
 import jax
@@ -50,7 +51,14 @@ from msr3d_tpu_torch.trainer.train_state import merge_learnable
 
 from torch_flash_bwd_model import CASE_IDS, CASES, kernel_model_backward, make_case, torch_inputs
 from torch_flash_fwd_model import forward_inputs, kernel_model_forward
-from torch_parity_utils import TINY_PROMPTER, perturbed, scene_inputs, torch_network_config
+from torch_parity_utils import (
+    IMAGE_PROMPTS,
+    TINY_PROMPTER,
+    image_inputs,
+    perturbed,
+    scene_inputs,
+    torch_network_config,
+)
 
 SCENE_TOKENS = 6
 # fp32 on both sides, summed in other orders: values of order 1 agree to a
@@ -227,7 +235,27 @@ def _data(seed: int, answers=("a chair", "yes")):
     return data
 
 
+def _image_data(seed: int, case: str):
+    """``_data`` with image placeholders in the prompts and images: MSR3D
+    images with some masked or all masked, or a LEO single view (request
+    2's masked)."""
+    data = _data(seed)
+    data["msr3d_prompt"] = list(IMAGE_PROMPTS)
+    masks = {"some-masked": [[1, 1, 0], [1, 0, 0]], "all-masked": [[0, 0, 0], [0, 0, 0]],
+             "leo": [[1], [0]]}[case]
+    images = image_inputs(seed + 50, masks)
+    if case == "leo":
+        data["img_fts"] = images["msr3d_imgs"][:, 0]
+        data["img_masks"] = images["msr3d_img_masks"][:, 0]
+    else:
+        data.update(images)
+    return data
+
+
 def _jax_model(flash: bool, window: bool, seed: int = 4, **llm):
+    """The tiny JAX MSR3D, initialised on a batch with images so that its
+    tree holds the image encoder and ``llm_proj_img`` (flax creates them at
+    their first call), weights perturbed."""
     tok = JaxByteTokenizer()
     cfg = JaxMSR3DNetworkConfig(
         prompter=TINY_PROMPTER,
@@ -237,9 +265,21 @@ def _jax_model(flash: bool, window: bool, seed: int = 4, **llm):
     )
     model = JaxMSR3D(cfg, tok, scene_token_len=SCENE_TOKENS, max_out_len=16,
                      repetition_penalty=1.5)
-    model.params = perturbed(model.init_params(_jax_batch(model, _data(0))), seed=seed,
-                             std=0.05)
+    model.params = jax.tree_util.tree_map(np.array, _initial_params(seed))
     return model
+
+
+@functools.lru_cache(maxsize=None)
+def _initial_params(seed: int):
+    """The initial weights: the model's options (flash, answer window, LoRA
+    dropout) do not change them, so one init serves every test."""
+    model = JaxMSR3D(
+        JaxMSR3DNetworkConfig(prompter=TINY_PROMPTER, llm=JaxLlamaConfig.tiny(
+            vocab_size=JaxByteTokenizer().vocab_size, dtype=jnp.float32, lora_rank=4),
+            backbone_name="convnext_test"),
+        JaxByteTokenizer(), scene_token_len=SCENE_TOKENS, max_out_len=16)
+    return perturbed(model.init_params(_jax_batch(model, _image_data(0, "some-masked"))),
+                     seed=seed, std=0.05)
 
 
 def _jax_batch(model: JaxMSR3D, data):
@@ -264,9 +304,21 @@ def _port_model(jmodel: JaxMSR3D, **kw) -> MSR3D:
 @pytest.mark.parametrize("window", [False, True], ids=["full", "window"])
 @pytest.mark.parametrize("flash", [False, True], ids=["dense", "flash"])
 def test_network_loss_and_trainable_grads_match_jax(flash, window):
-    jmodel = _jax_model(flash, window)
-    data = _data(5)
+    _assert_loss_and_grads_match(_jax_model(flash, window), _data(5))
+
+
+@pytest.mark.parametrize("case", ["some-masked", "all-masked", "leo"])
+def test_network_loss_and_trainable_grads_with_images_match_jax(case):
+    """Requests with images: the image encoder is frozen and keeps no graph,
+    ``llm_proj_img`` trains. All images masked: the loss does not see them,
+    and ``llm_proj_img``'s gradient is 0 on both sides."""
+    _assert_loss_and_grads_match(_jax_model(flash=False, window=False), _image_data(5, case),
+                                 images=True)
+
+
+def _assert_loss_and_grads_match(jmodel, data, images=False):
     jbatch = {k: jnp.asarray(v) for k, v in _jax_batch(jmodel, data).items()}
+    assert ("images" in jbatch) == images
 
     def loss_fn(variables):
         return jmodel.network.apply(variables, **jbatch)["loss"]
@@ -284,6 +336,7 @@ def test_network_loss_and_trainable_grads_match_jax(flash, window):
     want_names = {torch_name(path)[0] for path, on in mask.items() if on}
     names = model.trainable_parameter_names()
     assert set(names) == want_names and len(names) == len(want_names)
+    assert any(n.startswith("llm_proj_img.") for n in names)
     params = dict(model.network.named_parameters())
     assert {n for n, p in params.items() if p.requires_grad} == want_names
 
@@ -292,10 +345,15 @@ def test_network_loss_and_trainable_grads_match_jax(flash, window):
     want = jax_to_torch_state_dict(want_grads)[0]
     for name in names:
         grad = params[name].grad
-        assert grad is not None, name
+        if grad is None:
+            # a request without images does not reach llm_proj_img: JAX's
+            # gradient is 0 there, as the trainer takes a missing one
+            assert not images and name.startswith("llm_proj_img."), name
+            grad = torch.zeros_like(params[name])
         np.testing.assert_allclose(grad.numpy(), want[name].numpy(), atol=ATOL, err_msg=name)
     frozen = [n for n, p in params.items() if n not in want_names]
     assert frozen and all(params[n].grad is None for n in frozen)
+    assert any(n.startswith("image_encoder.") for n in frozen)
 
 
 # ---------------------------------------------------------------------------
@@ -304,10 +362,12 @@ def test_network_loss_and_trainable_grads_match_jax(flash, window):
 
 
 class _Loader:
-    """Tiny MSR3D data dicts, without images (not ported yet)."""
+    """Tiny MSR3D data dicts, without images or, with ``images``, with three
+    MSR3D images a request, some masked or all masked in turn (the JAX
+    trainer stacks a group's micro-batches, so M stays the same)."""
 
-    def __init__(self, n: int, seed: int = 0):
-        self.n, self.seed = n, seed
+    def __init__(self, n: int, seed: int = 0, images: bool = False):
+        self.n, self.seed, self.images = n, seed, images
 
     def __len__(self):
         return self.n
@@ -315,7 +375,12 @@ class _Loader:
     def __iter__(self):
         answers = [("a chair", "yes"), ("the red lamp", "no"), ("two", "behind me")]
         for i in range(self.n):
-            yield _data(self.seed + i, answers[i % len(answers)])
+            if self.images:
+                data = _image_data(self.seed + i, ("some-masked", "all-masked")[i % 2])
+                data["text_output"] = list(answers[i % len(answers)])
+                yield data
+            else:
+                yield _data(self.seed + i, answers[i % len(answers)])
 
 
 def _trainer_cfg(exp_dir, accum=2):
@@ -406,6 +471,38 @@ def test_leo_trainer_two_steps_match_jax(flash, tmp_path):
         assert torch.equal(resumed.params[name], params[name])
         for key, val in trainer.optimizer.state[name].items():
             assert torch.equal(resumed.optimizer.state[name][key], val)
+
+
+def test_leo_trainer_steps_with_images_match_jax(tmp_path):
+    """Two optimizer steps over batches with images (3 batches at
+    accumulation 2): losses, grad norms and the learnable parameters agree
+    as in the test above; ``llm_proj_img`` moved, the image encoder did
+    not."""
+    jmodel = _jax_model(flash=False, window=True)
+    model = _port_model(jmodel)
+    encoder = {n: t.clone() for n, t in model.network.image_encoder.state_dict().items()}
+    jtrainer = JaxLeoTrainer(config_from_dict(_trainer_cfg(tmp_path / "jax")),
+                             loaders={"msr3d_train": {"train": _Loader(3, images=True)}},
+                             evaluators={}, model=jmodel)
+    trainer = LeoTrainer(_trainer_cfg(tmp_path / "port"),
+                         loaders={"msr3d_train": {"train": _Loader(3, images=True)}},
+                         model=model)
+    jtrainer.train_one_epoch(0)
+    trainer.train_one_epoch(0)
+    got, want = _metrics(tmp_path / "port"), _metrics(tmp_path / "jax")
+    assert [m["step"] for m in got] == [m["step"] for m in want] == [1, 2]
+    for g, w in zip(got, want):
+        for key in ("train/loss", "train/grad_norm"):
+            np.testing.assert_allclose(g[key], w[key], rtol=ATOL, err_msg=key)
+    trained = jax_to_torch_state_dict(jtrainer.state.params)[0]
+    params = dict(model.network.named_parameters())
+    initial = jax_to_torch_state_dict(jmodel.params)[0]
+    for name in ("llm_proj_img.weight", "llm_proj_img.bias"):
+        np.testing.assert_allclose(params[name].detach().numpy(), trained[name].numpy(),
+                                   atol=1e-6, err_msg=name)
+        assert not torch.equal(params[name].detach(), initial[name])
+    assert all(torch.equal(t, encoder[n])
+               for n, t in model.network.image_encoder.state_dict().items())
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):

@@ -14,6 +14,7 @@ from msr3d_tpu.models.ose3d_situation import OSE3DConfig as JaxOSE3DConfig
 from msr3d_tpu.models.ose3d_situation import SpatialEncoderConfig as JaxSpatialEncoderConfig
 from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, SpatialEncoderConfig
 
+BEAM_MARGIN = 1e-4
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # the tiny prompter of tests/test_msr3d.py, fp32 so the point encoder is
@@ -49,6 +50,25 @@ def scene_inputs(seed: int, b: int = 2, n_obj: int = 6, n_pts: int = 32):
     }
 
 
+# prompts with image placeholders (图): two in the first, one in the second
+IMAGE_PROMPTS = [
+    "Look at 图 and 图 in the scene: 景. What is on the table?",
+    "Scene 景 here, view 图. Can I go north?",
+]
+
+
+def image_inputs(seed: int, masks, size: int = 32):
+    """``msr3d_imgs`` (B, M, size, size, 3) normalized-pixel-like noise and
+    ``msr3d_img_masks`` (B, M) from ``masks``, as the dataset wrapper pads
+    them (valid images first)."""
+    masks = np.asarray(masks, bool)
+    r = np.random.default_rng(seed)
+    return {
+        "msr3d_imgs": r.normal(size=masks.shape + (size, size, 3)).astype(np.float32),
+        "msr3d_img_masks": masks,
+    }
+
+
 def torch_prompter_config(cfg: JaxOSE3DConfig) -> OSE3DConfig:
     """The port's prompter config with the JAX config's values (every field
     the port has: ``spatial_encoder.dropout``, ``vision_freeze`` and
@@ -78,12 +98,15 @@ def torch_llama_config(cfg, **overrides):
 
 def torch_network_config(cfg, **llm_overrides):
     """The port's MSR3DNetworkConfig with a JAX MSR3DNetworkConfig's values
-    (``answer_window_loss`` included; the image fields are not ported)."""
+    (``answer_window_loss`` and the image encoder's fields included)."""
     from msr3d_tpu_torch.models.msr3d import MSR3DNetworkConfig
 
     return MSR3DNetworkConfig(
         prompter=torch_prompter_config(cfg.prompter),
         llm=torch_llama_config(cfg.llm, **llm_overrides),
+        backbone_name=cfg.backbone_name,
+        image_pooling=cfg.image_pooling,
+        freeze_image_encoder=cfg.freeze_image_encoder,
         scene_token_id=cfg.scene_token_id,
         img_token_id=cfg.img_token_id,
         answer_window_loss=cfg.answer_window_loss,
@@ -106,3 +129,37 @@ def perturbed(variables, seed=0, std=0.1):
         return x + noise
 
     return jax.tree_util.tree_map_with_path(bump, to_numpy_tree(variables))
+
+
+def assert_beam_generate_matches(jmodel, model, data, new_tokens: int):
+    """Beam generate of both packages, ancestry on and off: equal tokens and
+    texts, and every top-k boundary the port's beam search decided (k-th
+    against (k+1)-th value, live values only) held by BEAM_MARGIN, well
+    above the frameworks' fp32 disagreement (1e-5 on the logits), so equal
+    tokens are not luck."""
+    from msr3d_tpu_torch.models.llm import sampling
+
+    boundaries = []
+    top_k = sampling._top_k
+
+    def recording_top_k(x, k):
+        values, indices = top_k(x, k)
+        if x.shape[-1] > k:
+            nxt = torch.sort(x, dim=-1, descending=True, stable=True)[0][..., k]
+            live = values[..., -1] > -1e8
+            boundaries.append((values[..., -1] - nxt)[live])
+        return values, indices
+
+    for ancestry in (True, False):
+        jmodel.beam_ancestry = model.beam_ancestry = ancestry
+        want = jmodel.generate(dict(data))
+        sampling._top_k = recording_top_k
+        try:
+            got = model.generate(dict(data))  # use_beam=None: num_beams
+        finally:
+            sampling._top_k = top_k
+        assert got["output_tokens"].shape == (2, new_tokens)
+        np.testing.assert_array_equal(got["output_tokens"], want["output_tokens"])
+        assert got["output_text"] == want["output_text"]
+    gaps = torch.cat(boundaries)
+    assert len(boundaries) > 3 * new_tokens and float(gaps.min()) > BEAM_MARGIN, float(gaps.min())
