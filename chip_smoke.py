@@ -20,7 +20,11 @@ the ancestry map and with the reordered cache (phase 9), two optimizer
 steps of ``LeoTrainer`` at the flagship's solver (phase 6), and greedy
 generation with the LLM quantized on the card in four serving
 configurations (phase 8, int8/int4 weights, int8 KV cache, s8xs8; beam-5
-on the int8 KV cache), and checks that each path launched its kernels. Any failed check exits
+on the int8 KV cache), and the training entry (phase 10: ``python -m
+msr3d_tpu_torch.run`` on ``configs/msr3d.yaml`` over a synthetic MSQA tree
+that the phase writes, a Vicuna-7B ``config.json`` and a small BPE
+``tokenizer.model``; 2 optimizer steps, nothing injected), and checks that
+each path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
 or without the package beside it, it exits non-zero and prints no result.
@@ -211,13 +215,18 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_card_and_build():
-    print("== phase 1: card and kernel build")
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` states them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_card_and_build():
+    print("== phase 1: card and kernel build")
+    print(card_line())
     from msr3d_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -1240,6 +1249,188 @@ def phase_train(model, dev, exp_root: Path, profile: bool):
     return launches
 
 
+# Phase 10: the training entry on configs/msr3d.yaml. The synthetic tree has
+# scans of ENTRY_OBJECTS objects (over max_obj_len 60, so the relevant-objects
+# crop runs) and 14 + 13 + 13 train annotations in the three MSQA domains: 40
+# samples, 10 batches of 4, 2 optimizer steps at accumulation 5
+ENTRY_OBJECTS = 64
+ENTRY_ANNOTATIONS = (("scannet", ("scene0000_00", "scene0001_00"), 14),
+                     ("rscan", ("rscan0001",), 13), ("arkitscenes", ("arkit0001",), 13))
+# the public Vicuna-7B geometry, as its HF config.json states it
+VICUNA_7B = {"vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
+             "num_hidden_layers": 32, "num_attention_heads": 32, "rms_norm_eps": 1e-6,
+             "max_position_embeddings": 2048, "tie_word_embeddings": False}
+
+
+def write_entry_checkpoint(root: Path) -> Path:
+    """``cfg_path`` for phase 10: the Vicuna-7B ``config.json`` and a BPE
+    ``tokenizer.model`` (the port's ``serialize_model_proto``) with byte
+    fallback, the 图/物/景 placeholders, single characters and the ▁-word
+    prefixes of the MSQA template's words, so its prompts take about a
+    token a word. No weights: the model takes seeded random ones."""
+    from msr3d_tpu_torch.data.datasets.msr3d import MSR3DBase
+    from msr3d_tpu_torch.models.llm.sentencepiece import (
+        BYTE,
+        CONTROL,
+        NORMAL,
+        UNKNOWN,
+        serialize_model_proto,
+    )
+
+    pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL), ("</s>", 0.0, CONTROL)]
+    pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
+    chars = "▁abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.,:;?!'-()[]图物景"
+    pieces += [(ch, -1000.0, NORMAL) for ch in chars]
+    text = " ".join(MSR3DBase.prompt_dict.values()) + (
+        " What is the color of the chair number? To my left there is a chair near a table."
+        " red the red one")
+    seen = set(chars)
+    for word in re.findall(r"[A-Za-z]+", text):
+        for k in range(2, len(word) + 2):
+            piece = ("▁" + word)[:k]
+            if piece not in seen:
+                seen.add(piece)
+                pieces.append((piece, -float(k), NORMAL))
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(VICUNA_7B))
+    (root / "tokenizer.model").write_bytes(serialize_model_proto(pieces))
+    return root
+
+
+def flagship_parameter_count(vocab_size: int) -> int:
+    """The parameters of ``build_flagship_model``'s network, counted on the
+    meta device, with ``vocab_size`` rows of embeddings and lm_head."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig
+    from msr3d_tpu_torch.models.msr3d import MSR3DNetwork, MSR3DNetworkConfig
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+
+    llm = LlamaConfig(vocab_size=vocab_size, hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=32, num_attention_heads=32, lora_rank=16,
+                      dtype=torch.bfloat16, param_dtype=torch.bfloat16, flash_attention=True)
+    net = MSR3DNetwork(MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm), device="meta")
+    return sum(p.numel() for p in net.parameters())
+
+
+def phase_entry(exp_root: Path):
+    print("== phase 10: the training entry at the flagship width (python -m "
+          "msr3d_tpu_torch.run on configs/msr3d.yaml, 2 optimizer steps of batch "
+          f"{N_REQUESTS} x accumulation {TRAIN_ACCUM}, nothing injected)")
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch import run as entry
+    from msr3d_tpu_torch.data import synthetic
+    from msr3d_tpu_torch.data.scan_loader import ScanCache
+    from msr3d_tpu_torch.models.llm.llama import LoraDense
+    from msr3d_tpu_torch.models.msr3d import MSR3D
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    root = exp_root / "entry"
+    data = root / "data"
+    rng = np.random.default_rng(12)
+    synthetic.build_scannet_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    synthetic.build_rscan_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    synthetic.build_arkit_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    for domain, scans, n in ENTRY_ANNOTATIONS:
+        synthetic.build_msqa_annotations(data, list(scans), n=n, domain=domain)
+    ckpt = write_entry_checkpoint(root / "vicuna7b")
+    argv = ["--config", str(Path(__file__).resolve().parent / "configs" / "msr3d.yaml"),
+            f"data.scan_family_base={data}/scan_family", f"data.rscan_base={data}/rscan",
+            f"data.ARkit_base={data}/arkit", f"data.msr3d_base={data}/msr3d",
+            f"model.llm.cfg_path={ckpt}", "model.llm.flash_attention=true",
+            "task.msqa_scannet.mode=[]", "task.msqa_3rscan.mode=[]",
+            "task.msqa_arkitscenes.mode=[]", "solver.epochs=1", f"exp_dir={root / 'exp'}"]
+    print(f"  python -m msr3d_tpu_torch.run {' '.join(argv)}")
+
+    micro_batches, frozen = [], {}
+    loss_batch, init_params = MSR3D.loss_batch, MSR3D.init_params
+
+    def recording_loss_batch(self, data_dict, *args):
+        batch = loss_batch(self, data_dict, *args)
+        micro_batches.append({k: (tuple(batch[k].shape), batch[k].device.type)
+                              for k in ("obj_fts", "images", "input_ids")})
+        return batch
+
+    def recording_init(self, seed=None):
+        init_params(self, seed)
+        frozen["before"] = frozen_checksums(self)
+
+    kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL)
+    ScanCache.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(MSR3D, "loss_batch", recording_loss_batch), \
+            mock.patch.object(MSR3D, "init_params", recording_init):
+        for kernel in kernels:
+            kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = entry.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = {kernel.symbol.replace("_launch", ""): kernel.launches for kernel in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    model = trainer.model
+    llm = model.cfg.llm
+    n_micro = len(micro_batches)
+    print(f"  launches during the run ({n_micro} micro-batches): {launches}")
+    print(f"  built: {llm}")
+    members = trainer.train_loader.dataset.dataset.datasets
+    print(f"  {len(trainer.train_loader.dataset)} train samples from {[m.source for m in members]}"
+          f", point-cloud preprocessing: {sorted({m.preprocess_path for m in members})}, "
+          f"tokenizer {type(model.tokenizer).__name__} ({model.tokenizer.vocab_size} ids)")
+    count = sum(p.numel() for p in model.network.parameters())
+    want = flagship_parameter_count(llm.vocab_size)
+    print(f"  {count} parameters; the flagship of phases 4 and 6 at vocab {llm.vocab_size}: "
+          f"{want}")
+    check(count == want and model.cfg.prompter == OSE3DConfig() and llm.hidden_size == 4096
+          and llm.num_hidden_layers == 32 and llm.num_attention_heads == 32
+          and llm.intermediate_size == 11008 and llm.lora_rank == 16 and len(llm.lora_targets)
+          == 7 and llm.flash_attention and llm.param_dtype == torch.bfloat16
+          and model.cfg.backbone_name == "convnext_base",
+          "the model the YAML built has the flagship's geometry and parameter count")
+    check(n_micro == TRAIN_STEPS * TRAIN_ACCUM and all(
+        mb["obj_fts"] == ((N_REQUESTS, 60, 1024, 6), "cuda")
+        and mb["images"] == ((N_REQUESTS, MAX_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3), "cuda")
+        for mb in micro_batches),
+        f"each of the {TRAIN_STEPS * TRAIN_ACCUM} micro-batches carries obj_fts (4, 60, 1024, 6) "
+        "and msr3d_imgs (4, 60, 224, 224, 3) on the card")
+    print(f"  micro-batch input_ids {sorted({mb['input_ids'][0] for mb in micro_batches})}")
+    layers = llm.num_hidden_layers
+    check(launches["fps"] == 2 * n_micro, "K1 launched twice per micro-batch")
+    check(all(launches[k] == layers * n_micro
+              for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")),
+          f"K2f, K2dq and K2dkv each launched {layers} times per micro-batch")
+    with open(trainer.exp_dir / "metrics.jsonl") as fh:
+        metrics = [json.loads(line) for line in fh]
+    for m in metrics:
+        print(f"  step {m['step']}: loss {m['train/loss']:.6f}, grad norm "
+              f"{m['train/grad_norm']:.6f}, {1e3 * m['train/step_time_s']:.1f} ms, data wait "
+              f"{1e3 * m['train/data_wait_s']:.1f} ms")
+    check(len(metrics) == TRAIN_STEPS and all(np.isfinite(m["train/loss"]) for m in metrics),
+          "the loss is finite at every step")
+    loras = [m for m in model.network.modules() if isinstance(m, LoraDense) and m.scale]
+    check(len(loras) == 7 * layers and all(bool((m.lora_b != 0).any()) for m in loras),
+          f"every LoRA B tensor ({len(loras)}) moved from 0")
+    check(torch.equal(frozen_checksums(model), frozen["before"]),
+          "checksums of the frozen base weights, norms, embeddings and lm_head unchanged")
+    check(trainer.ckpt.has_weights("latest") and trainer.ckpt.latest_step() == TRAIN_STEPS
+          and (trainer.exp_dir / "config.yaml").exists(),
+          "the full state, 'latest' and the config snapshot written under the exp dir")
+    step_s, wait_s = trainer.timer.history, trainer.data_wait_history
+    print(f"  step time {' / '.join(f'{1e3 * t:.1f}' for t in step_s)} ms "
+          f"({N_REQUESTS * TRAIN_ACCUM / step_s[-1]:.3f} samples/s at the last step), host data "
+          f"wait {' / '.join(f'{1e3 * t:.1f}' for t in wait_s)} ms a step, main() {main_s:.1f} s "
+          f"(build, init, data and training), peak memory allocated {peak_gb:.2f} GiB")
+    # what the prefetch thread does for one micro-batch, alone on the host
+    # (scans cached): the samples' preprocessing and the collate
+    loader = trainer.train_loader
+    chunks = list(itertools.islice(loader._batches(), 3))
+    load_ms = [wall_ms(lambda c=c: loader._load(c)) for c in chunks]
+    print(f"  one micro-batch from the loader alone: {' / '.join(f'{t:.1f}' for t in load_ms)} "
+          f"ms ({len(chunks[0])} samples, preprocessing and collate)")
+    ScanCache.clear()
+    return launches
+
+
 def dequant_against_plain(x, wq, scale, bits):
     """K3 (bits 8) or K4 (bits 4) and its plain version on the same inputs:
     max |Δ|, max |Δ| over the tolerance, whether the output is finite, and
@@ -1703,6 +1894,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         quantized = timed(phase_quantized, dev, profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # last, so that phases 1-9 run as they ran before it existed
+        entry_launches = timed(phase_entry, exp_root)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1711,20 +1906,25 @@ def main() -> int:
     source = "msr3d_tpu_torch/csrc/flash_attn_bwd.cu"
     rows = [
         # launches: greedy generate (phase 4); launches_beam: the beam-5
-        # generate with the ancestry map (phase 9)
+        # generate with the ancestry map (phase 9); launches_entry: the
+        # training entry's run (phase 10)
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
-             launches_beam=beam[True]["launches"]["fps"], **fps_row),
+             launches_beam=beam[True]["launches"]["fps"],
+             launches_entry=entry_launches["fps"], **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
-             launches_beam=beam[True]["launches"]["flash_attn_fwd"], **flash_row),
+             launches_beam=beam[True]["launches"]["flash_attn_fwd"],
+             launches_entry=entry_launches["flash_attn_fwd"], **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
-             launches=train_launches["flash_attn_bwd_dq"], **dq_row),
+             launches=train_launches["flash_attn_bwd_dq"],
+             launches_entry=entry_launches["flash_attn_bwd_dq"], **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
-             launches=train_launches["flash_attn_bwd_dkv"], **dkv_row),
+             launches=train_launches["flash_attn_bwd_dkv"],
+             launches_entry=entry_launches["flash_attn_bwd_dkv"], **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands
@@ -1739,7 +1939,7 @@ def main() -> int:
              held_on_path_operands=quantized["w4"][0], **quantized["w4"][1],
              phase7=phase7_rows(dequant_rows, 4)),
     ]
-    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(f"total {time.perf_counter() - t0:.1f} s on {card_line()}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

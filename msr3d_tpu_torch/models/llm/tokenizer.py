@@ -1,15 +1,19 @@
 """Tokenizer layer with the CJK placeholder tokens.
 
-A copy of the tokenizer interface of ``msr3d_tpu/models/llm/tokenizer.py``
-(``BaseTokenizer`` and the byte-level ``ByteTokenizer``), kept here so the
-port imports nothing of the JAX package. Scene prompts repeat 景 per scene
-token and 图 per image; their ids mark the splice positions. The HF and
-SentencePiece backends are not ported yet.
+A copy of ``msr3d_tpu/models/llm/tokenizer.py``, kept here so the port
+imports nothing of the JAX package: ``BaseTokenizer``, the byte-level
+``ByteTokenizer`` of the debug configs, the SentencePiece backend
+``SPTokenizer`` (a stock Vicuna ``tokenizer.model``, read by the pure-Python
+``sentencepiece.py``) and ``build_tokenizer``'s path resolution. Scene
+prompts repeat 景 per scene token and 图 per image; their ids mark the
+splice positions. The HF fast-tokenizer backend needs ``transformers`` and
+is not ported (``HFTokenizer`` raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -79,6 +83,87 @@ class BaseTokenizer:
         raise NotImplementedError
 
 
+class HFTokenizer(BaseTokenizer):
+    """The JAX package's HF fast-tokenizer backend (a checkpoint directory
+    with ``tokenizer.json``). It needs ``transformers``, which the port does
+    not depend on."""
+
+    def __init__(self, path: str, truncation_side: str = "right"):
+        raise NotImplementedError(
+            f"the HF fast tokenizer ({path!r} holds no tokenizer.model) is not ported "
+            "(ROADMAP.md, queue: the long tail); give cfg_path a directory with a "
+            "SentencePiece tokenizer.model"
+        )
+
+
+class SPTokenizer(BaseTokenizer):
+    """SentencePiece backend over a stock ``tokenizer.model``, with the
+    special tokens as the reference's HF slow LlamaTokenizer sets them up:
+    '[PAD]' appended as a new id (``vocab_size``), and the 图/物/景
+    placeholders, single-character pieces of the Llama vocabulary, split the
+    text; each fragment is encoded on its own (HF ``legacy=True``
+    fragments)."""
+
+    def __init__(self, model_path: str):
+        from msr3d_tpu_torch.models.llm.sentencepiece import SentencePieceModel
+
+        self.sp = SentencePieceModel.load(model_path)
+        self.bos_id = self.sp.bos_id
+        self.eos_id = self.sp.eos_id
+        self.unk_id = self.sp.unk_id
+        self.pad_id = len(self.sp.pieces)
+        self.vocab_size = len(self.sp.pieces) + 1
+        self._specials = {}
+        for name, ch in (
+            ("img_token_id", IMAGE_PLACEHOLDER),
+            ("obj_token_id", OBJECT_PLACEHOLDER),
+            ("scene_token_id", SCENE_PLACEHOLDER),
+        ):
+            pid = self.sp.piece_to_id.get(ch)
+            if pid is None:
+                raise ValueError(
+                    f"placeholder {ch!r} not in the sentencepiece vocab — "
+                    "not a Llama/Vicuna-family tokenizer.model"
+                )
+            setattr(self, name, pid)
+            self._specials[ch] = pid
+
+    def _encode_one(self, text: str) -> List[int]:
+        ids: List[int] = []
+        frag: List[str] = []
+        for ch in text:
+            if ch in self._specials:
+                if frag:
+                    ids.extend(self.sp.encode("".join(frag)))
+                    frag = []
+                ids.append(self._specials[ch])
+            else:
+                frag.append(ch)
+        if frag:
+            ids.extend(self.sp.encode("".join(frag)))
+        return ids
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        """The placeholders decode as text whether or not special tokens
+        are skipped; '[PAD]' is dropped."""
+        out: List[str] = []
+        run: List[int] = []
+        specials = set(self._specials.values())
+        for i in (int(i) for i in ids):
+            if i == self.pad_id:
+                continue
+            if i in specials:
+                if run:
+                    out.append(self.sp.decode_ids(run, skip_special_tokens))
+                    run = []
+                out.append(self.sp.pieces[i])
+            else:
+                run.append(i)
+        if run:
+            out.append(self.sp.decode_ids(run, skip_special_tokens))
+        return "".join(out)
+
+
 class ByteTokenizer(BaseTokenizer):
     """Byte-level tokenizer. Layout: 0=pad, 1=bos, 2=eos, 3=unk, 4=图,
     5=物, 6=景, then 7..262 = bytes 0..255."""
@@ -128,3 +213,20 @@ class ByteTokenizer(BaseTokenizer):
         if out_bytes:
             out.append(out_bytes.decode("utf-8", errors="replace"))
         return "".join(out)
+
+
+def build_tokenizer(cfg_path: str = "", truncation_side: str = "right") -> BaseTokenizer:
+    """The tokenizer of a checkpoint path, as the JAX package resolves it:
+    no path → ``ByteTokenizer`` (the debug configs); a ``.model`` file, or a
+    directory with ``tokenizer.model`` and no ``tokenizer.json`` →
+    ``SPTokenizer``; anything else → ``HFTokenizer`` (which raises)."""
+    if not cfg_path:
+        return ByteTokenizer()
+    p = str(cfg_path)
+    if p.endswith(".model"):
+        return SPTokenizer(p)
+    if os.path.isdir(p) and not os.path.exists(os.path.join(p, "tokenizer.json")):
+        sp_file = os.path.join(p, "tokenizer.model")
+        if os.path.exists(sp_file):
+            return SPTokenizer(sp_file)
+    return HFTokenizer(p, truncation_side=truncation_side)

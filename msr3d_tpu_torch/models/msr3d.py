@@ -296,6 +296,7 @@ class MSR3D:
         *,
         scene_token_len: int = 60,
         image_token_len: int = 1,
+        max_context_len: int = 256,  # stored; prompts are not truncated to it (as in JAX)
         max_out_len: int = 256,
         num_beams: int = 5,
         repetition_penalty: float = 3.0,
@@ -319,6 +320,7 @@ class MSR3D:
             param.requires_grad_(name in trainable)
         self.scene_token_len = scene_token_len
         self.image_token_len = image_token_len
+        self.max_context_len = max_context_len
         self.max_out_len = max_out_len
         self.num_beams = num_beams
         self.repetition_penalty = repetition_penalty

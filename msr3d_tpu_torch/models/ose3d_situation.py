@@ -33,6 +33,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class SpatialEncoderConfig:
+    dim_loc: int = 6
     num_attention_heads: int = 8
     dim_feedforward: int = 2048
     dropout: float = 0.1
@@ -51,7 +52,9 @@ class OSE3DConfig:
     hidden_size: int = 256
     situation_type: str = "as_transform_for_objects"
     use_spatial_attn: bool = True
+    use_anchor: bool = True  # the anchor as an object: the other situation modes only
     use_orientation: bool = True
+    fourier_size: int = 84  # Fourier features of the quaternion: the other modes only
     loc_fourier_dim: int = 63  # Fourier features of xyz: 3 + 3·10·2
     spatial_encoder: SpatialEncoderConfig = SpatialEncoderConfig()
     sa_n_points: Tuple[Optional[int], ...] = (32, 16, None)
@@ -67,6 +70,51 @@ class OSE3DConfig:
     # the reference runs the frozen point encoder under bf16 autocast and
     # the spatial encoder in fp32; the parity tests pin "float32"
     obj_encoder_dtype: str = "bfloat16"
+    # the AttFlat pooling of the object tokens (off in every shipped config)
+    use_attn_flat: bool = False
+    attn_flat_mlp_size: int = 512
+    attn_flat_glimpses: int = 1
+    attn_flat_out_size: int = 1024
+
+    @staticmethod
+    def from_config(cfg) -> "OSE3DConfig":
+        """From the YAML's ``model.prompter.model`` node, as the JAX
+        package reads it (the point encoder's dtype keeps its default)."""
+        se = cfg.spatial_encoder
+        vision_args = cfg.vision.args
+        return OSE3DConfig(
+            hidden_size=cfg.hidden_size,
+            situation_type=cfg.get("situation_type", "as_object"),
+            use_spatial_attn=cfg.use_spatial_attn,
+            use_anchor=cfg.use_anchor,
+            use_orientation=cfg.use_orientation,
+            fourier_size=cfg.fourier_size,
+            loc_fourier_dim=cfg.get("loc_fourier_dim", 63),
+            spatial_encoder=SpatialEncoderConfig(
+                dim_loc=se.dim_loc,
+                num_attention_heads=se.num_attention_heads,
+                dim_feedforward=se.dim_feedforward,
+                dropout=se.dropout,
+                activation=se.activation,
+                spatial_multihead=se.spatial_multihead,
+                spatial_dim=se.spatial_dim,
+                spatial_dist_norm=se.spatial_dist_norm,
+                spatial_attn_fusion=se.spatial_attn_fusion,
+                num_layers=se.num_layers,
+                obj_loc_encoding=se.obj_loc_encoding,
+                pairwise_rel_type=se.pairwise_rel_type,
+            ),
+            sa_n_points=tuple(vision_args.sa_n_points),
+            sa_n_samples=tuple(vision_args.sa_n_samples),
+            sa_radii=tuple(vision_args.sa_radii),
+            sa_mlps=tuple(tuple(m) for m in vision_args.sa_mlps),
+            vision_dropout=vision_args.get("dropout", 0.1),
+            vision_freeze=vision_args.get("freeze", True),
+            use_attn_flat=cfg.attn_flat.use_attn_flat,
+            attn_flat_mlp_size=cfg.attn_flat.mcan_flat_mlp_size,
+            attn_flat_glimpses=cfg.attn_flat.mcan_flat_glimpses,
+            attn_flat_out_size=cfg.attn_flat.mcan_flat_out_size,
+        )
 
 
 class LocLayer(nn.Module):
@@ -92,6 +140,8 @@ class OSE3DSituation(nn.Module):
             )
         if not (cfg.use_spatial_attn and cfg.use_orientation):
             raise NotImplementedError("only use_spatial_attn=use_orientation=True is ported")
+        if cfg.use_attn_flat:
+            raise NotImplementedError("use_attn_flat (AttFlat) is not ported yet (see ROADMAP.md)")
         if se.obj_loc_encoding not in ("same_0", "same_all"):
             raise NotImplementedError(f"obj_loc_encoding={se.obj_loc_encoding!r}")
         self.cfg = cfg

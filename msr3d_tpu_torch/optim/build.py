@@ -6,7 +6,7 @@ updates done so far (0 on the first step, as optax counts); ``AdamW``,
 ``Adam`` and ``SGD`` with optax's formulas; gradient clipping to a global
 norm as ``optax.clip_by_global_norm`` computes it. The optimizer holds
 state only for the parameters it is given (the trainable set), so the
-frozen base never gets moments. ``Lamb`` is not ported (ROADMAP.md).
+frozen base never gets moments: the JAX package's trainable mask.
 """
 
 from __future__ import annotations
@@ -117,7 +117,8 @@ class Adam(Optimizer):
         super().__init__(params, schedule)
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
 
-    def _update(self, name, param, grad, lr):
+    def _direction(self, name, param, grad):
+        """``m̂ / (√v̂ + ε)`` plus the decoupled decay ``wd·p``."""
         st = self.state.setdefault(
             name, {"mu": torch.zeros_like(param), "nu": torch.zeros_like(param)}
         )
@@ -128,11 +129,33 @@ class Adam(Optimizer):
         update = mu_hat / (nu_hat.sqrt() + self.eps)
         if self.weight_decay:
             update = update + self.weight_decay * param
-        param.add_(update * -lr)
+        return update
+
+    def _update(self, name, param, grad, lr):
+        param.add_(self._direction(name, param, grad) * -lr)
 
 
 class AdamW(Adam):
     kind = "adamw"
+
+
+class Lamb(Adam):
+    """optax ``lamb``: the Adam direction with ε 1e-6 and the decoupled
+    decay, scaled per parameter tensor by the trust ratio ``‖p‖ / ‖u‖`` (1
+    where either norm is 0), then by ``-lr``."""
+
+    kind = "lamb"
+
+    def __init__(self, params, schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(params, schedule, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+    def _update(self, name, param, grad, lr):
+        update = self._direction(name, param, grad)
+        param_norm, update_norm = param.norm(), update.norm()
+        trust = torch.where((param_norm == 0) | (update_norm == 0),
+                            torch.ones_like(param_norm), param_norm / update_norm)
+        param.add_(update * trust * -lr)
 
 
 class SGD(Optimizer):
@@ -171,11 +194,8 @@ def build_optim(cfg: Mapping[str, Any], total_steps: int,
             opt = Adam(params, schedule, b1=b1, b2=b2)
     elif name == "SGD":
         opt = SGD(params, schedule, momentum=args.pop("momentum", 0.0))
-    elif name == "Lamb":
-        raise NotImplementedError(
-            "optimizer Lamb is not ported yet (ROADMAP.md, queue: the training "
-            "entry and what the first training slice left)"
-        )
+    elif name == "Lamb":  # betas and eps keep optax's defaults, as in JAX
+        opt = Lamb(params, schedule, weight_decay=args.pop("weight_decay", 0.0))
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     grad_norm = solver.get("grad_norm")

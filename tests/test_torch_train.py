@@ -516,12 +516,15 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="retrieval"):
         LeoTrainer(dict(cfg, model={"llm": {"inference_mode": "retrieval"}}), loaders=loaders,
                    model=model)
+    with pytest.raises(NotImplementedError, match="evaluation"):
+        LeoTrainer(dict(cfg, mode="test"), loaders=loaders, model=model)
+    with pytest.raises(NotImplementedError, match="evaluation"):
+        LeoTrainer(cfg, loaders=loaders, evaluators={"t": object()}, model=model)
+    # ported since: Lamb, and the model and loaders built from the YAML
+    # (tests/test_torch_entry.py)
     lamb = copy.deepcopy(cfg)
     lamb["solver"]["optim"]["name"] = "Lamb"
-    with pytest.raises(NotImplementedError, match="Lamb"):
-        LeoTrainer(lamb, loaders=loaders, model=model)
-    with pytest.raises(NotImplementedError, match="models/build.py"):
-        LeoTrainer(cfg, loaders=loaders)
+    assert type(LeoTrainer(lamb, loaders=loaders, model=model).optimizer).__name__ == "Lamb"
 
 
 # ---------------------------------------------------------------------------
