@@ -23,8 +23,12 @@ configurations (phase 8, int8/int4 weights, int8 KV cache, s8xs8; beam-5
 on the int8 KV cache), and the training entry (phase 10: ``python -m
 msr3d_tpu_torch.run`` on ``configs/msr3d.yaml`` over a synthetic MSQA tree
 that the phase writes, a Vicuna-7B ``config.json`` and a small BPE
-``tokenizer.model``; 2 optimizer steps, nothing injected), and checks that
-each path launched its kernels. Any failed check exits
+``tokenizer.model``; 2 optimizer steps, nothing injected), and evaluation
+from the YAML on that tree (phase 11: the same entry with the three MSQA
+eval tasks on, one optimizer step, then val and test of a batch of 4 each
+with beam 5 at 32 new tokens; the ``mode=test`` rerun from ``best``, which
+must give the same test texts; retrieval over the SQA3D answer vocabulary
+with ``predict_answers``), and checks that each path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
 or without the package beside it, it exits non-zero and prints no result.
@@ -35,10 +39,13 @@ greedy and beam, int8) and the device busy share of one more optimizer step
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
 import json
+import math
+import random
 import re
 import shutil
 import statistics
@@ -1431,6 +1438,332 @@ def phase_entry(exp_root: Path):
     return launches
 
 
+# Phase 11: evaluation from the YAML, on phase 10's tree and checkpoint
+# directory. The three MSQA eval tasks of configs/msr3d.yaml stay on; the
+# train set is cut to one batch of 4 (debug size 4, the ScanNet member of
+# the mix) for one optimizer step, and each eval split to one batch of 4
+EVAL_TASKS = ("msqa_scannet", "msqa_3rscan", "msqa_arkitscenes")
+
+
+def eval_argv(exp_root: Path, exp: Path, *extra: str):
+    """The entry's arguments of phase 11: configs/msr3d.yaml over phase 10's
+    tree and ``cfg_path``, nothing else injected."""
+    root = exp_root / "entry"
+    data = root / "data"
+    return ["--config", str(Path(__file__).resolve().parent / "configs" / "msr3d.yaml"),
+            f"data.scan_family_base={data}/scan_family", f"data.rscan_base={data}/rscan",
+            f"data.ARkit_base={data}/arkit", f"data.msr3d_base={data}/msr3d",
+            f"model.llm.cfg_path={root / 'vicuna7b'}", "model.llm.flash_attention=true",
+            "debug.flag=true", "debug.debug_size=4", "data.msr3dmix.args.mix=[msqa_scannet]",
+            "solver.gradient_accumulation_steps=1", "solver.epochs=1",
+            "solver.num_batch_eval=1", f"model.llm.max_out_len={NEW_TOKENS}", f"exp_dir={exp}",
+            *extra]
+
+
+class EvalRecorder:
+    """Instruments one entry run: each ``MSR3D.generate`` (its wall ms, the
+    prefill's, the K1/K2f launches inside it, its texts, the task and split
+    being evaluated), the evaluators' host time, ``load_learnable``'s names
+    and the optimizer steps taken. The global generators are seeded before
+    each test evaluation, so two runs evaluate the same test batches (neither
+    package's entry seeds them, and the point resampling draws from them)."""
+
+    def __init__(self):
+        self.calls, self.evaluator_ms, self.loaded, self.steps = [], [], [], 0
+        self.current = None
+
+    def patches(self):
+        from msr3d_tpu_torch.evaluator.msqa_eval import MSQAEval
+        from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetwork
+        from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL
+        from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+        from msr3d_tpu_torch.trainer import leo_trainer, train_state
+
+        rec = self
+        generate, prefill = MSR3D.generate, MSR3DNetwork.prefill
+        update, record = MSQAEval.update, MSQAEval.record
+        eval_task, load = leo_trainer.LeoTrainer.eval_task, leo_trainer.LeoTrainer.load_learnable
+        step = train_state.TrainStep.__call__
+
+        def timed_generate(model, data_dict, **kw):
+            k1, k2 = FPS_KERNEL.launches, FLASH_FWD_KERNEL.launches
+            rec.prefill_ms = 0.0
+            ms = wall_ms(lambda: data_dict.update(generate(model, data_dict, **kw)))
+            eos = model.tokenizer.eos_id
+            ends = [list(row).index(eos) if eos in row else NEW_TOKENS
+                    for row in data_dict["output_tokens"]]
+            rec.calls.append(dict(task=rec.current, ms=ms, prefill_ms=rec.prefill_ms,
+                                  steps=max(1, min(NEW_TOKENS, max(ends) + 1) - 1),
+                                  fps=FPS_KERNEL.launches - k1,
+                                  flash=FLASH_FWD_KERNEL.launches - k2,
+                                  text=list(data_dict["output_text"])))
+            return data_dict
+
+        def timed_prefill(net, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prefill(net, *args, **kw)
+            torch.cuda.synchronize()
+            rec.prefill_ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        def host_timed(fn):
+            def wrapper(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                rec.evaluator_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return wrapper
+
+        def tracked_eval(trainer, task, split):
+            rec.current = (task, split)
+            if split == "test":
+                random.seed(0)
+                np.random.seed(0)
+            return eval_task(trainer, task, split)
+
+        def tracked_load(trainer, name):
+            rec.loaded.append(name)
+            return load(trainer, name)
+
+        def counted_step(ts, batches):
+            rec.steps += 1
+            return step(ts, batches)
+
+        return [mock.patch.object(MSR3D, "generate", timed_generate),
+                mock.patch.object(MSR3DNetwork, "prefill", timed_prefill),
+                mock.patch.object(MSQAEval, "update", host_timed(update)),
+                mock.patch.object(MSQAEval, "record", host_timed(record)),
+                mock.patch.object(leo_trainer.LeoTrainer, "eval_task", tracked_eval),
+                mock.patch.object(leo_trainer.LeoTrainer, "load_learnable", tracked_load),
+                mock.patch.object(train_state.TrainStep, "__call__", counted_step)]
+
+    def run(self, argv):
+        from msr3d_tpu_torch import run as entry
+        from msr3d_tpu_torch.data.scan_loader import ScanCache
+
+        ScanCache.clear()
+        with contextlib.ExitStack() as stack:
+            for patch in self.patches():
+                stack.enter_context(patch)
+            trainer = entry.main(argv)
+        torch.cuda.synchronize()
+        return trainer
+
+    def texts(self, split: str):
+        return {c["task"][0]: c["text"] for c in self.calls if c["task"][1] == split}
+
+
+def eval_batch_line(calls) -> str:
+    """Seconds per eval batch: prefill, decode ms a step, QA/s."""
+    parts = []
+    for c in calls:
+        decode = (c["ms"] - c["prefill_ms"]) / c["steps"]
+        parts.append(f"{c['task'][0]}/{c['task'][1]} {c['ms'] / 1e3:.3f} s (prefill "
+                     f"{c['prefill_ms']:.1f} ms, decode {decode:.2f} ms/step over "
+                     f"{c['steps']}, {len(c['text']) / c['ms'] * 1e3:.3f} QA/s)")
+    return "; ".join(parts)
+
+
+def phase_eval(exp_root: Path):
+    print(f"== phase 11: evaluation at the flagship width (python -m msr3d_tpu_torch.run on "
+          f"configs/msr3d.yaml with its three MSQA eval tasks on: one optimizer step of "
+          f"{N_REQUESTS}, then val and test over one batch of {N_REQUESTS} each, beam "
+          f"{BEAMS}, repetition penalty {REP_PENALTY}; cut: {NEW_TOKENS} new tokens, not 256 "
+          f"(model.llm.max_out_len={NEW_TOKENS}), on {card_line()})")
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    exp = exp_root / "entry" / "eval_exp"
+    kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL)
+    layers = 32
+
+    # (a) train one step, then val and test of the three tasks
+    first = EvalRecorder()
+    argv = eval_argv(exp_root, exp)
+    print(f"  python -m msr3d_tpu_torch.run {' '.join(argv[:2])} ... (phase 10's data and "
+          f"cfg_path) {' '.join(argv[-7:])}")
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    trainer = first.run(argv)
+    main_s = time.perf_counter() - t0
+    launches = {kernel.symbol.replace("_launch", ""): kernel.launches for kernel in kernels}
+    print(f"  launches during the run: {launches}; main() {main_s:.1f} s (build, init, one "
+          f"step, six eval batches)")
+    check(first.steps == 1 and trainer.step == 1, "one optimizer step trained")
+    order = [c["task"] for c in first.calls]
+    want_order = [(t, "val") for t in EVAL_TASKS] + [(t, "test") for t in EVAL_TASKS]
+    print(f"  eval batches: {order}")
+    check(order == want_order and all(len(c["text"]) == N_REQUESTS for c in first.calls),
+          f"each of the three tasks ran val and test over one batch of {N_REQUESTS}")
+    check(all(c["fps"] == 2 and c["flash"] == layers for c in first.calls),
+          f"K1 launched 2 and K2f {layers} times in each eval batch's generate")
+    n_eval = len(first.calls)
+    check(launches["fps"] == 2 * (1 + n_eval)
+          and launches["flash_attn_fwd"] == layers * (1 + n_eval)
+          and launches["flash_attn_bwd_dq"] == launches["flash_attn_bwd_dkv"] == layers,
+          f"over the run: K1 2 and K2f {layers} a micro-batch and an eval batch, K2dq and K2dkv "
+          f"{layers} for the one micro-batch")
+    with open(exp / "metrics.jsonl") as fh:
+        metrics = [json.loads(line) for line in fh]
+    logged = {k: v for m in metrics for k, v in m.items() if "/" in k and not
+              k.startswith("train/")}
+    targets = {f"{s}/{t}/target_metric": logged.get(f"{s}/{t}/target_metric")
+               for s in ("val", "test") for t in EVAL_TASKS}
+    print(f"  target metrics: {targets}")
+    check(all(v is not None and math.isfinite(v) and 0.0 <= v <= 1.0
+              for v in targets.values()),
+          "metrics.jsonl holds val/ and test/<task>/target_metric for each task, finite in "
+          "[0, 1]")
+    check(all(isinstance(v, (int, float)) and math.isfinite(v) for v in logged.values()),
+          f"every eval metric finite ({len(logged)} values)")
+    saved = {t: json.loads((exp / "eval" / t / "results.json").read_text())
+             for t in EVAL_TASKS if (exp / "eval" / t / "results.json").exists()}
+    check(sorted(saved) == sorted(EVAL_TASKS) and all(len(r) == N_REQUESTS
+                                                      for r in saved.values()),
+          f"results.json written for each task under exp_dir/eval/<task>, {N_REQUESTS} records")
+    ev_ms = first.evaluator_ms
+    print(f"  seconds per eval batch: {eval_batch_line(first.calls)}; on {card_line()}")
+    print(f"  evaluators' host time: {statistics.mean(ev_ms):.3f} ms a call over {len(ev_ms)} "
+          f"update/record calls, {sum(ev_ms) / n_eval:.3f} ms a batch; on {card_line()}")
+    for c in first.calls[-len(EVAL_TASKS):]:
+        print(f"  {c['task'][0]} test output_text[0]: {c['text'][0]!r}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) mode=test on the same exp_dir, from `best`. A val target above the
+    # tracker's 0.0 saves `best` (EM-R counts a prediction contained in an
+    # answer, so even random weights may score); without one the phase
+    # copies `latest`, the same step's weights, to `best` itself
+    best_val = max(targets[f"val/{t}/target_metric"] for t in EVAL_TASKS)
+    if (exp / "ckpt" / "best.pt").exists():
+        print(f"  the run saved 'best' itself (best val target {best_val} > 0.0)")
+    else:
+        shutil.copyfile(exp / "ckpt" / "latest.pt", exp / "ckpt" / "best.pt")
+        print(f"  no val target above 0.0 ({best_val}), so no 'best' was saved: the phase "
+              "copies 'latest' to 'best' itself")
+    second = EvalRecorder()
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    trainer = second.run(eval_argv(exp_root, exp, "mode=test"))
+    test_s = time.perf_counter() - t0
+    launches_test = {kernel.symbol.replace("_launch", ""): kernel.launches for kernel in kernels}
+    print(f"  mode=test: launches {launches_test}, main() {test_s:.1f} s; seconds per eval "
+          f"batch: {eval_batch_line(second.calls)}; on {card_line()}")
+    check(second.loaded == ["best"], "the mode=test run loaded 'best'")
+    check(second.steps == 0 and trainer.step == 0 and launches_test["flash_attn_bwd_dq"] == 0,
+          "the mode=test run trained no step")
+    got, want = second.texts("test"), first.texts("test")
+    for task in EVAL_TASKS:
+        same = got.get(task) == want.get(task)
+        print(f"  {task}: test output_text {'equal' if same else 'DIFFERENT'} to the first "
+              f"run's")
+    check(sorted(got) == sorted(EVAL_TASKS) and got == want,
+          "each task's test output_text equals the first run's, string for string")
+
+    # (c) retrieval over the SQA3D answer vocabulary with the same model
+    retrieval = phase_retrieval(trainer, exp)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, launches_test=launches_test, retrieval=retrieval,
+                eval_batches=n_eval)
+
+
+def phase_retrieval(trainer, exp: Path):
+    print(f"  (c) retrieval: SQA3DScanNet (a ScanNetSQA3D) val at data.sqa3d.args of "
+          f"configs/msr3d.yaml, SQA3DEval, inference_mode retrieval; on {card_line()}")
+    import msr3d_tpu_torch.models.llm.llama as llama
+    import msr3d_tpu_torch.nn.pointnet as pointnet
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch.config import config_from_dict
+    from msr3d_tpu_torch.data.build import build_dataloader_leo
+    from msr3d_tpu_torch.evaluator.sqa3d_eval import SQA3DEval
+    from msr3d_tpu_torch.models.msr3d import MSR3D
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL, furthest_point_sample_reference
+
+    cfg = config_from_dict(trainer.cfg)
+    task = cfg.task.msqa_scannet
+    loader = build_dataloader_leo(cfg, "SQA3DScanNet", task.dataset_wrapper,
+                                  task.dataset_wrapper_args, task.eval_dataloader_args, "val")
+    cands = loader.dataset.dataset.answer_cands
+
+    class Labelled:
+        """The loader's batches with the multi-hot ``answer_label`` over the
+        answer vocabulary that SQA3DEval reads."""
+        dataset = loader
+
+        def __len__(self):
+            return len(loader)
+
+        def __iter__(self):
+            for batch in loader:
+                label = np.zeros((len(batch["answer_list"]), len(cands)), np.int64)
+                for i, answers in enumerate(batch["answer_list"]):
+                    for a in answers.split("[answer_seq]"):
+                        label[i, cands.index(a)] = 1
+                yield dict(batch, answer_label=label)
+
+    trainer.loaders["sqa3d"] = {"val": Labelled()}
+    trainer.evaluators["sqa3d"] = SQA3DEval(None, "sqa3d", save_dir=exp / "eval" / "sqa3d")
+    trainer.inference_mode = "retrieval"
+    seen, ms = [], []
+    predict = MSR3D.predict_answers
+
+    def recorded(model, data_dict, answer_list, **kw):
+        seen.append(data_dict)  # predict_answers adds its outputs to it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = predict(model, data_dict, answer_list, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    random.seed(0)
+    np.random.seed(0)
+    FPS_KERNEL.launches = fa.FLASH_FWD_KERNEL.launches = 0
+    with mock.patch.object(MSR3D, "predict_answers", recorded):
+        results = trainer.eval_task("sqa3d", "val")
+    launches = {"fps": FPS_KERNEL.launches, "flash_attn_fwd": fa.FLASH_FWD_KERNEL.launches}
+    batch = seen[0]
+    ids, scores = batch["answers_id"], batch["answer_scores"]
+    b, k = len(batch["answer_list"]), min(128, len(cands))
+    chunks = -(-k // 16)
+    print(f"  {b} questions, {len(cands)} candidates {cands}, {k} scored in {chunks} loss "
+          f"chunk(s); launches {launches}; {ms[0]:.1f} ms a batch; answers "
+          f"{[cands[int(i)] for i in ids]}; EM@1 {results['ans1_acc']}, EM@10 "
+          f"{results['ans10_acc']}; on {card_line()}")
+    check(bool(((ids >= 0) & (ids < len(cands))).all()), "answers_id inside the answer "
+                                                          "vocabulary")
+    check(launches["flash_attn_fwd"] == 32 * (1 + chunks) and launches["fps"] == 2 * (1 + chunks),
+          "K2f launched 32 times in the prefill and 32 times per loss chunk, K1 twice in each")
+    check(math.isfinite(results["ans1_acc"]) and math.isfinite(results["ans10_acc"]),
+          "EM@1 and EM@10 finite")
+    # the same candidates' losses through the plain path (K1's and K2f's
+    # plain versions)
+    keys = [key for key in batch if key not in ("answers_id", "answers", "answer_scores")]
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_reference), \
+            mock.patch.object(llama, "flash_attention", fa.flash_attention_reference), \
+            mock.patch.object(pointnet, "fps", lambda xyz, m: furthest_point_sample_reference(
+                xyz.float().contiguous(), m)):
+        plain = trainer.model.predict_answers({key: batch[key] for key in keys}, cands)
+    plain_scores = plain["answer_scores"]
+    scored = scores > -1e9
+    gap = np.sort(-plain_scores, axis=1)
+    print(f"  losses through K1/K2f against the plain path: max |Δ| "
+          f"{np.abs(scores - plain_scores)[scored].max():.4e}; plain margin of the best "
+          f"candidate over the next {(gap[:, 1] - gap[:, 0]).min():.4e}")
+    check(bool((plain_scores[np.arange(b), ids] == plain_scores.max(axis=1)).all()),
+          "each answers_id is the argmin of the candidates' losses recomputed through the "
+          "plain path")
+    trainer.inference_mode = "generation"
+    del trainer.loaders["sqa3d"], trainer.evaluators["sqa3d"]
+    return dict(launches=launches, ms=ms[0], chunks=chunks)
+
+
 def dequant_against_plain(x, wq, scale, bits):
     """K3 (bits 8) or K4 (bits 4) and its plain version on the same inputs:
     max |Δ|, max |Δ| over the tolerance, whether the output is finite, and
@@ -1898,33 +2231,45 @@ def main() -> int:
         torch.cuda.empty_cache()
         # last, so that phases 1-9 run as they ran before it existed
         entry_launches = timed(phase_entry, exp_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        evaluation = timed(phase_eval, exp_root)  # on phase 10's tree
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(exp_root, ignore_errors=True)
     source = "msr3d_tpu_torch/csrc/flash_attn_bwd.cu"
+    ev, retrieval = evaluation["launches"], evaluation["retrieval"]["launches"]
     rows = [
         # launches: greedy generate (phase 4); launches_beam: the beam-5
         # generate with the ancestry map (phase 9); launches_entry: the
-        # training entry's run (phase 10)
+        # training entry's run (phase 10); launches_eval: the entry's run of
+        # phase 11 (a), one training step and eval_batches eval batches;
+        # launches_retrieval: phase 11 (c)'s retrieval batch
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
-             launches_entry=entry_launches["fps"], **fps_row),
+             launches_entry=entry_launches["fps"], launches_eval=ev["fps"],
+             eval_batches=evaluation["eval_batches"], launches_retrieval=retrieval["fps"],
+             **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
              launches_beam=beam[True]["launches"]["flash_attn_fwd"],
-             launches_entry=entry_launches["flash_attn_fwd"], **flash_row),
+             launches_entry=entry_launches["flash_attn_fwd"],
+             launches_eval=ev["flash_attn_fwd"], eval_batches=evaluation["eval_batches"],
+             launches_retrieval=retrieval["flash_attn_fwd"], **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
-             launches_entry=entry_launches["flash_attn_bwd_dq"], **dq_row),
+             launches_entry=entry_launches["flash_attn_bwd_dq"],
+             launches_eval=ev["flash_attn_bwd_dq"], **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
-             launches_entry=entry_launches["flash_attn_bwd_dkv"], **dkv_row),
+             launches_entry=entry_launches["flash_attn_bwd_dkv"],
+             launches_eval=ev["flash_attn_bwd_dkv"], **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands

@@ -24,6 +24,8 @@ import numpy as np
 
 from msr3d_tpu_torch.data.datasets import dataset_wrapper as _dw  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import msr3d as _msr3d  # noqa: F401 (registers)
+from msr3d_tpu_torch.data.datasets import one_step_navi as _osn  # noqa: F401 (registers)
+from msr3d_tpu_torch.data.datasets import sqa3d as _sqa  # noqa: F401 (registers)
 from msr3d_tpu_torch.registry import DATASET_REGISTRY, DATASETWRAPPER_REGISTRY
 
 # worker-process globals (fork start method: the dataset is inherited by
@@ -148,7 +150,7 @@ class DataLoader:
             yield from pool.imap(_worker_load, self._batches())
 
 
-def _check_single_process() -> None:
+def check_single_process() -> None:
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
@@ -161,7 +163,7 @@ def build_dataloader_leo(cfg, dataset_name: str, dataset_wrapper_name: str,
                          dataset_wrapper_args, dataloader_args, split: str) -> DataLoader:
     """Build the dataset, chain the wrapper, and a DataLoader with the
     wrapper's collate (shuffled and dropping the tail for ``train``)."""
-    _check_single_process()
+    check_single_process()
     if dataloader_args.get("backend", "") == "grain":
         raise NotImplementedError("the grain loader backend is not ported")
     dataset = DATASET_REGISTRY.get(dataset_name)(cfg, split)

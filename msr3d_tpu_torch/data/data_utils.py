@@ -4,8 +4,8 @@ Copy of the parts of ``msr3d_tpu/data/data_utils.py`` that the MSQA
 datasets call: the rotation augmentation (0/90/180/270° about z, drawn from
 Python's ``random``), face-vector → quaternion, the quaternion co-rotation
 of the situation, 2D image preprocessing (ImageNet statistics; PIL imported
-where it is used) and tensor padding. The legacy-task helpers stay in the
-JAX package.
+where it is used), tensor padding and the SQA3D question type. The
+legacy-task helpers stay in the JAX package.
 """
 
 from __future__ import annotations
@@ -131,3 +131,22 @@ def pad_tensors(arr: np.ndarray, lens: int, pad: float = 0.0) -> np.ndarray:
     shape[0] = lens - arr.shape[0]
     fill = np.full(shape, pad, dtype=arr.dtype)
     return np.concatenate([arr, fill], axis=0)
+
+
+SQA_TYPES = ["what", "is", "how", "can", "which", "others"]
+
+
+def get_sqa_question_type(question: str) -> int:
+    """SQA3D question-type tag, an index into ``SQA_TYPES``."""
+    question = question.lstrip()
+    if question[:4].lower() == "what":
+        return 0
+    if question[:2].lower() == "is":
+        return 1
+    if question[:3].lower() == "how":
+        return 2
+    if question[:3].lower() == "can":
+        return 3
+    if question[:5].lower() == "which":
+        return 4
+    return 5

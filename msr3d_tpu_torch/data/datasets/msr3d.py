@@ -430,24 +430,22 @@ class MSQAARkitScenes(MSQADataset):
 @DATASET_REGISTRY.register(name="MSR3DMix")
 class MSR3DMix:
     """Concat-with-ratio mixture over the task datasets: the three MSQA
-    domains. ``sqa3d`` and ``scannet_one_step_navi`` raise (not ported)."""
-
-    _UNPORTED = ("sqa3d", "scannet_one_step_navi")
+    domains, SQA3D and MSNN."""
 
     def __init__(self, cfg, split: str):
+        from msr3d_tpu_torch.data.datasets.one_step_navi import MSR3DMSNN
+        from msr3d_tpu_torch.data.datasets.sqa3d import SQA3DScanNet
+
         mapping = {
             "msqa_scannet": MSQAScanNet,
             "msqa_3rscan": MSQA3RScan,
             "msqa_arkitscenes": MSQAARkitScenes,
+            "sqa3d": SQA3DScanNet,
+            "scannet_one_step_navi": MSR3DMSNN,
         }
         args = cfg.data.msr3dmix.args
         self.ratio = args.get("ratio", 1.0)
         self.dataset_list = list(args.mix)
-        for name in self.dataset_list:
-            if name in self._UNPORTED:
-                raise NotImplementedError(
-                    f"MSR3DMix member {name!r} is not ported yet (ROADMAP.md, queue: the "
-                    "training entry's loader branches)")
         self.datasets = [mapping[name](cfg, split) for name in self.dataset_list]
 
         if isinstance(self.ratio, (int, float)):

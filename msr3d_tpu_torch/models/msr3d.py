@@ -14,7 +14,8 @@ Counterpart of ``msr3d_tpu/models/msr3d.py``:
     expansion, tokenization into 32-multiple buckets (prompts left-padded,
     answers with bos + eos right-padded), ``forward`` → per-sequence loss,
     the greedy and beam decode loops (over a bf16 or int8 KV cache) and
-    detokenization, the trainable set, and in-place weight-only
+    detokenization, retrieval scoring over an answer vocabulary
+    (``predict_answers``), the trainable set, and in-place weight-only
     quantization of the LLM for serving (``quantize_llm``).
 
 Not ported yet (see ROADMAP.md): sampling, speculative and grouped-scene
@@ -526,6 +527,58 @@ class MSR3D:
             tokens = greedy_decode_shared(decode_shared, next_pos, first, gen_kv, **common)
         data_dict["output_tokens"] = tokens.cpu().numpy()
         data_dict["output_text"] = self.batch_detokenize(data_dict["output_tokens"])
+        return data_dict
+
+    @torch.no_grad()
+    def predict_answers(self, data_dict: Dict[str, Any], answer_list: List[str],
+                        num_ans_candidates: int = 128, chunk_size: int = 16) -> Dict[str, Any]:
+        """Retrieval scoring over ``answer_list``: the prefill's first-token
+        probabilities of each candidate's first real token pick the top
+        ``num_ans_candidates`` a sample; each of those is scored by the
+        per-sequence answer loss of ``MSR3DNetwork.forward`` (``chunk_size``
+        candidates a forward, the batch repeated for each), and the argmin
+        is the answer. Sets ``answers_id`` (B,), ``answers`` and
+        ``answer_scores`` (B, len(answer_list)): −loss at the scored
+        candidates, −1e9 at the others."""
+        num_ans_candidates = min(num_ans_candidates, len(answer_list))
+        self.network.eval()
+        input_ids, attn = self._encode_prompts(self.build_text_prompt(data_dict))
+        scene = self._scene_batch(data_dict)
+        bsz = input_ids.shape[0]
+        ans_ids, ans_mask = self._encode_answers(answer_list)  # (A, T)
+        ids_t = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
+        attn_t = torch.as_tensor(attn, dtype=torch.int32, device=self.device)
+
+        first, _, _, _ = self.network.prefill(
+            ids_t, attn_t, **scene, bos_id=self.tokenizer.bos_id,
+            max_cache_len=input_ids.shape[1] + 1,
+        )
+        probs = torch.softmax(first, dim=-1).cpu().numpy()  # (B, V)
+        cand_probs = probs[:, ans_ids[:, 1]]  # each candidate's token after bos
+        topk_ids = np.argsort(-cand_probs, axis=1)[:, :num_ans_candidates]
+
+        losses = np.zeros((bsz, num_ans_candidates), np.float32)
+        for start in range(0, num_ans_candidates, chunk_size):
+            chunk = topk_ids[:, start:start + chunk_size]  # (B, C)
+            c = chunk.shape[1]
+            batch = {k: v.repeat_interleave(c, dim=0) for k, v in scene.items()}
+            batch.update(
+                input_ids=ids_t.repeat_interleave(c, dim=0),
+                attention_mask=attn_t.repeat_interleave(c, dim=0),
+                output_ids=torch.as_tensor(ans_ids[chunk.reshape(-1)], dtype=torch.long,
+                                           device=self.device),
+                output_mask=torch.as_tensor(ans_mask[chunk.reshape(-1)], dtype=torch.int32,
+                                            device=self.device),
+            )
+            loss = self.network(**batch)["loss"]
+            losses[:, start:start + c] = loss.float().cpu().numpy().reshape(bsz, c)
+
+        answer_ids = topk_ids[np.arange(bsz), losses.argmin(axis=1)]
+        data_dict["answers_id"] = answer_ids
+        data_dict["answers"] = [answer_list[int(i)] for i in answer_ids]
+        scores = np.full((bsz, len(answer_list)), -1e9, np.float32)
+        np.put_along_axis(scores, topk_ids, -losses, axis=1)
+        data_dict["answer_scores"] = scores
         return data_dict
 
     def batch_detokenize(self, tokens: np.ndarray) -> List[str]:

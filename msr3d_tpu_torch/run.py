@@ -1,12 +1,15 @@
-"""The training entry: a YAML config and dotlist overrides → a trained model.
+"""The entry: a YAML config and dotlist overrides → training and evaluation.
 
-    python -m msr3d_tpu_torch.run --config configs/debug_synthetic.yaml \
-        device=cpu task.msqa_scannet.mode=[]
+    python -m msr3d_tpu_torch.run --config configs/debug_synthetic.yaml device=cpu
+    python -m msr3d_tpu_torch.run --config configs/debug_synthetic.yaml device=cpu \
+        mode=test
 
 Counterpart of the JAX package's root ``run.py``: compose the experiment
 directory from ``base_dir``, ``name`` and ``naming_keywords`` (unless
 ``exp_dir`` is set), save the resolved config there as ``config.yaml``,
-then ``build_trainer(cfg).run()``. It runs on the GPU; ``device=cpu`` picks
+then ``build_trainer(cfg).run()``: ``mode: train`` trains and evaluates val
+and test, any other mode (``test``, ``eval``) evaluates the test split from
+the ``best`` weights when there are some. It runs on the GPU; ``device=cpu`` picks
 the CPU, and without a GPU any other device raises. The JAX-only keys
 ``jax_platform`` and ``compile_cache*`` are ignored with a log line.
 """
@@ -37,7 +40,7 @@ def compose_exp_dir(cfg) -> str:
 
 
 def main(argv=None):
-    """Parse, build and train; returns the trainer."""
+    """Parse, build and run; returns the trainer."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", "--config-name", dest="config", required=True)
     parser.add_argument("opts", nargs=argparse.REMAINDER, help="key=value overrides")

@@ -1,8 +1,9 @@
-"""LeoTrainer, the training half: LoRA training of MSR3D from the YAML.
+"""LeoTrainer: LoRA training and evaluation of MSR3D from the YAML.
 
 Counterpart of ``msr3d_tpu/trainer/leo_trainer.py`` (``__init__``,
-``_device_batch``, ``train_one_epoch``, ``run``, the learnable and full-
-state checkpoints, resume, the preemption handlers, ``build_trainer``).
+``_device_batch``, ``train_one_epoch``, ``eval_task``, ``_run_eval``,
+``run``, the learnable and full-state checkpoints, resume, the preemption
+handlers, ``build_trainer``).
 ``cfg`` is the YAML's config (a ``Config`` or a nested mapping with its
 keys: ``solver.*``, ``exp_dir``, ``rng_seed``, ``save_frequency``,
 ``resume``, ``preempt_save``, ``model``, ``data``, ``task``). Without an
@@ -25,10 +26,24 @@ boundary: the trainer then saves the full state and returns, and a rerun
 with the same ``exp_dir`` and ``resume: True`` goes on from there
 (``preempt_save: false`` turns this off).
 
+Evaluation: one evaluator a task that names one (``build_task_evaluators``,
+or injected), run over the task's ``val`` loader every ``eval_interval``
+epochs and over its ``test`` loader after the last, at most
+``num_batch_eval`` batches each. Generation (``inference_mode:
+generation``) decodes each batch with ``MSR3D.generate``, one batch after
+another; retrieval scores the dataset's ``answer_cands`` with
+``MSR3D.predict_answers``. Metrics are logged as ``{split}/{task}/{metric}``
+at the current step, and a val target above ``tracker.overall_best_result``
+saves the learnable weights as ``best``. Any ``mode`` but ``train`` (``test``,
+``eval``) loads ``best`` when there is one and evaluates the test split; a
+config without a train task builds no optimizer.
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-queue): evaluation (val/test splits, evaluators, ``mode: test``,
-``inference_mode: retrieval``), ``parallel.tp/pp/sp > 1`` and fixed
-multi-host text buckets, ``remat``, and ``vision_freeze: False``.
+queue): the serving engines as eval routes (``eval_engine: continuous`` or
+``grouped``; the JAX trainer's request pipelining, ``eval_pipeline_depth``,
+is logged as having no effect), more than one ``torch.distributed`` rank,
+``parallel.tp/pp/sp > 1`` and fixed multi-host text buckets, ``remat``, and
+``vision_freeze: False``.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ import numpy as np
 import torch
 
 from msr3d_tpu_torch.config import Config, cfg2dict, config_from_dict
+from msr3d_tpu_torch.data.build import check_single_process
 from msr3d_tpu_torch.optim.build import build_optim
 from msr3d_tpu_torch.registry import TRAINER_REGISTRY
 from msr3d_tpu_torch.trainer.checkpoint import CheckpointManager, Tracker
@@ -52,7 +68,12 @@ from msr3d_tpu_torch.utils.logging import MetricLogger, StepTimer, get_logger
 
 logger = get_logger("msr3d_tpu_torch.trainer")
 
-_EVALUATION = "ROADMAP.md, queue: the training entry, (b) evaluation"
+_SERVING = "ROADMAP.md, queue: the serving engines"
+# the data dict's keys that go to the evaluators beside the predictions
+_RECORD_KEYS = ("answer_list", "answer_label", "text_output", "data_idx", "sqa_type", "source",
+                "scan_id", "index", "type", "prompt", "prompt_after_obj", "obj_labels",
+                "obj_masks")
+_pipeline_depth_logged = False
 
 
 class Preempted(Exception):
@@ -77,21 +98,38 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _find_answer_cands(loader) -> Optional[List[str]]:
+    """The answer vocabulary (``answer_cands``) found down the loader's
+    dataset chain (the SQA3D datasets carry it), or None."""
+    obj = loader
+    for _ in range(8):
+        cands = getattr(obj, "answer_cands", None)
+        if cands is not None:
+            return list(cands)
+        nxt = getattr(obj, "dataset", None)
+        if nxt is None or nxt is obj:
+            return None
+        obj = nxt
+    return None
+
+
 @TRAINER_REGISTRY.register(name="LeoTrainer")
 class LeoTrainer:
-    """``LeoTrainer(cfg).run()`` trains (``build_trainer(cfg).run()`` from
-    the entry); so does ``train_one_epoch(epoch)``. ``loaders`` and
-    ``model`` may be injected."""
+    """``LeoTrainer(cfg).run()`` trains and evaluates, or evaluates alone
+    (``build_trainer(cfg).run()`` from the entry); so do
+    ``train_one_epoch(epoch)`` and ``eval_task(task, split)``. ``loaders``,
+    ``evaluators`` and ``model`` may be injected."""
 
     def __init__(self, cfg, loaders: Optional[Dict[str, Dict[str, Any]]] = None,
                  evaluators: Optional[Dict[str, Any]] = None, model=None):
         config = cfg if isinstance(cfg, Config) else config_from_dict(dict(cfg))
         cfg = cfg2dict(config)  # resolved once: plain dicts from here on
         self.cfg = cfg
-        if evaluators:
-            raise _not_ported("evaluation inside LeoTrainer", _EVALUATION)
-        if cfg.get("mode", "train") != "train":
-            raise _not_ported(f"mode {cfg.get('mode')!r} (evaluation)", _EVALUATION)
+        self.mode = cfg.get("mode", "train")
+        # generation (the configs' route) or retrieval scoring over the
+        # dataset's answer vocabulary
+        self.inference_mode = _cfg(cfg, "model.llm.inference_mode", "generation")
+        check_single_process()
         if loaders is None:
             from msr3d_tpu_torch.data.build import build_task_loaders
 
@@ -101,7 +139,7 @@ class LeoTrainer:
             from msr3d_tpu_torch.models.build import build_model
 
             model = build_model(config)
-        self._check_ported(cfg, model, loaders)
+        self._check_ported(cfg, model)
         if built:  # weights after the checks: a 7B init is not cheap
             from msr3d_tpu_torch.models.load_weights import load_pretrained_from_config
 
@@ -109,45 +147,58 @@ class LeoTrainer:
             for src in load_pretrained_from_config(model, config):
                 logger.info(f"loaded pretrained weights: {src}")
         self.model = model
+        self.loaders = loaders
         self.exp_dir = Path(cfg.get("exp_dir") or "./exp_default")
         self.exp_dir.mkdir(parents=True, exist_ok=True)
+        if evaluators is None:
+            from msr3d_tpu_torch.evaluator.build import build_task_evaluators
+
+            evaluators = build_task_evaluators(cfg, self.exp_dir)
+        self.evaluators = evaluators
         self._preempted = False  # set by the SIGTERM/SIGUSR1 handler
 
         solver = cfg["solver"]
         self.epochs = int(solver["epochs"])
         self.accum_steps = int(solver.get("gradient_accumulation_steps", 1))
+        self.eval_interval = int(solver.get("eval_interval", 1))
+        self.num_batch_eval = int(solver.get("num_batch_eval", 0) or 0) or None
         self.save_frequency = int(cfg.get("save_frequency", 0) or 0) or None
         train_loaders = [splits["train"] for splits in loaders.values() if "train" in splits]
-        if len(train_loaders) != 1:
+        if len(train_loaders) > 1:
             raise ValueError(f"one train loader expected, got {len(train_loaders)}")
-        self.train_loader = train_loaders[0]
+        self.train_loader = train_loaders[0] if train_loaders else None
         # ceil: the epoch's tail group trains too, and the schedule counts it
-        self.steps_per_epoch = max(1, -(-len(self.train_loader) // self.accum_steps))
+        self.steps_per_epoch = (max(1, -(-len(self.train_loader) // self.accum_steps))
+                                if self.train_loader is not None else 1)
         total_steps = self.steps_per_epoch * self.epochs
 
         self.trainable_names = model.trainable_parameter_names()
-        named = dict(model.network.named_parameters())
-        self.params = {n: named[n] for n in self.trainable_names}
-        self.optimizer, self.schedule, grad_norm = build_optim(cfg, total_steps, self.params)
         self.generator = torch.Generator(device=model.device)
         self.generator.manual_seed(int(cfg.get("rng_seed", 42)))
-        self._train_step = TrainStep(self._micro_batch_loss, self.params, self.optimizer,
-                                     grad_norm)
+        self.optimizer = self.schedule = self._train_step = None
+        if self.train_loader is not None:  # evaluation alone needs no optimizer
+            named = dict(model.network.named_parameters())
+            self.params = {n: named[n] for n in self.trainable_names}
+            self.optimizer, self.schedule, grad_norm = build_optim(cfg, total_steps,
+                                                                   self.params)
+            self._train_step = TrainStep(self._micro_batch_loss, self.params,
+                                         self.optimizer, grad_norm)
 
         self.tracker = Tracker(run_id=str(uuid.uuid4())[:8])
         self.ckpt = CheckpointManager(self.exp_dir / "ckpt")
         self.logger = MetricLogger(exp_dir=self.exp_dir)
         self.timer = StepTimer()
         self.data_wait_history: List[float] = []  # seconds the loop waited on the loader, a step
-        if cfg.get("resume", False):
+        if cfg.get("resume", False) and self._train_step is not None:
             self._try_resume()
 
-    @staticmethod
-    def _check_ported(cfg, model, loaders) -> None:
-        for task, splits in loaders.items():
-            if set(splits) - {"train"}:
-                raise _not_ported(f"evaluation of {task}/{sorted(set(splits) - {'train'})}",
-                                  _EVALUATION)
+    @property
+    def step(self) -> int:
+        """Optimizer steps taken (0 without a train loader)."""
+        return self._train_step.step_count if self._train_step is not None else 0
+
+    def _check_ported(self, cfg, model) -> None:
+        global _pipeline_depth_logged
         for axis in ("tp", "pp", "sp"):
             if int(_cfg(cfg, f"parallel.{axis}", 1)) > 1:
                 raise _not_ported(f"parallel.{axis} > 1", "ROADMAP.md, queue: parallelism")
@@ -157,11 +208,17 @@ class LeoTrainer:
         if _cfg(cfg, "model.llm.remat", False) or model.cfg.llm.remat:
             raise _not_ported("remat (activation checkpointing)",
                               "ROADMAP.md, queue: QLoRA and the training-memory options")
-        if _cfg(cfg, "model.llm.inference_mode", "generation") == "retrieval":
-            raise _not_ported("inference_mode: retrieval", _EVALUATION)
         if not model.cfg.prompter.vision_freeze:
             raise _not_ported("vision_freeze: False (the port's PointNet++ has inference "
                               "BatchNorm only)", "ROADMAP.md, queue: the other modes")
+        engine = str(cfg.get("eval_engine", "") or "").lower()
+        if self.inference_mode == "generation" and engine in ("continuous", "grouped"):
+            raise _not_ported(f"eval_engine: {engine}", _SERVING)
+        if "eval_pipeline_depth" in cfg and not _pipeline_depth_logged:
+            logger.info(f"eval_pipeline_depth={cfg['eval_pipeline_depth']} has no effect: the "
+                        "port evaluates one batch after another (request pipelining is "
+                        f"queued in {_SERVING})")
+            _pipeline_depth_logged = True
 
     # ------------------------------------------------------------------
 
@@ -200,6 +257,8 @@ class LeoTrainer:
         step boundary after a preemption signal (a partial group trains
         first, as the epoch's tail does, so ``tracker.loader_step`` marks
         exactly what was trained on)."""
+        if self.train_loader is None:
+            raise ValueError("no train loader configured")
         losses: List[float] = []
         group: List[Dict[str, Any]] = []
         skip = self.tracker.loader_step if epoch == self.tracker.epoch else 0
@@ -265,9 +324,98 @@ class LeoTrainer:
                 close()  # stops the loader's prefetch thread
         return {"loss": float(np.mean(losses)) if losses else float("nan")}
 
+    @staticmethod
+    def _trim_record(record: Dict[str, Any], batch: int, keep: int) -> Dict[str, Any]:
+        """Drop the trailing ``batch - keep`` samples of a record (a
+        sharded eval loader's wrap-around duplicates)."""
+        out = {}
+        for k, v in record.items():
+            if isinstance(v, (list, tuple)) and len(v) == batch:
+                out[k] = list(v)[:keep]
+            elif isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == batch:
+                out[k] = v[:keep]
+            else:
+                out[k] = v
+        return out
+
+    def eval_task(self, task: str, split: str) -> Dict[str, Any]:
+        """Evaluate one task's split → the evaluator's results (``{}``
+        without an evaluator): generation through ``MSR3D.generate``, or
+        retrieval through ``MSR3D.predict_answers`` over the loader's
+        ``answer_cands``, one batch after another, at most
+        ``num_batch_eval`` batches."""
+        loader = self.loaders[task][split]
+        evaluator = self.evaluators.get(task)
+        if evaluator is not None:
+            evaluator.reset()
+        generation = self.inference_mode == "generation"
+        answer_cands = None if generation else _find_answer_cands(loader)
+        if not generation and answer_cands is None:
+            raise ValueError("inference_mode: retrieval needs a dataset with answer_cands "
+                             "(e.g. ScanNetSQA3D)")
+        # one process loads the whole split (check_single_process), so no
+        # sample is a wrap-around duplicate and the gather is the identity
+        n_batches = len(loader) if hasattr(loader, "__len__") else None
+        padded_tail = getattr(loader, "padded_tail", 0)
+
+        def emit(i: int, data_dict: Dict[str, Any], record: Dict[str, Any]) -> None:
+            if evaluator is None:
+                return
+            for k in _RECORD_KEYS:
+                if k in data_dict:
+                    record[k] = data_dict[k]
+            if padded_tail and n_batches is not None and i == n_batches - 1:
+                b = len(record.get("output_text", record.get("answers_id", [])))
+                record = self._trim_record(record, b, b - padded_tail)
+            evaluator.update(record)
+
+        batches = iter(loader)
+        try:
+            for i, data_dict in enumerate(batches):
+                if self.num_batch_eval and i >= self.num_batch_eval:
+                    break
+                if generation:
+                    out = self.model.generate(dict(data_dict))
+                    emit(i, data_dict, {"output_text": out["output_text"]})
+                else:
+                    out = self.model.predict_answers(dict(data_dict), answer_cands)
+                    emit(i, data_dict, {"answer_scores": out["answer_scores"],
+                                        "answers_id": out["answers_id"]})
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()  # stops the loader's prefetch thread
+        if evaluator is None:
+            return {}
+        _, results = evaluator.record(split)
+        return results
+
+    def _run_eval(self, split: str, epoch: int) -> None:
+        """Evaluate every task with an evaluator and a ``split`` loader, log
+        ``{split}/{task}/{metric}`` at the current step, and after val save
+        ``best`` when the best task target beats the tracker's."""
+        best_metric = -float("inf")
+        for task, splits in self.loaders.items():
+            if split not in splits or task not in self.evaluators:
+                continue
+            results = self.eval_task(task, split)
+            self.logger.log({f"{split}/{task}/{k}": v for k, v in results.items()
+                             if isinstance(v, (int, float))}, step=self.step)
+            target = results.get("target_metric")
+            if target is not None and target > best_metric:
+                best_metric = target
+        if split == "val" and best_metric > self.tracker.overall_best_result:
+            self.tracker.overall_best_result = best_metric
+            self._save_learnable("best")
+
     def run(self) -> None:
-        with self._preemption_handlers():
-            self._run_train()
+        if self.mode == "train":
+            with self._preemption_handlers():
+                self._run_train()
+        else:
+            if self.ckpt.has_weights("best"):
+                self.load_learnable("best")
+            self._run_eval("test", 0)
         self.logger.close()
 
     def _run_train(self) -> None:
@@ -285,6 +433,9 @@ class LeoTrainer:
             self.tracker.step_epoch()
             self.ckpt.save_state(self._train_step.step_count, self._state_dict(), self.tracker)
             self._save_learnable("latest")
+            if (epoch + 1) % self.eval_interval == 0:
+                self._run_eval("val", epoch)
+        self._run_eval("test", self.epochs)
 
     def _preemption_handlers(self):
         """SIGTERM/SIGUSR1 handlers that set the flag ``train_one_epoch``
@@ -325,6 +476,11 @@ class LeoTrainer:
     def _save_learnable(self, name: str) -> None:
         self.ckpt.save_weights(name, filter_learnable(self.model.network,
                                                       self.trainable_names))
+
+    def load_learnable(self, name: str) -> None:
+        """Overlay the learnable weights saved as ``name`` on the model."""
+        merge_learnable(self.model.network, self.ckpt.load_weights(name))
+        logger.info(f"loaded the learnable weights {name!r} from {self.ckpt.dir}")
 
     def _try_resume(self) -> None:
         state = self.ckpt.restore_state(self.tracker)

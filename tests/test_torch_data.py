@@ -11,7 +11,7 @@
   The ``crop`` case has more objects than ``max_obj_len`` in all three
   domains, so the relevant-objects-first crop runs.
 * What the port does not run raises: the predicted-mask scan branch and
-  the SQA3D / navigation members of ``MSR3DMix``.
+  the grain backend; the SQA3D / navigation members of ``MSR3DMix`` build.
 """
 
 import json
@@ -166,11 +166,13 @@ def test_unported_branches_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="pred"):
         ScanDataLoader(cfg, "ScanNet").get_data("ScanNet", "scene0000_00", ["obj_pcds"],
                                                 pc_type="pred")
-    for member in ("sqa3d", "scannet_one_step_navi"):
-        bad = load_config(REPO / "configs" / "debug_synthetic.yaml",
-                          _overrides(tmp_path) + [f"data.msr3dmix.args.mix=[{member}]"])
-        with pytest.raises(NotImplementedError, match=member):
-            build_task_loaders(bad)
+    for member, config in (("sqa3d", "debug_synthetic_sqa3d.yaml"),
+                           ("scannet_one_step_navi", "debug_synthetic_msnn.yaml")):
+        # ported since (tests/test_torch_eval.py)
+        mix = load_config(REPO / "configs" / config,
+                          _overrides(tmp_path)[:4] + [f"data.msnn_base={tmp_path}/msnn"])
+        loader = build_task_loaders(mix)["msr3d_train"]["train"]
+        assert loader.dataset.dataset.dataset_list == [member] and len(loader) > 0
     with pytest.raises(NotImplementedError, match="grain"):
         build_task_loaders(load_config(REPO / "configs" / "debug_synthetic.yaml",
                                        _overrides(tmp_path) + ["dataloader.train.backend=grain"]))

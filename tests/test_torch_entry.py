@@ -11,6 +11,8 @@
   port's seeded init) against ``LeoTrainer`` of the JAX package built from
   the same YAML, over the two optimizer steps of one epoch (8 samples,
   batch 2, accumulation 2).
+* Evaluation from the entry: ``mode: test`` and the val split run, and
+  what it lacks (the serving engines, more than one rank) raises.
 * Preemption: SIGUSR1 after step 1 saves the full state at that boundary,
   and a rerun with ``resume=True`` ends equal to an uninterrupted run.
 * The checkpoint loaders (PointNet++, scene encoder, from the config) leave
@@ -52,6 +54,7 @@ from msr3d_tpu_torch.models import load_weights
 from msr3d_tpu_torch.models.msr3d import MSR3D
 from msr3d_tpu_torch.optim.build import build_optim, clip_by_global_norm
 from msr3d_tpu_torch.trainer import train_state
+from msr3d_tpu_torch.trainer.leo_trainer import build_trainer
 
 from test_sentencepiece import _mini_bpe_pieces
 from test_torch_train import _jax_model, _port_model
@@ -326,15 +329,36 @@ def test_preemption_saves_at_the_step_and_resumes(tmp_path, monkeypatch):
     ScanCache.clear()
 
 
-def test_mode_test_and_eval_splits_raise(tmp_path):
+def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
+    """Evaluation from the entry raises only on what it would need and the
+    port lacks: the serving engines as eval routes and more than one rank.
+    ``mode: test``, the val split and ``inference_mode: retrieval`` build
+    and run (their parity with JAX: tests/test_torch_eval.py)."""
+    import torch.distributed as dist
+
     root = tmp_path / "data"
     synthetic.build_full_tree(root, np.random.default_rng(7))
-    ovs = _entry_overrides(root, tmp_path / "x", fp32=False)
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test"])
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        port_run.main(["--config", str(DEBUG), "device=cpu",
-                       *[o for o in ovs if not o.startswith("task.")]])
+    ovs = [o for o in _entry_overrides(root, tmp_path / "x", fp32=False)
+           if not o.startswith("task.")]
+    for engine in ("continuous", "grouped"):
+        with pytest.raises(NotImplementedError, match="serving engines"):
+            port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
+                           f"eval_engine={engine}"])
+    with monkeypatch.context() as m:  # two ranks
+        m.setattr(dist, "is_initialized", lambda: True)
+        m.setattr(dist, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match="ranks"):
+            port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test"])
+    tested = port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test"])
+    assert tested.step == 0 and tested.optimizer is not None
+    assert [sorted(k for k in m if k.startswith("test/")) != [] for m in
+            _metrics(tmp_path / "x")] == [True]
+    assert list(tested.loaders["msqa_scannet"]) == ["val", "test"]
+    retrieving = build_trainer(load_config(DEBUG, ["device=cpu", *ovs,
+                                                  "model.llm.inference_mode=retrieval"]))
+    assert retrieving.inference_mode == "retrieval"
+    with pytest.raises(ValueError, match="answer_cands"):
+        retrieving.eval_task("msqa_scannet", "val")  # MSQA has no answer vocabulary
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_run.main(["--config", str(DEBUG), *ovs])

@@ -505,23 +505,39 @@ def test_leo_trainer_steps_with_images_match_jax(tmp_path):
                for n, t in model.network.image_encoder.state_dict().items())
 
 
-def test_trainer_refuses_what_is_not_ported(tmp_path):
+def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    from msr3d_tpu_torch.models.llm.tokenizer import HFTokenizer
+
     model = _port_model(_jax_model(flash=False, window=False))
     loaders = {"msr3d_train": {"train": _Loader(1)}}
     cfg = _trainer_cfg(tmp_path)
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        LeoTrainer(cfg, loaders={"t": {"train": _Loader(1), "val": _Loader(1)}}, model=model)
+    for engine in ("continuous", "grouped"):
+        with pytest.raises(NotImplementedError, match="serving engines"):
+            LeoTrainer(dict(cfg, eval_engine=engine), loaders=loaders, model=model)
     with pytest.raises(NotImplementedError, match="parallel.tp"):
         LeoTrainer(dict(cfg, parallel={"tp": 2}), loaders=loaders, model=model)
-    with pytest.raises(NotImplementedError, match="retrieval"):
-        LeoTrainer(dict(cfg, model={"llm": {"inference_mode": "retrieval"}}), loaders=loaders,
-                   model=model)
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        LeoTrainer(dict(cfg, mode="test"), loaders=loaders, model=model)
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        LeoTrainer(cfg, loaders=loaders, evaluators={"t": object()}, model=model)
-    # ported since: Lamb, and the model and loaders built from the YAML
-    # (tests/test_torch_entry.py)
+    with pytest.raises(NotImplementedError, match="tokenizer"):
+        HFTokenizer(str(tmp_path))
+    import torch.distributed as dist
+
+    with monkeypatch.context() as m:  # two ranks
+        m.setattr(dist, "is_initialized", lambda: True)
+        m.setattr(dist, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match="ranks"):
+            LeoTrainer(cfg, loaders=loaders, model=model)
+    # ported since: evaluation (val and test splits, evaluators, mode: test,
+    # retrieval; tests/test_torch_eval.py), Lamb, and the model and loaders
+    # built from the YAML (tests/test_torch_entry.py)
+    split = LeoTrainer(cfg, loaders={"t": {"train": _Loader(1), "val": _Loader(1)}},
+                       evaluators={"t": object()}, model=model)
+    assert split.loaders["t"]["val"] is not None and list(split.evaluators) == ["t"]
+    assert LeoTrainer(dict(cfg, mode="test"), loaders=loaders, model=model).mode == "test"
+    retrieval = LeoTrainer(dict(cfg, model={"llm": {"inference_mode": "retrieval"}}),
+                           loaders=loaders, model=model)
+    assert retrieval.inference_mode == "retrieval"
+    evaluate = LeoTrainer(dict(cfg, mode="eval"), loaders={"t": {"test": _Loader(1)}},
+                          model=model)
+    assert evaluate.train_loader is None and evaluate.optimizer is None
     lamb = copy.deepcopy(cfg)
     lamb["solver"]["optim"]["name"] = "Lamb"
     assert type(LeoTrainer(lamb, loaders=loaders, model=model).optimizer).__name__ == "Lamb"
