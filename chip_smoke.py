@@ -28,7 +28,13 @@ from the YAML on that tree (phase 11: the same entry with the three MSQA
 eval tasks on, one optimizer step, then val and test of a batch of 4 each
 with beam 5 at 32 new tokens; the ``mode=test`` rerun from ``best``, which
 must give the same test texts; retrieval over the SQA3D answer vocabulary
-with ``predict_answers``), and checks that each path launched its kernels. Any failed check exits
+with ``predict_answers``), and serving (phase 12: the serve entry's
+``create_frontend`` on the same YAML; (a) the greedy and beam-5 slot-refill
+engines against ``generate`` at matched shapes, tokens equal; (b) 12
+requests with images over HTTP from 4 client threads at budgets of 8-32
+tokens, one over SSE; (c) ``python -m msr3d_tpu_torch.serve`` on the debug
+config as a subprocess, SIGTERM, a drain, exit 0), and checks that each
+path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
 or without the package beside it, it exits non-zero and prints no result.
@@ -51,6 +57,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -1461,7 +1468,7 @@ def eval_argv(exp_root: Path, exp: Path, *extra: str):
 
 
 class EvalRecorder:
-    """Instruments one entry run: each ``MSR3D.generate`` (its wall ms, the
+    """Instruments one entry run: each ``MSR3D.generate_async`` (its wall ms, the
     prefill's, the K1/K2f launches inside it, its texts, the task and split
     being evaluated), the evaluators' host time, ``load_learnable``'s names
     and the optimizer steps taken. The global generators are seeded before
@@ -1480,15 +1487,17 @@ class EvalRecorder:
         from msr3d_tpu_torch.trainer import leo_trainer, train_state
 
         rec = self
-        generate, prefill = MSR3D.generate, MSR3DNetwork.prefill
+        generate_async, prefill = MSR3D.generate_async, MSR3DNetwork.prefill
         update, record = MSQAEval.update, MSQAEval.record
         eval_task, load = leo_trainer.LeoTrainer.eval_task, leo_trainer.LeoTrainer.load_learnable
         step = train_state.TrainStep.__call__
 
         def timed_generate(model, data_dict, **kw):
+            # the trainer's eval loop calls generate_async and finalizes later
+            # (eval_pipeline_depth); finalized here, inside the timed call
             k1, k2 = FPS_KERNEL.launches, FLASH_FWD_KERNEL.launches
             rec.prefill_ms = 0.0
-            ms = wall_ms(lambda: data_dict.update(generate(model, data_dict, **kw)))
+            ms = wall_ms(lambda: data_dict.update(generate_async(model, data_dict, **kw)()))
             eos = model.tokenizer.eos_id
             ends = [list(row).index(eos) if eos in row else NEW_TOKENS
                     for row in data_dict["output_tokens"]]
@@ -1497,7 +1506,7 @@ class EvalRecorder:
                                   fps=FPS_KERNEL.launches - k1,
                                   flash=FLASH_FWD_KERNEL.launches - k2,
                                   text=list(data_dict["output_text"])))
-            return data_dict
+            return lambda: data_dict
 
         def timed_prefill(net, *args, **kw):
             torch.cuda.synchronize()
@@ -1530,7 +1539,7 @@ class EvalRecorder:
             rec.steps += 1
             return step(ts, batches)
 
-        return [mock.patch.object(MSR3D, "generate", timed_generate),
+        return [mock.patch.object(MSR3D, "generate_async", timed_generate),
                 mock.patch.object(MSR3DNetwork, "prefill", timed_prefill),
                 mock.patch.object(MSQAEval, "update", host_timed(update)),
                 mock.patch.object(MSQAEval, "record", host_timed(record)),
@@ -1762,6 +1771,281 @@ def phase_retrieval(trainer, exp: Path):
     trainer.inference_mode = "generation"
     del trainer.loaders["sqa3d"], trainer.evaluators["sqa3d"]
     return dict(launches=launches, ms=ms[0], chunks=chunks)
+
+
+# Phase 12: serving at the flagship width through the serve entry's
+# create_frontend on configs/msr3d.yaml, over phase 10's cfg_path. (b) sends
+# SERVE_REQUESTS requests from SERVE_CLIENTS client threads, budgets cycling
+# over SERVE_BUDGETS (the reference's 256 tokens cut to NEW_TOKENS); request
+# SERVE_STREAMED (budget 32, so that chunks of 8 end before it does) streams
+# over SSE
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUDGETS, SERVE_STREAMED = 12, 4, (8, 16, 24, 32), 3
+
+
+def serve_argv(exp_root: Path, *extra: str):
+    """The serve entry's arguments of phase 12: configs/msr3d.yaml with
+    phase 10's ``cfg_path``, random weights, an ephemeral port."""
+    return ["--config", str(_ROOT / "configs" / "msr3d.yaml"), "--random-init", "--port", "0",
+            "--max-new-tokens", str(NEW_TOKENS), *extra,
+            f"model.llm.cfg_path={exp_root / 'entry' / 'vicuna7b'}",
+            "model.llm.flash_attention=true"]
+
+
+def timed_decode(model, fn):
+    """Run ``fn`` with the network's prefill timed (synchronized) and its
+    decode steps counted: (result, total ms, prefill ms, decode steps)."""
+    net = model.network
+    prefill = net.prefill
+    rec = dict(prefill_ms=0.0, steps=0)
+
+    def timed_prefill(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(*args, **kw)
+        torch.cuda.synchronize()
+        rec["prefill_ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def counted(fn_step):
+        def step(*args, **kw):
+            rec["steps"] += 1
+            return fn_step(*args, **kw)
+        return step
+
+    out = {}
+    with mock.patch.multiple(net, prefill=timed_prefill,
+                             decode_step_shared=counted(net.decode_step_shared),
+                             decode_step_beam_anc=counted(net.decode_step_beam_anc)):
+        ms = wall_ms(lambda: out.update(result=fn()))
+    return out["result"], ms, rec["prefill_ms"], rec["steps"]
+
+
+def serve_matched(model):
+    """(a) Both engines at generate's shapes: phase 4's four requests in one
+    refill group of 4 slots, prompt_len generate's bucket + 1, 32 tokens.
+    Gates: the greedy engine's tokens equal greedy generate's, the beam-5
+    engine's equal beam-5 generate's (ancestry map on), request by request."""
+    from msr3d_tpu_torch.serving import (
+        ContinuousBatchingServer,
+        ContinuousBeamBatchingServer,
+        uncollate_batch,
+    )
+
+    data = make_requests(seed=0, images=True)
+    samples = uncollate_batch(data)
+    ids, _ = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
+                                  side="left")
+    prompt_len = ids.shape[1] + 1
+    model.generate(dict(data), use_beam=False, max_new_tokens=2)  # warm-up
+    rows = {}
+    for label, use_beam, cls in (("greedy", False, ContinuousBatchingServer),
+                                 (f"beam {BEAMS}", True, ContinuousBeamBatchingServer)):
+        gen, gen_ms, gen_prefill, gen_steps = timed_decode(
+            model, lambda: model.generate(dict(data), use_beam=use_beam,
+                                          max_new_tokens=NEW_TOKENS))
+        engine = cls(model, num_slots=N_REQUESTS, refill_group=N_REQUESTS, chunk_steps=8,
+                     max_new_tokens=NEW_TOKENS, prompt_len=prompt_len)
+        res, eng_ms, eng_prefill, eng_steps = timed_decode(model, lambda: engine.run(samples))
+        want = gen["output_tokens"]
+        same = [bool(np.array_equal(r.output_tokens, want[r.id])) for r in res]
+        row = dict(gen_ms=gen_ms, gen_decode_ms=(gen_ms - gen_prefill) / max(1, gen_steps),
+                   gen_steps=gen_steps, engine_ms=eng_ms,
+                   engine_decode_ms=(eng_ms - eng_prefill) / max(1, eng_steps),
+                   engine_steps=eng_steps, steps_run=engine.steps_run, equal=sum(same))
+        print(f"  (a) {label}, prompt_len {prompt_len}: generate {gen_ms:.2f} ms (prefill "
+              f"{gen_prefill:.2f} ms, decode {row['gen_decode_ms']:.2f} ms a step over "
+              f"{gen_steps}), engine run {eng_ms:.2f} ms (prefill {eng_prefill:.2f} ms, decode "
+              f"{row['engine_decode_ms']:.2f} ms a step over {eng_steps}, steps_run "
+              f"{engine.steps_run}); tokens equal for {sum(same)} of {len(same)} requests")
+        check(len(res) == N_REQUESTS and all(same) and eng_steps == engine.steps_run,
+              f"the {label} engine's tokens equal {label} generate's at matched shapes, request "
+              "by request")
+        rows[label] = row
+    return rows
+
+
+def sse_events(resp):
+    """The ``data:`` events of an open SSE answer, up to the final one."""
+    events = []
+    for raw in resp:
+        line = raw.decode().strip()
+        if line.startswith("data: "):
+            events.append(json.loads(line[len("data: "):]))
+            if events[-1].get("done"):
+                break
+    return events
+
+
+def serve_http(fe, model):
+    """(b) The HTTP front end (greedy, 8 slots, refill group 4, chunk 8,
+    lookahead 1) under SERVE_REQUESTS requests with images from
+    SERVE_CLIENTS client threads in a closed loop at mixed budgets, one over
+    SSE. K1 and K2f are counted from 0 around the traffic."""
+    import urllib.request
+
+    from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.serving import _collate, uncollate_batch
+    from msr3d_tpu_torch.serving_http import encode_scene_b64
+
+    n = SERVE_REQUESTS
+    samples = uncollate_batch(make_requests(seed=1, b=n, images=True))
+    budgets = [SERVE_BUDGETS[i % len(SERVE_BUDGETS)] for i in range(n)]
+    bodies = [json.dumps(dict({"prompt": s["msr3d_prompt"], "scene_b64": encode_scene_b64(s),
+                               "max_new_tokens": b}, **({"stream": True}
+                                                        if i == SERVE_STREAMED else {})))
+              .encode() for i, (s, b) in enumerate(zip(samples, budgets))]
+    url = f"http://127.0.0.1:{fe.port}"
+    answers, errors = {}, []
+
+    def post(i):
+        req = urllib.request.Request(f"{url}/v1/generate", data=bodies[i],
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if i == SERVE_STREAMED:
+                events = sse_events(resp)
+                return resp.status, dict(events[-1], snapshots=[e for e in events[:-1]])
+            return resp.status, json.loads(resp.read())
+
+    order = iter(range(n))
+    lock = threading.Lock()
+
+    def client(k):
+        # a closed loop: each client sends the next request of the list once
+        # its previous answer is in, so at most SERVE_CLIENTS are in flight
+        while True:
+            with lock:
+                i = next(order, None)
+            if i is None:
+                return
+            try:
+                answers[i] = post(i)
+            except Exception as exc:  # reported and gated below
+                errors.append(f"request {i}: {exc!r}")
+
+    fe.start()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+    FPS_KERNEL.launches = FLASH_FWD_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    launches = {"fps": FPS_KERNEL.launches, "flash_attn_fwd": FLASH_FWD_KERNEL.launches}
+    with urllib.request.urlopen(f"{url}/v1/health", timeout=60) as resp:
+        health = json.loads(resp.read())
+    fe.close(timeout=None)
+    check(not errors and sorted(answers) == list(range(n))
+          and all(status == 200 for status, _ in answers.values()),
+          f"every one of the {n} answers is 200 ({errors[:2]})")
+    eos = model.tokenizer.eos_id
+    emitted, bad = [], []
+    for i, (_, payload) in sorted(answers.items()):
+        toks = np.asarray(payload["tokens"])
+        first = int(np.argmax(toks == eos)) if (toks == eos).any() else len(toks)
+        emitted.append(min(first + 1, budgets[i]))
+        if not (first <= budgets[i] and bool((toks[first:] == eos).all())
+                and payload["text"] == model.batch_detokenize(toks[None])[0]):
+            bad.append(i)
+    print(f"  (b) tokens emitted a request (an EOS counted): {emitted} at budgets {budgets}")
+    check(not bad, "each answer's tokens within its budget, nothing but EOS after an early end, "
+                   f"its text the detokenized tokens (failing: {bad})")
+    snaps = answers[SERVE_STREAMED][1]["snapshots"]
+    final = answers[SERVE_STREAMED][1]["text"]
+    check(len(snaps) > 0 and all(final.startswith(e["text"]) for e in snaps),
+          f"the SSE request's {len(snaps)} snapshots are prefixes of its final text")
+    check(health["served"] == n and health["status"] == "ok",
+          f"/v1/health: served {health['served']}, {health}")
+    check(not fe._engine_thread.is_alive() and not fe._http_thread.is_alive(),
+          "close() drained: the engine and HTTP threads ended")
+    # not gated: a batch-1 generate runs its GEMMs at another batch, and bf16
+    # may round otherwise there
+    same = 0
+    for i, s in enumerate(samples):
+        want = model.generate(_collate([s]), use_beam=False,
+                              max_new_tokens=budgets[i])["output_tokens"][0]
+        same += int(np.array_equal(np.asarray(answers[i][1]["tokens"])[:budgets[i]], want))
+    row = dict(elapsed_s=elapsed, requests_s=n / elapsed, tokens_s=sum(emitted) / elapsed,
+               answer_tokens=sum(emitted), steps_run=fe.engine.steps_run,
+               decode_steps_health=health["decode_steps"], launches=launches,
+               equal_to_batch1_generate=same)
+    print(f"  (b) {n} requests in {elapsed:.3f} s: {row['requests_s']:.3f} requests/s, "
+          f"{row['tokens_s']:.2f} answer tokens/s ({sum(emitted)} tokens), steps_run "
+          f"{fe.engine.steps_run}, launches {launches}; {same} of {n} answers equal a batch-1 "
+          f"generate (not gated); on {card_line()}")
+    check(launches["fps"] > 0 and launches["flash_attn_fwd"] > 0,
+          "K1 and K2f launched during the HTTP traffic (the refill groups' prefills)")
+    return row
+
+
+def serve_entry():
+    """(c) ``python -m msr3d_tpu_torch.serve`` on the debug config as a
+    subprocess: the listening line, one answer, SIGTERM, a drain, exit 0."""
+    import signal
+    import urllib.request
+
+    from msr3d_tpu_torch.serving_http import encode_scene_b64
+
+    r = np.random.default_rng(5)
+    scene = {"obj_fts": (r.normal(size=(6, 64, 6)) * 0.3).astype(np.float32),
+             "obj_masks": np.ones(6, bool), "obj_locs": r.normal(size=(6, 6)).astype(np.float32),
+             "anchor_locs": np.zeros(3, np.float32),
+             "anchor_orientation": np.array([0, 0, 0, 1], np.float32)}
+    cmd = [sys.executable, "-m", "msr3d_tpu_torch.serve", "--config",
+           "configs/debug_synthetic.yaml", "--random-init", "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=_ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines, out = [], ""
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if "listening on http://" in line:
+                break
+        check("listening on http://" in "".join(lines[-1:]),
+              f"the entry printed its listening line ({''.join(lines[-5:])!r})")
+        port = int(lines[-1].split("http://")[1].split()[0].rsplit(":", 1)[1])
+        body = json.dumps({"prompt": "scene: 景 USER: what is here? ASSISTANT:",
+                           "scene_b64": encode_scene_b64(scene)}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, payload = resp.status, json.loads(resp.read())
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    print(f"  (c) {' '.join(cmd[1:])}: answered {status} with {len(payload['tokens'])} tokens, "
+          f"exit code {proc.returncode} after SIGTERM, {seconds:.1f} s in all")
+    check(status == 200 and proc.returncode == 0 and "drained, bye" in out,
+          "the serve entry answered, drained on SIGTERM and exited 0")
+    return dict(seconds=seconds)
+
+
+def phase_serve(exp_root: Path):
+    print("== phase 12: serving at the flagship width (the serve entry's create_frontend on "
+          "configs/msr3d.yaml with phase 10's cfg_path, random weights)")
+    from msr3d_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    fe = serve.create_frontend(serve.parse_args(serve_argv(
+        exp_root, "--slots", "8", "--refill-group", "4", "--chunk-steps", "8",
+        "--lookahead", "1")))
+    model = fe.engine.model
+    torch.cuda.synchronize()
+    print(f"  built and initialised in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in model.network.parameters()) / 1e9:.3f} B parameters, "
+          f"{model.cfg.llm}")
+    out = dict(a=serve_matched(model), b=serve_http(fe, model))
+    del fe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c"] = serve_entry()
+    return out
 
 
 def dequant_against_plain(x, wq, scale, bits):
@@ -2234,6 +2518,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         evaluation = timed(phase_eval, exp_root)  # on phase 10's tree
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving = timed(phase_serve, exp_root)  # on phase 10's cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2246,12 +2533,14 @@ def main() -> int:
         # generate with the ancestry map (phase 9); launches_entry: the
         # training entry's run (phase 10); launches_eval: the entry's run of
         # phase 11 (a), one training step and eval_batches eval batches;
-        # launches_retrieval: phase 11 (c)'s retrieval batch
+        # launches_retrieval: phase 11 (c)'s retrieval batch; launches_serve:
+        # phase 12 (b)'s HTTP traffic, serve_requests requests
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
              launches_entry=entry_launches["fps"], launches_eval=ev["fps"],
              eval_batches=evaluation["eval_batches"], launches_retrieval=retrieval["fps"],
+             launches_serve=serving["b"]["launches"]["fps"], serve_requests=SERVE_REQUESTS,
              **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
@@ -2259,7 +2548,9 @@ def main() -> int:
              launches_beam=beam[True]["launches"]["flash_attn_fwd"],
              launches_entry=entry_launches["flash_attn_fwd"],
              launches_eval=ev["flash_attn_fwd"], eval_batches=evaluation["eval_batches"],
-             launches_retrieval=retrieval["flash_attn_fwd"], **flash_row),
+             launches_retrieval=retrieval["flash_attn_fwd"],
+             launches_serve=serving["b"]["launches"]["flash_attn_fwd"],
+             serve_requests=SERVE_REQUESTS, **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],

@@ -16,7 +16,8 @@ What the port does not run raises ``NotImplementedError`` when it is set
 to anything but its default: ``model.llm.remat`` (ROADMAP.md, QLoRA and
 the training-memory options), ``parallel.sp > 1`` (parallelism), and the
 serving knobs ``eval_spec_k``, ``eval_do_sample``, ``eval_top_k``,
-``eval_top_p`` and ``compact_transfer`` (the serving engines).
+``eval_top_p`` and ``compact_transfer`` (the serving engines' second
+slice, ROADMAP.md item 5 (b)).
 
 The model lands on ``cfg.device`` (``cuda`` when unset; ``device=cpu``
 picks the CPU), through ``resolve_device``.
@@ -83,7 +84,8 @@ def _check_ported(cfg) -> None:
         value = cfg.get(key, default)
         if value is not None and type(default)(value) != default:
             raise NotImplementedError(
-                f"{key}={value!r} is not ported yet (ROADMAP.md, queue: the serving engines)")
+                f"{key}={value!r} is not ported yet (ROADMAP.md, queue: the serving engines, "
+                "item 5 (b))")
     if int(cfg.get("parallel", {}).get("sp", 1)) > 1:
         raise NotImplementedError("parallel.sp > 1 (ring attention) is not ported yet "
                                   "(ROADMAP.md, queue: parallelism)")

@@ -7,7 +7,9 @@ bf16/fp32 or weight-only quantized base, SwiGLU MLP, the training forward
 (``LlamaModel.forward``), a prefill that captures each layer's rope'd k/v,
 and the split-cache decode steps (a prompt KV segment at batch B shared by
 the K beams of each row plus a generated segment at batch B·K, T = 1),
-the generated segment read directly or through a beam ancestry map. With
+the generated segment read directly or through a beam ancestry map, and
+written at one slot for every row or at each row's own slot (the continuous
+serving engines). With
 ``flash_attention`` the training forward runs through the autograd
 Function of kernels K2f, K2dq and K2dkv, and the prefill through K2f;
 otherwise, and in decode, attention is dense with a -1e30 additive bias, as
@@ -363,13 +365,14 @@ class LlamaAttention(nn.Module):
         return self._out(out), k, v
 
     def decode_shared(self, x, positions, attn_bias, prompt: Dict[str, torch.Tensor],
-                      gen: Dict[str, torch.Tensor], gen_index: int,
+                      gen: Dict[str, torch.Tensor], gen_index,
                       anc_rows: Optional[torch.Tensor] = None):
         """One decode token over a split cache: the prompt segment (k/v of
         (B', S_p, hkv, D)), shared by blocks of B / B' consecutive queries
         (the beams of one request), and the generated segment (B, S_g, hkv,
         D), into which this token's k/v are written in place at
-        ``gen_index``. ``attn_bias`` (B, 1, 1, S_p + S_g) masks both
+        ``gen_index``: an int, or a (B,) tensor of each row's slot (rows
+        out of range write nothing). ``attn_bias`` (B, 1, 1, S_p + S_g) masks both
         segments.
 
         With ``anc_rows`` (B·S_g,) (beam ancestry) query r reads slot s of
@@ -500,16 +503,41 @@ def quantize_kv_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
 
 
 def _cache_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
-                 index: int) -> None:
-    """Write one token's k/v (B, 1, hkv, D) at slot ``index`` of a (B, S,
-    hkv, D) cache, in place; into an int8 cache quantized, with its scales
-    (the scalar-index path of the JAX ``_cache_write``)."""
+                 index) -> None:
+    """Write one token's k/v (B, 1, hkv, D) into a (B, S, hkv, D) cache, in
+    place; into an int8 cache quantized per row, with its scales. ``index``
+    is an int (every row writes that slot, the uniform decode loops) or a
+    (B,) integer tensor (row b writes slot ``index[b]``, the continuous
+    engines' slots at their own depths: ``_cache_write_rows`` of the JAX
+    package)."""
     if "k_scale" in cache:
         new = quantize_kv_cache({"k": k, "v": v})
     else:
         new = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    if isinstance(index, torch.Tensor):
+        _write_rows(cache, {key: val[:, 0] for key, val in new.items()}, index)
+        return
     for key, val in new.items():
         cache[key][:, index] = val[:, 0]
+
+
+def _write_rows(arrays: Dict[str, torch.Tensor], rows_new: Dict[str, torch.Tensor],
+                index: torch.Tensor) -> None:
+    """``arrays[key][b, index[b]] = rows_new[key][b]`` in place, for the rows
+    whose index lies in [0, S) only: a row at -1 (an idle slot) or at S
+    writes nothing, as JAX's scatter ``mode="drop"`` (where a negative index
+    would wrap to the last slot). The write is masked, not clamped: a row
+    out of range stores back what its slot 0 holds, so no host read of the
+    index is needed."""
+    first = next(iter(arrays.values()))
+    s = first.shape[1]
+    ok = (index >= 0) & (index < s)
+    rows = torch.arange(first.shape[0], device=index.device)
+    slot = torch.where(ok, index, torch.zeros_like(index)).long()
+    for key, val in rows_new.items():
+        arr = arrays[key]
+        keep = ok.view((-1,) + (1,) * (val.dim() - 1))
+        arr[rows, slot] = torch.where(keep, val.to(arr.dtype), arr[rows, slot])
 
 
 def _bias(valid: torch.Tensor) -> torch.Tensor:
@@ -662,7 +690,7 @@ class LlamaModel(nn.Module):
         prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
         prompt_mask: torch.Tensor,  # (B, S_p)
         gen_kv: Dict[str, torch.Tensor],  # k/v (L, B·K, S_g, hkv, D) [+ scales], written in place
-        gen_index: int,
+        gen_index,  # int, or (B·K,) each row's slot (out of range: no write)
         gen_mask: torch.Tensor,  # (B·K, S_g), including the slot written now
     ) -> torch.Tensor:
         """One decode step over the split cache → logits (B·K, 1, V): the
@@ -680,7 +708,7 @@ class LlamaModel(nn.Module):
         prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
         prompt_mask: torch.Tensor,  # (B, S_p)
         gen_kv: Dict[str, torch.Tensor],  # k/v (L, B·K, S_g, hkv, D) [+ scales], written in place
-        gen_index: int,
+        gen_index,  # int, or (B·K,) each row's slot (out of range: no write)
         gen_mask: torch.Tensor,  # (B·K, S_g) valid generated slots
         anc: torch.Tensor,  # (B·K, S_g) int32, the ancestor row within the K block
         num_beams: int,

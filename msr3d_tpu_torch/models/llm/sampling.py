@@ -6,7 +6,8 @@ they use (CTRL repetition penalty over the generated ids, an additive EOS
 bias, the min-length EOS mask). The JAX loops are ``lax.while_loop``s on
 the device; here each is a Python loop over device tensors with the same
 exit test (one host read a step), writing the generated KV segment in
-place, with the same EOS padding after EOS.
+place, with the same EOS padding after EOS. ``pick_next_rows`` is the greedy
+pick with each row at its own step, for the continuous serving engines.
 """
 
 from __future__ import annotations
@@ -42,6 +43,31 @@ def _mask_min_length(
     logits = logits.clone()
     logits[:, eos_id] = float("-inf")
     return logits
+
+
+def pick_next_rows(
+    logits: torch.Tensor,  # (B, V) fp32
+    seen: torch.Tensor,  # (B, V) bool
+    steps: torch.Tensor,  # (B,) each row's emission step (0 = first token)
+    *,
+    eos_id: int,
+    repetition_penalty: float = 1.0,
+    eos_logit_bias: float = 0.0,
+    min_length: int = 1,
+) -> torch.Tensor:
+    """Per-row greedy pick → (B,) int32, each row at its own step (the
+    continuous engines' slots refill independently, so the min-length gate
+    is a row's own): row for row the ``pick`` of ``greedy_decode_shared``
+    where the steps agree."""
+    logits = apply_repetition_penalty(logits, seen, repetition_penalty)
+    if eos_logit_bias:
+        logits = logits.clone()
+        logits[:, eos_id] += eos_logit_bias
+    if min_length > 1:
+        logits = logits.clone()
+        logits[:, eos_id] = torch.where(steps < min_length - 1, float("-inf"),
+                                        logits[:, eos_id])
+    return logits.argmax(dim=-1).to(torch.int32)
 
 
 def greedy_decode_shared(

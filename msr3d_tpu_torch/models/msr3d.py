@@ -18,15 +18,17 @@ Counterpart of ``msr3d_tpu/models/msr3d.py``:
     (``predict_answers``), the trainable set, and in-place weight-only
     quantization of the LLM for serving (``quantize_llm``).
 
-Not ported yet (see ROADMAP.md): sampling, speculative and grouped-scene
-decoding, the prefix-pool serving engines.
+The serving engines over this model (slot refill, the fixed batcher, the
+HTTP front end) are in ``msr3d_tpu_torch/serving.py``. Not ported yet (see
+ROADMAP.md): sampling, speculative and grouped-scene decoding, the
+scene-grouped and prefix-pool serving engines.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -299,6 +301,7 @@ class MSR3D:
         image_token_len: int = 1,
         max_context_len: int = 256,  # stored; prompts are not truncated to it (as in JAX)
         max_out_len: int = 256,
+        prompt_pad_to: int = 256,  # the serving engines' prompt width, trailing bos included
         num_beams: int = 5,
         repetition_penalty: float = 3.0,
         length_penalty: float = 1.0,
@@ -323,6 +326,7 @@ class MSR3D:
         self.image_token_len = image_token_len
         self.max_context_len = max_context_len
         self.max_out_len = max_out_len
+        self.prompt_pad_to = prompt_pad_to
         self.num_beams = num_beams
         self.repetition_penalty = repetition_penalty
         self.length_penalty = length_penalty
@@ -475,7 +479,6 @@ class MSR3D:
 
     # -- generation ----------------------------------------------------------
 
-    @torch.no_grad()
     def generate(
         self,
         data_dict: Dict[str, Any],
@@ -486,7 +489,28 @@ class MSR3D:
         """Prefill over the prompt segment, then the split-cache decode loop:
         beam search with ``num_beams`` beams unless ``use_beam`` is False
         (``None`` follows ``num_beams``), else greedy. Sets
-        ``output_tokens`` (B, max_new) and ``output_text``."""
+        ``output_tokens`` (B, max_new) and ``output_text``. Exactly
+        ``generate_async(...)()``."""
+        return self.generate_async(data_dict, use_beam=use_beam,
+                                   max_new_tokens=max_new_tokens)()
+
+    @torch.no_grad()
+    def generate_async(
+        self,
+        data_dict: Dict[str, Any],
+        *,
+        use_beam: Optional[bool] = None,
+        max_new_tokens: Optional[int] = None,
+    ) -> Callable[[], Dict[str, Any]]:
+        """``generate`` split in two: runs the prefill and the decode loop
+        and returns ``finalize()``, which copies the tokens to the host,
+        detokenizes and sets ``output_tokens`` and ``output_text``.
+
+        This gives the fixed batcher and the trainer's eval loop the JAX
+        package's request-pipelining interface, but little overlap: the
+        decode loops read the host every step (the exit test), so by the
+        time this returns all but the last step's kernels have run. Only
+        the device-to-host copy and the detokenize wait for ``finalize``."""
         beams = self.num_beams if use_beam is None else (self.num_beams if use_beam else 1)
         self.network.eval()  # no dropout, also right after training steps
         input_ids, attn = self._encode_prompts(self.build_text_prompt(data_dict))
@@ -525,9 +549,13 @@ class MSR3D:
             )
         else:
             tokens = greedy_decode_shared(decode_shared, next_pos, first, gen_kv, **common)
-        data_dict["output_tokens"] = tokens.cpu().numpy()
-        data_dict["output_text"] = self.batch_detokenize(data_dict["output_tokens"])
-        return data_dict
+
+        def finalize() -> Dict[str, Any]:
+            data_dict["output_tokens"] = tokens.cpu().numpy()
+            data_dict["output_text"] = self.batch_detokenize(data_dict["output_tokens"])
+            return data_dict
+
+        return finalize
 
     @torch.no_grad()
     def predict_answers(self, data_dict: Dict[str, Any], answer_list: List[str],

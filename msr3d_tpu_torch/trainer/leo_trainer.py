@@ -30,19 +30,21 @@ Evaluation: one evaluator a task that names one (``build_task_evaluators``,
 or injected), run over the task's ``val`` loader every ``eval_interval``
 epochs and over its ``test`` loader after the last, at most
 ``num_batch_eval`` batches each. Generation (``inference_mode:
-generation``) decodes each batch with ``MSR3D.generate``, one batch after
-another; retrieval scores the dataset's ``answer_cands`` with
-``MSR3D.predict_answers``. Metrics are logged as ``{split}/{task}/{metric}``
-at the current step, and a val target above ``tracker.overall_best_result``
+generation``) decodes each batch with ``MSR3D.generate_async``, at most
+``eval_pipeline_depth`` batches (default 3) waiting for their
+``finalize``, or with ``eval_engine: continuous`` through the slot-refill
+engines of ``serving.py`` (``_eval_continuous``); retrieval scores the
+dataset's ``answer_cands`` with ``MSR3D.predict_answers``. Metrics are
+logged as ``{split}/{task}/{metric}`` at the current step, and a val
+target above ``tracker.overall_best_result``
 saves the learnable weights as ``best``. Any ``mode`` but ``train`` (``test``,
 ``eval``) loads ``best`` when there is one and evaluates the test split; a
 config without a train task builds no optimizer.
 
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-queue): the serving engines as eval routes (``eval_engine: continuous`` or
-``grouped``; the JAX trainer's request pipelining, ``eval_pipeline_depth``,
-is logged as having no effect), more than one ``torch.distributed`` rank,
-``parallel.tp/pp/sp > 1`` and fixed multi-host text buckets, ``remat``, and
+queue): ``eval_engine: grouped`` and ``eval_engine_opts.prefix_pool`` (the
+scene-grouped and prefix-pool engines), more than one ``torch.distributed``
+rank, ``parallel.tp/pp/sp > 1`` and fixed multi-host text buckets, ``remat``, and
 ``vision_freeze: False``.
 """
 
@@ -52,6 +54,7 @@ import contextlib
 import signal
 import time
 import uuid
+from collections import deque
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional
 
@@ -68,12 +71,11 @@ from msr3d_tpu_torch.utils.logging import MetricLogger, StepTimer, get_logger
 
 logger = get_logger("msr3d_tpu_torch.trainer")
 
-_SERVING = "ROADMAP.md, queue: the serving engines"
+_SERVING = "ROADMAP.md, queue: the serving engines, item 5 (b)"
 # the data dict's keys that go to the evaluators beside the predictions
 _RECORD_KEYS = ("answer_list", "answer_label", "text_output", "data_idx", "sqa_type", "source",
                 "scan_id", "index", "type", "prompt", "prompt_after_obj", "obj_labels",
                 "obj_masks")
-_pipeline_depth_logged = False
 
 
 class Preempted(Exception):
@@ -198,7 +200,6 @@ class LeoTrainer:
         return self._train_step.step_count if self._train_step is not None else 0
 
     def _check_ported(self, cfg, model) -> None:
-        global _pipeline_depth_logged
         for axis in ("tp", "pp", "sp"):
             if int(_cfg(cfg, f"parallel.{axis}", 1)) > 1:
                 raise _not_ported(f"parallel.{axis} > 1", "ROADMAP.md, queue: parallelism")
@@ -212,13 +213,11 @@ class LeoTrainer:
             raise _not_ported("vision_freeze: False (the port's PointNet++ has inference "
                               "BatchNorm only)", "ROADMAP.md, queue: the other modes")
         engine = str(cfg.get("eval_engine", "") or "").lower()
-        if self.inference_mode == "generation" and engine in ("continuous", "grouped"):
+        if self.inference_mode == "generation" and engine == "grouped":
             raise _not_ported(f"eval_engine: {engine}", _SERVING)
-        if "eval_pipeline_depth" in cfg and not _pipeline_depth_logged:
-            logger.info(f"eval_pipeline_depth={cfg['eval_pipeline_depth']} has no effect: the "
-                        "port evaluates one batch after another (request pipelining is "
-                        f"queued in {_SERVING})")
-            _pipeline_depth_logged = True
+        if engine == "continuous" and (cfg.get("eval_engine_opts") or {}).get("prefix_pool"):
+            raise _not_ported("eval_engine_opts.prefix_pool (the prefix-pool engines)",
+                              _SERVING)
 
     # ------------------------------------------------------------------
 
@@ -340,10 +339,12 @@ class LeoTrainer:
 
     def eval_task(self, task: str, split: str) -> Dict[str, Any]:
         """Evaluate one task's split → the evaluator's results (``{}``
-        without an evaluator): generation through ``MSR3D.generate``, or
-        retrieval through ``MSR3D.predict_answers`` over the loader's
-        ``answer_cands``, one batch after another, at most
-        ``num_batch_eval`` batches."""
+        without an evaluator), at most ``num_batch_eval`` batches:
+        generation through ``MSR3D.generate_async`` with up to
+        ``eval_pipeline_depth`` batches unfinalized (the texts are the
+        blocking loop's), or through the continuous engines with
+        ``eval_engine: continuous``; retrieval through
+        ``MSR3D.predict_answers`` over the loader's ``answer_cands``."""
         loader = self.loaders[task][split]
         evaluator = self.evaluators.get(task)
         if evaluator is not None:
@@ -369,18 +370,31 @@ class LeoTrainer:
                 record = self._trim_record(record, b, b - padded_tail)
             evaluator.update(record)
 
+        depth = max(0, int(self.cfg.get("eval_pipeline_depth", 3)))
+        pending: deque = deque()  # (batch index, data_dict, finalize)
+
+        def finalize_oldest() -> None:
+            i, data_dict, finalize = pending.popleft()
+            emit(i, data_dict, {"output_text": finalize()["output_text"]})
+
         batches = iter(loader)
         try:
-            for i, data_dict in enumerate(batches):
-                if self.num_batch_eval and i >= self.num_batch_eval:
-                    break
-                if generation:
-                    out = self.model.generate(dict(data_dict))
-                    emit(i, data_dict, {"output_text": out["output_text"]})
-                else:
-                    out = self.model.predict_answers(dict(data_dict), answer_cands)
-                    emit(i, data_dict, {"answer_scores": out["answer_scores"],
-                                        "answers_id": out["answers_id"]})
+            if generation and str(self.cfg.get("eval_engine", "") or "").lower() == "continuous":
+                self._eval_continuous(batches, emit)
+            else:
+                for i, data_dict in enumerate(batches):
+                    if self.num_batch_eval and i >= self.num_batch_eval:
+                        break
+                    if generation:
+                        pending.append((i, data_dict, self.model.generate_async(dict(data_dict))))
+                        while len(pending) > depth:
+                            finalize_oldest()
+                    else:
+                        out = self.model.predict_answers(dict(data_dict), answer_cands)
+                        emit(i, data_dict, {"answer_scores": out["answer_scores"],
+                                            "answers_id": out["answers_id"]})
+                while pending:
+                    finalize_oldest()
         finally:
             close = getattr(batches, "close", None)
             if close is not None:
@@ -389,6 +403,75 @@ class LeoTrainer:
             return {}
         _, results = evaluator.record(split)
         return results
+
+    def _eval_continuous(self, batches, emit) -> None:
+        """Generation eval through the slot-refill engines (``eval_engine:
+        continuous``): the requests of all loader batches share one pool of
+        slots, so a short answer's slot refills at once. With ``num_beams``
+        above 1 the beam engine serves (each slot one request's beam search
+        at its own depth). Batches are read lazily and emitted to the
+        evaluator in loader order; a batch is kept only until its last
+        request is done. Engine options come from ``eval_engine_opts``
+        (``num_slots``, ``refill_group``, ``chunk_steps``, ``lookahead``,
+        ...), with the JAX trainer's defaults."""
+        from msr3d_tpu_torch.serving import (
+            ContinuousBatchingServer,
+            ContinuousBeamBatchingServer,
+            uncollate_batch,
+        )
+
+        opts = dict(self.cfg.get("eval_engine_opts", {}) or {})
+        opts.pop("prefix_pool", None)  # False here (_check_ported)
+        if self.model.num_beams != 1:
+            # beam slots carry num_beams KV rows each: a smaller default pool
+            engine = ContinuousBeamBatchingServer(
+                self.model, num_slots=int(opts.pop("num_slots", 8)),
+                refill_group=int(opts.pop("refill_group", 4)),
+                chunk_steps=int(opts.pop("chunk_steps", 16)),
+                lookahead=int(opts.pop("lookahead", 1)), **opts)
+        else:
+            engine = ContinuousBatchingServer(
+                self.model, num_slots=int(opts.pop("num_slots", 32)),
+                refill_group=int(opts.pop("refill_group", 8)),
+                chunk_steps=int(opts.pop("chunk_steps", 16)),
+                lookahead=int(opts.pop("lookahead", 1)),
+                spec_k=int(opts.pop("spec_k", 0)), **opts)
+
+        records: Dict[int, list] = {}  # batch index -> [data_dict, texts, left]
+        rid_map: List[tuple] = []  # rid -> (batch index, row)
+        done: set = set()
+        next_emit = 0
+
+        def sample_iter():
+            for i, data_dict in enumerate(batches):
+                if self.num_batch_eval and i >= self.num_batch_eval:
+                    break
+                samples = uncollate_batch(data_dict)
+                records[i] = [data_dict, [None] * len(samples), len(samples)]
+                for j, sample in enumerate(samples):
+                    rid_map.append((i, j))
+                    yield sample
+
+        def flush() -> None:
+            nonlocal next_emit
+            while next_emit in done:
+                done.discard(next_emit)
+                data_dict, texts, _ = records.pop(next_emit)
+                emit(next_emit, data_dict, {"output_text": texts})
+                next_emit += 1
+
+        def on_result(res) -> None:
+            i, j = rid_map[res.id]
+            rec = records[i]
+            rec[1][j] = res.output_text
+            rec[2] -= 1
+            if rec[2] == 0:
+                done.add(i)
+                flush()
+
+        engine.run(sample_iter(), on_result=on_result)
+        flush()
+        assert not records, "continuous eval: batches left unemitted"
 
     def _run_eval(self, split: str, epoch: int) -> None:
         """Evaluate every task with an evaluator and a ``split`` loader, log

@@ -331,7 +331,8 @@ def test_preemption_saves_at_the_step_and_resumes(tmp_path, monkeypatch):
 
 def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     """Evaluation from the entry raises only on what it would need and the
-    port lacks: the serving engines as eval routes and more than one rank.
+    port lacks: the scene-grouped engine as an eval route and more than one
+    rank.
     ``mode: test``, the val split and ``inference_mode: retrieval`` build
     and run (their parity with JAX: tests/test_torch_eval.py)."""
     import torch.distributed as dist
@@ -340,10 +341,10 @@ def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     synthetic.build_full_tree(root, np.random.default_rng(7))
     ovs = [o for o in _entry_overrides(root, tmp_path / "x", fp32=False)
            if not o.startswith("task.")]
-    for engine in ("continuous", "grouped"):
-        with pytest.raises(NotImplementedError, match="serving engines"):
-            port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
-                           f"eval_engine={engine}"])
+    # eval_engine: continuous is ported (tests/test_torch_eval.py); grouped not
+    with pytest.raises(NotImplementedError, match="serving engines"):
+        port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
+                       "eval_engine=grouped"])
     with monkeypatch.context() as m:  # two ranks
         m.setattr(dist, "is_initialized", lambda: True)
         m.setattr(dist, "get_world_size", lambda: 2)

@@ -460,6 +460,39 @@ def test_eval_task_trims_a_padded_tail_as_jax_does(msqa):
     assert len(got_records[0]["index"]) == 1 and got == want
 
 
+@pytest.mark.parametrize("beams", [5, 1], ids=["beam5", "greedy"])
+def test_eval_continuous_equals_jax(msqa, beams):
+    """``eval_engine: continuous``: the val split through the slot-refill
+    engines (beam with 5 beams, greedy with 1) with one slot, so that the
+    second request refills it; the texts the evaluator receives and its
+    results equal JAX's. The blocking route's texts do not depend on
+    ``eval_pipeline_depth`` (0 against the default 3)."""
+    jtrainer, trainer, _ = msqa
+    opts = {"num_slots": 1, "refill_group": 1, "chunk_steps": 3}
+    saved = jtrainer.model.num_beams
+    try:
+        for t in (jtrainer, trainer):
+            t.model.num_beams = beams
+        blocking = [_eval(trainer, "msqa_scannet", "val")[1][0]["output_text"]]
+        trainer.cfg["eval_pipeline_depth"] = 0
+        blocking.append(_eval(trainer, "msqa_scannet", "val")[1][0]["output_text"])
+        jtrainer.cfg.eval_engine, jtrainer.cfg.eval_engine_opts = "continuous", opts
+        trainer.cfg.update(eval_engine="continuous", eval_engine_opts=opts)
+        want, want_records = _eval(jtrainer, "msqa_scannet", "val")
+        got, got_records = _eval(trainer, "msqa_scannet", "val")
+    finally:
+        for t in (jtrainer, trainer):
+            t.model.num_beams = saved
+        jtrainer.cfg.eval_engine = ""
+        for key in ("eval_engine", "eval_engine_opts", "eval_pipeline_depth"):
+            trainer.cfg.pop(key, None)
+    assert blocking[0] == blocking[1]
+    assert len(got_records) == len(want_records) == 1
+    assert len(got_records[0]["output_text"]) == 2
+    assert got_records[0]["output_text"] == want_records[0]["output_text"]
+    assert list(got_records[0]) == list(want_records[0]) and got == want
+
+
 def _sqa3d_labels(loader, vocab):
     """The loader's batches with ``answer_label`` (multi-hot over ``vocab``)
     added; ``dataset`` leads to the answer vocabulary as the loader's does."""

@@ -658,6 +658,64 @@ def test_dequant_matmul_kernels_refuse_what_they_do_not_take(cuda_device):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.cuda
+def test_continuous_engine_on_card_equals_generate(cuda_device):
+    """The tiny model's greedy slot-refill engine on the card (prefill
+    through K1 and K2f, bf16 decode) at generate's shapes: one refill group
+    the size of the batch at generate's prompt bucket, so the arithmetic is
+    generate's and the tokens must be equal; then 8 requests through 4
+    slots at mixed budgets stop at EOS or their budget."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig
+    from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, SpatialEncoderConfig
+    from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.serving import ContinuousBatchingServer
+
+    prompter = OSE3DConfig(
+        hidden_size=32, spatial_encoder=SpatialEncoderConfig(
+            num_attention_heads=4, dim_feedforward=64, dropout=0.0, num_layers=1),
+        sa_n_points=(8, 4, None), sa_n_samples=(8, 8, None), sa_radii=(0.4, 0.8, None),
+        sa_mlps=((3, 8, 8, 16), (16, 16, 16, 32), (32, 32, 32, 64)))
+    llm = LlamaConfig.tiny(vocab_size=263, hidden_size=256, intermediate_size=512,
+                           flash_attention=True)  # head_dim 64, one of K2f's
+    cfg = MSR3DNetworkConfig(prompter=prompter, llm=llm, backbone_name="convnext_test")
+    model = MSR3D(cfg, scene_token_len=5, max_out_len=8, repetition_penalty=1.5,
+                  device=cuda_device)
+    model.init_params(seed=0)
+    r = np.random.default_rng(0)
+    reqs = [{"msr3d_prompt": f"Scene 景 here. What is object {i}?" + " Be brief." * (i % 3),
+             "obj_fts": (r.normal(size=(6, 32, 6)) * 0.3).astype(np.float32),
+             "obj_masks": np.ones(6, bool), "obj_locs": r.normal(size=(6, 6)).astype(np.float32),
+             "anchor_locs": r.normal(size=3).astype(np.float32),
+             "anchor_orientation": np.array([0, 0, 0, 1], np.float32)} for i in range(8)]
+    keys = [k for k in reqs[0] if k != "msr3d_prompt"]
+
+    def batch(qs):
+        return {"msr3d_prompt": [q["msr3d_prompt"] for q in qs],
+                **{k: np.stack([q[k] for q in qs]) for k in keys}}
+
+    ids, _ = model._encode_prompts(model.build_text_prompt(batch(reqs[:4])))
+    bucket = max(32, -(-ids.shape[1] // 32) * 32) + 1
+    want = model.generate(batch(reqs[:4]), use_beam=False)["output_tokens"]
+    engine = ContinuousBatchingServer(model, num_slots=4, refill_group=4, chunk_steps=3,
+                                      prompt_len=bucket)
+    FPS_KERNEL.launches = FLASH_FWD_KERNEL.launches = 0
+    got = engine.run(reqs[:4])
+    assert FPS_KERNEL.launches == 2 and FLASH_FWD_KERNEL.launches == 2  # one refill group
+    for res in got:
+        np.testing.assert_array_equal(res.output_tokens, want[res.id])
+    budgets = [1, 8, 3, 5, 2, 8, 4, 6]
+    engine = ContinuousBatchingServer(model, num_slots=4, refill_group=2, chunk_steps=3,
+                                      prompt_len=bucket)
+    eos = model.tokenizer.eos_id
+    for res in engine.run(reqs, budgets=budgets):
+        toks = np.asarray(res.output_tokens)
+        assert (toks[budgets[res.id]:] == eos).all()
+        assert ((toks >= 0) & (toks < 263)).all()
+    assert engine.steps_run > 0
+
+
 def test_default_device_is_cuda_and_raises_without_gpu():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -681,6 +739,8 @@ def test_port_imports_no_jax():
     assert len(files) > 10 and REPO / "scripts" / "fps_variants.py" in files
     assert REPO / "scripts" / "w8_variants.py" in files
     assert REPO / "scripts" / "w4_variants.py" in files
+    for name in ("serving.py", "serving_http.py", "serve.py"):
+        assert REPO / "msr3d_tpu_torch" / name in files
     bad = []
     for path in files:
         for mod in _imports(path):

@@ -511,9 +511,12 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     model = _port_model(_jax_model(flash=False, window=False))
     loaders = {"msr3d_train": {"train": _Loader(1)}}
     cfg = _trainer_cfg(tmp_path)
-    for engine in ("continuous", "grouped"):
+    # eval_engine: continuous is ported (tests/test_torch_eval.py); the
+    # scene-grouped and prefix-pool engines are not
+    for extra in (dict(eval_engine="grouped"),
+                  dict(eval_engine="continuous", eval_engine_opts={"prefix_pool": True})):
         with pytest.raises(NotImplementedError, match="serving engines"):
-            LeoTrainer(dict(cfg, eval_engine=engine), loaders=loaders, model=model)
+            LeoTrainer(dict(cfg, **extra), loaders=loaders, model=model)
     with pytest.raises(NotImplementedError, match="parallel.tp"):
         LeoTrainer(dict(cfg, parallel={"tp": 2}), loaders=loaders, model=model)
     with pytest.raises(NotImplementedError, match="tokenizer"):
