@@ -33,7 +33,14 @@ with ``predict_answers``), and serving (phase 12: the serve entry's
 engines against ``generate`` at matched shapes, tokens equal; (b) 12
 requests with images over HTTP from 4 client threads at budgets of 8-32
 tokens, one over SSE; (c) ``python -m msr3d_tpu_torch.serve`` on the debug
-config as a subprocess, SIGTERM, a drain, exit 0), and checks that each
+config as a subprocess, SIGTERM, a drain, exit 0), and the LEO configs'
+situation mode (phase 13: (a) the prompter in each of its six situation
+modes, four other fusions, ``vertical_bottom``, the plain encoder stack and
+``diff_all`` at the flagship width, on the card against the CPU; (b) the
+entry on ``configs/leo_3_dataset.yaml`` over phase 10's tree: 61 scene
+tokens a request, one step, val and test of a batch of 4, ``anchor_size``
+moved by AdamW's decay alone; (c) the greedy and beam-5 engines against
+``generate``), and checks that each
 path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
@@ -2048,6 +2055,199 @@ def phase_serve(exp_root: Path):
     return out
 
 
+# Phase 13: the LEO configs' situation mode (as_object: the anchor as a
+# scene token) and the other modes. (a) holds every situation mode, fusion
+# and geometry option of the prompter at the flagship width on the card (K1
+# inside) against the same module on the CPU (plain FPS, fp32, TF32 off):
+# equal sampled points, fp32 sums in other orders through 3 layers of width
+# 256, so |card - cpu| <= LEO_ATOL + LEO_RTOL * |cpu|
+LEO_ATOL, LEO_RTOL = 1e-4, 1e-4
+LEO_ROWS = {
+    "as_object": {}, "as_object_add_loc": {}, "as_embedding": {},
+    "as_transform_for_objects": {}, "as_cross_attention": {}, "as_dit_attention": {},
+    **{f"fusion {f}": {"spatial_attn_fusion": f} for f in ("mul", "bias", "add", "ctx")},
+    "vertical_bottom": {"pairwise_rel_type": "vertical_bottom"},
+    "use_spatial_attn off": {"use_spatial_attn": False},
+    "diff_all": {"obj_loc_encoding": "diff_all"},
+}
+
+
+def leo_prompter_cfg(name: str):
+    """The flagship prompter (hidden 256, 3 layers, 8 heads, FFN 2048) with a
+    fp32 point encoder, in the row's mode (the fusions, geometry and the
+    plain stack under the flagship's as_transform_for_objects)."""
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+
+    base = OSE3DConfig(obj_encoder_dtype="float32")
+    kw = dict(LEO_ROWS[name])
+    situation = "as_transform_for_objects" if kw else name
+    se = {k: kw.pop(k) for k in list(kw) if hasattr(base.spatial_encoder, k)}
+    return dataclasses.replace(base, situation_type=situation, **kw,
+                               spatial_encoder=dataclasses.replace(base.spatial_encoder, **se))
+
+
+def leo_modes(dev):
+    """(a): each row's prompter from seed 13, its point encoder one shared
+    weight set; the CPU side runs on the shared encoder's CPU embeddings."""
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DSituation
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    data = make_requests(seed=13, b=2)
+    data["obj_masks"][1, 50:] = False  # ten padded objects in the second scene
+    quat = np.random.default_rng(13).normal(size=(2, 4))
+    data["anchor_orientation"] = (quat / np.linalg.norm(quat, axis=1, keepdims=True)).astype(
+        np.float32)
+    cpu_in = {k: torch.from_numpy(np.asarray(data[k])) for k in _SCENE_KEYS}
+    card_in = {k: v.to(dev) for k, v in cpu_in.items()}
+    encoder = None
+    rows = {}
+    for name in LEO_ROWS:
+        torch.manual_seed(13)
+        cpu = OSE3DSituation(leo_prompter_cfg(name)).eval()
+        with torch.no_grad():
+            for p in cpu.parameters():  # off PyTorch's init: biases and norms not trivial
+                p.add_(torch.randn_like(p) * 0.02)
+        if encoder is None:
+            encoder = cpu.obj_encoder.state_dict()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                embeds = cpu.obj_encoder(cpu_in["obj_fts"])
+            print(f"  the shared point encoder on the CPU (plain FPS): "
+                  f"{time.perf_counter() - t0:.1f} s for {2 * 60} clouds of 1024 points")
+        cpu.obj_encoder.load_state_dict(encoder)
+        card = OSE3DSituation(cpu.cfg, device=dev).eval()
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            want = cpu(**cpu_in, precomputed_obj_embeds=embeds)
+            FPS_KERNEL.launches = 0
+            got = card(**card_in)
+            torch.cuda.synchronize()
+        launches = FPS_KERNEL.launches
+        tokens = got["obj_tokens"].cpu()
+        err = (tokens - want["obj_tokens"]).abs()
+        excess = float((err - LEO_RTOL * want["obj_tokens"].abs()).max())
+        n = 61 if card.prepend_anchor else 60
+        rows[name] = dict(max_abs_err=float(err.max()), launches=launches)
+        print(f"  (a) {name}: obj_tokens {tuple(tokens.shape)}, max |card - cpu| "
+              f"{float(err.max()):.3e}, K1 launches {launches}")
+        check(tuple(tokens.shape) == (2, n, 256) and launches == 2
+              and excess <= LEO_ATOL and bool(torch.isfinite(tokens).all())
+              and torch.equal(got["obj_masks"].cpu(), want["obj_masks"]),
+              f"{name}: {n} tokens of 256, K1 launched twice, |card - cpu| <= {LEO_ATOL} + "
+              f"{LEO_RTOL}|cpu|, masks equal")
+    return rows
+
+
+def phase_leo(exp_root: Path):
+    print("== phase 13: the LEO configs' as_object at the flagship width ((a) every situation "
+          "mode, fusion and geometry option of the prompter on the card against the CPU; (b) "
+          "python -m msr3d_tpu_torch.run on configs/leo_3_dataset.yaml over phase 10's tree "
+          "and cfg_path: one optimizer step, val and test of msqa_scannet at a batch of "
+          f"{N_REQUESTS}; (c) the greedy and beam-{BEAMS} engines against generate), on "
+          f"{card_line()}")
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch.models.llm.llama import LoraDense
+    from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetwork
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    modes = leo_modes(dev)
+
+    # (b) the entry on the LEO YAML
+    root = exp_root / "entry"
+    exp = root / "leo_exp"
+    argv = ["--config", str(_ROOT / "configs" / "leo_3_dataset.yaml"), *eval_argv(
+        exp_root, exp, "task.msqa_3rscan.mode=[]", "task.msqa_arkitscenes.mode=[]")[2:]]
+    print(f"  python -m msr3d_tpu_torch.run {' '.join(argv[:2])} ... (phase 10's data and "
+          f"cfg_path) {' '.join(argv[-9:])}")
+    before, scenes = {}, []
+    init_params, build_embeds = MSR3D.init_params, MSR3DNetwork.build_embeds
+
+    def recording_init(self, seed=None):
+        init_params(self, seed)
+        vp = self.network.visual_prompter
+        before.update(frozen=frozen_checksums(self), anchor_size=vp.anchor_size.detach().clone(),
+                      anchor_feat=vp.anchor_feat.detach().clone())
+
+    def recording_embeds(net, input_ids, *args, **kw):
+        out = build_embeds(net, input_ids, *args, **kw)
+        scenes.append([int(n) for n in (input_ids == net.cfg.scene_token_id).sum(dim=1)])
+        return out
+
+    kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL)
+    rec = EvalRecorder()
+    with mock.patch.object(MSR3D, "init_params", recording_init), \
+            mock.patch.object(MSR3DNetwork, "build_embeds", recording_embeds):
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        trainer = rec.run(argv)
+        main_s = time.perf_counter() - t0
+        launches = {kernel.symbol.replace("_launch", ""): kernel.launches for kernel in kernels}
+    model = trainer.model
+    vp = model.network.visual_prompter
+    print(f"  launches during the run: {launches}; main() {main_s:.1f} s (build, init, one "
+          f"step, {len(rec.calls)} eval batches)")
+    check(model.cfg.prompter == dataclasses.replace(OSE3DConfig(), situation_type="as_object")
+          and vp.prepend_anchor and model.scene_token_len == 61
+          and model.cfg.llm.hidden_size == 4096 and model.cfg.llm.num_hidden_layers == 32
+          and model.cfg.llm.flash_attention,
+          "the YAML built the flagship with the as_object prompter and 61 scene tokens")
+    print(f"  scene placeholders a request: {sorted({n for row in scenes for n in row})}")
+    check(scenes and all(n == 61 for row in scenes for n in row),
+          "61 scene tokens a request (60 objects and the anchor), in training and generation")
+    check(rec.steps == 1 and trainer.step == 1, "one optimizer step trained")
+    order = [c["task"] for c in rec.calls]
+    check(order == [("msqa_scannet", "val"), ("msqa_scannet", "test")]
+          and all(len(c["text"]) == N_REQUESTS and c["fps"] == 2 and c["flash"] == 32
+                  for c in rec.calls),
+          f"val and test of msqa_scannet over one batch of {N_REQUESTS}, K1 2 and K2f 32 "
+          "launches in each generate")
+    n_eval = len(rec.calls)
+    check(launches["fps"] == 2 * (1 + n_eval) and launches["flash_attn_fwd"] == 32 * (1 + n_eval)
+          and launches["flash_attn_bwd_dq"] == launches["flash_attn_bwd_dkv"] == 32,
+          "over the run: K1 2 and K2f 32 a micro-batch and an eval batch, K2dq and K2dkv 32 "
+          "for the one micro-batch")
+    opt = trainer.optimizer
+    lr = opt.schedule(0)
+    size0 = before["anchor_size"]
+    decayed = size0 + (opt.weight_decay * size0) * -lr
+    print(f"  anchor_size {vp.anchor_size.detach().flatten().tolist()} (before "
+          f"{size0.flatten().tolist()}, lr {lr!r}, weight decay {opt.weight_decay})")
+    check(torch.equal(vp.anchor_size.detach(), decayed),
+          "anchor_size equals what AdamW's decay alone makes of it (no gradient reaches it), "
+          "bit for bit in fp32")
+    check(not torch.equal(vp.anchor_feat.detach(), before["anchor_feat"]),
+          "anchor_feat moved")
+    loras = [m for m in model.network.modules() if isinstance(m, LoraDense) and m.scale]
+    check(len(loras) == 7 * 32 and all(bool((m.lora_b != 0).any()) for m in loras),
+          f"every LoRA B tensor ({len(loras)}) moved from 0")
+    check(torch.equal(frozen_checksums(model), before["frozen"]),
+          "checksums of the frozen base weights, norms, embeddings and lm_head unchanged")
+    saved = exp / "eval" / "msqa_scannet" / "results.json"
+    check(saved.exists() and len(json.loads(saved.read_text())) == N_REQUESTS,
+          f"results.json written for msqa_scannet, {N_REQUESTS} records")
+    step_ms = [1e3 * t for t in trainer.timer.history]
+    print(f"  LEO training step {' / '.join(f'{t:.1f}' for t in step_ms)} ms (batch "
+          f"{N_REQUESTS}, accumulation 1); seconds per eval batch: {eval_batch_line(rec.calls)}"
+          f"; on {card_line()}")
+    for c in rec.calls:
+        print(f"  {c['task'][0]} {c['task'][1]} output_text[0]: {c['text'][0]!r}")
+
+    # (c) the engines on the same model, LEO requests (60 objects: 61 tokens)
+    serving = serve_matched(model)
+    del trainer, model, vp
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 13 wall time {wall:.1f} s; LEO greedy generate "
+          f"{serving['greedy']['gen_decode_ms']:.2f} ms a token; on {card_line()}")
+    return dict(modes=modes, launches=launches, eval_batches=n_eval, step_ms=step_ms,
+                serving=serving, wall_s=wall)
+
+
 def dequant_against_plain(x, wq, scale, bits):
     """K3 (bits 8) or K4 (bits 4) and its plain version on the same inputs:
     max |Δ|, max |Δ| over the tolerance, whether the output is finite, and
@@ -2521,6 +2721,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         serving = timed(phase_serve, exp_root)  # on phase 10's cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        leo = timed(phase_leo, exp_root)  # on phase 10's tree and cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2534,13 +2737,18 @@ def main() -> int:
         # training entry's run (phase 10); launches_eval: the entry's run of
         # phase 11 (a), one training step and eval_batches eval batches;
         # launches_retrieval: phase 11 (c)'s retrieval batch; launches_serve:
-        # phase 12 (b)'s HTTP traffic, serve_requests requests
+        # phase 12 (b)'s HTTP traffic, serve_requests requests; launches_leo:
+        # phase 13 (b), the LEO entry's run (one step, eval_batches_leo eval
+        # batches); launches_leo_modes: phase 13 (a), the prompter in each
+        # of its rows
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
              launches_entry=entry_launches["fps"], launches_eval=ev["fps"],
              eval_batches=evaluation["eval_batches"], launches_retrieval=retrieval["fps"],
              launches_serve=serving["b"]["launches"]["fps"], serve_requests=SERVE_REQUESTS,
+             launches_leo=leo["launches"]["fps"], eval_batches_leo=leo["eval_batches"],
+             launches_leo_modes=sum(r["launches"] for r in leo["modes"].values()),
              **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
@@ -2550,17 +2758,20 @@ def main() -> int:
              launches_eval=ev["flash_attn_fwd"], eval_batches=evaluation["eval_batches"],
              launches_retrieval=retrieval["flash_attn_fwd"],
              launches_serve=serving["b"]["launches"]["flash_attn_fwd"],
-             serve_requests=SERVE_REQUESTS, **flash_row),
+             serve_requests=SERVE_REQUESTS, launches_leo=leo["launches"]["flash_attn_fwd"],
+             eval_batches_leo=leo["eval_batches"], **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
              launches_entry=entry_launches["flash_attn_bwd_dq"],
-             launches_eval=ev["flash_attn_bwd_dq"], **dq_row),
+             launches_eval=ev["flash_attn_bwd_dq"],
+             launches_leo=leo["launches"]["flash_attn_bwd_dq"], **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
              launches_entry=entry_launches["flash_attn_bwd_dkv"],
-             launches_eval=ev["flash_attn_bwd_dkv"], **dkv_row),
+             launches_eval=ev["flash_attn_bwd_dkv"],
+             launches_leo=leo["launches"]["flash_attn_bwd_dkv"], **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands

@@ -19,13 +19,14 @@ arrays (``{"params": ..., "batch_stats": ...}``). Rules, per leaf:
     without LoRA (``lora_rank=0``, the merged-LoRA deployment) and with it
     load alike;
   * ``scale`` (LayerNorm, BatchNorm, RMSNorm) → ``weight``; ``embedding``
-    (Embed) → ``weight``; ``bias``, ``object_orientation_feat`` and
-    ConvNeXt's layer scale ``gamma`` keep their names;
+    (Embed) → ``weight``; ``bias``, the prompter's ``object_orientation_feat``,
+    ``anchor_feat`` and ``anchor_size``, and ConvNeXt's layer scale ``gamma``
+    keep their names;
   * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
-Subtrees the port does not run are skipped and listed: the point
-encoder's semantic head (its output is discarded on the generation path).
-Any other key raises.
+Subtrees the port does not run would be skipped and listed
+(``SKIPPED_SUBTREES``); since the point encoder's semantic head is ported
+there are none. Any key the rules do not know raises.
 
 flax creates a submodule's parameters at its first call, so a JAX model
 initialised on a batch without images has no ``image_encoder`` and no
@@ -41,7 +42,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-SKIPPED_SUBTREES = ("params/visual_prompter/obj_encoder/sem_head/",)
+SKIPPED_SUBTREES: Tuple[str, ...] = ()
 # created by flax only when a batch with images reaches the network
 IMAGE_MODULES = ("image_encoder.", "llm_proj_img.")
 
@@ -55,6 +56,8 @@ _PARAM_LEAVES = {
     "embedding": ("weight", False),
     "bias": ("bias", False),
     "object_orientation_feat": ("object_orientation_feat", False),
+    "anchor_feat": ("anchor_feat", False),
+    "anchor_size": ("anchor_size", False),
     "gamma": ("gamma", False),
 }
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}

@@ -135,7 +135,7 @@ def _build_ose3d(cfg, situation_type: Optional[str] = None, device=None) -> OSE3
 MODEL_REGISTRY.register(build_msr3d_from_config, name="MSR3D")
 MODEL_REGISTRY.register(lambda cfg, device=None: _build_ose3d(cfg, device=device),
                         name="OSE3DSituation")
-# the LEO prompters: the anchor as an object (the port raises on that mode)
+# the LEO prompters: the anchor as an object
 MODEL_REGISTRY.register(lambda cfg, device=None: _build_ose3d(cfg, "as_object", device),
                         name="OSE3D")
 MODEL_REGISTRY.register(lambda cfg, device=None: _build_ose3d(cfg, "as_object", device),

@@ -132,6 +132,11 @@ def sequence_ce_loss_windowed(window_logits: torch.Tensor, targets: torch.Tensor
 class MSR3DNetwork(nn.Module):
     def __init__(self, cfg: MSR3DNetworkConfig, device=None):
         super().__init__()
+        if cfg.prompter.use_attn_flat:
+            raise ValueError(
+                "use_attn_flat (AttFlat) pools the scene into one (B, attn_flat_out_size) "
+                "vector, which llm_proj and the scene-placeholder splice cannot place (the "
+                "JAX MSR3DNetwork fails on it too); the prompter alone runs it")
         self.cfg = cfg
         self.visual_prompter = OSE3DSituation(cfg.prompter, device)
         self.llm = LlamaModel(cfg.llm, device)
@@ -241,7 +246,8 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
     ``generator``: Dense and Conv ~ N(0, 1/fan_in) (a conv's fan_in is
     kh·kw·I/groups), Llama projections, embeddings and head ~ N(0, 0.02),
     LoRA A ~ He-uniform, LoRA B = 0, norms 1/0, BatchNorm statistics 0/1,
-    ConvNeXt's layer scale 1e-6, the orientation feature 0.
+    ConvNeXt's layer scale 1e-6, the orientation feature 0, the anchor
+    token ~ N(0, 0.02) and its size 1.
 
     A quantized projection draws the same N(0, 0.02) weight as its bf16
     counterpart and quantizes it (the JAX initialiser's int8 zeros with
@@ -275,6 +281,8 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, (nn.LayerNorm, BatchNormInference)):
+            if mod.weight is None:  # DiTBlock's norms have neither scale nor bias
+                continue
             mod.weight.fill_(1.0)
             mod.bias.zero_()
             if isinstance(mod, BatchNormInference):
@@ -282,7 +290,12 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
                 mod.running_var.fill_(1.0)
         elif isinstance(mod, RMSNorm):
             mod.weight.fill_(1.0)
-    network.visual_prompter.object_orientation_feat.zero_()
+    prompter = network.visual_prompter
+    if prompter.cfg.use_orientation:
+        prompter.object_orientation_feat.zero_()
+    if prompter.prepend_anchor:
+        prompter.anchor_feat.normal_(0.0, 0.02, **g)
+        prompter.anchor_size.fill_(1.0)
 
 
 class MSR3D:

@@ -2,9 +2,10 @@
 
 Counterpart of ``msr3d_tpu/nn/pointnet.py``: FPS (kernel K1) → gather →
 ball query → group → shared MLP (per-point Linear + inference BatchNorm +
-ReLU) → max-pool per group, three stages, then flatten + fc. The MLPs run
-in ``compute_dtype`` (bfloat16 in the flagship config); FPS and ball-query
-geometry stay fp32 so the sampled indices do not depend on it.
+ReLU) → max-pool per group, three stages, then flatten + fc, and the
+semantic head on request. The MLPs run in ``compute_dtype`` (bfloat16 in
+the flagship config); FPS and ball-query geometry stay fp32 so the sampled
+indices do not depend on it.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from msr3d_tpu_torch.nn.layers import MLPHead
 from msr3d_tpu_torch.ops.pointnet2 import fps, gather_points, group_all, query_and_group
 
 
@@ -110,9 +112,9 @@ class PcdObjEncoder(nn.Module):
     ``freeze`` (the flagship's) runs it without autograd, the counterpart of
     the JAX module's ``stop_gradient``, and BatchNorm always reads its
     running statistics; training it unfrozen (batch statistics) is not
-    ported. The semantic-class head of the JAX module is not ported: its
-    output is discarded on every path this package runs (the converter lists
-    its keys as skipped)."""
+    ported. The semantic-class head ``sem_head`` (607 classes) runs only
+    when asked (``return_sem=True``): every path of the package discards its
+    output."""
 
     def __init__(self, sa_n_points=(32, 16, None), sa_n_samples=(32, 32, None),
                  sa_radii=(0.2, 0.4, None),
@@ -123,8 +125,13 @@ class PcdObjEncoder(nn.Module):
         self.pcd_net = PointNetPP(sa_n_points, sa_n_samples, sa_radii, sa_mlps,
                                   in_features=sa_mlps[0][0], dtype=compute_dtype,
                                   device=device)
+        self.sem_head = MLPHead(sa_mlps[-1][-1], 384, 607, dropout=0.3, device=device)
 
-    def forward(self, obj_pcds: torch.Tensor) -> torch.Tensor:
+    def forward(self, obj_pcds: torch.Tensor, return_sem: bool = False,
+                generator: Optional[torch.Generator] = None):
         b, o, p, d = obj_pcds.shape
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze):
-            return self.pcd_net(obj_pcds.reshape(b * o, p, d)).reshape(b, o, -1)
+            embeds = self.pcd_net(obj_pcds.reshape(b * o, p, d)).reshape(b, o, -1)
+        if not return_sem:
+            return embeds
+        return embeds, self.sem_head(embeds, generator)

@@ -1,13 +1,14 @@
 """PointNet++ point-cloud ops, channels-last.
 
 Counterparts of ``msr3d_tpu/ops/pointnet2.py``: ``fps`` goes to kernel
-K1 (``ops/fps.py``); ball query and the gathers are plain PyTorch, as
-they are plain XLA in the JAX package.
+K1 (``ops/fps.py``); ball query, the gathers and the feature-propagation
+ops ``three_nn``/``three_interpolate`` are plain PyTorch, as they are plain
+XLA in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -77,3 +78,21 @@ def group_all(xyz: torch.Tensor, features: Optional[torch.Tensor]) -> torch.Tens
     if features is None:
         return grouped
     return torch.cat([grouped, features[:, None].to(grouped.dtype)], dim=-1)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact 3-NN: unknown (B, n, 3), known (B, m, 3) → (euclidean distance
+    (B, n, 3), idx (B, n, 3) int32), nearest first. A stable sort of d²
+    puts the lowest index first among equal distances, as ``lax.top_k``
+    of -d² does."""
+    diff = unknown[:, :, None, :] - known[:, None, :, :]
+    d2 = (diff * diff).sum(dim=-1)
+    d2_sorted, idx = torch.sort(d2, dim=-1, stable=True)
+    return torch.sqrt(d2_sorted[..., :3].clamp(min=0.0)), idx[..., :3].to(torch.int32)
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """Weighted 3-point interpolation, channels-last: features (B, m, C),
+    idx (B, n, 3), weight (B, n, 3) → (B, n, C)."""
+    return (group_points(features, idx) * weight[..., None]).sum(dim=2)

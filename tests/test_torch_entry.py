@@ -47,7 +47,7 @@ from msr3d_tpu.trainer.leo_trainer import LeoTrainer as JaxLeoTrainer
 from msr3d_tpu_torch import run as port_run
 import msr3d_tpu_torch.models.build as port_build
 from msr3d_tpu_torch.config import config_from_dict, load_config
-from msr3d_tpu_torch.convert import jax_to_torch_state_dict
+from msr3d_tpu_torch.convert import _flatten, jax_to_torch_state_dict, load_jax_params, torch_name
 from msr3d_tpu_torch.data import synthetic
 from msr3d_tpu_torch.data.scan_loader import ScanCache
 from msr3d_tpu_torch.models import load_weights
@@ -62,6 +62,7 @@ from torch_parity_utils import to_numpy_tree
 
 REPO = Path(__file__).resolve().parent.parent
 DEBUG = REPO / "configs" / "debug_synthetic.yaml"
+LEO = REPO / "configs" / "debug_synthetic_leo.yaml"
 FLAGSHIP = REPO / "configs" / "msr3d.yaml"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the public Vicuna-7B geometry (its HF config.json)
@@ -150,6 +151,23 @@ def test_build_config_matches_jax_at_the_flagship_geometry(tmp_path, monkeypatch
     assert port_seen["kw"]["max_context_len"] == 256 and port_seen["kw"]["num_beams"] == 5
 
 
+@pytest.mark.parametrize("config", ["leo_3_dataset.yaml", "leo_3_dataset_pure_txt.yaml"])
+def test_leo_configs_build_like_jax_at_the_flagship_geometry(config, tmp_path, monkeypatch):
+    """The LEO configs: the flagship's geometry with the as_object prompter
+    and 61 scene tokens (configs compared, no 7B model built)."""
+    ckpt = _sp_checkpoint(tmp_path / "vicuna")
+    overrides = [f"model.llm.cfg_path={ckpt}", "model.llm.flash_attention=true"]
+    jax_seen = _capture_msr3d(monkeypatch, jax_build)
+    jax_build.build_model(jax_load_config(REPO / "configs" / config, overrides))
+    port_seen = _capture_msr3d(monkeypatch, port_build)
+    port_build.build_model(load_config(REPO / "configs" / config, overrides))
+    _assert_models_match(port_seen, jax_seen)
+    prompter = port_seen["net_cfg"].prompter
+    assert prompter.situation_type == "as_object" and prompter.hidden_size == 256
+    assert port_seen["kw"]["scene_token_len"] == 61
+    assert port_seen["net_cfg"].llm.hidden_size == 4096
+
+
 @pytest.mark.parametrize("override, match", [
     ("model.llm.remat=true", "remat"),
     ("parallel.sp=2", "parallel.sp"),
@@ -158,28 +176,64 @@ def test_build_config_matches_jax_at_the_flagship_geometry(tmp_path, monkeypatch
     ("eval_top_k=5", "eval_top_k"),
     ("eval_top_p=0.9", "eval_top_p"),
     ("compact_transfer=true", "compact_transfer"),
-    ("model.prompter.model.situation_type=as_object", "as_object"),
+    # the network cannot splice AttFlat's pooled vector, in either package
+    # (tests/test_torch_situation.py), so build_model raises a ValueError
     ("model.prompter.model.attn_flat.use_attn_flat=true", "AttFlat"),
 ])
 def test_unported_knobs_raise(override, match):
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if match == "AttFlat" else NotImplementedError
+    with pytest.raises(error, match=match):
         port_build.build_model(load_config(DEBUG, ["device=cpu", override]))
 
 
+def test_as_object_builds_from_the_yaml(monkeypatch):
+    """``situation_type: as_object`` (the LEO configs') builds what JAX's
+    ``build_model`` builds, and its prompter prepends the anchor."""
+    overrides = ["device=cpu", "model.prompter.model.situation_type=as_object"]
+    jax_seen = _capture_msr3d(monkeypatch, jax_build)
+    jax_build.build_model(jax_load_config(DEBUG, overrides))
+    port_seen = _capture_msr3d(monkeypatch, port_build)
+    port_build.build_model(load_config(DEBUG, overrides))
+    _assert_models_match(port_seen, jax_seen)
+    monkeypatch.undo()
+    model = port_build.build_model(load_config(LEO, ["device=cpu"]))
+    prompter = model.network.visual_prompter
+    assert prompter.cfg.situation_type == "as_object" and prompter.prepend_anchor
+    assert model.scene_token_len == 6  # the debug config's; the flagship LEO's is 61
+
+
 @pytest.mark.parametrize("name", ["OSE3D", "OSE3DORIG"])
-def test_leo_prompter_nodes_build_as_object_which_raises(name):
+def test_leo_prompter_nodes_build_as_object(name):
     """The LEO prompter names build the ``as_object`` situation mode, as in
-    JAX; the port raises on that mode (ROADMAP.md, the other modes)."""
+    JAX, and the port's prompter gives JAX's tokens on the same node (fp32
+    point encoder on both sides, JAX's weights)."""
     from msr3d_tpu.registry import MODEL_REGISTRY as JAX_REGISTRY
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DSituation
     from msr3d_tpu_torch.registry import MODEL_REGISTRY
 
+    from torch_parity_utils import perturbed, scene_inputs
+
     node = load_config(DEBUG).model.prompter
-    assert JAX_REGISTRY.get(name)(
-        jax_config_from_dict(node.to_dict())).cfg.situation_type == "as_object"
+    jmod = JAX_REGISTRY.get(name)(jax_config_from_dict(node.to_dict()))
+    module = MODEL_REGISTRY.get(name)(node, device="cpu")
+    assert jmod.cfg.situation_type == module.cfg.situation_type == "as_object"
+    _assert_fields_equal(module.cfg, jmod.cfg)
     assert MODEL_REGISTRY.get("OSE3DSituation")(node, device="cpu").cfg.situation_type == \
         "as_transform_for_objects"
-    with pytest.raises(NotImplementedError, match="as_object"):
-        MODEL_REGISTRY.get(name)(node, device="cpu")
+
+    jmod = jmod.clone(cfg=dataclasses.replace(jmod.cfg, obj_encoder_dtype="float32"))
+    module = OSE3DSituation(dataclasses.replace(module.cfg, obj_encoder_dtype="float32"))
+    inputs = scene_inputs(4, b=2, n_obj=6, n_pts=64)
+    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
+    variables = perturbed(jax.jit(jmod.init)(jax.random.key(0), **jin), seed=3)
+    want = jax.jit(jmod.apply)(variables, **jin)
+    assert load_jax_params(module, variables) == []
+    with torch.no_grad():
+        got = module.eval()(**{k: torch.from_numpy(v) for k, v in inputs.items()})
+    assert got["obj_tokens"].shape == (2, 7, 32)  # the anchor and six objects
+    np.testing.assert_allclose(got["obj_tokens"].numpy(), np.asarray(want["obj_tokens"]),
+                               atol=FP32_TOL)
+    np.testing.assert_array_equal(got["obj_masks"].numpy(), np.asarray(want["obj_masks"]))
 
 
 # ---------------------------------------------------------------------------
@@ -231,16 +285,22 @@ BF16_LOSS_RTOL = 2e-2
 BF16_PARAM_ATOL = 2e-3
 
 
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_entry_trains_like_jax(precision, tmp_path, monkeypatch):
+@pytest.mark.parametrize("precision, config", [
+    pytest.param("fp32", DEBUG, id="fp32"), pytest.param("bf16", DEBUG, id="bf16"),
+    # the LEO prompter (as_object) with AdamW's decay on: no gradient reaches
+    # anchor_size, so the decay alone moves it, as in JAX
+    pytest.param("fp32", LEO, id="leo-fp32"),
+])
+def test_entry_trains_like_jax(precision, config, tmp_path, monkeypatch):
     fp32 = precision == "fp32"
+    extra = ["solver.optim.args.weight_decay=0.05"] if config == LEO else []
     root = tmp_path / "data"
     synthetic.build_full_tree(root, np.random.default_rng(7))
     if fp32:
         _switch_to_fp32(monkeypatch)
     ScanCache.clear()
 
-    jcfg = jax_load_config(DEBUG, _entry_overrides(root, tmp_path / "jax", fp32))
+    jcfg = jax_load_config(config, _entry_overrides(root, tmp_path / "jax", fp32) + extra)
     jloaders = jax_build_task_loaders(jcfg)  # what the JAX trainer builds itself
     jtrain = jloaders["msr3d_train"]["train"]
     # the JAX trainer initialises its params from a batch it peeks; without
@@ -256,12 +316,15 @@ def test_entry_trains_like_jax(precision, tmp_path, monkeypatch):
     _seed_globals()
     jtrainer.train_one_epoch(0)  # the epoch of run(), without its orbax saves
     _seed_globals()
-    trainer = port_run.main(["--config", str(DEBUG), "device=cpu",
-                             *_entry_overrides(root, tmp_path / "port", fp32)])
+    trainer = port_run.main(["--config", str(config), "device=cpu",
+                             *_entry_overrides(root, tmp_path / "port", fp32), *extra])
 
     assert trainer.model.cfg.llm.dtype == (torch.float32 if fp32 else torch.bfloat16)
     assert (tmp_path / "port" / "config.yaml").exists()
-    assert trainer._train_step.step_count == int(jtrainer.state.step) == 2
+    # one epoch: 8 samples make 2 steps; the LEO config's mix of three
+    # datasets makes 5 (the first 2 logged)
+    steps = 5 if config == LEO else 2
+    assert trainer._train_step.step_count == int(jtrainer.state.step) == steps
     got, want = _metrics(tmp_path / "port"), _metrics(tmp_path / "jax")
     assert [m["step"] for m in got] == [m["step"] for m in want] == [1, 2]
     rtol = FP32_TOL if fp32 else BF16_LOSS_RTOL
@@ -277,7 +340,24 @@ def test_entry_trains_like_jax(precision, tmp_path, monkeypatch):
         np.testing.assert_allclose(params[name].detach().float().numpy(),
                                    trained[name].float().numpy(), atol=atol, err_msg=name)
         assert not torch.equal(params[name].detach().float(), initial[name].float()), name
-    assert trainer.ckpt.has_weights("latest") and trainer.ckpt.latest_step() == 2
+    # the trainable set is JAX's mask, name for name
+    mask = _flatten(jax.tree_util.tree_map(bool, jtrainer.model.get_opt_params_mask()))
+    assert sorted(trainer.trainable_names) == sorted(
+        torch_name(path)[0] for path, trains in mask.items() if trains)
+    if config == LEO:
+        anchor = ["visual_prompter.anchor_feat", "visual_prompter.anchor_size"]
+        assert set(anchor) <= set(trainer.trainable_names)
+        for name in anchor:
+            np.testing.assert_allclose(params[name].detach().numpy(), trained[name].numpy(),
+                                       atol=FP32_TOL, err_msg=name)
+            assert not torch.equal(params[name].detach(), initial[name]), name
+        # anchor_size: (1 - lr·wd) a step, at the lr of each step
+        size = initial["visual_prompter.anchor_size"].double()
+        for step in range(steps):
+            size = size * (1 - trainer.optimizer.schedule(step) * 0.05)
+        np.testing.assert_allclose(params[anchor[1]].detach().double().numpy(), size.numpy(),
+                                   rtol=1e-6)
+    assert trainer.ckpt.has_weights("latest") and trainer.ckpt.latest_step() == steps
     ScanCache.clear()
 
 
@@ -383,12 +463,11 @@ def _reference_name(name: str) -> str:
 def _pointnet_state(net, rng, prefix: str, jmodel=None):
     """The point encoder's parameters and statistics as the reference's
     PointNetPP names them (1×1 convs, BatchNorm2d inside ``bn.bn``); with
-    ``prefix`` ``pcd_net.`` a PcdObjEncoder's, whose semantic head (shapes
-    from ``jmodel``) the JAX loader reads and the port skips."""
+    ``prefix`` ``pcd_net.`` a PcdObjEncoder's, with its semantic head
+    (shapes from ``jmodel``), which both loaders read."""
     sd = {}
-    for name, t in net.visual_prompter.obj_encoder.state_dict().items():
+    for name, t in net.visual_prompter.obj_encoder.pcd_net.state_dict().items():
         value = torch.from_numpy(rng.normal(size=t.shape).astype(np.float32))
-        name = name.replace("pcd_net.", "")
         if ".dense." in name:
             i, j = name.split(".")[1], name.split(".")[4]
             sd[f"{prefix}encoder.{i}.mlps.0.layer{j}.conv.weight"] = value[:, :, None, None]
@@ -459,6 +538,9 @@ def test_pointnet_and_scene_encoder_loaders_match_jax(layout, tmp_path):
     assert any("spatial_layer.0.self_attn.lang_cond_fc" in n for n in changed)
     assert {"llm_proj.weight", "llm_proj_img.weight"} <= changed
     assert not any(n.startswith(("llm.", "image_encoder.")) for n in changed)
+    # a PcdObjEncoder save's semantic head (obj3d_clf_pre_head) loads too
+    head = {n for n in changed if ".obj_encoder.sem_head." in n}
+    assert len(head) == (6 if layout == "pcd_obj_encoder" else 0), head
 
 
 def test_load_pretrained_from_config_matches_jax(tmp_path):

@@ -10,7 +10,8 @@
   give batches bit-equal to JAX's on the synthetic tree, train split
   (rotation on) and val split, with the global generators seeded alike.
 * ``LeoTrainer.eval_task`` on ``configs/debug_synthetic.yaml``,
-  ``debug_synthetic_sqa3d.yaml`` and ``debug_synthetic_msnn.yaml``, each
+  ``debug_synthetic_sqa3d.yaml``, ``debug_synthetic_msnn.yaml`` and
+  ``debug_synthetic_leo.yaml`` (the ``as_object`` prompter), each
   trainer built from the YAML by both packages and the port's model holding
   the JAX params: the beam-5 ``output_text`` equal string for string, the
   metrics equal. In fp32: in bf16 XLA's and PyTorch's CPU kernels round in
@@ -378,6 +379,12 @@ def msqa(tree, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def leo(tree, tmp_path_factory):
+    return _trainers("debug_synthetic_leo.yaml", tree, tmp_path_factory.mktemp("leo"),
+                     fp32=True)
+
+
+@pytest.fixture(scope="module")
 def sqa3d(tree, tmp_path_factory):
     return _trainers("debug_synthetic_sqa3d.yaml", tree, tmp_path_factory.mktemp("sqa3d"),
                      fp32=True)
@@ -387,6 +394,12 @@ def sqa3d(tree, tmp_path_factory):
 def msnn(tree, tmp_path_factory):
     return _trainers("debug_synthetic_msnn.yaml", tree, tmp_path_factory.mktemp("msnn"),
                      fp32=True)
+
+
+def _port_prompter_cfg(jtrainer):
+    from torch_parity_utils import torch_prompter_config
+
+    return torch_prompter_config(jtrainer.model.cfg.prompter)
 
 
 def _eval(trainer, task: str, split: str):
@@ -410,9 +423,13 @@ def _eval(trainer, task: str, split: str):
 @pytest.mark.parametrize("setup, task, split", [
     ("msqa", "msqa_scannet", "val"), ("msqa", "msqa_scannet", "test"),
     ("sqa3d", "sqa3d", "val"), ("msnn", "one_step_navi", "val"),
+    ("leo", "msqa_scannet", "val"), ("leo", "msqa_scannet", "test"),
 ])
 def test_eval_task_equals_jax(setup, task, split, request):
     jtrainer, trainer, _ = request.getfixturevalue(setup)
+    if setup == "leo":  # the anchor is a scene token: N objects give N + 1
+        assert trainer.model.network.visual_prompter.prepend_anchor
+        assert trainer.model.cfg.prompter == _port_prompter_cfg(jtrainer)
     assert type(trainer.evaluators[task]).__name__ == type(jtrainer.evaluators[task]).__name__
     assert trainer.model.num_beams == jtrainer.model.num_beams == 5
     want, want_records = _eval(jtrainer, task, split)

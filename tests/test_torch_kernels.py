@@ -716,6 +716,61 @@ def test_continuous_engine_on_card_equals_generate(cuda_device):
     assert engine.steps_run > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("situation_type", ["as_object", "as_cross_attention"])
+def test_situation_modes_on_card_match_cpu(cuda_device, situation_type):
+    """The LEO prompter (``as_object``: the anchor as a token) at a small
+    width on the card, K1 inside, against the same module on the CPU (plain
+    FPS): equal sampled points, so the fp32 tokens agree within 1e-4 (cuBLAS
+    and the CPU sum in other orders; TF32 off)."""
+    from msr3d_tpu_torch.models.ose3d_situation import (
+        OSE3DConfig,
+        OSE3DSituation,
+        SpatialEncoderConfig,
+    )
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    cfg = OSE3DConfig(
+        hidden_size=64, situation_type=situation_type,
+        spatial_encoder=SpatialEncoderConfig(num_attention_heads=4, dim_feedforward=128,
+                                             num_layers=2),
+        sa_n_points=(16, 8, None), sa_n_samples=(16, 16, None), sa_radii=(0.4, 0.8, None),
+        sa_mlps=((3, 16, 16, 32), (32, 32, 32, 64), (64, 64, 64, 128)),
+        obj_encoder_dtype="float32")
+    torch.manual_seed(0)
+    cpu = OSE3DSituation(cfg).eval()
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.randn_like(p) * 0.05)
+    card = OSE3DSituation(cfg, device=cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(1)
+    masks = np.ones((2, 7), bool)
+    masks[1, -3:] = False
+    quat = r.normal(size=(2, 4))
+    inputs = {"obj_fts": (r.normal(size=(2, 7, 128, 6)) * 0.3).astype(np.float32),
+              "obj_masks": masks, "obj_locs": r.normal(size=(2, 7, 6)).astype(np.float32),
+              "anchor_locs": r.normal(size=(2, 3)).astype(np.float32),
+              "anchor_orientation": (quat / np.linalg.norm(quat, axis=1, keepdims=True))
+              .astype(np.float32)}
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = cpu(**{k: torch.from_numpy(v) for k, v in inputs.items()})
+            FPS_KERNEL.launches = 0
+            got = card(**{k: torch.from_numpy(v).to(cuda_device) for k, v in inputs.items()})
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    assert FPS_KERNEL.launches == 2
+    n = 8 if situation_type == "as_object" else 7
+    assert got["obj_tokens"].shape == (2, n, 64)
+    torch.testing.assert_close(got["obj_tokens"].cpu(), want["obj_tokens"], atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(got["obj_masks"].cpu(), want["obj_masks"])
+
+
 def test_default_device_is_cuda_and_raises_without_gpu():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"

@@ -35,12 +35,10 @@ from torch_parity_utils import (
 ATOL = 1e-5
 
 
-def load(module, variables, drop=None):
-    """Convert and load strictly, leaving out keys under ``drop`` (the
-    semantic head, which the port does not have)."""
-    state, _ = jax_to_torch_state_dict(variables)
-    if drop:
-        state = {k: v for k, v in state.items() if not k.startswith(drop)}
+def load(module, variables):
+    """Convert and load strictly: no JAX key is skipped."""
+    state, skipped = jax_to_torch_state_dict(variables)
+    assert skipped == []
     module.load_state_dict(state, strict=True)
     return module.eval()
 
@@ -58,16 +56,22 @@ def test_pcd_obj_encoder_matches_jax(dtype, atol):
         sa_mlps=cfg.sa_mlps, compute_dtype=jnp.dtype(dtype),
     )
     variables = perturbed(jmod.init(jax.random.key(0), jnp.asarray(pcds)))
-    want = np.asarray(jmod.apply(variables, jnp.asarray(pcds))[0])
+    want, want_sem = map(np.asarray, jmod.apply(variables, jnp.asarray(pcds)))
     tmod = load(
         PcdObjEncoder(cfg.sa_n_points, cfg.sa_n_samples, cfg.sa_radii, cfg.sa_mlps,
                       compute_dtype=getattr(torch, dtype)),
-        variables, drop="sem_head.",
+        variables,
     )
     with torch.no_grad():
         got = tmod(torch.from_numpy(pcds)).numpy()
+        got_embeds, got_sem = tmod(torch.from_numpy(pcds), return_sem=True)
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=atol)
+    np.testing.assert_array_equal(got_embeds.numpy(), got)
+    # the semantic head (607 classes) on the embeddings: the fp32 head adds
+    # a few ulps of its own to what the embeddings carry
+    assert got_sem.shape == want_sem.shape == want.shape[:2] + (607,)
+    np.testing.assert_allclose(got_sem.numpy(), want_sem, atol=atol, rtol=atol)
 
 
 def test_ose3d_situation_matches_jax():
@@ -77,8 +81,7 @@ def test_ose3d_situation_matches_jax():
     jmod = JaxOSE3DSituation(cfg)
     variables = perturbed(jmod.init(jax.random.key(1), **jin), seed=1)
     want = jmod.apply(variables, **jin)
-    tmod = load(OSE3DSituation(torch_prompter_config(cfg)), variables,
-                drop="obj_encoder.sem_head.")
+    tmod = load(OSE3DSituation(torch_prompter_config(cfg)), variables)
     with torch.no_grad():
         got = tmod(**{k: torch.from_numpy(v) for k, v in inputs.items()})
     np.testing.assert_allclose(got["obj_tokens"].numpy(), np.asarray(want["obj_tokens"]),
@@ -139,17 +142,25 @@ def test_llama_prefill_and_decode_step_match_jax(flash):
 
 
 def test_converter_lists_skipped_keys_and_rejects_unknown():
+    """Nothing is skipped: the semantic head and the anchor parameters
+    convert like every other key."""
     variables = {
         "params": {
-            "visual_prompter": {"obj_encoder": {"sem_head": {"fc1": {"kernel": np.ones((2, 3))}}}},
+            "visual_prompter": {"obj_encoder": {"sem_head": {"fc1": {"kernel": np.ones((2, 3))}}},
+                                "anchor_feat": np.ones((1, 1, 3), np.float32),
+                                "anchor_size": np.ones((1, 1, 3), np.float32)},
             "llm_proj": {"kernel": np.arange(6, dtype=np.float32).reshape(2, 3),
                          "bias": np.zeros(3, np.float32)},
         },
         "batch_stats": {"sa_0": {"mlp": {"bn_1": {"mean": np.zeros(4, np.float32)}}}},
     }
     state, skipped = jax_to_torch_state_dict(variables)
-    assert skipped == ["params/visual_prompter/obj_encoder/sem_head/fc1/kernel"]
-    assert sorted(state) == ["llm_proj.bias", "llm_proj.weight", "sa.0.mlp.bn.1.running_mean"]
+    assert skipped == []
+    assert sorted(state) == ["llm_proj.bias", "llm_proj.weight", "sa.0.mlp.bn.1.running_mean",
+                             "visual_prompter.anchor_feat", "visual_prompter.anchor_size",
+                             "visual_prompter.obj_encoder.sem_head.fc1.weight"]
+    assert state["visual_prompter.obj_encoder.sem_head.fc1.weight"].shape == (3, 2)
+    assert state["visual_prompter.anchor_size"].shape == (1, 1, 3)
     assert state["llm_proj.weight"].shape == (3, 2)  # (in, out) → (out, in)
     assert torch.equal(state["llm_proj.weight"], torch.arange(6.0).reshape(2, 3).T)
     with pytest.raises(KeyError):
@@ -168,6 +179,11 @@ def test_unported_llama_options_raise():
                                                  kv_quantize=True))
     assert (cfg.quantize, cfg.quantize_bits, cfg.quantize_group, cfg.kv_quantize) == (
         True, 4, None, True)
-    with pytest.raises(NotImplementedError):
-        OSE3DSituation(dataclasses.replace(torch_prompter_config(TINY_PROMPTER),
-                                           situation_type="as_object"))
+    # every situation mode is ported: as_object builds (its parity with JAX:
+    # tests/test_torch_situation.py); what JAX cannot run raises
+    prompter = torch_prompter_config(TINY_PROMPTER)
+    leo = OSE3DSituation(dataclasses.replace(prompter, situation_type="as_object"))
+    assert leo.prepend_anchor and leo.anchor_size.shape == (1, 1, 3)
+    with pytest.raises(ValueError, match="use_orientation"):
+        OSE3DSituation(dataclasses.replace(prompter, situation_type="as_cross_attention",
+                                           use_orientation=False))

@@ -8,7 +8,8 @@ tiny fp32 model, the port holding the JAX weights). Every answer's tokens
 must equal the JAX engine's for the same request, run once per module
 (``jax_tokens``). The serve entry runs on ``configs/debug_synthetic.yaml``
 with random weights, in this process and as a subprocess stopped by
-SIGTERM."""
+SIGTERM, and on ``configs/debug_synthetic_leo.yaml`` against JAX's serve
+entry."""
 
 import http.client
 import json
@@ -354,6 +355,42 @@ def test_serve_cli_end_to_end():
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             create_frontend(parse_args(["--config", "configs/debug_synthetic.yaml",
                                         "--device", "cpu", "--random-init", *extra]))
+
+
+def test_serve_cli_on_the_leo_config_equals_jax(monkeypatch):
+    """The serve entry on ``configs/debug_synthetic_leo.yaml`` (the
+    ``as_object`` prompter: six objects give seven scene tokens, of which the
+    config's six placeholders take the first six): one request gives the
+    tokens the JAX serve entry gives on the same config, with the port's
+    random init replaced by JAX's weights (fp32 in both)."""
+    sys.path.insert(0, str(REPO))
+    import serve as jax_serve
+    from msr3d_tpu_torch.models.msr3d import MSR3D
+
+    from test_torch_entry import _switch_to_fp32
+    from torch_parity_utils import to_numpy_tree
+
+    argv = ["--config", "configs/debug_synthetic_leo.yaml", "--random-init", "--port", "0",
+            "--slots", "2", "--refill-group", "1", "--chunk-steps", "2",
+            "--max-new-tokens", "6", "model.llm.param_dtype=fp32"]
+    body = {"prompt": "scene: 景 USER: what is on my left? ASSISTANT:",
+            "scene_b64": encode_scene_b64(_scene(n_obj=6, n_pts=64, seed=5))}
+    _switch_to_fp32(monkeypatch)
+    jfe = jax_serve.create_frontend(jax_serve.parse_args(argv))
+    with jfe:
+        status, want = _post(jfe.port, body, timeout=300)
+    assert status == 200
+    jparams = to_numpy_tree(jfe.engine.model.params)
+    monkeypatch.setattr(MSR3D, "init_params",
+                        lambda self, seed=None: self.load_jax_params(jparams))
+    fe = create_frontend(parse_args(argv + ["--device", "cpu"]))
+    model = fe.engine.model
+    assert model.network.visual_prompter.cfg.situation_type == "as_object"
+    assert model.cfg.llm.dtype == torch.float32 and model.scene_token_len == 6
+    with fe:
+        status, got = _post(fe.port, body, timeout=300)
+    assert status == 200 and len(got["tokens"]) == 6
+    assert got["tokens"] == want["tokens"] and got["text"] == want["text"]
 
 
 def test_serve_module_drains_on_sigterm():
