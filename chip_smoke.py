@@ -40,7 +40,13 @@ modes, four other fusions, ``vertical_bottom``, the plain encoder stack and
 entry on ``configs/leo_3_dataset.yaml`` over phase 10's tree: 61 scene
 tokens a request, one step, val and test of a batch of 4, ``anchor_size``
 moved by AdamW's decay alone; (c) the greedy and beam-5 engines against
-``generate``), and checks that each
+``generate``), and object crops (phase 14: (a) the committed fixture crops
+through the port's JPEG decoder and resample on the host's CPU against
+their manifest of Pillow's and JAX's digests, with the ms a crop; (b) the
+entry on ``configs/msr3d.yaml`` with ``data.obj_img_base`` set, two or
+three crops a situation, one missing: one optimizer step of 4 x 5 and a
+val batch, every shown image bit-equal to its CPU preprocessing), and
+checks that each
 path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
@@ -55,6 +61,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -1449,7 +1456,8 @@ def phase_entry(exp_root: Path):
     print(f"  one micro-batch from the loader alone: {' / '.join(f'{t:.1f}' for t in load_ms)} "
           f"ms ({len(chunks[0])} samples, preprocessing and collate)")
     ScanCache.clear()
-    return launches
+    return dict(launches=launches, step_ms=[1e3 * t for t in step_s],
+                wait_ms=[1e3 * t for t in wait_s], load_ms=load_ms)
 
 
 # Phase 11: evaluation from the YAML, on phase 10's tree and checkpoint
@@ -2070,6 +2078,245 @@ LEO_ROWS = {
     "use_spatial_attn off": {"use_spatial_attn": False},
     "diff_all": {"obj_loc_encoding": "diff_all"},
 }
+
+
+# Phase 14: the entry with object crops. Phase 10's scans and cfg_path; new
+# MSQA ScanNet annotations whose situations hold two or three object-image
+# placeholders (synthetic.IMAGE_SITUATIONS), and the committed fixture crops
+# copied to the names they ask for, one left out. 20 train samples: one
+# optimizer step of 4 x 5, then one val batch of msqa_scannet
+CROP_SCANS = ("scene0000_00", "scene0001_00")
+CROP_SAMPLES = N_REQUESTS * TRAIN_ACCUM
+
+
+def sha256(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Median wall ms of ``fn`` on the host's CPU (no device work)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def crops_on_host():
+    """(a) Each fixture crop through ``decode_jpeg`` and ``preprocess_2d`` on
+    this host's CPU against the manifest's digests (Pillow's decode and the
+    JAX package's ``preprocess_2d``, written where Pillow runs), and the
+    decode, resize and ``preprocess_2d`` ms a crop."""
+    from msr3d_tpu_torch.data.data_utils import preprocess_2d, resize_bilinear
+    from msr3d_tpu_torch.data.jpeg import decode_jpeg
+    from msr3d_tpu_torch.data.synthetic import CROP_FIXTURES
+
+    manifest = json.loads((CROP_FIXTURES / "manifest.json").read_text())
+    rows = []
+    for entry in manifest["crops"]:
+        path = CROP_FIXTURES / entry["file"]
+        img = decode_jpeg(path)
+        digests = {f"preprocess_{w}x{h}_sha256": sha256(preprocess_2d(img, size=(w, h)))
+                   for w, h in ((224, 224), (32, 32))}
+        check(list(img.shape) == entry["shape"] and sha256(img) == entry["decoded_sha256"]
+              and all(entry[k] == v for k, v in digests.items()),
+              f"{entry['file']}: the decode and preprocess_2d at 224² and 32² equal the "
+              "manifest's digests")
+        data = path.read_bytes()
+        row = dict(file=entry["file"], height=img.shape[0], width=img.shape[1],
+                   bytes=len(data), decode_ms=host_ms(lambda: decode_jpeg(data)),
+                   resize_ms=host_ms(lambda: resize_bilinear(img, (IMAGE_SIZE, IMAGE_SIZE))),
+                   preprocess_ms=host_ms(lambda: preprocess_2d(img)))
+        rows.append(row)
+        print(f"  {row['file']} ({row['width']}x{row['height']}, {row['bytes']} bytes): decode "
+              f"{row['decode_ms']:.4f} ms, resize to {IMAGE_SIZE}² {row['resize_ms']:.4f} ms, "
+              f"preprocess_2d {row['preprocess_ms']:.4f} ms (host CPU)")
+    check(len(rows) == len(manifest["crops"]) >= 8, "every fixture crop held to the manifest")
+    return rows
+
+
+def expected_crops(img_base: Path, scan_id: str, index: int):
+    """The crop files of sample ``index``'s placeholders, in prompt order,
+    that exist (the missing one falls back to text)."""
+    from msr3d_tpu_torch.data.synthetic import IMAGE_SITUATIONS
+
+    situation = IMAGE_SITUATIONS[index % len(IMAGE_SITUATIONS)]
+    paths = [img_base / "ScanNet" / f"{scan_id}_inst{inst}_{label}_0.jpg"
+             for label, inst in re.findall(r"<([^<>-]+)-(\d+)-IMG>", situation)]
+    return [path for path in paths if path.exists()]
+
+
+def phase_crops(exp_root: Path, entry: dict):
+    print("== phase 14: object crops at the flagship width ((a) the fixture crops through the "
+          "port's JPEG decoder and resample on the host's CPU against their manifest; (b) python "
+          "-m msr3d_tpu_torch.run on configs/msr3d.yaml with data.obj_img_base set over phase "
+          f"10's scans and cfg_path: one optimizer step of {N_REQUESTS} x {TRAIN_ACCUM}, then one "
+          f"val batch of msqa_scannet, beam {BEAMS}, {NEW_TOKENS} new tokens), on {card_line()}")
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch.data import synthetic
+    from msr3d_tpu_torch.data.data_utils import pad_tensors, preprocess_2d
+    from msr3d_tpu_torch.data.jpeg import decode_jpeg
+    from msr3d_tpu_torch.data.scan_loader import ScanCache, ScanDataLoader
+    from msr3d_tpu_torch.models.llm.llama import LoraDense
+    from msr3d_tpu_torch.models.msr3d import MSR3D
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    t_phase = time.perf_counter()
+    host = crops_on_host()
+
+    # (b) the entry with crops
+    root = exp_root / "entry"
+    tree = root / "crops_tree"
+    synthetic.build_msqa_annotations(tree, list(CROP_SCANS), n=CROP_SAMPLES, domain="scannet")
+    img_base = synthetic.build_msqa_crops(tree, list(CROP_SCANS))
+    data = root / "data"
+    argv = ["--config", str(_ROOT / "configs" / "msr3d.yaml"),
+            f"data.scan_family_base={data}/scan_family", f"data.rscan_base={data}/rscan",
+            f"data.ARkit_base={data}/arkit", f"data.msr3d_base={tree}/msr3d",
+            f"data.obj_img_base={img_base}", f"model.llm.cfg_path={root / 'vicuna7b'}",
+            "model.llm.flash_attention=true", "debug.flag=true",
+            f"debug.debug_size={CROP_SAMPLES}", "data.msr3dmix.args.mix=[msqa_scannet]",
+            "task.msqa_scannet.mode=[val]", "task.msqa_3rscan.mode=[]",
+            "task.msqa_arkitscenes.mode=[]", "solver.epochs=1", "solver.num_batch_eval=1",
+            f"model.llm.max_out_len={NEW_TOKENS}", f"exp_dir={root / 'crops_exp'}"]
+    print(f"  python -m msr3d_tpu_torch.run {' '.join(argv[:2])} ... {' '.join(argv[6:7])} "
+          f"{' '.join(argv[-9:])}")
+    rec = EvalRecorder()
+    seen, frozen = [], {}
+    scene_batch, init_params = MSR3D._scene_batch, MSR3D.init_params
+
+    def recording_scene_batch(self, data_dict):
+        batch = scene_batch(self, data_dict)
+        masks = batch["image_masks"]
+        seen.append(dict(stage=rec.current, shape=tuple(batch["images"].shape),
+                         device=batch["images"].device.type,
+                         scans=list(data_dict["scan_id"]),
+                         index=[int(i) for i in data_dict["index"]],
+                         prompts=list(data_dict["msr3d_prompt"]), masks=masks.cpu(),
+                         shown=batch["images"][masks].clone()))
+        return batch
+
+    def recording_init(self, seed=None):
+        init_params(self, seed)
+        frozen["before"] = frozen_checksums(self)
+
+    kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL)
+    with mock.patch.object(MSR3D, "_scene_batch", recording_scene_batch), \
+            mock.patch.object(MSR3D, "init_params", recording_init):
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        trainer = rec.run(argv)
+        main_s = time.perf_counter() - t0
+        launches = {kernel.symbol.replace("_launch", ""): kernel.launches for kernel in kernels}
+    model = trainer.model
+    train = [b for b in seen if b["stage"] is None]
+    print(f"  launches during the run: {launches}; main() {main_s:.1f} s (build, init, one step "
+          f"of {len(train)} micro-batches, {len(rec.calls)} eval batch)")
+    check(rec.steps == 1 and trainer.step == 1 and len(train) == TRAIN_ACCUM,
+          f"one optimizer step of {TRAIN_ACCUM} micro-batches trained")
+    check(all(b["shape"] == (N_REQUESTS, MAX_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3)
+              and b["device"] == "cuda" for b in seen),
+          f"each micro-batch and eval batch carries images ({N_REQUESTS}, {MAX_IMAGES}, "
+          f"{IMAGE_SIZE}, {IMAGE_SIZE}, 3) on the card")
+    cpu_images, counts, first = {}, [], None
+    for b in seen:
+        k = 0
+        for j, (scan, index, prompt) in enumerate(zip(b["scans"], b["index"], b["prompts"])):
+            mask = b["masks"][j]
+            n = int(mask.sum())
+            crops = expected_crops(img_base, scan, index)
+            counts.append((n, prompt.count("图"), len(crops)))
+            check(n == prompt.count("图") and bool(mask[:n].all()) and n in (0, len(crops)),
+                  f"sample {index} ({scan}): its {n} shown images come first and equal its 图 "
+                  f"placeholders ({prompt.count('图')}) and its crops ({len(crops)}) or none")
+            for path in crops[:n]:
+                if path not in cpu_images:
+                    size = (b["shape"][3], b["shape"][2])
+                    cpu_images[path] = torch.from_numpy(preprocess_2d(decode_jpeg(path), size))
+                got = b["shown"][k].cpu()
+                first = first or (path.name, b["stage"])
+                check(torch.equal(got, cpu_images[path]),
+                      f"the image of {path.name} on the card is bit-equal to its CPU "
+                      "preprocess_2d")
+                k += 1
+    shown = [n for n, _, _ in counts]
+    check(any(n == 0 < c for n, _, c in counts) and any(n == c == 3 for n, _, c in counts)
+          and any(n == c == 2 for n, _, c in counts) and sum(shown) > 0,
+          "samples with 2 and 3 crops shown, and a count mismatch falling back to text, ran")
+    check(any("A lamp is behind me" in p for b in seen for p in b["prompts"]),
+          "the missing crop fell back to its label in the text")
+    print(f"  shown images a sample (图 placeholders): {sorted(set(shown))}, {sum(shown)} images "
+          f"over {len(counts)} samples, each bit-equal to its CPU preprocess_2d (first: "
+          f"{first[0]})")
+    check(launches["fps"] == 2 * (TRAIN_ACCUM + len(rec.calls))
+          and launches["flash_attn_fwd"] == 32 * (TRAIN_ACCUM + len(rec.calls))
+          and launches["flash_attn_bwd_dq"] == launches["flash_attn_bwd_dkv"] == 32 * TRAIN_ACCUM,
+          "K1 2 and K2f 32 launches a micro-batch and an eval batch, K2dq and K2dkv 32 a "
+          "micro-batch")
+    with open(trainer.exp_dir / "metrics.jsonl") as fh:
+        metrics = [json.loads(line) for line in fh]
+    losses = [m["train/loss"] for m in metrics if "train/loss" in m]
+    logged = {k: v for m in metrics for k, v in m.items() if k.startswith("val/")}
+    check(len(losses) == 1 and all(math.isfinite(v) for v in losses), "the loss is finite")
+    loras = [m for m in model.network.modules() if isinstance(m, LoraDense) and m.scale]
+    check(len(loras) == 7 * 32 and all(bool((m.lora_b != 0).any()) for m in loras),
+          f"every LoRA B tensor ({len(loras)}) moved from 0")
+    check(torch.equal(frozen_checksums(model), frozen["before"]),
+          "checksums of the frozen base weights, norms, embeddings and lm_head unchanged")
+    check([c["task"] for c in rec.calls] == [("msqa_scannet", "val")]
+          and all(len(c["text"]) == N_REQUESTS and c["fps"] == 2 and c["flash"] == 32
+                  for c in rec.calls)
+          and logged and all(isinstance(v, (int, float)) and math.isfinite(v)
+                             for v in logged.values()),
+          f"one val batch of msqa_scannet: {N_REQUESTS} texts, K1 2 and K2f 32 launches, every "
+          f"metric finite ({len(logged)} values)")
+    step_ms = [1e3 * t for t in trainer.timer.history]
+    wait_ms = [1e3 * t for t in trainer.data_wait_history]
+    # the loader alone, and what of it is the crops' reading (decode and
+    # preprocess_2d) and what one sample's image padding costs beside the
+    # zeros of a sample without crops (the dataset wrapper's two branches)
+    loader = trainer.train_loader
+    chunks = list(itertools.islice(loader._batches(), 3))
+    read_ms, read_one = [], ScanDataLoader.get_one_certain_img
+
+    def timed_read(self, *args):
+        t0 = time.perf_counter()
+        out = read_one(self, *args)
+        read_ms[-1] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    load_ms = []
+    with mock.patch.object(ScanDataLoader, "get_one_certain_img", timed_read):
+        for c in chunks:
+            read_ms.append(0.0)
+            load_ms.append(wall_ms(lambda c=c: loader._load(c)))
+    shown_two = np.stack([next(iter(cpu_images.values())).numpy()] * 2)
+    pad_ms = host_ms(lambda: pad_tensors(shown_two, MAX_IMAGES), iters=5)
+    zeros_ms = host_ms(lambda: np.zeros((MAX_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3), np.float32),
+                       iters=5)
+    print(f"  the loader alone with crops: {' / '.join(f'{t:.1f}' for t in load_ms)} ms a "
+          f"micro-batch, of which reading its crops {' / '.join(f'{t:.1f}' for t in read_ms)} "
+          f"ms; one sample's 2 images padded to {MAX_IMAGES} {pad_ms:.2f} ms, the zeros of a "
+          f"sample without crops {zeros_ms:.3f} ms (host CPU)")
+    print(f"  with crops: step {' / '.join(f'{t:.1f}' for t in step_ms)} ms, host data wait "
+          f"{' / '.join(f'{t:.1f}' for t in wait_ms)} ms a step, one micro-batch from the "
+          f"loader alone {' / '.join(f'{t:.1f}' for t in load_ms)} ms; phase 10 (no crops): "
+          f"step {' / '.join(f'{t:.1f}' for t in entry['step_ms'])} ms, wait "
+          f"{' / '.join(f'{t:.1f}' for t in entry['wait_ms'])} ms, loader alone "
+          f"{' / '.join(f'{t:.1f}' for t in entry['load_ms'])} ms; val batch "
+          f"{eval_batch_line(rec.calls)}; on {card_line()}")
+    print(f"  msqa_scannet val output_text[0]: {rec.calls[0]['text'][0]!r}")
+    ScanCache.clear()
+    del trainer, model, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 14 wall time {wall:.1f} s")
+    return dict(launches=launches, host=host, step_ms=step_ms, wait_ms=wait_ms, load_ms=load_ms,
+                eval_batches=len(rec.calls), wall_s=wall)
 
 
 def leo_prompter_cfg(name: str):
@@ -2714,7 +2961,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         # last, so that phases 1-9 run as they ran before it existed
-        entry_launches = timed(phase_entry, exp_root)
+        entry = timed(phase_entry, exp_root)
+        entry_launches = entry["launches"]
         gc.collect()
         torch.cuda.empty_cache()
         evaluation = timed(phase_eval, exp_root)  # on phase 10's tree
@@ -2724,6 +2972,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         leo = timed(phase_leo, exp_root)  # on phase 10's tree and cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        crops = timed(phase_crops, exp_root, entry)  # on phase 10's scans and cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2740,7 +2991,9 @@ def main() -> int:
         # phase 12 (b)'s HTTP traffic, serve_requests requests; launches_leo:
         # phase 13 (b), the LEO entry's run (one step, eval_batches_leo eval
         # batches); launches_leo_modes: phase 13 (a), the prompter in each
-        # of its rows
+        # of its rows; launches_crops: phase 14 (b), the entry with object
+        # crops (one step of TRAIN_ACCUM micro-batches, eval_batches_crops
+        # eval batches)
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -2749,6 +3002,7 @@ def main() -> int:
              launches_serve=serving["b"]["launches"]["fps"], serve_requests=SERVE_REQUESTS,
              launches_leo=leo["launches"]["fps"], eval_batches_leo=leo["eval_batches"],
              launches_leo_modes=sum(r["launches"] for r in leo["modes"].values()),
+             launches_crops=crops["launches"]["fps"], eval_batches_crops=crops["eval_batches"],
              **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
@@ -2759,19 +3013,23 @@ def main() -> int:
              launches_retrieval=retrieval["flash_attn_fwd"],
              launches_serve=serving["b"]["launches"]["flash_attn_fwd"],
              serve_requests=SERVE_REQUESTS, launches_leo=leo["launches"]["flash_attn_fwd"],
-             eval_batches_leo=leo["eval_batches"], **flash_row),
+             eval_batches_leo=leo["eval_batches"],
+             launches_crops=crops["launches"]["flash_attn_fwd"],
+             eval_batches_crops=crops["eval_batches"], **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
              launches_entry=entry_launches["flash_attn_bwd_dq"],
              launches_eval=ev["flash_attn_bwd_dq"],
-             launches_leo=leo["launches"]["flash_attn_bwd_dq"], **dq_row),
+             launches_leo=leo["launches"]["flash_attn_bwd_dq"],
+             launches_crops=crops["launches"]["flash_attn_bwd_dq"], **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
              launches_entry=entry_launches["flash_attn_bwd_dkv"],
              launches_eval=ev["flash_attn_bwd_dkv"],
-             launches_leo=leo["launches"]["flash_attn_bwd_dkv"], **dkv_row),
+             launches_leo=leo["launches"]["flash_attn_bwd_dkv"],
+             launches_crops=crops["launches"]["flash_attn_bwd_dkv"], **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands

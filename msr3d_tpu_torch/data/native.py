@@ -8,7 +8,9 @@ repository root (never into ``native/``), named by a hash of the source and
 the flags, as ``ops/_build.py`` names the CUDA kernels; an edited source is
 rebuilt, an unchanged one loaded as it is. On a host without a compiler
 ``available()`` is False and the datasets take their numpy path, as in the
-JAX package.
+JAX package. ``build_library`` is that build for any source; the object
+crops' JPEG decoder and resample (``data/jpeg.py``, ``data/data_utils.py``)
+build with it and raise where it fails, since they have no fallback.
 """
 
 from __future__ import annotations
@@ -34,25 +36,29 @@ _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes())
+def library_path(src: Path = SRC, stem: str = "libmsr3d_data") -> Path:
+    digest = hashlib.sha256(src.read_bytes())
     digest.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libmsr3d_data-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 
-def _build(out: Path) -> bool:
+def build_library(src: Path, stem: str) -> Path:
+    """``library_path(src, stem)``, compiled with ``g++`` unless it is there.
+    Raises ``RuntimeError`` with the compiler's log when it cannot build."""
+    out = library_path(src, stem)
+    if out.exists():
+        return out
     gxx = shutil.which("g++")
     if gxx is None:
-        return False
+        raise RuntimeError(f"building {src} needs g++, which is not on PATH")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    try:
-        subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SRC)], check=True,
-                       capture_output=True, timeout=120)
-    except (subprocess.SubprocessError, OSError):
-        return False
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)], capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode:
+        raise RuntimeError(f"g++ failed to build {src}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
-    return True
+    return out
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -65,13 +71,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if not SRC.exists():
             _load_failed = True
             return None
-        out = library_path()
-        if not out.exists() and not _build(out):
-            _load_failed = True
-            return None
         try:
-            lib = ctypes.CDLL(str(out))
-        except OSError:
+            lib = ctypes.CDLL(str(build_library(SRC, "libmsr3d_data")))
+        except (RuntimeError, OSError, subprocess.SubprocessError):
             _load_failed = True
             return None
         lib.msr3d_preprocess_objects.argtypes = [

@@ -14,8 +14,10 @@ layouts per domain:
 
 Colors normalize to [-1, 1] (colors/127.5 - 1). All outputs are numpy. The
 predicted-mask branch (``pc_type: pred``) raises; the multi-view frame crops
-of the legacy tasks are not ported. Object crops need PIL, imported where
-they are read.
+of the legacy tasks (``get_one_img``, which nothing calls) are not ported.
+Object crops are decoded by the port's own JPEG decoder (``data/jpeg.py``)
+and resized by its copy of Pillow's bilinear resample (``preprocess_2d``),
+bit-equal to the JAX package's Pillow path.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from msr3d_tpu_torch.data.data_utils import preprocess_2d
+from msr3d_tpu_torch.data.jpeg import decode_jpeg
 from msr3d_tpu_torch.utils.io import load_torch_pickle
 
 
@@ -138,10 +141,7 @@ class ScanDataLoader:
         path = Path(img_base) / self.dataset / f"{scan_id}_inst{inst_id}_{label}_0.jpg"
         if not path.exists():
             return None
-        from PIL import Image
-
-        img = np.asarray(Image.open(path).convert("RGB"))
-        return preprocess_2d(img, size=self.tgt_img_size)
+        return preprocess_2d(decode_jpeg(path), size=self.tgt_img_size)
 
 
 class ScanCache:

@@ -4,7 +4,9 @@ Counterpart of ``msr3d_tpu/data/synthetic.py`` (the ScanNet, 3RScan and
 ARKit trees, the MSQA and MSNN annotations, ``full_config_dict`` and
 ``build_full_tree``): for the same ``rng`` it writes the same files, so the
 real loaders of both packages parse the same miniature data sets. The legacy
-tasks' fixtures are not ported.
+tasks' fixtures are not ported. ``build_msqa_crops`` is the port's own: it
+gives the MSQA annotations object-image placeholders and copies the
+committed fixture crops (``data/fixtures/crops``) to the names they ask for.
 
 Write the tree of ``configs/debug_synthetic.yaml`` (the seed of
 ``scripts/gen_synthetic_data.py``):
@@ -13,6 +15,8 @@ Write the tree of ``configs/debug_synthetic.yaml`` (the seed of
 """
 
 import json
+import re
+import shutil
 import sys
 from pathlib import Path
 
@@ -128,6 +132,51 @@ def build_msqa_annotations(root: Path, scan_ids, n=6, domain="scannet"):
         stem = {"scannet": "msqa_scannet", "rscan": "msqa_rscan", "arkitscenes": "msqa_arkitscenes"}[domain]
         _dump_json(records, anno_dir / f"{stem}_{split}.json")
     return root / "msr3d"
+
+
+CROP_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "crops"
+
+# situations with object-image placeholders: two crops; three (the lamp's
+# crop is left out in the second scan, so it falls back to text); and a
+# literal "IMG" that makes the image count differ from the placeholders',
+# so every placeholder falls back to text
+IMAGE_SITUATIONS = (
+    "To my left there is a <chair-0-IMG> near a <table-1-IMG>.",
+    "A <lamp-2-IMG> is behind me, and a <chair-0-IMG> and a <sofa-4-IMG> are in front.",
+    "The IMG tag marks a <table-1-IMG> next to the <wall-3-IMG>.",
+)
+
+
+def build_msqa_crops(root: Path, scan_ids) -> Path:
+    """Give the ScanNet MSQA annotations under ``root/msr3d`` (written by
+    ``build_msqa_annotations``) situations that cycle through
+    ``IMAGE_SITUATIONS``, and copy the fixture crops, in turn, to
+    ``root/crops/ScanNet/{scan}_inst{id}_{label}_0.jpg`` for each scan and
+    placeholder, except the lamp's in the second scan. Returns the
+    ``data.obj_img_base`` of the tree."""
+    for path in sorted((root / "msr3d" / "scannet").glob("*.json")):
+        with open(path) as fh:
+            records = json.load(fh)
+        for i, record in enumerate(records):
+            record["situation"] = IMAGE_SITUATIONS[i % len(IMAGE_SITUATIONS)]
+        _dump_json(records, path)
+    placeholders = []
+    for situation in IMAGE_SITUATIONS:
+        for label, inst in re.findall(r"<([^<>-]+)-(\d+)-IMG>", situation):
+            if (label, inst) not in placeholders:
+                placeholders.append((label, inst))
+    fixtures = sorted(CROP_FIXTURES.glob("*.jpg"))
+    out = root / "crops" / "ScanNet"
+    out.mkdir(parents=True, exist_ok=True)
+    k = 0
+    for n, scan_id in enumerate(scan_ids):
+        for label, inst in placeholders:
+            if n == 1 and label == "lamp":
+                continue
+            shutil.copyfile(fixtures[k % len(fixtures)],
+                            out / f"{scan_id}_inst{inst}_{label}_0.jpg")
+            k += 1
+    return root / "crops"
 
 
 def build_rscan_tree(root: Path, rng, scan_ids=("rscan0001",), n_objects=4):

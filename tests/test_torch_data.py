@@ -9,7 +9,12 @@
   ``np.random``) seeded alike before each package iterates. The native
   library is the same source built by each package into its own place.
   The ``crop`` case has more objects than ``max_obj_len`` in all three
-  domains, so the relevant-objects-first crop runs.
+  domains, so the relevant-objects-first crop runs. The ``images`` case
+  sets ``data.obj_img_base``: two or three object-image placeholders a
+  situation, one crop missing (its placeholder falls back to text) and one
+  situation whose image count differs from its placeholders' (all fall
+  back), read by Pillow in JAX and by the port's own JPEG decoder and
+  resample; the val and test batches of ``msqa_scannet`` on that tree too.
 * What the port does not run raises: the predicted-mask scan branch and
   the grain backend; the SQA3D / navigation members of ``MSR3DMix`` build.
 """
@@ -79,10 +84,19 @@ def _crop_tree(root: Path, rng) -> None:
     synthetic.build_msqa_annotations(root, ["arkit0001"], n=4, domain="arkitscenes")
 
 
+def _image_tree(root: Path, rng) -> None:
+    """The debug tree with object-image placeholders in the ScanNet MSQA
+    annotations and the fixture crops under ``crops/``, one left out."""
+    synthetic.build_full_tree(root, rng)
+    synthetic.build_msqa_crops(root, ["scene0000_00", "scene0001_00"])
+
+
 CASES = {
-    # (config, tree builder, overrides)
+    # (config, tree builder, overrides; {root} is the tree)
     "debug": ("debug_synthetic.yaml", synthetic.build_full_tree, []),
     "crop": ("debug_synthetic_mix3.yaml", _crop_tree, ["debug.flag=False"]),
+    "images": ("debug_synthetic.yaml", _image_tree,
+               ["debug.flag=False", "data.obj_img_base={root}/crops"]),
 }
 
 
@@ -124,7 +138,7 @@ def test_train_batches_bit_equal_to_jax(case, path, tmp_path, monkeypatch):
         assert native.library_path().parent == REPO / "build" / "native"
     JaxScanCache.clear()
     ScanCache.clear()
-    overrides = _overrides(tmp_path) + extra
+    overrides = _overrides(tmp_path) + [e.format(root=tmp_path) for e in extra]
     want_loader = jax_build_task_loaders(
         jax_load_config(REPO / "configs" / config, overrides))["msr3d_train"]["train"]
     loaders = build_task_loaders(load_config(REPO / "configs" / config, overrides))
@@ -142,6 +156,45 @@ def test_train_batches_bit_equal_to_jax(case, path, tmp_path, monkeypatch):
                                                          ["obj_pcds"])["obj_pcds"])
                    > m.max_obj_len for m in members)
         assert got[0]["obj_fts"].shape[1:] == (6, 64, 6) and got[0]["obj_masks"].all()
+    if case == "images":
+        _assert_image_placeholders(got, want_shown={0, 2, 3})
+    JaxScanCache.clear()
+    ScanCache.clear()
+
+
+def _assert_image_placeholders(batches, want_shown) -> None:
+    """Each sample shows as many images as its prompt has 图 placeholders,
+    the shown ones first; the missing crop and the count mismatch fell back
+    to text."""
+    prompts = [p for b in batches for p in b["msr3d_prompt"]]
+    masks = np.concatenate([b["msr3d_img_masks"] for b in batches])
+    imgs = np.concatenate([b["msr3d_imgs"] for b in batches])
+    shown = masks.sum(axis=1)
+    assert [p.count("图") for p in prompts] == shown.tolist()
+    assert set(shown.tolist()) == want_shown
+    assert all(m[:n].all() and not m[n:].any() for m, n in zip(masks, shown))
+    assert not imgs[~masks].any() and all(np.abs(i).sum() > 0 for i in imgs[masks])
+    assert any("A lamp is behind me" in p for p in prompts)
+    assert any("marks a table next to the wall" in p for p in prompts)
+
+
+@pytest.mark.parametrize("split", ["val", "test"])
+def test_eval_batches_with_crops_bit_equal_to_jax(split, tmp_path):
+    """``msqa_scannet``'s val and test batches with ``data.obj_img_base``
+    set, on the ``images`` case's tree."""
+    _image_tree(tmp_path, np.random.default_rng(11))
+    JaxScanCache.clear()
+    ScanCache.clear()
+    overrides = _overrides(tmp_path)[:-1] + ["debug.flag=False",
+                                             f"data.obj_img_base={tmp_path}/crops"]
+    config = REPO / "configs" / "debug_synthetic.yaml"
+    want_loader = jax_build_task_loaders(jax_load_config(config, overrides))["msqa_scannet"][split]
+    loader = build_task_loaders(load_config(config, overrides))["msqa_scannet"][split]
+    assert len(loader) == len(want_loader)
+    want = _batches(want_loader, seed=9, epochs=1)
+    got = _batches(loader, seed=9, epochs=1)
+    _assert_batches_equal(got, want)
+    _assert_image_placeholders(got, want_shown={0, 2, 3})
     JaxScanCache.clear()
     ScanCache.clear()
 

@@ -12,6 +12,8 @@ takes the plain version and that other devices are refused.
 """
 
 import ast
+import hashlib
+import json
 from pathlib import Path
 
 import numpy as np
@@ -771,6 +773,31 @@ def test_situation_modes_on_card_match_cpu(cuda_device, situation_type):
     assert torch.equal(got["obj_masks"].cpu(), want["obj_masks"])
 
 
+def test_fixture_crops_decode_and_preprocess_to_their_manifest():
+    """The committed object crops through the port's ``decode_jpeg`` and
+    ``preprocess_2d`` give the digests of Pillow's decode and JAX's
+    ``preprocess_2d`` in their manifest (``tests/test_torch_jpeg.py``
+    wrote both and holds them to Pillow and JAX). No Pillow and no JAX
+    here, so the GPU host runs it too."""
+    from msr3d_tpu_torch.data.data_utils import preprocess_2d
+    from msr3d_tpu_torch.data.jpeg import decode_jpeg
+
+    crops = REPO / "msr3d_tpu_torch" / "data" / "fixtures" / "crops"
+    manifest = json.loads((crops / "manifest.json").read_text())
+    assert len(manifest["crops"]) >= 8
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for entry in manifest["crops"]:
+        img = decode_jpeg(crops / entry["file"])
+        assert list(img.shape) == entry["shape"], entry["file"]
+        assert sha(img) == entry["decoded_sha256"], entry["file"]
+        for w, h in ((224, 224), (32, 32)):
+            assert sha(preprocess_2d(img, size=(w, h))) == entry[f"preprocess_{w}x{h}_sha256"], \
+                (entry["file"], w, h)
+
+
 def test_default_device_is_cuda_and_raises_without_gpu():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -800,6 +827,6 @@ def test_port_imports_no_jax():
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "flax", "optax", "orbax", "msr3d_tpu"):
+            if root in ("jax", "jaxlib", "flax", "optax", "orbax", "msr3d_tpu", "PIL"):
                 bad.append(f"{path.relative_to(REPO)}: {mod}")
     assert not bad, bad
