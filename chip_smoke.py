@@ -45,8 +45,18 @@ through the port's JPEG decoder and resample on the host's CPU against
 their manifest of Pillow's and JAX's digests, with the ms a crop; (b) the
 entry on ``configs/msr3d.yaml`` with ``data.obj_img_base`` set, two or
 three crops a situation, one missing: one optimizer step of 4 x 5 and a
-val batch, every shown image bit-equal to its CPU preprocessing), and
-checks that each
+val batch, every shown image bit-equal to its CPU preprocessing), and the
+serving engines' second part (phase 15, the flagship from configs/msr3d.yaml
+built by the serve entry with ``--engine grouped``, penalty 1.0: (a)
+speculative greedy, ``generate`` and the continuous engine, against plain
+greedy, with ms an emitted token and ``spec_stats``; (b) sampled
+``generate`` and engine, each twice at one seed, their threefry keys and
+bits on the card against the CPU's; (c) grouped ``generate``, greedy and
+beam 5, of 2 scenes x 4 questions against the 8 questions as rows (K1 2
+and K2f 32 launches: one scene encode, the prefix prefill), and the grouped
+engine over HTTP; (d) ``compact_transfer``'s bytes and its unpack on the
+card against the CPU's; then the exact token gates in fp32 at the
+flagship's width and 2 layers), and checks that each
 path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
@@ -2911,6 +2921,507 @@ def bf16_twin_gate(model, prefill, first):
                                     "bf16 model with the weights bf16(q)·bf16(s)")
 
 
+# Phase 15: the serving engines, part 2, on the flagship from configs/msr3d.yaml
+# over phase 10's cfg_path (bf16, flash attention, random weights), built by
+# the serve entry with --engine grouped and the repetition penalty at 1.0 that
+# speculative decoding needs: (a) speculative greedy (SPEC_K drafts of
+# SPEC_NGRAM-grams), generate and the continuous engine, against plain
+# greedy; (b) sampled generate and engine; (c) grouped generate, greedy and
+# beam 5, of GROUP_SCENES scenes x GROUP_QUESTIONS questions against G·Q
+# separate rows, and the grouped engine over HTTP; (d) compact_transfer. The
+# exact token gates run in fp32 at the flagship's width and EXACT_LAYERS
+# layers (dense attention): tokens equal, or, where a row parts, the plain
+# pick there was a tie within fp32 rounding (top-2 margin below EXACT_MARGIN).
+# In bf16 a window of SPEC_K + 1 tokens rounds otherwise than SPEC_K + 1 single
+# steps, so the bf16 run reports the share of equal tokens, and a row may part
+# only where plain greedy's top-2 margin is below BF16_MARGIN: ten times the
+# 5e-2 by which bf16 rounding moves the prefill's logits (phase 4)
+SPEC_K, SPEC_NGRAM = 4, 3
+GROUP_SCENES, GROUP_QUESTIONS = 2, 4
+GROUP_ASKS = ("What is behind the chair?", "Where is the table relative to me?",
+              "What color is the chair on my left?", "How many chairs are there in the room?")
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, sample_seed=7)
+EXACT_LAYERS, EXACT_MARGIN, BF16_MARGIN = 2, 1e-4, 0.5
+
+
+def counted(fn):
+    """``fn()`` with K1 and K2f counted from 0: (result, launches)."""
+    from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    FPS_KERNEL.launches = FLASH_FWD_KERNEL.launches = 0
+    out = fn()
+    return out, {"fps": FPS_KERNEL.launches, "flash_attn_fwd": FLASH_FWD_KERNEL.launches}
+
+
+def recorded_generate(model, data, **kw):
+    """Greedy ``generate`` with the (B, V) logits of every pick recorded: the
+    prefill's, then each one-token step's. (result, picks)."""
+    net = model.network
+    prefill, decode = net.prefill, net.decode_step_shared
+    picks = []
+
+    def rec_prefill(*args, **kwargs):
+        out = prefill(*args, **kwargs)
+        picks.append(out[0].float())
+        return out
+
+    def rec_decode(*args, **kwargs):
+        out = decode(*args, **kwargs)
+        if out.shape[1] == 1:
+            picks.append(out[:, -1].float())
+        return out
+
+    with mock.patch.multiple(net, prefill=rec_prefill, decode_step_shared=rec_decode):
+        out = model.generate(dict(data), use_beam=False, **kw)
+    return out, picks
+
+
+def emitted(tokens, eos) -> int:
+    """Tokens produced, each row up to and with its first EOS."""
+    tokens = np.asarray(tokens)
+    first = np.where((tokens == eos).any(1), (tokens == eos).argmax(1) + 1, tokens.shape[1])
+    return int(first.sum())
+
+
+def partings(want, got, picks):
+    """For each row where ``got`` parts from greedy ``want``: (row, step,
+    top-2 margin of the greedy pick there, from its recorded logits)."""
+    out = []
+    for r in range(want.shape[0]):
+        diff = np.nonzero(np.asarray(want[r]) != np.asarray(got[r]))[0]
+        if len(diff):
+            s = int(diff[0])
+            top2 = picks[s][r].topk(2).values
+            out.append((r, s, float(top2[0] - top2[1])))
+    return out
+
+
+def top_k_boundaries(fn):
+    """``fn()`` with each top-k decision of a beam search recorded: (result,
+    the smallest gap between the k-th and the (k+1)-th live candidate)."""
+    from msr3d_tpu_torch.models.llm import sampling
+
+    top_k, gaps = sampling._top_k, []
+
+    def recording(x, k):
+        values, indices = top_k(x, k)
+        if x.shape[-1] > k:
+            nxt = torch.sort(x, dim=-1, descending=True, stable=True)[0][..., k]
+            live = values[..., -1] > -1e8
+            if bool(live.any()):
+                gaps.append(float((values[..., -1] - nxt)[live].min()))
+        return values, indices
+
+    with mock.patch.object(sampling, "_top_k", recording):
+        out = fn()
+    return out, min(gaps, default=float("inf"))
+
+
+def group_data(seed: int, images: bool):
+    """GROUP_SCENES scenes of ``make_requests``, each with GROUP_QUESTIONS
+    questions after its own scene prompt (nested), and the same questions
+    as G·Q independent rows."""
+    scenes = make_requests(seed, b=GROUP_SCENES, images=images)
+    heads = [p.split("USER:")[0] for p in scenes["msr3d_prompt"]]
+    nested = [[f"{h}USER: {q} ASSISTANT:" for q in GROUP_ASKS[:GROUP_QUESTIONS]] for h in heads]
+    arrays = {k: v for k, v in scenes.items() if k != "msr3d_prompt"}
+    group = dict(arrays, msr3d_prompt=nested)
+    rows = dict({k: np.repeat(v, GROUP_QUESTIONS, axis=0) for k, v in arrays.items()},
+                msr3d_prompt=[p for qs in nested for p in qs])
+    return group, rows
+
+
+def spec_runs(model):
+    """(a) on the bf16 flagship: plain greedy and speculative ``generate`` on
+    phase 4's requests, then the continuous engine both ways at generate's
+    shapes."""
+    from msr3d_tpu_torch.serving import ContinuousBatchingServer, uncollate_batch
+
+    data = make_requests(seed=0, images=True)
+    eos = model.tokenizer.eos_id
+    model.generate(dict(data), use_beam=False, max_new_tokens=2)  # warm-up
+    (plain, picks), plain_ms, plain_pre, plain_steps = timed_decode(
+        model, lambda: recorded_generate(model, data, max_new_tokens=NEW_TOKENS))
+    model.spec_k, model.spec_ngram = SPEC_K, SPEC_NGRAM
+    try:
+        (spec, spec_ms, spec_pre, spec_calls), launches = counted(lambda: timed_decode(
+            model, lambda: model.generate(dict(data), use_beam=False,
+                                          max_new_tokens=NEW_TOKENS)))
+    finally:
+        model.spec_k = 0
+    want, got = plain["output_tokens"], spec["output_tokens"]
+    parted = partings(want, got, picks)
+    n_plain, n_spec = emitted(want, eos), emitted(got, eos)
+    row = dict(plain_decode_ms=plain_ms - plain_pre, plain_steps=plain_steps,
+               plain_emitted=n_plain, spec_decode_ms=spec_ms - spec_pre, verify_calls=spec_calls,
+               spec_stats=spec["spec_stats"], launches=launches,
+               equal_tokens=int((want == got).sum()), tokens=int(want.size), parted=parted)
+    row["plain_ms_per_token"] = row["plain_decode_ms"] / n_plain
+    row["spec_ms_per_token"] = row["spec_decode_ms"] / n_spec
+    print(f"  (a) bf16 generate, {N_REQUESTS} requests x {NEW_TOKENS} tokens: plain greedy "
+          f"decode {row['plain_decode_ms']:.2f} ms over {plain_steps} steps, "
+          f"{row['plain_ms_per_token']:.3f} ms an emitted token ({n_plain}); speculative "
+          f"(spec_k {SPEC_K}, {SPEC_NGRAM}-grams) {row['spec_decode_ms']:.2f} ms over "
+          f"{spec_calls} verify calls, {row['spec_ms_per_token']:.3f} ms an emitted token "
+          f"({n_spec}); spec_stats {spec['spec_stats']}; launches {launches}; equal tokens "
+          f"{row['equal_tokens']} of {row['tokens']}; rows parted at (row, step, top-2 "
+          f"margin) {parted}; on {card_line()}")
+    check(spec["spec_stats"]["verify_calls"] == spec_calls
+          and spec["spec_stats"]["emitted"] == n_spec,
+          "spec_stats count the verify calls and the emitted tokens")
+    check(all(m < BF16_MARGIN for _, _, m in parted),
+          f"bf16: where speculative tokens part from greedy, greedy's top-2 margin is below "
+          f"{BF16_MARGIN}")
+    check(launches == {"fps": 2, "flash_attn_fwd": 32},
+          "K1 2 and K2f 32 launches in the speculative generate (its prefill)")
+
+    samples = uncollate_batch(data)
+    prompt_len = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
+                                      side="left")[0].shape[1] + 1
+    engines = {}
+    for spec_k in (0, SPEC_K):
+        engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=N_REQUESTS,
+                                          chunk_steps=8, max_new_tokens=NEW_TOKENS,
+                                          prompt_len=prompt_len, spec_k=spec_k,
+                                          spec_ngram=SPEC_NGRAM)
+        res, ms, pre, calls = timed_decode(model, lambda: engine.run(samples))
+        toks = np.stack([r.output_tokens for r in res])
+        engines[spec_k] = dict(decode_ms=ms - pre, steps_run=engine.steps_run,
+                               emitted=emitted(toks, eos), tokens=toks)
+        check(calls == engine.steps_run, f"the engine (spec_k {spec_k}) counts its model calls")
+    same = int((engines[0]["tokens"] == engines[SPEC_K]["tokens"]).sum())
+    parted = partings(want, engines[SPEC_K]["tokens"], picks)
+    print(f"  (a) bf16 engine: spec_k 0 decode {engines[0]['decode_ms']:.2f} ms over "
+          f"{engines[0]['steps_run']} steps, {engines[0]['decode_ms'] / engines[0]['emitted']:.3f}"
+          f" ms an emitted token; spec_k {SPEC_K} {engines[SPEC_K]['decode_ms']:.2f} ms over "
+          f"{engines[SPEC_K]['steps_run']} verify calls, "
+          f"{engines[SPEC_K]['decode_ms'] / engines[SPEC_K]['emitted']:.3f} ms an emitted "
+          f"token; equal tokens {same} of {want.size}; parted from greedy generate at {parted}")
+    check(all(m < BF16_MARGIN for _, _, m in parted),
+          f"bf16: where the speculative engine parts from greedy, the margin is below "
+          f"{BF16_MARGIN}")
+    row["engine"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                     for k, v in engines.items()}
+    return row
+
+
+def keys_match_cpu(key_dev, key_cpu, v: int, rows: int) -> dict:
+    """The keys, random bits and uniforms of a key on the card against the
+    same arithmetic on the CPU; the Gumbel noise's largest difference (the
+    platforms' logs)."""
+    from msr3d_tpu_torch.models.llm import prng
+
+    same_keys = torch.equal(key_dev.cpu(), key_cpu)
+    bits = torch.equal(prng.random_bits(key_dev, (rows, v)).cpu(),
+                       prng.random_bits(key_cpu, (rows, v)))
+    unif = torch.equal(prng.uniform(key_dev, (rows, v), minval=1e-38).cpu(),
+                       prng.uniform(key_cpu, (rows, v), minval=1e-38))
+    gumbel = float((prng.gumbel(key_dev, (rows, v)).cpu() - prng.gumbel(key_cpu, (rows, v)))
+                   .abs().max())
+    return dict(keys=same_keys, bits=bits, uniform=unif, gumbel_max_abs_diff=gumbel)
+
+
+def sampled_runs(model, greedy_decode_ms: float, greedy_steps: int):
+    """(b) sampled generate and engine on the bf16 flagship: each twice at one
+    seed (equal tokens), the keys and bits of their draws on the card against
+    the CPU's."""
+    from msr3d_tpu_torch.models.llm import prng
+    from msr3d_tpu_torch.serving import ContinuousBatchingServer, uncollate_batch
+
+    data = make_requests(seed=0, images=True)
+    dev, v = model.device, model.cfg.llm.vocab_size
+    for key, val in dict(SAMPLING, do_sample=True).items():
+        setattr(model, key, val)
+    runs = []
+    try:
+        for _ in range(2):
+            model._sample_calls = 0
+            (out, ms, pre, steps), launches = counted(lambda: timed_decode(
+                model, lambda: model.generate(dict(data), use_beam=False,
+                                              max_new_tokens=NEW_TOKENS)))
+            runs.append((out["output_tokens"], ms - pre, steps, launches))
+        check(np.array_equal(runs[0][0], runs[1][0]),
+              "sampled generate: equal tokens in two runs at one seed")
+        seed = SAMPLING["sample_seed"]
+        key_dev, key_cpu = (prng.fold_in(prng.prng_key(seed, d), 0) for d in (dev, "cpu"))
+        chain = []
+        for _ in range(steps + 1):  # one split a pick, as the loop does
+            key_dev, sub_dev = prng.split(key_dev)
+            key_cpu, sub_cpu = prng.split(key_cpu)
+            chain.append(torch.equal(sub_dev.cpu(), sub_cpu))
+        gen_keys = keys_match_cpu(sub_dev, sub_cpu, v, N_REQUESTS)
+        check(all(chain) and gen_keys["keys"] and gen_keys["bits"] and gen_keys["uniform"],
+              f"sampled generate: its {len(chain)} step keys, a step's (B, V) random bits and "
+              "uniforms on the card bit-equal to the CPU's")
+
+        samples = uncollate_batch(data)
+        engine_runs = []
+        for _ in range(2):
+            engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=2,
+                                              chunk_steps=8, max_new_tokens=NEW_TOKENS)
+            res, ms, pre, calls = timed_decode(model, lambda: engine.run(samples))
+            engine_runs.append((np.stack([r.output_tokens for r in res]), ms - pre, calls))
+        check(np.array_equal(engine_runs[0][0], engine_runs[1][0]),
+              "sampled engine: equal tokens in two runs at one seed")
+        rids = torch.arange(N_REQUESTS)
+        row_dev = prng.fold_in(prng.fold_in(prng.prng_key(seed, dev).expand(N_REQUESTS, 2),
+                                            rids.to(dev)), 5)
+        row_cpu = prng.fold_in(prng.fold_in(prng.prng_key(seed).expand(N_REQUESTS, 2), rids), 5)
+        eng_keys = keys_match_cpu(row_dev, row_cpu, v, 1)
+        rows_bits = torch.equal(prng.random_bits(row_dev, (v,)).cpu(),
+                                prng.random_bits(row_cpu, (v,)))
+        check(eng_keys["keys"] and rows_bits,
+              "sampled engine: each request's row key (request id, then step 5) and its (V,) "
+              "random bits on the card bit-equal to the CPU's")
+    finally:
+        model.do_sample = False
+    eos = model.tokenizer.eos_id
+    row = dict(decode_ms=runs[0][1], steps=runs[0][2], launches=runs[0][3],
+               greedy_decode_ms=greedy_decode_ms, greedy_steps=greedy_steps,
+               emitted=emitted(runs[0][0], eos), generate_keys=gen_keys, engine_keys=eng_keys,
+               engine_decode_ms=engine_runs[0][1], engine_steps=engine_runs[0][2],
+               engine_emitted=emitted(engine_runs[0][0], eos))
+    print(f"  (b) bf16 sampled generate ({SAMPLING}): decode {row['decode_ms']:.2f} ms over "
+          f"{row['steps']} steps, {row['decode_ms'] / max(1, row['steps']):.3f} ms a step "
+          f"against greedy's {greedy_decode_ms / max(1, greedy_steps):.3f}; launches "
+          f"{row['launches']}; gumbel noise card - CPU at most "
+          f"{gen_keys['gumbel_max_abs_diff']:.3e}; engine decode {row['engine_decode_ms']:.2f} "
+          f"ms over {row['engine_steps']} steps ({row['engine_emitted']} tokens); on "
+          f"{card_line()}")
+    check(row["launches"] == {"fps": 2, "flash_attn_fwd": 32},
+          "K1 2 and K2f 32 launches in the sampled generate")
+    return row
+
+
+def grouped_runs(fe, model):
+    """(c) grouped generate on the bf16 flagship, greedy and beam 5, against
+    the same G·Q questions as separate rows; then the grouped engine behind
+    the HTTP front end."""
+    import urllib.request
+
+    from msr3d_tpu_torch.serving import uncollate_batch
+    from msr3d_tpu_torch.serving_http import encode_scene_b64
+
+    group, rows = group_data(seed=2, images=True)
+    n = GROUP_SCENES * GROUP_QUESTIONS
+    out = {}
+    for label, use_beam in (("greedy", False), (f"beam {BEAMS}", True)):
+        (g_out, g_ms, g_pre, g_steps), g_launch = counted(lambda: timed_decode(
+            model, lambda: model.generate_scene_group(dict(group), use_beam=use_beam,
+                                                      max_new_tokens=NEW_TOKENS)))
+        if use_beam:
+            (p_out, p_ms, p_pre, p_steps), p_launch = counted(lambda: timed_decode(
+                model, lambda: model.generate(dict(rows), use_beam=True,
+                                              max_new_tokens=NEW_TOKENS)))
+            parted = None
+        else:
+            ((p_out, picks), p_ms, p_pre, p_steps), p_launch = counted(lambda: timed_decode(
+                model, lambda: recorded_generate(model, rows, max_new_tokens=NEW_TOKENS)))
+            parted = partings(p_out["output_tokens"], g_out["output_tokens"], picks)
+        same = int((g_out["output_tokens"] == p_out["output_tokens"]).all(axis=1).sum())
+        out[label] = dict(grouped_ms=g_ms, grouped_prefix_prefill_ms=g_pre,
+                          grouped_steps=g_steps, grouped_launches=g_launch, rows_ms=p_ms,
+                          rows_prefill_ms=p_pre, rows_steps=p_steps, rows_launches=p_launch,
+                          equal_answers=same, parted=parted)
+        print(f"  (c) bf16 {label}, {GROUP_SCENES} scenes x {GROUP_QUESTIONS} questions: grouped "
+              f"{g_ms:.2f} ms (prefix prefill {g_pre:.2f} ms of {GROUP_SCENES} scenes, "
+              f"{g_steps} decode calls with the window pass; K1 {g_launch['fps']} launches over "
+              f"{GROUP_SCENES * 60} clouds, K2f {g_launch['flash_attn_fwd']}) against {n} rows "
+              f"{p_ms:.2f} ms (prefill {p_pre:.2f} ms; K1 {p_launch['fps']} over {n * 60} "
+              f"clouds, K2f {p_launch['flash_attn_fwd']}); {same} of {n} answers equal the "
+              f"rows' (bf16, not gated; greedy rows parted at (row, step, top-2 margin) "
+              f"{parted}); on {card_line()}")
+        check(g_launch == {"fps": 2, "flash_attn_fwd": 32},
+              f"grouped {label}: K1 2 launches (one scene encode of the {GROUP_SCENES} prefixes, "
+              "both SA stages) and K2f 32 (the prefix prefill)")
+
+    samples = []
+    for g, qs in enumerate(group["msr3d_prompt"]):
+        scene = {k: group[k][g] for k in group if k != "msr3d_prompt"}
+        samples += [dict(scene, msr3d_prompt=q) for q in qs]
+    bodies = [json.dumps({"prompt": s["msr3d_prompt"], "scene_b64": encode_scene_b64(s)}).encode()
+              for s in samples]
+    url = f"http://127.0.0.1:{fe.port}"
+    answers, errors = {}, []
+
+    def post(i):
+        try:
+            req = urllib.request.Request(f"{url}/v1/generate", data=bodies[i],
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                answers[i] = (resp.status, json.loads(resp.read()))
+        except Exception as exc:  # reported and gated below
+            errors.append(f"request {i}: {exc!r}")
+
+    def drive():
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(n)]
+        start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - start
+
+    fe.start()
+    elapsed, launches = counted(drive)
+    with urllib.request.urlopen(f"{url}/v1/health", timeout=60) as resp:
+        health = json.loads(resp.read())
+    fe.close(timeout=None)
+    check(not errors and sorted(answers) == list(range(n))
+          and all(status == 200 for status, _ in answers.values()),
+          f"serve --engine grouped: every one of the {n} answers is 200 ({errors[:2]})")
+    # the engine serves with the config's num_beams, 5: the grouped beam's answers
+    beam = model.generate_scene_group(dict(group), max_new_tokens=NEW_TOKENS)["output_tokens"]
+    same = sum(int(np.array_equal(answers[i][1]["tokens"], beam[i])) for i in range(n))
+    out["http"] = dict(elapsed_s=elapsed, qa_s=n / elapsed, launches=launches,
+                       served=health["served"], equal_to_grouped_beam=same)
+    print(f"  (c) serve --engine grouped over HTTP: {n} requests from {n} threads in "
+          f"{elapsed:.3f} s, {n / elapsed:.3f} QA/s, launches {launches}; {same} of {n} "
+          f"answers equal grouped beam {BEAMS} generate's; on {card_line()}")
+    check(health["served"] == n and launches["fps"] > 0 and launches["flash_attn_fwd"] > 0,
+          "the grouped engine served every request, with K1 and K2f launched")
+    return out
+
+
+def compact_runs(model):
+    """(d) compact_transfer on phase 4's requests: the bytes sent, the
+    device's unpack against the CPU's, and a greedy generate through it."""
+    from msr3d_tpu_torch.models.msr3d import MSR3D
+
+    data = make_requests(seed=0)
+    host = model._host_scene_batch(data)
+    model.compact_transfer = True
+    try:
+        packed = model._maybe_pack(host)
+        plain_bytes = host["obj_fts"].nbytes
+        packed_bytes = packed["obj_fts_xyz_q"].nbytes + packed["obj_fts_rgb_q"].nbytes
+        points = host["obj_fts"].size // 6
+        dev_ms = statistics.median(wall_ms(lambda: torch.as_tensor(host["obj_fts"]).to(
+            model.device)) for _ in range(5))
+        packed_ms = statistics.median(wall_ms(lambda: model._to_device(
+            {k: packed[k] for k in ("obj_fts_xyz_q", "obj_fts_rgb_q")})) for _ in range(5))
+        on_card = MSR3D._unpack_batch(model._to_device(packed))["obj_fts"].cpu()
+        on_cpu = MSR3D._unpack_batch({k: torch.as_tensor(v) for k, v in packed.items()})
+        same = torch.equal(on_card, on_cpu["obj_fts"])
+        out, launches = counted(lambda: model.generate(dict(data), use_beam=False,
+                                                       max_new_tokens=8))
+    finally:
+        model.compact_transfer = False
+    row = dict(points=points, bytes_fp32=plain_bytes, bytes_packed=packed_bytes,
+               fp32_copy_ms=dev_ms, packed_copy_ms=packed_ms, launches=launches)
+    print(f"  (d) compact_transfer: {points} points, {plain_bytes} bytes fp32 "
+          f"({plain_bytes / points:.0f} a point) against {packed_bytes} packed "
+          f"({packed_bytes / points:.0f} a point); host-to-card copy {dev_ms:.3f} / "
+          f"{packed_ms:.3f} ms; unpack on the card bit-equal to the CPU's: {same}; a greedy "
+          f"generate through it: launches {launches}; on {card_line()}")
+    check(same and packed_bytes * 24 == plain_bytes * 9,
+          "compact_transfer: 9 bytes a point against 24, unpacked on the card bit-equal to the "
+          "CPU's")
+    check(np.isfinite(out["output_tokens"]).all() and launches["fps"] == 2,
+          "a generate through compact_transfer runs (K1 2 launches)")
+    return row
+
+
+def build_exact_model(dev, tokenizer):
+    """The flagship's width in fp32 at EXACT_LAYERS layers (dense attention,
+    LoRA r16, TF32 off), random weights from seed 1, penalty 1.0."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig
+    from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+
+    llm = LlamaConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=EXACT_LAYERS, num_attention_heads=32, lora_rank=16,
+                      dtype=torch.float32, param_dtype=torch.float32)
+    model = MSR3D(MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm), tokenizer,
+                  scene_token_len=60, max_out_len=NEW_TOKENS, num_beams=BEAMS,
+                  repetition_penalty=1.0, device=dev)
+    model.init_params(seed=1)
+    return model
+
+
+def exact_gates(dev, tokenizer):
+    """The fp32 token gates: speculative generate and engine against greedy
+    generate, grouped greedy and beam 5 against the questions' own
+    ``generate``."""
+    from msr3d_tpu_torch.serving import ContinuousBatchingServer, uncollate_batch
+
+    model = build_exact_model(dev, tokenizer)
+    data = make_requests(seed=3)
+    plain, picks = recorded_generate(model, data, max_new_tokens=NEW_TOKENS)
+    want = plain["output_tokens"]
+    model.spec_k, model.spec_ngram = SPEC_K, SPEC_NGRAM
+    spec = model.generate(dict(data), use_beam=False, max_new_tokens=NEW_TOKENS)
+    model.spec_k = 0
+    prompt_len = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
+                                      side="left")[0].shape[1] + 1
+    engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=N_REQUESTS,
+                                      chunk_steps=8, max_new_tokens=NEW_TOKENS,
+                                      prompt_len=prompt_len, spec_k=SPEC_K,
+                                      spec_ngram=SPEC_NGRAM)
+    eng = np.stack([r.output_tokens for r in engine.run(uncollate_batch(data))])
+    group, rows = group_data(seed=4, images=False)
+    (rows_out, rows_picks) = recorded_generate(model, rows, max_new_tokens=NEW_TOKENS)
+    grouped = model.generate_scene_group(dict(group), use_beam=False, max_new_tokens=NEW_TOKENS)
+    beam_rows, rows_gap = top_k_boundaries(lambda: model.generate(
+        dict(rows), use_beam=True, max_new_tokens=NEW_TOKENS))
+    beam_grouped, grouped_gap = top_k_boundaries(lambda: model.generate_scene_group(
+        dict(group), use_beam=True, max_new_tokens=NEW_TOKENS))
+    out = dict(spec=partings(want, spec["output_tokens"], picks),
+               engine=partings(want, eng, picks),
+               grouped=partings(rows_out["output_tokens"], grouped["output_tokens"], rows_picks),
+               spec_stats=spec["spec_stats"], engine_steps_run=engine.steps_run,
+               beam_equal=bool(np.array_equal(beam_rows["output_tokens"],
+                                              beam_grouped["output_tokens"])),
+               beam_min_gap=min(rows_gap, grouped_gap))
+    print(f"  fp32, {EXACT_LAYERS} layers at the flagship width: speculative generate "
+          f"{spec['spec_stats']}, engine steps_run {engine.steps_run}; rows parted from greedy "
+          f"(row, step, margin): generate {out['spec']}, engine {out['engine']}, grouped "
+          f"{out['grouped']}; grouped beam {BEAMS} equal to the rows' beam {BEAMS}: "
+          f"{out['beam_equal']} (smallest top-k gap {out['beam_min_gap']:.3e})")
+    for what in ("spec", "engine", "grouped"):
+        check(all(m < EXACT_MARGIN for _, _, m in out[what]),
+              f"fp32 {what}: tokens equal greedy's, or part only at a tie within {EXACT_MARGIN}")
+    check(out["beam_equal"] or out["beam_min_gap"] < EXACT_MARGIN,
+          f"fp32 grouped beam {BEAMS}: tokens equal the rows' beam search, or a top-k decision "
+          f"was a tie within {EXACT_MARGIN}")
+    del model
+    return out
+
+
+def phase_serving2(exp_root: Path):
+    print("== phase 15: the serving engines, part 2 (speculative, sampled and scene-grouped "
+          "decoding, compact_transfer) at the flagship width (configs/msr3d.yaml over phase "
+          "10's cfg_path, random weights, repetition penalty 1.0)")
+    from msr3d_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    fe = serve.create_frontend(serve.parse_args(serve_argv(
+        exp_root, "--engine", "grouped", "--group-scenes", str(GROUP_SCENES),
+        "--group-questions", str(GROUP_QUESTIONS), "eval_repetition_penalty=1.0")))
+    model = fe.engine.model
+    torch.cuda.synchronize()
+    print(f"  built and initialised in {time.perf_counter() - t0:.1f} s")
+    out = dict(a=spec_runs(model))
+    out["b"] = sampled_runs(model, out["a"]["plain_decode_ms"], out["a"]["plain_steps"])
+    out["c"] = grouped_runs(fe, model)
+    out["d"] = compact_runs(model)
+    tokenizer = model.tokenizer
+    del fe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["exact"] = exact_gates(torch.device("cuda", 0), tokenizer)
+    return out
+
+
+def phase15_launches(out, kernel: str) -> dict:
+    """Phase 15's launches of one kernel for the kernels line."""
+    return dict(launches_spec=out["a"]["launches"][kernel],
+                launches_sampled=out["b"]["launches"][kernel],
+                launches_grouped=out["c"]["greedy"]["grouped_launches"][kernel],
+                launches_grouped_http=out["c"]["http"]["launches"][kernel])
+
+
 def phase7_rows(rows, bits):
     """Phase 7's device times of K3 or K4 for the kernels line, one entry a
     shape."""
@@ -2975,6 +3486,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         crops = timed(phase_crops, exp_root, entry)  # on phase 10's scans and cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving2 = timed(phase_serving2, exp_root)  # on phase 10's cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2993,7 +3507,9 @@ def main() -> int:
         # batches); launches_leo_modes: phase 13 (a), the prompter in each
         # of its rows; launches_crops: phase 14 (b), the entry with object
         # crops (one step of TRAIN_ACCUM micro-batches, eval_batches_crops
-        # eval batches)
+        # eval batches); launches_spec, launches_sampled, launches_grouped:
+        # phase 15's speculative and sampled generate and its grouped greedy
+        # generate (GROUP_SCENES scenes x GROUP_QUESTIONS questions)
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -3003,7 +3519,7 @@ def main() -> int:
              launches_leo=leo["launches"]["fps"], eval_batches_leo=leo["eval_batches"],
              launches_leo_modes=sum(r["launches"] for r in leo["modes"].values()),
              launches_crops=crops["launches"]["fps"], eval_batches_crops=crops["eval_batches"],
-             **fps_row),
+             **phase15_launches(serving2, "fps"), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -3015,7 +3531,8 @@ def main() -> int:
              serve_requests=SERVE_REQUESTS, launches_leo=leo["launches"]["flash_attn_fwd"],
              eval_batches_leo=leo["eval_batches"],
              launches_crops=crops["launches"]["flash_attn_fwd"],
-             eval_batches_crops=crops["eval_batches"], **flash_row),
+             eval_batches_crops=crops["eval_batches"],
+             **phase15_launches(serving2, "flash_attn_fwd"), **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],

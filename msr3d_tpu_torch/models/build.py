@@ -10,14 +10,14 @@ names (``model.name: MSR3D``; the prompter nodes ``OSE3DSituation``,
   * ``model.llm.{lora, param_dtype, quantize, quantize_bits,
     quantize_group, flash_attention}`` as the JAX builder reads them;
   * the generation knobs ``eval_num_beams``, ``eval_repetition_penalty``,
-    ``eval_length_penalty`` and ``eval_eos_logit_bias``.
+    ``eval_length_penalty``, ``eval_eos_logit_bias``, ``eval_spec_k``,
+    ``eval_spec_ngram``, ``eval_do_sample``, ``eval_temperature``,
+    ``eval_top_k``, ``eval_top_p``, ``eval_sample_seed`` and
+    ``compact_transfer``.
 
 What the port does not run raises ``NotImplementedError`` when it is set
 to anything but its default: ``model.llm.remat`` (ROADMAP.md, QLoRA and
-the training-memory options), ``parallel.sp > 1`` (parallelism), and the
-serving knobs ``eval_spec_k``, ``eval_do_sample``, ``eval_top_k``,
-``eval_top_p`` and ``compact_transfer`` (the serving engines' second
-slice, ROADMAP.md item 5 (b)).
+the training-memory options) and ``parallel.sp > 1`` (parallelism).
 
 The model lands on ``cfg.device`` (``cuda`` when unset; ``device=cpu``
 picks the CPU), through ``resolve_device``.
@@ -38,16 +38,6 @@ from msr3d_tpu_torch.models.llm.tokenizer import BaseTokenizer, build_tokenizer
 from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
 from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, OSE3DSituation
 from msr3d_tpu_torch.registry import MODEL_REGISTRY
-
-# serving knobs of the JAX MSR3D that the port lacks: (config key, default)
-_UNPORTED_SERVING = (
-    ("eval_spec_k", 0),
-    ("eval_do_sample", False),
-    ("eval_top_k", 0),
-    ("eval_top_p", 1.0),
-    ("compact_transfer", False),
-)
-
 
 def build_llm_config(llm_cfg, tokenizer: BaseTokenizer,
                      dtype: torch.dtype = torch.bfloat16) -> LlamaConfig:
@@ -80,12 +70,6 @@ def build_llm_config(llm_cfg, tokenizer: BaseTokenizer,
 
 
 def _check_ported(cfg) -> None:
-    for key, default in _UNPORTED_SERVING:
-        value = cfg.get(key, default)
-        if value is not None and type(default)(value) != default:
-            raise NotImplementedError(
-                f"{key}={value!r} is not ported yet (ROADMAP.md, queue: the serving engines, "
-                "item 5 (b))")
     if int(cfg.get("parallel", {}).get("sp", 1)) > 1:
         raise NotImplementedError("parallel.sp > 1 (ring attention) is not ported yet "
                                   "(ROADMAP.md, queue: parallelism)")
@@ -120,6 +104,14 @@ def build_msr3d_from_config(cfg, device=None) -> MSR3D:
         repetition_penalty=float(cfg.get("eval_repetition_penalty", 3.0)),
         length_penalty=float(cfg.get("eval_length_penalty", 1.0)),
         eos_logit_bias=float(cfg.get("eval_eos_logit_bias", 0.0)),
+        spec_k=int(cfg.get("eval_spec_k", 0)),
+        spec_ngram=int(cfg.get("eval_spec_ngram", 3)),
+        do_sample=bool(cfg.get("eval_do_sample", False)),
+        temperature=float(cfg.get("eval_temperature", 1.0)),
+        top_k=int(cfg.get("eval_top_k", 0)),
+        top_p=float(cfg.get("eval_top_p", 1.0)),
+        sample_seed=int(cfg.get("eval_sample_seed", 0)),
+        compact_transfer=bool(cfg.get("compact_transfer", False)),
         device=device if device is not None else cfg.get("device"),
     )
 

@@ -6,10 +6,13 @@ the HF half-split layout, LoRA projections (with LoRA dropout) over a
 bf16/fp32 or weight-only quantized base, SwiGLU MLP, the training forward
 (``LlamaModel.forward``), a prefill that captures each layer's rope'd k/v,
 and the split-cache decode steps (a prompt KV segment at batch B shared by
-the K beams of each row plus a generated segment at batch B·K, T = 1),
-the generated segment read directly or through a beam ancestry map, and
-written at one slot for every row or at each row's own slot (the continuous
-serving engines). With
+the K beams of each row plus a generated segment at batch B·K), the
+generated segment read directly or through a beam ancestry map, and written
+at one slot for every row or at each row's own slot (the continuous serving
+engines). A decode step takes a window of T > 1 tokens (speculative
+verification, the grouped path's question suffixes): query t also sees the
+window's own slots up to its own, and ``window_valid`` hides pad tokens of
+the window. With
 ``flash_attention`` the training forward runs through the autograd
 Function of kernels K2f, K2dq and K2dkv, and the prefill through K2f;
 otherwise, and in decode, attention is dense with a -1e30 additive bias, as
@@ -42,6 +45,7 @@ from msr3d_tpu_torch.nn.layers import dropout
 from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention_train
 
 _NEG_INF = -1e30
+_POOL_ITEM = "ROADMAP.md section 1 item 3, the prefix-pool engines"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -504,21 +508,49 @@ def quantize_kv_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
 
 def _cache_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
                  index) -> None:
-    """Write one token's k/v (B, 1, hkv, D) into a (B, S, hkv, D) cache, in
-    place; into an int8 cache quantized per row, with its scales. ``index``
-    is an int (every row writes that slot, the uniform decode loops) or a
-    (B,) integer tensor (row b writes slot ``index[b]``, the continuous
-    engines' slots at their own depths: ``_cache_write_rows`` of the JAX
-    package)."""
+    """Write a window's k/v (B, T, hkv, D) into a (B, S, hkv, D) cache at
+    consecutive slots, in place; into an int8 cache quantized per token,
+    with its scales. ``index`` is an int: every row writes slots ``index ..
+    index+T-1``, the start clamped to [0, S - T] as JAX's
+    ``dynamic_update_slice`` clamps it. Or a (B,) integer tensor: row b
+    writes from ``index[b]`` (``_cache_write_rows`` of the JAX package),
+    with JAX's drop rules: a negative start drops the whole window (an idle
+    slot, a finished speculative row), and the part of a window past the
+    segment's end is dropped while the rest is written."""
     if "k_scale" in cache:
         new = quantize_kv_cache({"k": k, "v": v})
     else:
         new = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
-    if isinstance(index, torch.Tensor):
+    t = k.shape[1]
+    s = cache["k"].shape[1]
+    if not isinstance(index, torch.Tensor):
+        start = min(max(int(index), 0), s - t)
+        for key, val in new.items():
+            cache[key][:, start:start + t] = val
+        return
+    if t == 1:
         _write_rows(cache, {key: val[:, 0] for key, val in new.items()}, index)
         return
+    if t > s:  # a window wider than the segment: token by token
+        for j in range(t):
+            _write_rows(cache, {key: val[:, j] for key, val in new.items()},
+                        torch.where(index < 0, -1, index + j))
+        return
+    b = k.shape[0]
+    offs = torch.arange(t, device=index.device)
+    idx = index[:, None] + offs  # (B, T)
+    ok = (index[:, None] >= 0) & (idx < s)
+    # a dropped token stores back what slot start-1 (0 for a dropped row)
+    # holds, a slot none of its row's kept tokens writes (t <= s); its
+    # duplicates store the same value, so the write is deterministic
+    spare = torch.where(index >= 1, index - 1, torch.zeros_like(index))[:, None]
+    slot = torch.where(ok, idx, spare).reshape(-1).long()
+    rows = torch.arange(b, device=index.device).repeat_interleave(t)
     for key, val in new.items():
-        cache[key][:, index] = val[:, 0]
+        arr = cache[key]
+        flat = val.reshape((b * t,) + val.shape[2:]).to(arr.dtype)
+        keep = ok.reshape((-1,) + (1,) * (flat.dim() - 1))
+        arr[rows, slot] = torch.where(keep, flat, arr[rows, slot])
 
 
 def _write_rows(arrays: Dict[str, torch.Tensor], rows_new: Dict[str, torch.Tensor],
@@ -648,30 +680,45 @@ class LlamaModel(nn.Module):
         cache_mask = F.pad(mask, (0, pad))
         return logits, x, caches, cache_mask, positions[:, -1] + 1
 
-    def _attn_bias(self, inputs_embeds, prompt_kv, prompt_mask, gen_mask) -> torch.Tensor:
-        """The (B·K, 1, 1, S_p + S_g) additive bias of a decode step: the
+    def _attn_bias(self, inputs_embeds, prompt_kv, prompt_mask, gen_mask, gen_index=0,
+                   window_valid=None) -> torch.Tensor:
+        """The (B·K, 1, T, S_p + S_g) additive bias of a decode step: the
         prompt's (B, S_p) mask repeated for the K queries of each prompt row,
-        then the generated segment's (B·K, S_g) mask. Raises on what is not
-        ported: a tuple of prompt segments or a per-query prompt mask (the
-        prefix-pool serving engines) and windows of T > 1 (speculative and
-        grouped-scene decoding)."""
+        then the generated segment's (B·K, S_g) mask. In a window of T > 1
+        query t also sees the generated slots ``start .. start+t`` (``start``
+        = ``gen_index``, an int or (B·K,)), and with ``window_valid`` (B·K,
+        T) only those whose window token is real: slot start+j carries
+        window token j, the j of a slot outside the window clipped to [0,
+        T-1] as JAX clips it. Raises on what is not ported: a tuple of
+        prompt segments or a per-query prompt mask (the prefix-pool serving
+        engines)."""
         if isinstance(prompt_kv, (list, tuple)):
             raise NotImplementedError(
                 "a tuple-of-segments prompt_kv (the prefix-pool serving engines) is not "
-                "ported yet (see ROADMAP.md)")
+                f"ported yet ({_POOL_ITEM})")
         bk, t, _ = inputs_embeds.shape
         b = prompt_kv["k"].shape[1]
-        if t != 1:
-            raise NotImplementedError(
-                "decode windows of T > 1 (speculative and grouped-scene decoding) are not "
-                "ported yet (see ROADMAP.md)")
         if prompt_mask.shape[0] != b or bk % b:
             raise NotImplementedError(
                 f"a prompt mask of batch {prompt_mask.shape[0]} for a prompt cache of batch "
                 f"{b} and {bk} queries: per-query prompt masks (the prefix-pool serving "
-                "engines) are not ported yet (see ROADMAP.md)")
+                f"engines) are not ported yet ({_POOL_ITEM})")
         prompt_bias = _bias(prompt_mask.bool().repeat_interleave(bk // b, dim=0))
-        return torch.cat([prompt_bias, _bias(gen_mask.bool())], dim=-1)[:, None, None, :]
+        valid_g = gen_mask.bool()[:, None, :]  # (B·K, 1, S_g)
+        if t > 1:
+            dev = gen_mask.device
+            s_g = gen_mask.shape[1]
+            start = torch.as_tensor(gen_index, device=dev)
+            start = start[:, None, None] if start.dim() == 1 else start.reshape(1, 1, 1)
+            s_idx = torch.arange(s_g, device=dev)[None, None, :]
+            tq = torch.arange(t, device=dev)[None, :, None]
+            win = (s_idx >= start) & (s_idx <= start + tq)  # (B·K | 1, T, S_g)
+            if window_valid is not None:
+                j = (s_idx - start).clamp(0, t - 1).expand(bk, 1, s_g)
+                win = win & torch.gather(window_valid.bool()[:, None, :], 2, j)
+            valid_g = valid_g | win
+        return torch.cat([prompt_bias[:, None, None, :].expand(bk, 1, t, -1),
+                          _bias(valid_g)[:, None].expand(bk, 1, t, -1)], dim=-1)
 
     def _decode_layers(self, inputs_embeds, positions, attn_bias, prompt_kv, gen_kv,
                        gen_index, anc_rows=None) -> torch.Tensor:
@@ -690,16 +737,23 @@ class LlamaModel(nn.Module):
         prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
         prompt_mask: torch.Tensor,  # (B, S_p)
         gen_kv: Dict[str, torch.Tensor],  # k/v (L, B·K, S_g, hkv, D) [+ scales], written in place
-        gen_index,  # int, or (B·K,) each row's slot (out of range: no write)
-        gen_mask: torch.Tensor,  # (B·K, S_g), including the slot written now
+        gen_index,  # int, or (B·K,) each row's start slot (negative: no write)
+        gen_mask: torch.Tensor,  # (B·K, S_g); T = 1: including the slot written now
+        window_valid: Optional[torch.Tensor] = None,  # (B·K, T) bool, real window tokens
     ) -> torch.Tensor:
-        """One decode step over the split cache → logits (B·K, 1, V): the
+        """One decode step over the split cache → logits (B·K, T, V): the
         prompt segment at batch B, shared by the K beams of each row (K = 1
         greedy), and the generated segment at batch B·K, updated in place
-        (the JAX loop carries it functionally)."""
-        return self._decode_layers(inputs_embeds, positions,
-                                   self._attn_bias(inputs_embeds, prompt_kv, prompt_mask, gen_mask),
-                                   prompt_kv, gen_kv, gen_index)
+        (the JAX loop carries it functionally). T > 1 is a window: the
+        speculative verify window (``gen_index`` then (B,), rows at their
+        own depths) or the grouped path's suffix pass, where
+        ``window_valid`` keeps the left-pad tokens of each row's window
+        unseen."""
+        return self._decode_layers(
+            inputs_embeds, positions,
+            self._attn_bias(inputs_embeds, prompt_kv, prompt_mask, gen_mask, gen_index,
+                            window_valid),
+            prompt_kv, gen_kv, gen_index)
 
     def decode_step_beam_anc(
         self,
@@ -726,6 +780,8 @@ class LlamaModel(nn.Module):
         the reordered cache is attended: the same arithmetic, so the same
         tokens, without moving the cache's rows (a layer's gathered copy is
         the only extra memory)."""
+        if inputs_embeds.shape[1] != 1:
+            raise ValueError("the ancestry beam step takes one token a row (T = 1)")
         bk, s_g = gen_mask.shape
         block = torch.arange(bk, device=anc.device)[:, None] // num_beams * num_beams
         slots = torch.arange(s_g, device=anc.device)[None, :]

@@ -13,15 +13,18 @@ Counterpart of ``msr3d_tpu/models/msr3d.py``:
   * ``MSR3D`` is the host side: prompt building with placeholder
     expansion, tokenization into 32-multiple buckets (prompts left-padded,
     answers with bos + eos right-padded), ``forward`` → per-sequence loss,
-    the greedy and beam decode loops (over a bf16 or int8 KV cache) and
-    detokenization, retrieval scoring over an answer vocabulary
-    (``predict_answers``), the trainable set, and in-place weight-only
-    quantization of the LLM for serving (``quantize_llm``).
+    the greedy, sampled (``do_sample``, JAX's threefry stream), speculative
+    (``spec_k``, n-gram drafts) and beam decode loops (over a bf16 or int8
+    KV cache) and detokenization, grouped generation over a shared scene
+    prefix (``generate_scene_group``), ``compact_transfer`` (points sent to
+    the device as int16 xyz + int8 rgb), retrieval scoring over an answer
+    vocabulary (``predict_answers``), the trainable set, and in-place
+    weight-only quantization of the LLM for serving (``quantize_llm``).
 
-The serving engines over this model (slot refill, the fixed batcher, the
-HTTP front end) are in ``msr3d_tpu_torch/serving.py``. Not ported yet (see
-ROADMAP.md): sampling, speculative and grouped-scene decoding, the
-scene-grouped and prefix-pool serving engines.
+The serving engines over this model (slot refill, the fixed and the
+scene-grouped batchers, the HTTP front end) are in
+``msr3d_tpu_torch/serving.py``. Not ported yet: the prefix-pool serving
+engines (ROADMAP.md section 1 item 3) and ``layered_gen_cache``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,12 @@ from msr3d_tpu_torch.models.llm.llama import (
     RMSNorm,
     _make_cache,
 )
-from msr3d_tpu_torch.models.llm.sampling import beam_search_decode_shared, greedy_decode_shared
+from msr3d_tpu_torch.models.llm import prng
+from msr3d_tpu_torch.models.llm.sampling import (
+    beam_search_decode_shared,
+    greedy_decode_shared,
+    ngram_speculative_decode,
+)
 from msr3d_tpu_torch.models.llm.tokenizer import (
     IMAGE_PLACEHOLDER,
     SCENE_PLACEHOLDER,
@@ -55,6 +63,7 @@ from msr3d_tpu_torch.models.vision2d import Backbone2D, ConvNeXtBlock
 from msr3d_tpu_torch.nn.pointnet import BatchNormInference
 
 _SCENE_KEYS = ("obj_fts", "obj_masks", "obj_locs", "anchor_locs", "anchor_orientation")
+_PACKED = ("obj_fts_xyz_q", "obj_fts_rgb_q")  # compact_transfer's int16 and int8 points
 _IGNORE = -100
 
 
@@ -205,28 +214,33 @@ class MSR3DNetwork(nn.Module):
 
     def prefill(self, input_ids, attention_mask, obj_fts, obj_masks, obj_locs,
                 anchor_locs, anchor_orientation, images=None, image_masks=None, *,
-                bos_id: int, max_cache_len: int):
+                bos_id: int, max_cache_len: int, append_bos: bool = True):
         """Spliced embeds + trailing bos → (first-token logits (B, V) fp32,
-        prompt KV cache, cache mask, next positions)."""
+        prompt KV cache, cache mask, next positions). ``append_bos=False``
+        prefills a shared scene prefix (grouped generation), whose bos
+        belongs after each question's suffix."""
         embeds, attn = self.build_embeds(input_ids, attention_mask, obj_fts, obj_masks,
                                          obj_locs, anchor_locs, anchor_orientation, images,
                                          image_masks)
-        b = embeds.shape[0]
-        bos = torch.full((b, 1), bos_id, dtype=input_ids.dtype, device=input_ids.device)
-        embeds = torch.cat([embeds, self.llm.embed(bos)], dim=1)
-        attn = torch.cat([attn, torch.ones((b, 1), dtype=attn.dtype, device=attn.device)], dim=1)
+        if append_bos:
+            b = embeds.shape[0]
+            bos = torch.full((b, 1), bos_id, dtype=input_ids.dtype, device=input_ids.device)
+            embeds = torch.cat([embeds, self.llm.embed(bos)], dim=1)
+            attn = torch.cat([attn, torch.ones((b, 1), dtype=attn.dtype, device=attn.device)],
+                             dim=1)
         logits, _, caches, cache_mask, next_pos = self.llm.prefill_with_cache(
             embeds, attn, max_cache_len, logits_last_only=True
         )
         return logits[:, -1, :].float(), caches, cache_mask, next_pos
 
     def decode_step_shared(self, token_ids, positions, prompt_kv, prompt_mask, gen_kv,
-                           gen_index, gen_mask):
+                           gen_index, gen_mask, window_valid=None):
         """Split-cache decode step: the prompt KV at batch B, the generated
-        KV at batch B·K. See ``LlamaModel.decode_step_shared``."""
+        KV at batch B·K, a window of T >= 1 tokens. See
+        ``LlamaModel.decode_step_shared``."""
         return self.llm.decode_step_shared(
             self.llm.embed(token_ids), positions, prompt_kv, prompt_mask, gen_kv,
-            gen_index, gen_mask,
+            gen_index, gen_mask, window_valid,
         )
 
     def decode_step_beam_anc(self, token_ids, positions, prompt_kv, prompt_mask, gen_kv,
@@ -303,7 +317,16 @@ class MSR3D:
     ``forward(data_dict) → data_dict['loss']`` and ``generate(data_dict) →
     data_dict['output_tokens']`` (and ``'output_text'``), beam search by
     default (``num_beams`` 5, repetition penalty 3.0: the reference's eval
-    decode)."""
+    decode).
+
+    The serving knobs are JAX's, with its defaults and its checks:
+    ``spec_k`` > 0 runs greedy decoding with n-gram speculative drafts
+    (``spec_ngram``-grams; needs ``repetition_penalty`` 1.0); ``do_sample``
+    samples the greedy path (``temperature``, ``top_k``, ``top_p``), each
+    call from the key ``fold_in(PRNGKey(sample_seed), calls so far)``;
+    ``compact_transfer`` sends the generation paths' points to the device as
+    int16 xyz + int8 rgb (9 bytes a point, not 24) and unpacks them there.
+    """
 
     def __init__(
         self,
@@ -321,6 +344,14 @@ class MSR3D:
         beam_ancestry: bool = True,  # generated KV read through an ancestry
         # map, no per-step reorder of it; False reorders it (index_select)
         eos_logit_bias: float = 0.0,  # additive on the EOS logit, greedy and beam
+        compact_transfer: bool = False,
+        spec_k: int = 0,  # drafts a verify window of speculative greedy (0: off)
+        spec_ngram: int = 3,  # n of the suffix n-gram looked up for drafts
+        do_sample: bool = False,  # sample the greedy path (HF do_sample)
+        temperature: float = 1.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        sample_seed: int = 0,
         seed: int = 0,
         device=None,
     ):
@@ -345,6 +376,22 @@ class MSR3D:
         self.length_penalty = length_penalty
         self.beam_ancestry = bool(beam_ancestry)
         self.eos_logit_bias = eos_logit_bias
+        if spec_k > 0 and repetition_penalty != 1.0:
+            raise ValueError(
+                "speculative greedy (spec_k > 0) requires repetition_penalty == 1.0 — the "
+                "penalty serializes verification (pick t depends on in-window acceptance)")
+        if do_sample and spec_k > 0:
+            raise ValueError("do_sample and spec_k are mutually exclusive — n-gram "
+                             "verification accepts drafts against the argmax pick")
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        self.do_sample = bool(do_sample)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.sample_seed = int(sample_seed)
+        self._sample_calls = 0  # each sampled call folds its count into the key
+        self.compact_transfer = bool(compact_transfer)
         self._seed = seed
 
     # -- weights -----------------------------------------------------------
@@ -423,12 +470,12 @@ class MSR3D:
             return np.concatenate([pad_ids, ids], 1), np.concatenate([pad_mask, mask], 1)
         return np.concatenate([ids, pad_ids], 1), np.concatenate([mask, pad_mask], 1)
 
-    def _scene_batch(self, data_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The scene inputs on the model's device and, where the request
-        carries them, ``images`` (B, M, H, W, 3) and ``image_masks`` (B, M):
-        the MSR3D ``msr3d_imgs`` with ``msr3d_img_masks``, or else the LEO
-        single view ``img_fts`` (B, H, W, 3) as M = 1 with ``img_masks``
-        (ones when absent)."""
+    def _host_scene_batch(self, data_dict: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """The scene inputs as numpy and, where the request carries them,
+        ``images`` (B, M, H, W, 3) and ``image_masks`` (B, M): the MSR3D
+        ``msr3d_imgs`` with ``msr3d_img_masks``, or else the LEO single view
+        ``img_fts`` (B, H, W, 3) as M = 1 with ``img_masks`` (ones when
+        absent)."""
         batch = {k: np.asarray(data_dict[k]) for k in _SCENE_KEYS}
         if data_dict.get("msr3d_imgs") is not None:
             batch["images"] = np.asarray(data_dict["msr3d_imgs"])
@@ -441,10 +488,63 @@ class MSR3D:
             batch["image_masks"] = np.asarray(
                 data_dict.get("img_masks", np.ones(imgs.shape[:2], bool))
             ).reshape(imgs.shape[:2])
-        bools = ("obj_masks", "image_masks")
-        return {k: torch.as_tensor(v, device=self.device).to(
-                    torch.bool if k in bools else torch.float32)
-                for k, v in batch.items()}
+        return batch
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A host scene batch on the model's device: masks bool, the packed
+        points of ``_maybe_pack`` in their integer types, the rest fp32."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v, device=self.device)
+            if k in ("obj_masks", "image_masks"):
+                t = t.to(torch.bool)
+            elif k not in _PACKED:
+                t = t.to(torch.float32)
+            out[k] = t
+        return out
+
+    def _scene_batch(self, data_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The scene inputs of ``_host_scene_batch`` on the model's device."""
+        return self._to_device(self._host_scene_batch(data_dict))
+
+    def _maybe_pack(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """``compact_transfer``: ``obj_fts`` (..., 6) fp32 → int16 xyz (×
+        32767) + int8 rgb (× 127), 9 bytes a point, not 24; the points are
+        normalized to the unit sphere, so a fixed scale holds. JAX's numpy,
+        so the same bits."""
+        if not self.compact_transfer or "obj_fts" not in batch:
+            return batch
+        batch = dict(batch)
+        fts = batch.pop("obj_fts")
+        batch["obj_fts_xyz_q"] = np.clip(np.round(fts[..., :3] * 32767.0), -32767,
+                                         32767).astype(np.int16)
+        batch["obj_fts_rgb_q"] = np.clip(np.round(fts[..., 3:6] * 127.0), -127,
+                                         127).astype(np.int8)
+        return batch
+
+    @staticmethod
+    def _unpack_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The device side of ``_maybe_pack``: each part to fp32 times the
+        fp32 constant 1/32767 or 1/127, as JAX computes it (a multiply, not a
+        divide)."""
+        if "obj_fts_xyz_q" not in batch:
+            return batch
+        batch = dict(batch)
+        xyz = batch.pop("obj_fts_xyz_q")
+        rgb = batch.pop("obj_fts_rgb_q")
+        scale = torch.tensor([1.0 / 32767.0, 1.0 / 127.0], dtype=torch.float32,
+                             device=xyz.device)
+        batch["obj_fts"] = torch.cat([xyz.float() * scale[0], rgb.float() * scale[1]], dim=-1)
+        return batch
+
+    def _gen_scene_batch(self, data_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The generation paths' scene inputs on the device: with
+        ``compact_transfer`` the points cross to the device packed and are
+        unpacked there (JAX packs on these paths only, not for the loss)."""
+        if not self.compact_transfer:
+            return self._scene_batch(data_dict)
+        return self._unpack_batch(self._to_device(self._maybe_pack(
+            self._host_scene_batch(data_dict))))
 
     def loss_batch(self, data_dict: Dict[str, Any], input_ids: np.ndarray, attn: np.ndarray,
                    output_ids: np.ndarray, output_mask: np.ndarray) -> Dict[str, torch.Tensor]:
@@ -517,24 +617,36 @@ class MSR3D:
     ) -> Callable[[], Dict[str, Any]]:
         """``generate`` split in two: runs the prefill and the decode loop
         and returns ``finalize()``, which copies the tokens to the host,
-        detokenizes and sets ``output_tokens`` and ``output_text``.
+        detokenizes and sets ``output_tokens`` and ``output_text`` (and, on
+        the speculative path, ``spec_stats``: tokens emitted, drafts
+        accepted, verify calls).
 
         This gives the fixed batcher and the trainer's eval loop the JAX
         package's request-pipelining interface, but little overlap: the
         decode loops read the host every step (the exit test), so by the
         time this returns all but the last step's kernels have run. Only
-        the device-to-host copy and the detokenize wait for ``finalize``."""
+        the device-to-host copy and the detokenize wait for ``finalize``.
+
+        The greedy path samples with ``do_sample`` and speculates with
+        ``spec_k`` > 0; sampling with beams, or with ``spec_k``, raises."""
         beams = self.num_beams if use_beam is None else (self.num_beams if use_beam else 1)
+        if self.do_sample and beams > 1:
+            raise ValueError("do_sample requires the greedy path (num_beams == 1 or "
+                             "use_beam=False) — beam-sampling is not supported")
+        sample = self.do_sample
+        if sample and self.spec_k > 0:
+            raise ValueError("do_sample and spec_k are mutually exclusive — n-gram "
+                             "verification accepts drafts against the argmax pick")
         self.network.eval()  # no dropout, also right after training steps
         input_ids, attn = self._encode_prompts(self.build_text_prompt(data_dict))
         input_ids, attn = self._pad_to_bucket(input_ids, attn, side="left")
-        scene = self._scene_batch(data_dict)
+        scene = self._gen_scene_batch(data_dict)
         max_new = max_new_tokens or self.max_out_len
         eos_id = self.tokenizer.eos_id
+        ids_t = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
 
         first, prompt_kv, prompt_mask, next_pos = self.network.prefill(
-            torch.as_tensor(input_ids, dtype=torch.long, device=self.device),
-            torch.as_tensor(attn, dtype=torch.int32, device=self.device),
+            ids_t, torch.as_tensor(attn, dtype=torch.int32, device=self.device),
             **scene, bos_id=self.tokenizer.bos_id, max_cache_len=input_ids.shape[1] + 1,
         )
         # the prompt cache stays at batch B; the generated segment holds a
@@ -549,6 +661,7 @@ class MSR3D:
         common = dict(max_new_tokens=max_new, eos_id=eos_id, pad_id=eos_id, min_length=1,
                       repetition_penalty=self.repetition_penalty,
                       eos_logit_bias=self.eos_logit_bias)
+        spec_stats = None
         if beams > 1:
             def decode_anc(token_ids, positions, gkv, gidx, gmask, anc):
                 return self.network.decode_step_beam_anc(
@@ -560,12 +673,192 @@ class MSR3D:
                 length_penalty=self.length_penalty,
                 decode_step_anc=decode_anc if self.beam_ancestry else None, **common,
             )
+        elif self.spec_k > 0:
+            # the generated segment's slots start at 0 (prompt_len 0): the
+            # prompt lives in the shared prompt segment
+            common.pop("repetition_penalty")
+            tokens, spec_stats = ngram_speculative_decode(
+                decode_shared, gen_kv,
+                torch.zeros((first.shape[0], max_new), dtype=torch.bool, device=self.device),
+                next_pos, first, ids_t, prompt_len=0, spec_k=self.spec_k,
+                ngram_n=self.spec_ngram, return_stats=True, **common,
+            )
         else:
-            tokens = greedy_decode_shared(decode_shared, next_pos, first, gen_kv, **common)
+            sample_kw = {}
+            if sample:
+                key = prng.fold_in(prng.prng_key(self.sample_seed, self.device),
+                                   self._sample_calls)
+                self._sample_calls += 1
+                sample_kw = dict(sample_key=key, temperature=self.temperature,
+                                 top_k=self.top_k, top_p=self.top_p)
+            tokens = greedy_decode_shared(decode_shared, next_pos, first, gen_kv, **common,
+                                          **sample_kw)
 
         def finalize() -> Dict[str, Any]:
             data_dict["output_tokens"] = tokens.cpu().numpy()
             data_dict["output_text"] = self.batch_detokenize(data_dict["output_tokens"])
+            if spec_stats is not None:
+                data_dict["spec_stats"] = {k: int(v) for k, v in spec_stats.items()}
+            return data_dict
+
+        return finalize
+
+    # -- grouped generation: Q questions over one shared scene prefix --------
+
+    def generate_scene_group(
+        self,
+        data_dict: Dict[str, Any],
+        *,
+        use_beam: Optional[bool] = None,
+        max_new_tokens: Optional[int] = None,
+    ) -> Dict[str, Any]:
+        """Blocking grouped generate, ``generate_scene_group_async(...)()``."""
+        return self.generate_scene_group_async(data_dict, use_beam=use_beam,
+                                               max_new_tokens=max_new_tokens)()
+
+    @torch.no_grad()
+    def generate_scene_group_async(
+        self,
+        data_dict: Dict[str, Any],
+        *,
+        use_beam: Optional[bool] = None,
+        max_new_tokens: Optional[int] = None,
+    ) -> Callable[[], Dict[str, Any]]:
+        """Answer groups of questions that share a scene, each scene's prefix
+        prefilled once.
+
+        ``data_dict`` holds scene arrays with leading dim G (one row a scene)
+        and ``msr3d_prompt`` as a list of G lists of questions (or, for G =
+        1, a flat list). Each group's prompts are tokenized whole and split
+        at their longest common token prefix, which must hold every scene
+        and image placeholder (else ``ValueError``). Then, as JAX's
+        ``_make_group_fn``:
+
+          1. the G prefixes, left-padded to a bucket of 32, prefill at batch
+             G without a trailing bos (K1 and K2f: one scene encode a scene);
+          2. the G·Q suffixes with their bos, left-padded to a bucket of 8 (Q
+             padded to a bucket of 4 with copies of the group's first
+             question), run as ONE window of T = W over their group's prefix,
+             ``window_valid`` hiding the pad tokens; their k/v fill slots
+             [0, W) of the generated segment;
+          3. greedy decoding, or beam search with the suffix k/v repeated K
+             times beam-minor, writes from slot W (``gen_base``).
+
+        Token for token what per-question ``generate`` gives in exact
+        arithmetic. Speculative and sampled decoding are not grouped
+        (``ValueError``). Returns ``finalize()``, which sets the G·Q real
+        rows' ``output_tokens`` and ``output_text``, scene-major."""
+        if self.spec_k > 0 or self.do_sample:
+            raise ValueError("generate_scene_group supports greedy and beam decoding — "
+                             "spec_k and do_sample are not supported in grouped mode")
+        beams = self.num_beams if use_beam is None else (self.num_beams if use_beam else 1)
+        raw = data_dict["msr3d_prompt"]
+        nested = ([list(grp) for grp in raw] if raw and isinstance(raw[0], (list, tuple))
+                  else [list(raw)])
+        n_groups = len(nested)
+        group_sizes = [len(grp) for grp in nested]
+        if min(group_sizes) < 1:
+            raise ValueError("every scene group needs at least one prompt")
+
+        tok = self.tokenizer
+        placeholders = {tok.scene_token_id, tok.img_token_id}
+        group_rows, group_lc = [], []
+        for grp in nested:
+            enc = tok.encode_batch(self.build_text_prompt({"msr3d_prompt": grp}),
+                                   padding_side="left", add_bos=True, pad_to=None)
+            rows = [enc.input_ids[i][enc.attention_mask[i].astype(bool)]
+                    for i in range(len(grp))]
+            m = min(len(r) for r in rows)
+            stacked = np.stack([r[:m] for r in rows])
+            eq = np.all(stacked == stacked[0:1], axis=0)
+            lc = m if eq.all() else int(np.argmin(eq))  # the longest common prefix
+            for r in rows:
+                if any(int(t) in placeholders for t in r[lc:]):
+                    raise ValueError(
+                        "grouped prompts diverge before the scene/image placeholders — every "
+                        "placeholder must sit in the shared prefix (group prompts by scene AND "
+                        "situation)")
+            group_rows.append(rows)
+            group_lc.append(lc)
+
+        p = max(32, -(-max(group_lc) // 32) * 32)
+        prefix_ids = np.full((n_groups, p), tok.pad_id, np.int64)
+        prefix_attn = np.zeros((n_groups, p), np.int32)
+        for gi, (rows, lc) in enumerate(zip(group_rows, group_lc)):
+            prefix_ids[gi, p - lc:] = rows[0][:lc]
+            prefix_attn[gi, p - lc:] = 1
+        group_sufs = [[list(map(int, r[lc:])) + [tok.bos_id] for r in rows]
+                      for rows, lc in zip(group_rows, group_lc)]
+        w = max(8, -(-max(len(x) for sufs in group_sufs for x in sufs) // 8) * 8)
+        q_pad = max(1, -(-max(group_sizes) // 4) * 4)
+        bq = n_groups * q_pad
+        suffix_ids = np.full((bq, w), tok.pad_id, np.int64)
+        window_valid = np.zeros((bq, w), np.int32)
+        for gi, sufs in enumerate(group_sufs):
+            for j in range(q_pad):
+                suf = sufs[j] if j < len(sufs) else sufs[0]
+                suffix_ids[gi * q_pad + j, w - len(suf):] = suf
+                window_valid[gi * q_pad + j, w - len(suf):] = 1
+
+        lead = np.asarray(data_dict[_SCENE_KEYS[0]]).shape[0]
+        if lead != n_groups:
+            raise ValueError(f"generate_scene_group expects ONE scene row per prompt group: "
+                             f"got {lead} scene rows for {n_groups} groups")
+        self.network.eval()
+        scene = self._gen_scene_batch(data_dict)
+        max_new = max_new_tokens or self.max_out_len
+        eos_id = tok.eos_id
+        dev = self.device
+        net = self.network
+
+        # 1. the shared prefixes at batch G, no trailing bos
+        _, prefix_kv, prefix_mask, next_pre = net.prefill(
+            torch.as_tensor(prefix_ids, device=dev),
+            torch.as_tensor(prefix_attn, device=dev), **scene, bos_id=tok.bos_id,
+            max_cache_len=p, append_bos=False)
+        # 2. every suffix in one window over its group's prefix; row g·Q + j
+        # belongs to scene g (the decode step's bk // b repeat)
+        s_g = w + max_new
+        gen_kv = _make_cache(net.llm.cfg, bq, s_g, dev)
+        wv_t = torch.as_tensor(window_valid, device=dev)
+        n_pre = next_pre.long().repeat_interleave(q_pad)
+        win_pos = (n_pre[:, None] + torch.cumsum(wv_t.long(), dim=1) - 1).clamp(min=0)
+        logits = net.decode_step_shared(
+            torch.as_tensor(suffix_ids, device=dev), win_pos, prefix_kv, prefix_mask, gen_kv,
+            0, torch.zeros((bq, s_g), dtype=torch.bool, device=dev), wv_t.bool())
+        first = logits[:, -1, :].float()
+        next_positions = n_pre + wv_t.long().sum(dim=1)
+        gen_mask_base = torch.nn.functional.pad(wv_t.bool(), (0, max_new))
+
+        # 3. decoding over the prefixes at batch G and the suffixes' slots
+        def decode_shared(token_ids, positions, gkv, gidx, gmask):
+            return net.decode_step_shared(token_ids, positions, prefix_kv, prefix_mask, gkv,
+                                          gidx, gmask)
+
+        common = dict(max_new_tokens=max_new, eos_id=eos_id, pad_id=eos_id, min_length=1,
+                      repetition_penalty=self.repetition_penalty,
+                      eos_logit_bias=self.eos_logit_bias, gen_base=w)
+        if beams > 1:
+            gen_kv = {key: val.repeat_interleave(beams, dim=1) for key, val in gen_kv.items()}
+
+            def decode_anc(token_ids, positions, gkv, gidx, gmask, anc):
+                return net.decode_step_beam_anc(token_ids, positions, prefix_kv, prefix_mask,
+                                                gkv, gidx, gmask, anc, beams)
+
+            tokens = beam_search_decode_shared(
+                decode_shared, next_positions, first, gen_kv, num_beams=beams,
+                length_penalty=self.length_penalty,
+                gen_mask_base=gen_mask_base.repeat_interleave(beams, dim=0),
+                decode_step_anc=decode_anc if self.beam_ancestry else None, **common)
+        else:
+            tokens = greedy_decode_shared(decode_shared, next_positions, first, gen_kv,
+                                          gen_mask_base=gen_mask_base, **common)
+
+        def finalize() -> Dict[str, Any]:
+            out = tokens.cpu().numpy().reshape(n_groups, q_pad, -1)
+            flat = np.concatenate([out[gi, :sz] for gi, sz in enumerate(group_sizes)], axis=0)
+            data_dict["output_tokens"] = flat
+            data_dict["output_text"] = self.batch_detokenize(flat)
             return data_dict
 
         return finalize

@@ -15,12 +15,14 @@ from a seed, then from the checkpoints the config names
 (``load_pretrained_from_config``) unless ``--random-init``, then from
 ``--learnable``: the port's own ``best``/``latest`` learnable weights, as
 ``trainer/checkpoint.py`` saves them (not an orbax directory). The engine
-(``--engine continuous``, the default, or ``beam``) runs behind the stdlib
-HTTP front end (``serving_http.py``). SIGINT or SIGTERM drains every
+(``--engine continuous``, the default, with ``--spec-k`` drafts a verify
+window; ``beam``; or ``grouped``, the scene-grouped batcher of
+``--group-scenes`` scenes x ``--group-questions`` questions) runs behind the
+stdlib HTTP front end (``serving_http.py``). SIGINT or SIGTERM drains every
 accepted request, then exits 0.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-``--engine grouped``, ``pool`` and ``pool-beam``, and ``--spec-k`` above 0.
+Not ported yet (raises ``NotImplementedError``): ``--engine pool`` and
+``pool-beam`` (ROADMAP.md section 1 item 3, the prefix-pool engines).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import signal
 import sys
 import threading
 
-_ROADMAP = "ROADMAP.md, queue: the serving engines, item 5 (b)"
+_POOL_ITEM = "ROADMAP.md section 1 item 3, the prefix-pool engines"
 
 
 def parse_args(argv=None):
@@ -49,8 +51,8 @@ def parse_args(argv=None):
                    help="decode chunks run before a chunk's flags are read")
     p.add_argument("--engine", choices=["continuous", "beam", "grouped", "pool", "pool-beam"],
                    default="continuous",
-                   help="greedy slot-refill engine or per-slot beam search; grouped, pool "
-                   "and pool-beam are not ported yet")
+                   help="greedy slot-refill engine, per-slot beam search, or the "
+                   "scene-grouped batcher; pool and pool-beam are not ported yet")
     p.add_argument("--num-prefixes", type=int, default=8,
                    help="pool engines (not ported yet): prefix KV blocks")
     p.add_argument("--prefix-len", type=int, default=None,
@@ -58,15 +60,15 @@ def parse_args(argv=None):
     p.add_argument("--suffix-len", type=int, default=48,
                    help="pool engines (not ported yet): question bucket")
     p.add_argument("--group-scenes", type=int, default=4,
-                   help="grouped engine (not ported yet): scene groups per batch")
+                   help="grouped engine: scene groups per batch")
     p.add_argument("--group-questions", type=int, default=8,
-                   help="grouped engine (not ported yet): questions per scene group")
+                   help="grouped engine: questions per scene group")
     p.add_argument("--max-new-tokens", type=int, default=None,
                    help="engine-wide decode budget (default: model max_out_len)")
     p.add_argument("--prompt-len", type=int, default=None,
                    help="prompt width, trailing bos included (default: model prompt_pad_to)")
     p.add_argument("--spec-k", type=int, default=0,
-                   help="n-gram speculative drafts per step (not ported yet: only 0)")
+                   help="continuous engine: n-gram speculative drafts per verify window")
     p.add_argument("--learnable", default=None,
                    help="checkpoint directory of a training run of the port (its ckpt/); "
                    "loads the learnable weights 'best', else 'latest', or --learnable-name")
@@ -85,13 +87,15 @@ def create_frontend(args, cfg=None):
     """Build the model, the engine and the HTTP front end (not started)."""
     from msr3d_tpu_torch.config import load_config
     from msr3d_tpu_torch.models.build import build_model
-    from msr3d_tpu_torch.serving import ContinuousBatchingServer, ContinuousBeamBatchingServer
+    from msr3d_tpu_torch.serving import (
+        ContinuousBatchingServer,
+        ContinuousBeamBatchingServer,
+        SceneGroupBatchingServer,
+    )
     from msr3d_tpu_torch.serving_http import ServingFrontend
 
-    if args.engine in ("grouped", "pool", "pool-beam"):
-        raise NotImplementedError(f"--engine {args.engine} is not ported yet ({_ROADMAP})")
-    if args.spec_k > 0:
-        raise NotImplementedError(f"--spec-k {args.spec_k} is not ported yet ({_ROADMAP})")
+    if args.engine in ("pool", "pool-beam"):
+        raise NotImplementedError(f"--engine {args.engine} is not ported yet ({_POOL_ITEM})")
     if cfg is None:
         cfg = load_config(args.config, overrides=list(args.opts))
     model = build_model(cfg, device=args.device)
@@ -117,17 +121,18 @@ def create_frontend(args, cfg=None):
         else:
             raise FileNotFoundError(f"no weights {names} under {args.learnable}")
 
-    engine_cls = ContinuousBeamBatchingServer if args.engine == "beam" \
-        else ContinuousBatchingServer
-    engine = engine_cls(
-        model,
-        num_slots=args.slots,
-        refill_group=min(args.refill_group, args.slots),
-        chunk_steps=args.chunk_steps,
-        lookahead=args.lookahead,
-        max_new_tokens=args.max_new_tokens,
-        prompt_len=args.prompt_len,
-    )
+    if args.engine == "grouped":
+        engine = SceneGroupBatchingServer(model, scenes_per_batch=args.group_scenes,
+                                          questions_per_scene=args.group_questions,
+                                          max_new_tokens=args.max_new_tokens)
+    else:
+        kw = dict(num_slots=args.slots, refill_group=min(args.refill_group, args.slots),
+                  chunk_steps=args.chunk_steps, lookahead=args.lookahead,
+                  max_new_tokens=args.max_new_tokens, prompt_len=args.prompt_len)
+        if args.engine == "continuous":
+            engine = ContinuousBatchingServer(model, spec_k=args.spec_k, **kw)
+        else:
+            engine = ContinuousBeamBatchingServer(model, **kw)
     return ServingFrontend(engine, host=args.host, port=args.port,
                            request_timeout=args.request_timeout)
 

@@ -1,9 +1,11 @@
-"""Serving engines for MSR3D generation: the fixed batcher and the slot-refill
-continuous engines, greedy and beam.
+"""Serving engines for MSR3D generation: the fixed and the scene-grouped
+batchers, and the slot-refill continuous engines, greedy (also speculative
+and sampled) and beam.
 
 Counterpart of ``msr3d_tpu/serving.py`` (``Result``, ``RequestStreamIdle``,
 ``OnlineRequestStream``, ``_collate``, ``uncollate_batch``,
-``BatchingServer``, ``ContinuousBatchingServer``, ``_hf_beam_machinery``,
+``BatchingServer``, ``scene_fingerprint``, ``SceneGroupBatchingServer``,
+``ContinuousBatchingServer``, ``_hf_beam_machinery``,
 ``ContinuousBeamBatchingServer``), with the same host loop, the same
 request ids and the same tokens request for request.
 
@@ -25,15 +27,18 @@ KV at its own slot (``llama._cache_write`` with a (B,) index) and picks
 its token with ``pick_next_rows``. Under ``lookahead`` the host reads a
 chunk's ``finished``, ``generated`` and ``cnt`` after later chunks have
 changed the state, so they are cloned on the device when the chunk ends.
+With ``spec_k`` > 0 a chunk step is one verify window of spec_k + 1 tokens
+a slot (``llama._cache_write`` then writes a window a row); with the
+model's ``do_sample`` each slot samples from a key folded from its
+request id at insert and from the row's step at each pick.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-speculative decoding (``spec_k > 0``), sampled decoding (``do_sample``),
-the scene-grouped engine and the prefix-pool engines.
+Not ported yet: the prefix-pool engines (ROADMAP.md section 1 item 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 from collections import deque
 from typing import Any, Dict, Iterable, Iterator, List, Optional
@@ -41,13 +46,18 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
+from msr3d_tpu_torch.models.llm import prng
 from msr3d_tpu_torch.models.llm.llama import _make_cache, _write_rows
 from msr3d_tpu_torch.models.llm.sampling import (
     _NEG,
     _mask_min_length,
+    _scatter_drop,
     _top_k,
     apply_repetition_penalty,
+    ngram_propose,
     pick_next_rows,
+    pick_next_rows_sampled,
+    spec_accept,
 )
 from msr3d_tpu_torch.models.llm.tokenizer import IMAGE_PLACEHOLDER, SCENE_PLACEHOLDER
 
@@ -61,13 +71,6 @@ _BATCH_KEYS = (
     "msr3d_img_masks",
     "img_fts",  # LEO-format single ego view
 )
-_ROADMAP = "ROADMAP.md, queue: the serving engines, item 5 (b)"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_ROADMAP})")
-
-
 @dataclasses.dataclass
 class Result:
     id: int
@@ -273,6 +276,201 @@ class BatchingServer:
                        output_tokens=np.asarray(data["output_tokens"][i])) for i in range(n)]
 
 
+def scene_fingerprint(sample: Dict[str, Any]) -> Any:
+    """The grouping key of :class:`SceneGroupBatchingServer`: a sample's
+    ``group_key`` where it has one, else a blake2b digest (16 bytes, hex) of
+    every scene array it carries, each as its key, its shape and its bytes,
+    so that two requests group only if the prefix prefill would see the
+    same inputs (the JAX package's digest, byte for byte)."""
+    if "group_key" in sample:
+        return sample["group_key"]
+    h = hashlib.blake2b(digest_size=16)
+    for key in _BATCH_KEYS:
+        v = sample.get(key)
+        if v is not None:
+            arr = np.ascontiguousarray(np.asarray(v))
+            h.update(key.encode())
+            h.update(str(arr.shape).encode())
+            h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+class SceneGroupBatchingServer:
+    """Scene-grouped serving: requests that share a scene are answered by one
+    grouped program (``MSR3D.generate_scene_group_async``), so the scene
+    encode and the prefix prefill run once a scene, not once a question.
+
+    The contract of :class:`BatchingServer` (submit, flush, run; results
+    carry submission ids), plus grouping:
+
+    - requests group by :func:`scene_fingerprint`;
+    - a group is full at ``questions_per_scene`` requests, and a batch of
+      ``scenes_per_batch`` full groups dispatches as one program;
+    - ``flush()`` dispatches the ragged rest;
+    - beyond ``max_open_scenes`` open groups (a stream that is not
+      scene-contiguous) the oldest dispatch unfilled.
+
+    A batch whose prompts diverge inside a group before the placeholders (a
+    miskeyed group) falls back to singleton groups, each question its own
+    prefix: still the grouped program, still exact.
+    """
+
+    def __init__(
+        self,
+        model,
+        scenes_per_batch: int,
+        questions_per_scene: int,
+        *,
+        pipeline_depth: int = 3,
+        use_beam: Optional[bool] = None,
+        max_new_tokens: Optional[int] = None,
+        max_open_scenes: Optional[int] = None,
+    ):
+        assert scenes_per_batch >= 1 and questions_per_scene >= 1
+        self.model = model
+        self.scenes_per_batch = scenes_per_batch
+        self.questions_per_scene = questions_per_scene
+        self.pipeline_depth = max(0, pipeline_depth)
+        self.use_beam = use_beam
+        self.max_new_tokens = max_new_tokens
+        self.max_open_scenes = max_open_scenes or 4 * scenes_per_batch
+        self._next_id = 0
+        self._open: Dict[Any, List] = {}  # key -> [(rid, sample), ...]
+        self._open_order: List[Any] = []
+        self._full: List[List] = []  # full groups waiting for a batch
+        self._inflight: deque = deque()  # (finalize, [ids])
+        self._ready: List[Result] = []
+
+    @property
+    def num_slots(self) -> int:
+        return self.scenes_per_batch * self.questions_per_scene
+
+    def submit(self, sample: Dict[str, Any]) -> int:
+        """Enqueue one request; returns its id."""
+        rid = self._next_id
+        self._next_id += 1
+        key = scene_fingerprint(sample)
+        if key not in self._open:
+            self._open[key] = []
+            self._open_order.append(key)
+        self._open[key].append((rid, sample))
+        if len(self._open[key]) >= self.questions_per_scene:
+            self._full.append(self._open.pop(key))
+            self._open_order.remove(key)
+        while len(self._open_order) > self.max_open_scenes:
+            self._full.append(self._open.pop(self._open_order.pop(0)))
+        while len(self._full) >= self.scenes_per_batch:
+            groups = self._full[:self.scenes_per_batch]
+            self._full = self._full[self.scenes_per_batch:]
+            self._ready.extend(self._dispatch(groups))
+        return rid
+
+    def _dispatch_rest(self) -> List[Result]:
+        """Dispatch every buffered group, full or not, a batch at a time."""
+        rest = self._full + [self._open.pop(k) for k in list(self._open_order)]
+        self._full, self._open_order = [], []
+        out: List[Result] = []
+        for start in range(0, len(rest), self.scenes_per_batch):
+            out.extend(self._dispatch(rest[start:start + self.scenes_per_batch]))
+        return out
+
+    def flush(self) -> List[Result]:
+        """Dispatch the rest, finalize everything in flight, and return every
+        result not returned yet, in id order."""
+        out, self._ready = self._ready, []
+        out.extend(self._dispatch_rest())
+        while self._inflight:
+            out.extend(self._drain_one())
+        out.sort(key=lambda r: r.id)
+        return out
+
+    def run(self, samples, on_result=None, idle_flush_s: float = 0.05):
+        """Serve requests.
+
+        Bulk (an iterable, no ``on_result``): a generator of results, as
+        :meth:`BatchingServer.run`.
+
+        Online (an :class:`OnlineRequestStream` and ``on_result``, the HTTP
+        front end's engine thread): pulls until the stream closes and
+        delivers each result through the callback. Groups wait for their
+        scene-mates only while requests keep coming: after ``idle_flush_s``
+        of a quiet stream every buffered group dispatches, ragged or
+        singleton. A request's ``max_new_tokens`` truncates its tokens (the
+        grouped program decodes one budget for all its rows)."""
+        if on_result is None:
+            return self._run_bulk(samples)
+        assert isinstance(samples, OnlineRequestStream), \
+            "online mode expects an OnlineRequestStream"
+        budgets: Dict[int, Optional[int]] = {}
+
+        def deliver(results: List[Result]) -> None:
+            for res in results:
+                cap = budgets.pop(res.id, None)
+                if cap is not None and len(res.output_tokens) > cap:
+                    toks = np.asarray(res.output_tokens)[:cap]
+                    res = Result(id=res.id, output_text=self.model.batch_detokenize(toks[None])[0],
+                                 output_tokens=toks)
+                on_result(res)
+
+        while True:
+            try:
+                sample, budget = next(samples)
+            except RequestStreamIdle:
+                if self._inflight:
+                    deliver(self._drain_one())
+                elif self._open or self._full:
+                    # a quiet stream with groups buffered: a grace, then all go
+                    samples.wait(timeout=idle_flush_s)
+                    if samples.pending == 0 and not samples.closed:
+                        deliver(self._dispatch_rest())
+                else:
+                    samples.wait(timeout=1.0)
+                continue
+            except StopIteration:
+                break
+            rid = self.submit(sample)
+            budgets[rid] = budget
+            if self._ready:
+                ready, self._ready = self._ready, []
+                deliver(ready)
+        deliver(self.flush())
+
+    def _run_bulk(self, samples: Iterable[Dict[str, Any]]) -> Iterator[Result]:
+        for s in samples:
+            self.submit(s)
+            if self._ready:
+                ready, self._ready = self._ready, []
+                yield from ready
+        yield from self.flush()
+
+    def _dispatch(self, groups: List[List]) -> List[Result]:
+        ids = [rid for grp in groups for rid, _ in grp]
+        try:
+            finalize = self._dispatch_grouped(groups)
+        except ValueError:
+            # prompts diverge before the placeholders (a miskeyed group):
+            # singleton groups are always valid, the whole prompt a prefix
+            finalize = self._dispatch_grouped([[(rid, s)] for grp in groups for rid, s in grp])
+        self._inflight.append((finalize, ids))
+        done: List[Result] = []
+        while len(self._inflight) > self.pipeline_depth:
+            done.extend(self._drain_one())
+        return done
+
+    def _dispatch_grouped(self, groups: List[List]):
+        batch = _collate([grp[0][1] for grp in groups])
+        batch["msr3d_prompt"] = [[s["msr3d_prompt"] for _, s in grp] for grp in groups]
+        return self.model.generate_scene_group_async(batch, use_beam=self.use_beam,
+                                                     max_new_tokens=self.max_new_tokens)
+
+    def _drain_one(self) -> List[Result]:
+        finalize, ids = self._inflight.popleft()
+        data = finalize()
+        return [Result(id=ids[i], output_text=data["output_text"][i],
+                       output_tokens=np.asarray(data["output_tokens"][i]))
+                for i in range(len(ids))]
+
+
 # ---------------------------------------------------------------------------
 # Continuous batching: slot refill
 # ---------------------------------------------------------------------------
@@ -315,12 +513,18 @@ class ContinuousBatchingServer:
         drain_between_batches: bool = False,
         lookahead: int = 1,
         spec_k: int = 0,
+        spec_ngram: int = 3,
     ):
         assert 1 <= refill_group <= num_slots
-        if spec_k > 0:
-            raise _not_ported(f"speculative continuous batching (spec_k={spec_k})")
-        if getattr(model, "do_sample", False):
-            raise _not_ported("sampled decoding in the continuous engine (do_sample)")
+        if spec_k > 0 and model.repetition_penalty != 1.0:
+            raise ValueError("speculative continuous batching requires repetition_penalty == "
+                             "1.0 (the penalty serializes the verify window)")
+        self.sample = bool(getattr(model, "do_sample", False))
+        if self.sample and spec_k > 0:
+            raise ValueError("do_sample and spec_k are mutually exclusive — n-gram "
+                             "verification accepts drafts against the argmax pick")
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
         self.model = model
         self.num_slots = num_slots
         self.refill_group = refill_group
@@ -331,7 +535,7 @@ class ContinuousBatchingServer:
         # up to `lookahead` further chunks run before a chunk's flags are
         # read, so scheduling lags by at most that many chunks
         self.lookahead = max(0, lookahead)
-        self.steps_run = 0  # decode steps, for utilization reporting
+        self.steps_run = 0  # decode steps (model calls), for utilization reporting
 
     # -- device state ----------------------------------------------------
 
@@ -353,15 +557,24 @@ class ContinuousBatchingServer:
             seen=torch.zeros((b, cfg.vocab_size), dtype=torch.bool, device=dev),
             budget=torch.zeros(b, dtype=torch.long, device=dev),
         )
+        if self.spec_k:  # each slot's prompt ids, the drafts' context
+            state["prompt_ids"] = torch.zeros((b, self.prompt_len - 1), dtype=torch.int32,
+                                              device=dev)
+        if self.sample:  # each slot's key, folded from its request id
+            state["rng"] = torch.zeros((b, 2), dtype=torch.int64, device=dev)
         prompt = (_make_cache(cfg, b, self.prompt_len, dev),
                   torch.zeros((b, self.prompt_len), dtype=torch.bool, device=dev))
         return prompt, state
 
-    def _pick_rows(self, logits, seen, steps):
+    def _pick_rows(self, logits, seen, steps, keys=None):
         model = self.model
-        return pick_next_rows(logits, seen, steps, eos_id=model.tokenizer.eos_id,
-                              repetition_penalty=model.repetition_penalty,
-                              eos_logit_bias=model.eos_logit_bias)
+        kw = dict(eos_id=model.tokenizer.eos_id, repetition_penalty=model.repetition_penalty,
+                  eos_logit_bias=model.eos_logit_bias)
+        if self.sample:
+            return pick_next_rows_sampled(logits, seen, steps, prng.fold_in(keys, steps),
+                                          temperature=model.temperature, top_k=model.top_k,
+                                          top_p=model.top_p, **kw)
+        return pick_next_rows(logits, seen, steps, **kw)
 
     @staticmethod
     def _insert_prompt(prompt_ctx, kv, mask, slots):
@@ -370,16 +583,26 @@ class ContinuousBatchingServer:
             arr[:, slots] = kv[key].to(arr.dtype)
         prompt_mask[slots] = mask
 
-    def _insert(self, prompt_ctx, state, kv, mask, first, next_pos, slots, valid, budgets):
+    def _insert(self, prompt_ctx, state, kv, mask, first, next_pos, slots, valid, budgets,
+                ids=None, rids=None):
         """Write a prefilled group at ``slots``: its prompt KV and mask, its
-        first token (picked at step 0), count 1, position and budget;
-        padding rows (``valid`` False) insert finished and idle."""
+        first token (picked at step 0), count 1, position and budget, and
+        with ``spec_k`` its prompt ``ids``, with ``do_sample`` its keys
+        folded from the request ids ``rids``; padding rows (``valid`` False)
+        insert finished and idle."""
         self._insert_prompt(prompt_ctx, kv, mask, slots)
         r, v = first.shape
         dev = first.device
         eos = self.model.tokenizer.eos_id
+        row_keys = None
+        if self.sample:
+            seed_key = prng.prng_key(self.model.sample_seed, dev)
+            row_keys = prng.fold_in(seed_key.expand(r, 2), rids)
+            state["rng"][slots] = row_keys
+        if self.spec_k:
+            state["prompt_ids"][slots] = ids.to(torch.int32)
         tok0 = self._pick_rows(first.float(), torch.zeros((r, v), dtype=torch.bool, device=dev),
-                               torch.zeros(r, dtype=torch.long, device=dev))
+                               torch.zeros(r, dtype=torch.long, device=dev), row_keys)
         gen_rows = torch.full((r, self.max_new), eos, dtype=torch.int32, device=dev)
         gen_rows[:, 0] = tok0
         seen_rows = torch.zeros((r, v), dtype=torch.bool, device=dev)
@@ -402,6 +625,8 @@ class ContinuousBatchingServer:
     def _decode_chunk(self, prompt_ctx, state) -> int:
         """Up to ``chunk_steps`` greedy steps over the slots in place;
         returns the steps run."""
+        if self.spec_k:
+            return self._decode_chunk_spec(prompt_ctx, state)
         prompt_kv, prompt_mask = prompt_ctx
         model = self.model
         eos = model.tokenizer.eos_id
@@ -420,7 +645,8 @@ class ContinuousBatchingServer:
             logits = model.network.decode_step_shared(
                 tok[:, None].long(), state["pos"][:, None], prompt_kv, prompt_mask,
                 state["gen_kv"], gen_index, slot_iota < cnt[:, None])
-            nxt = self._pick_rows(logits[:, -1, :].float(), state["seen"], cnt)
+            nxt = self._pick_rows(logits[:, -1, :].float(), state["seen"], cnt,
+                                  state.get("rng"))
             nxt = torch.where(run, nxt, eos)
             col = cnt.clamp(max=s_g - 1)
             state["generated"][rows, col] = torch.where(run, nxt, state["generated"][rows, col])
@@ -432,11 +658,62 @@ class ContinuousBatchingServer:
             steps += 1
         return steps
 
+    def _decode_chunk_spec(self, prompt_ctx, state) -> int:
+        """Up to ``chunk_steps`` verify windows over the slots in place:
+        each running slot proposes spec_k drafts from its context (its
+        prompt ids, then its tokens; the prefill's trailing bos between them
+        is not in it, which costs drafts, never tokens), writes the window
+        [last token, drafts] from slot cnt-1 of its generated segment
+        (slots before it are its accepted context) and emits the accepted
+        drafts and the model's next pick, up to EOS and its budget. Returns
+        the model calls run."""
+        prompt_kv, prompt_mask = prompt_ctx
+        model = self.model
+        eos = model.tokenizer.eos_id
+        dev = state["cnt"].device
+        s_g, k = self.max_new, self.spec_k
+        w = self.prompt_len - 1
+        rows = torch.arange(self.num_slots, device=dev)
+        slot_iota = torch.arange(s_g, device=dev)[None, :]
+        win = torch.arange(k + 1, device=dev)
+        steps = 0
+        while steps < self.chunk_steps:
+            run = self._running(state)
+            if run is None:
+                break
+            cnt = state["cnt"]
+            generated = state["generated"]
+            last_tok = generated[rows, (cnt - 1).clamp(min=0)]
+            ctx = torch.cat([state["prompt_ids"], generated], dim=1)
+            props = ngram_propose(ctx, w + cnt, ngram_n=self.spec_ngram, k=k, pad_id=eos)
+            verify = torch.cat([last_tok[:, None], props], dim=1).long()
+            logits = model.network.decode_step_shared(
+                verify, state["pos"][:, None] + win, prompt_kv, prompt_mask, state["gen_kv"],
+                torch.where(run, cnt - 1, -1), slot_iota < (cnt - 1)[:, None])
+            lg = logits.float()
+            if model.eos_logit_bias:
+                lg[..., eos] += model.eos_logit_bias
+            y = lg.argmax(dim=-1).to(torch.int32)  # (B, K+1)
+            steps_idx = cnt[:, None] + win
+            emit, _, is_eos_y = spec_accept(props, y, steps_idx, state["budget"][:, None], run,
+                                            eos)
+            state["generated"] = _scatter_drop(generated, rows[:, None],
+                                               torch.where(emit, steps_idx, s_g),
+                                               torch.where(emit, y, eos))
+            n_new = emit.sum(dim=1)
+            state["finished"] |= run & ((emit & is_eos_y).any(dim=1)
+                                        | (cnt + n_new >= state["budget"]))
+            state["cnt"] += n_new
+            state["pos"] += n_new
+            steps += 1
+        return steps
+
     # -- host side -------------------------------------------------------
 
     def _prefill_group(self, samples: List[Dict[str, Any]]):
         """Prefill R samples at the engine's prompt width: (first-token
-        logits (R, V) fp32, prompt KV, mask, next positions)."""
+        logits (R, V) fp32, prompt KV, mask, next positions, the prompt ids
+        (R, prompt_len - 1))."""
         model = self.model
         data = _collate(samples)
         ids, attn = model._encode_prompts(model.build_text_prompt(data))
@@ -450,11 +727,11 @@ class ContinuousBatchingServer:
             ids = np.concatenate([np.full((b, pad), model.tokenizer.pad_id, ids.dtype), ids], 1)
             attn = np.concatenate([np.zeros((b, pad), attn.dtype), attn], 1)
         dev = model.device
+        ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
         return model.network.prefill(
-            torch.as_tensor(ids, dtype=torch.long, device=dev),
-            torch.as_tensor(attn, dtype=torch.int32, device=dev),
-            **model._scene_batch(data), bos_id=model.tokenizer.bos_id,
-            max_cache_len=self.prompt_len)
+            ids_t, torch.as_tensor(attn, dtype=torch.int32, device=dev),
+            **model._gen_scene_batch(data), bos_id=model.tokenizer.bos_id,
+            max_cache_len=self.prompt_len) + (ids_t,)
 
     # -- scheduling-loop hooks (the prefix-pool engines override them) -----
 
@@ -478,12 +755,14 @@ class ContinuousBatchingServer:
         while len(samples) < r:  # pad the tail group
             samples.append(samples[-1])
             budgets.append(1)
-        first, kv, mask, next_pos = self._prefill_group(samples)
+        first, kv, mask, next_pos, ids = self._prefill_group(samples)
         dev = self.model.device
         valid = torch.arange(r, device=dev) < len(group)
+        rids = [rid for rid, _, _ in group] + [0] * (r - len(group))  # padding rows idle
         self._insert(prompt_ctx, state, kv, mask, first, next_pos,
                      torch.as_tensor(slots, dtype=torch.long, device=dev), valid,
-                     torch.as_tensor(budgets, dtype=torch.long, device=dev))
+                     torch.as_tensor(budgets, dtype=torch.long, device=dev), ids=ids,
+                     rids=torch.as_tensor(rids, dtype=torch.long, device=dev))
         return prompt_ctx, state
 
     def _engine_decode(self, prompt_ctx, state):
@@ -808,6 +1087,9 @@ class ContinuousBeamBatchingServer(ContinuousBatchingServer):
                          drain_between_batches=drain_between_batches, lookahead=lookahead)
         self.num_beams = int(num_beams or model.num_beams)
         assert self.num_beams >= 1
+        if self.sample:
+            raise ValueError("do_sample requires the greedy engine — beam-sampling is not "
+                             "supported (as MSR3D.generate)")
         model = self.model
         _, _, self._step0, self._rerank = _hf_beam_machinery(
             K=self.num_beams, V=self._llm_cfg().vocab_size, S_g=self.max_new,
@@ -839,7 +1121,8 @@ class ContinuousBeamBatchingServer(ContinuousBatchingServer):
                   torch.zeros((b, self.prompt_len), dtype=torch.bool, device=dev))
         return prompt, state
 
-    def _insert(self, prompt_ctx, state, kv, mask, first, next_pos, slots, valid, budgets):
+    def _insert(self, prompt_ctx, state, kv, mask, first, next_pos, slots, valid, budgets,
+                ids=None, rids=None):
         self._insert_prompt(prompt_ctx, kv, mask, slots)
         k = self.num_beams
         r = slots.shape[0]

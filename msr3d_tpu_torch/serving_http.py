@@ -390,7 +390,8 @@ class ServingFrontend:
         a 400 on its own connection and never an exception on the shared
         engine thread (which would answer 503 to every later client):
 
-        - the expanded prompt must fit the engine's prompt width;
+        - the expanded prompt must fit the engine's prompt width, where the
+          engine has one;
         - the scene arrays' shapes must match the serving shapes, which the
           first accepted request pins.
 
@@ -401,11 +402,13 @@ class ServingFrontend:
             ids, _ = model._encode_prompts(prompts)
         except Exception as exc:
             raise RequestError(f"prompt build failed: {exc}")
-        width = self.engine.prompt_len - 1  # the trailing bos
-        if ids.shape[1] > width:
+        # an engine without a fixed prompt bucket (the scene-grouped server
+        # buckets each batch itself) needs no width check
+        engine_prompt_len = getattr(self.engine, "prompt_len", None)
+        if engine_prompt_len is not None and ids.shape[1] > engine_prompt_len - 1:
             raise RequestError(
                 f"prompt expands to {ids.shape[1]} tokens; the engine's prompt bucket "
-                f"allows {width}"
+                f"allows {engine_prompt_len - 1}"  # the trailing bos
             )
         shapes = tuple(
             (k, tuple(np.asarray(sample[k]).shape))

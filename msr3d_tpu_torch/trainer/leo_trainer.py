@@ -32,8 +32,10 @@ epochs and over its ``test`` loader after the last, at most
 ``num_batch_eval`` batches each. Generation (``inference_mode:
 generation``) decodes each batch with ``MSR3D.generate_async``, at most
 ``eval_pipeline_depth`` batches (default 3) waiting for their
-``finalize``, or with ``eval_engine: continuous`` through the slot-refill
-engines of ``serving.py`` (``_eval_continuous``); retrieval scores the
+``finalize``, with ``eval_engine: continuous`` through the slot-refill
+engines of ``serving.py`` (``_eval_continuous``), or with ``eval_engine:
+grouped`` through the scene-grouped batcher (``_eval_grouped``); retrieval
+scores the
 dataset's ``answer_cands`` with ``MSR3D.predict_answers``. Metrics are
 logged as ``{split}/{task}/{metric}`` at the current step, and a val
 target above ``tracker.overall_best_result``
@@ -42,8 +44,8 @@ saves the learnable weights as ``best``. Any ``mode`` but ``train`` (``test``,
 config without a train task builds no optimizer.
 
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-queue): ``eval_engine: grouped`` and ``eval_engine_opts.prefix_pool`` (the
-scene-grouped and prefix-pool engines), more than one ``torch.distributed``
+queue): ``eval_engine_opts.prefix_pool`` (the prefix-pool engines), more
+than one ``torch.distributed``
 rank, ``parallel.tp/pp/sp > 1`` and fixed multi-host text buckets, ``remat``, and
 ``vision_freeze: False``.
 """
@@ -71,7 +73,7 @@ from msr3d_tpu_torch.utils.logging import MetricLogger, StepTimer, get_logger
 
 logger = get_logger("msr3d_tpu_torch.trainer")
 
-_SERVING = "ROADMAP.md, queue: the serving engines, item 5 (b)"
+_POOL_ITEM = "ROADMAP.md section 1 item 3, the prefix-pool engines"
 # the data dict's keys that go to the evaluators beside the predictions
 _RECORD_KEYS = ("answer_list", "answer_label", "text_output", "data_idx", "sqa_type", "source",
                 "scan_id", "index", "type", "prompt", "prompt_after_obj", "obj_labels",
@@ -213,11 +215,9 @@ class LeoTrainer:
             raise _not_ported("vision_freeze: False (the port's PointNet++ has inference "
                               "BatchNorm only)", "ROADMAP.md, queue: the other modes")
         engine = str(cfg.get("eval_engine", "") or "").lower()
-        if self.inference_mode == "generation" and engine == "grouped":
-            raise _not_ported(f"eval_engine: {engine}", _SERVING)
         if engine == "continuous" and (cfg.get("eval_engine_opts") or {}).get("prefix_pool"):
             raise _not_ported("eval_engine_opts.prefix_pool (the prefix-pool engines)",
-                              _SERVING)
+                              _POOL_ITEM)
 
     # ------------------------------------------------------------------
 
@@ -379,8 +379,11 @@ class LeoTrainer:
 
         batches = iter(loader)
         try:
-            if generation and str(self.cfg.get("eval_engine", "") or "").lower() == "continuous":
+            eval_engine = str(self.cfg.get("eval_engine", "") or "").lower()
+            if generation and eval_engine == "continuous":
                 self._eval_continuous(batches, emit)
+            elif generation and eval_engine == "grouped":
+                self._eval_grouped(batches, emit)
             else:
                 for i, data_dict in enumerate(batches):
                     if self.num_batch_eval and i >= self.num_batch_eval:
@@ -409,16 +412,10 @@ class LeoTrainer:
         continuous``): the requests of all loader batches share one pool of
         slots, so a short answer's slot refills at once. With ``num_beams``
         above 1 the beam engine serves (each slot one request's beam search
-        at its own depth). Batches are read lazily and emitted to the
-        evaluator in loader order; a batch is kept only until its last
-        request is done. Engine options come from ``eval_engine_opts``
+        at its own depth). Engine options come from ``eval_engine_opts``
         (``num_slots``, ``refill_group``, ``chunk_steps``, ``lookahead``,
-        ...), with the JAX trainer's defaults."""
-        from msr3d_tpu_torch.serving import (
-            ContinuousBatchingServer,
-            ContinuousBeamBatchingServer,
-            uncollate_batch,
-        )
+        ``spec_k``, ...), with the JAX trainer's defaults."""
+        from msr3d_tpu_torch.serving import ContinuousBatchingServer, ContinuousBeamBatchingServer
 
         opts = dict(self.cfg.get("eval_engine_opts", {}) or {})
         opts.pop("prefix_pool", None)  # False here (_check_ported)
@@ -436,6 +433,40 @@ class LeoTrainer:
                 chunk_steps=int(opts.pop("chunk_steps", 16)),
                 lookahead=int(opts.pop("lookahead", 1)),
                 spec_k=int(opts.pop("spec_k", 0)), **opts)
+        self._eval_requests(batches, emit, lambda samples, on_result: engine.run(
+            samples, on_result=on_result), "continuous")
+
+    def _eval_grouped(self, batches, emit) -> None:
+        """Generation eval through the scene-grouped batcher (``eval_engine:
+        grouped``): requests whose scene arrays are byte-identical (one scene
+        and situation, several questions) are answered by one grouped
+        program, the scene encode and prefix prefill once a scene; requests
+        that share nothing form singleton groups. Beam search composes. The
+        options come from ``eval_engine_opts`` with the JAX trainer's
+        defaults: ``scenes_per_batch`` 4, ``questions_per_scene`` 8,
+        ``pipeline_depth`` 3, and ``max_open_scenes``, ``max_new_tokens``,
+        ``use_beam``."""
+        from msr3d_tpu_torch.serving import SceneGroupBatchingServer
+
+        opts = dict(self.cfg.get("eval_engine_opts", {}) or {})
+        engine = SceneGroupBatchingServer(
+            self.model, scenes_per_batch=int(opts.pop("scenes_per_batch", 4)),
+            questions_per_scene=int(opts.pop("questions_per_scene", 8)),
+            pipeline_depth=int(opts.pop("pipeline_depth", 3)), **opts)
+
+        def serve(samples, on_result) -> None:
+            for res in engine.run(samples):
+                on_result(res)
+
+        self._eval_requests(batches, emit, serve, "grouped")
+
+    def _eval_requests(self, batches, emit, serve, what: str) -> None:
+        """Feed the loader batches to an engine as single requests and emit
+        each batch's texts in loader order once its last request is done.
+        Batches are read lazily, and a batch is kept only until then.
+        ``serve(samples, on_result)`` runs the engine over the request
+        iterator, calling ``on_result`` with each result."""
+        from msr3d_tpu_torch.serving import uncollate_batch
 
         records: Dict[int, list] = {}  # batch index -> [data_dict, texts, left]
         rid_map: List[tuple] = []  # rid -> (batch index, row)
@@ -469,9 +500,9 @@ class LeoTrainer:
                 done.add(i)
                 flush()
 
-        engine.run(sample_iter(), on_result=on_result)
+        serve(sample_iter(), on_result)
         flush()
-        assert not records, "continuous eval: batches left unemitted"
+        assert not records, f"{what} eval: batches left unemitted"
 
     def _run_eval(self, split: str, epoch: int) -> None:
         """Evaluate every task with an evaluator and a ``split`` loader, log

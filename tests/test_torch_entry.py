@@ -168,6 +168,11 @@ def test_leo_configs_build_like_jax_at_the_flagship_geometry(config, tmp_path, m
     assert port_seen["net_cfg"].llm.hidden_size == 4096
 
 
+# the serving knobs of the second serving slice: config key -> MSR3D argument
+_SERVING_KNOBS = {"eval_spec_k": "spec_k", "eval_do_sample": "do_sample", "eval_top_k": "top_k",
+                  "eval_top_p": "top_p", "compact_transfer": "compact_transfer"}
+
+
 @pytest.mark.parametrize("override, match", [
     ("model.llm.remat=true", "remat"),
     ("parallel.sp=2", "parallel.sp"),
@@ -181,6 +186,28 @@ def test_leo_configs_build_like_jax_at_the_flagship_geometry(config, tmp_path, m
     ("model.prompter.model.attn_flat.use_attn_flat=true", "AttFlat"),
 ])
 def test_unported_knobs_raise(override, match):
+    """What the port does not run raises. The serving knobs (``eval_spec_k``,
+    ``eval_do_sample``, ``eval_top_k``, ``eval_top_p``, ``compact_transfer``)
+    are ported: the model is built as JAX's ``build_model`` builds it, or
+    refused where JAX's refuses it (``eval_spec_k`` under the penalty 3.0)."""
+    if match in _SERVING_KNOBS:
+        cfg = ["device=cpu", override]
+        try:
+            want = jax_build.build_model(jax_load_config(DEBUG, cfg))
+        except ValueError as exc:
+            with pytest.raises(ValueError, match="repetition_penalty"):
+                port_build.build_model(load_config(DEBUG, cfg))
+            assert "repetition_penalty" in str(exc)
+            got = port_build.build_model(load_config(DEBUG, cfg + ["eval_repetition_penalty=1.0"]))
+            assert got.spec_k == 2 and got.spec_ngram == 3
+            return
+        got = port_build.build_model(load_config(DEBUG, cfg))
+        for attr in ("spec_k", "spec_ngram", "do_sample", "temperature", "top_k", "top_p",
+                     "sample_seed", "compact_transfer"):
+            assert getattr(got, attr) == getattr(want, attr), attr
+        assert getattr(got, _SERVING_KNOBS[match]) != getattr(MSR3D, "__init__").__kwdefaults__[
+            _SERVING_KNOBS[match]]
+        return
     error = ValueError if match == "AttFlat" else NotImplementedError
     with pytest.raises(error, match=match):
         port_build.build_model(load_config(DEBUG, ["device=cpu", override]))
@@ -411,7 +438,7 @@ def test_preemption_saves_at_the_step_and_resumes(tmp_path, monkeypatch):
 
 def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     """Evaluation from the entry raises only on what it would need and the
-    port lacks: the scene-grouped engine as an eval route and more than one
+    port lacks: the prefix-pool engines as an eval route and more than one
     rank.
     ``mode: test``, the val split and ``inference_mode: retrieval`` build
     and run (their parity with JAX: tests/test_torch_eval.py)."""
@@ -421,10 +448,11 @@ def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     synthetic.build_full_tree(root, np.random.default_rng(7))
     ovs = [o for o in _entry_overrides(root, tmp_path / "x", fp32=False)
            if not o.startswith("task.")]
-    # eval_engine: continuous is ported (tests/test_torch_eval.py); grouped not
-    with pytest.raises(NotImplementedError, match="serving engines"):
+    # eval_engine: continuous and grouped are ported (tests/test_torch_eval.py,
+    # tests/test_torch_scene_group.py); the prefix-pool engines are not
+    with pytest.raises(NotImplementedError, match="prefix-pool engines"):
         port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
-                       "eval_engine=grouped"])
+                       "eval_engine=continuous", "eval_engine_opts.prefix_pool=true"])
     with monkeypatch.context() as m:  # two ranks
         m.setattr(dist, "is_initialized", lambda: True)
         m.setattr(dist, "get_world_size", lambda: 2)

@@ -510,6 +510,28 @@ def test_eval_continuous_equals_jax(msqa, beams):
     assert list(got_records[0]) == list(want_records[0]) and got == want
 
 
+def test_eval_grouped_equals_jax(msqa):
+    """``eval_engine: grouped`` through the scene-grouped batcher with JAX's
+    defaults (4 scenes x 8 questions, pipeline depth 3) and the config's
+    beam 5: the texts the evaluator receives, in loader order, and its
+    results equal JAX's."""
+    jtrainer, trainer, _ = msqa
+    try:
+        jtrainer.cfg.eval_engine, jtrainer.cfg.eval_engine_opts = "grouped", {}
+        trainer.cfg.update(eval_engine="grouped", eval_engine_opts={})
+        want, want_records = _eval(jtrainer, "msqa_scannet", "val")
+        got, got_records = _eval(trainer, "msqa_scannet", "val")
+    finally:
+        jtrainer.cfg.eval_engine = ""
+        for key in ("eval_engine", "eval_engine_opts"):
+            trainer.cfg.pop(key, None)
+    assert trainer.model.num_beams == 5
+    assert len(got_records) == len(want_records) == 1
+    assert len(got_records[0]["output_text"]) == 2
+    assert got_records[0]["output_text"] == want_records[0]["output_text"]
+    assert list(got_records[0]) == list(want_records[0]) and got == want
+
+
 def _sqa3d_labels(loader, vocab):
     """The loader's batches with ``answer_label`` (multi-hot over ``vocab``)
     added; ``dataset`` leads to the answer vocabulary as the loader's does."""

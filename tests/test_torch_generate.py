@@ -229,8 +229,9 @@ def test_greedy_eos_logit_bias_matches_jax():
 def test_generate_refuses_what_is_not_ported():
     """Greedy and beam generate run on seeded weights (as chip_smoke.py's do),
     with images; what is not ported raises: the prefix-pool engines'
-    tuple-of-segments prompt cache and per-query prompt masks, and decode
-    windows of T > 1 (speculative and grouped-scene decoding)."""
+    tuple-of-segments prompt cache and per-query prompt masks. Decode windows
+    of T > 1 run (speculative and grouped-scene decoding); the ancestry beam
+    step refuses them, as JAX's asserts."""
     cfg = MSR3DNetworkConfig(
         prompter=torch_prompter_config(TINY_PROMPTER),
         llm=LlamaConfig.tiny(vocab_size=ByteTokenizer().vocab_size, dtype=torch.float32),
@@ -261,8 +262,15 @@ def test_generate_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="per-query prompt masks"):
         llm.decode_step_shared(embeds, pos, prompt_kv, prompt_mask.repeat_interleave(2, dim=0),
                                gen_kv, 0, gen_mask)
-    with pytest.raises(NotImplementedError, match="T > 1"):
-        llm.decode_step_shared(torch.zeros((2, 2, cfg.llm.hidden_size)),
-                               next_pos[:, None] + torch.arange(2), prompt_kv, prompt_mask,
-                               _make_cache(llm.cfg, 2, 3, "cpu"), 0,
-                               torch.ones((2, 3), dtype=torch.bool))
+    # windows of T > 1 are ported (tests/test_torch_speculative.py holds them
+    # to JAX's); the ancestry beam step stays at one token a row, as JAX's
+    with torch.no_grad():
+        window = llm.decode_step_shared(torch.zeros((2, 2, cfg.llm.hidden_size)),
+                                        next_pos[:, None] + torch.arange(2), prompt_kv,
+                                        prompt_mask, _make_cache(llm.cfg, 2, 3, "cpu"), 0,
+                                        torch.zeros((2, 3), dtype=torch.bool))
+    assert window.shape == (2, 2, cfg.llm.vocab_size) and torch.isfinite(window).all()
+    with pytest.raises(ValueError, match="T = 1"):
+        llm.decode_step_beam_anc(torch.zeros((4, 2, cfg.llm.hidden_size)), pos, prompt_kv,
+                                 prompt_mask, gen_kv, 0, gen_mask,
+                                 torch.zeros((4, 3), dtype=torch.int32), 2)

@@ -70,20 +70,30 @@ def collate(reqs):
             **{k: np.stack([q[k] for q in reqs]) for k in _KEYS}}
 
 
+def text_requests(n: int, seed: int = 0):
+    """``make_requests`` without the images, for models built without them."""
+    return [{k: v for k, v in q.items() if k not in ("msr3d_imgs", "msr3d_img_masks")}
+            for q in make_requests(n, seed)]
+
+
 def prompt_bucket(model, reqs) -> int:
     """generate's prompt bucket over all requests, plus the trailing bos."""
-    ids, _ = model._encode_prompts(model.build_text_prompt(collate(reqs)))
+    ids, _ = model._encode_prompts(model.build_text_prompt(serving._collate(reqs)))
     return max(32, -(-ids.shape[1] // 32) * 32) + 1
 
 
-def build_models():
-    """The JAX tiny model with perturbed weights, and the port's holding them."""
+def build_models(images: bool = True):
+    """The JAX tiny model with perturbed weights, and the port's holding them.
+    Without ``images`` the JAX init sees no image (a third cheaper), so the
+    models serve requests without images only."""
     tok = JaxByteTokenizer()
     llm = JaxLlamaConfig.tiny(vocab_size=tok.vocab_size, dtype=jnp.float32, lora_rank=4)
     net_cfg = JaxMSR3DNetworkConfig(prompter=TINY_PROMPTER, llm=llm, backbone_name="convnext_test")
     kw = dict(scene_token_len=5, max_out_len=16, num_beams=2, repetition_penalty=1.5)
     jmodel = JaxMSR3D(net_cfg, tok, **kw)
     data = collate(make_requests(2))
+    if not images:
+        data = {k: v for k, v in data.items() if k not in ("msr3d_imgs", "msr3d_img_masks")}
     ids, attn = jmodel._encode_prompts(jmodel.build_text_prompt(data))
     answers, answer_mask = jmodel._encode_answers(["a chair", "yes"])
     batch = jmodel._scene_batch(data)
@@ -393,14 +403,22 @@ def test_uncollate_batch_equals_jax():
 
 
 def test_unported_options_raise(models):
-    _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serving.ContinuousBatchingServer(model, num_slots=2, refill_group=1, spec_k=2)
+    """The options of the second serving slice are ported
+    (tests/test_torch_speculative.py, test_torch_sampling.py); what JAX's
+    engines refuse, the port's refuse the same way: speculation under a
+    repetition penalty, sampling with speculation or in the beam engine, and
+    ``spec_k`` on the beam engine."""
+    jmodel, model = models
+    for m, mod in ((jmodel, jax_serving), (model, serving)):
+        with pytest.raises(ValueError, match="repetition_penalty"):
+            mod.ContinuousBatchingServer(m, num_slots=2, refill_group=1, spec_k=2)
     model.do_sample = True
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            serving.ContinuousBatchingServer(model, num_slots=2, refill_group=1)
+        with pytest.raises(ValueError, match="greedy engine"):
+            serving.ContinuousBeamBatchingServer(model, num_slots=2, refill_group=1)
+        engine = serving.ContinuousBatchingServer(model, num_slots=2, refill_group=1)
+        assert engine.sample and engine.spec_k == 0
     finally:
-        del model.do_sample
+        model.do_sample = False
     with pytest.raises(TypeError):  # as JAX's: the beam engine has no spec_k
         serving.ContinuousBeamBatchingServer(model, num_slots=2, spec_k=2)

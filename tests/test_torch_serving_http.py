@@ -350,11 +350,15 @@ def test_serve_cli_end_to_end():
         health = _health(fe.port)
         assert health["status"] == "ok" and health["served"] == 1 and health["slots"] == 2
     assert not fe._engine_thread.is_alive()
-    for extra in (["--engine", "grouped"], ["--engine", "pool"], ["--engine", "pool-beam"],
-                  ["--spec-k", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            create_frontend(parse_args(["--config", "configs/debug_synthetic.yaml",
-                                        "--device", "cpu", "--random-init", *extra]))
+    base = ["--config", "configs/debug_synthetic.yaml", "--device", "cpu", "--random-init"]
+    for extra in (["--engine", "pool"], ["--engine", "pool-beam"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 3"):
+            create_frontend(parse_args(base + extra))
+    # ported: --engine grouped (tests/test_torch_scene_group.py) and --spec-k
+    # (tests/test_torch_speculative.py), which refuses the config's penalty 3.0
+    # as JAX's engine does
+    with pytest.raises(ValueError, match="repetition_penalty"):
+        create_frontend(parse_args(base + ["--spec-k", "2"]))
 
 
 def test_serve_cli_on_the_leo_config_equals_jax(monkeypatch):
