@@ -56,7 +56,16 @@ beam 5, of 2 scenes x 4 questions against the 8 questions as rows (K1 2
 and K2f 32 launches: one scene encode, the prefix prefill), and the grouped
 engine over HTTP; (d) ``compact_transfer``'s bytes and its unpack on the
 card against the CPU's; then the exact token gates in fp32 at the
-flagship's width and 2 layers), and checks that each
+flagship's width and 2 layers), and the prefix-pool engines (phase 16, the
+same YAML built by the serve entry with ``--engine pool`` and ``pool-beam``:
+3 scenes x 4 questions interleaved over 2 blocks of scene-prefix KV, so
+eviction, a scene's return and head-of-line blocking occur; (a) the greedy
+pool against the continuous engine, K1 2 and K2f 32 launches a prefix
+prefill; (b) the speculative pool against the pool at T = 1; (c) the beam
+pool against the continuous beam engine, and both at the reference's
+256-token allocation for their peak memory; (d) the pool over HTTP with a
+400 for an overflowing question; then fp32 token gates at 2 layers against
+batch-1 ``generate``), and checks that each
 path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
@@ -3000,6 +3009,7 @@ def partings(want, got, picks):
 def top_k_boundaries(fn):
     """``fn()`` with each top-k decision of a beam search recorded: (result,
     the smallest gap between the k-th and the (k+1)-th live candidate)."""
+    from msr3d_tpu_torch import serving
     from msr3d_tpu_torch.models.llm import sampling
 
     top_k, gaps = sampling._top_k, []
@@ -3013,9 +3023,58 @@ def top_k_boundaries(fn):
                 gaps.append(float((values[..., -1] - nxt)[live].min()))
         return values, indices
 
-    with mock.patch.object(sampling, "_top_k", recording):
+    # the serving engines' per-slot search holds its own reference
+    with mock.patch.object(sampling, "_top_k", recording), \
+            mock.patch.object(serving, "_top_k", recording):
         out = fn()
     return out, min(gaps, default=float("inf"))
+
+
+@contextlib.contextmanager
+def beam_request_gaps(engine, gaps: dict):
+    """Within the block, record each request's smallest top-k gap in the
+    beam engine ``engine``: the k-th against the (k+1)-th live candidate,
+    over the decisions of the request's own rows (step 0 at its refill, then
+    each re-rank while its slot runs). On exit ``gaps`` maps request id to
+    gap. The gaps stay on the card until then: no host read a step."""
+    from msr3d_tpu_torch import serving
+
+    top_k, refill, rerank = serving._top_k, engine._engine_refill, engine._rerank
+    slot_rid, ctx, calls = {}, {}, []
+
+    def recording(x, k):
+        values, indices = top_k(x, k)
+        if ctx and x.shape[-1] > k:
+            nxt = torch.topk(x, k + 1, dim=-1).values[..., k]
+            live = (values[..., -1] > -1e8) & ctx["run"]
+            calls.append((ctx["rids"], torch.where(live, values[..., -1] - nxt, math.inf)))
+        return values, indices
+
+    def refill_recorded(prompt_ctx, state, group, slots):
+        rids = [rid for rid, _, _ in group]
+        slot_rid.update(zip(slots, rids))
+        ctx.update(rids=rids + [None] * (len(slots) - len(rids)),
+                   run=torch.arange(len(slots), device=engine.model.device) < len(rids))
+        try:
+            return refill(prompt_ctx, state, group, slots)
+        finally:
+            ctx.clear()
+
+    def rerank_recorded(st, logits, run, cnt):
+        ctx.update(rids=[slot_rid.get(s) for s in range(run.shape[0])], run=run)
+        try:
+            return rerank(st, logits, run, cnt)
+        finally:
+            ctx.clear()
+
+    with mock.patch.object(serving, "_top_k", recording), \
+            mock.patch.object(engine, "_engine_refill", refill_recorded), \
+            mock.patch.object(engine, "_rerank", rerank_recorded):
+        yield
+    for rids, gap in calls:
+        for rid, g in zip(rids, gap.tolist()):
+            if rid is not None:
+                gaps[rid] = min(gaps.get(rid, math.inf), g)
 
 
 def group_data(seed: int, images: bool):
@@ -3414,6 +3473,416 @@ def phase_serving2(exp_root: Path):
     return out
 
 
+# Phase 16: the prefix-pool engines on the flagship from configs/msr3d.yaml over
+# phase 10's cfg_path (bf16, flash attention, random weights, the config's
+# penalty 3.0), built by the serve entry with --engine pool and --engine
+# pool-beam. The stream is POOL_SCENES scenes x POOL_QUESTIONS questions,
+# interleaved (question q of every scene before question q + 1), each scene
+# made like phase 4's request s (60 images of 224², 1 + s % 4 shown; the
+# bench_qa.py prompt with its own question after USER:), over POOL_BLOCKS
+# blocks, so LRU eviction, an evicted scene's return and head-of-line
+# blocking all occur: POOL_SLOTS slots, refill group POOL_GROUP, question
+# bucket POOL_SUFFIX, the prefix bucket the model's prompt_pad_to, NEW_TOKENS
+# tokens. (b) runs the first POOL_SPEC_REQUESTS requests at penalty 1.0; (c)
+# also builds both beam engines at the reference's POOL_ALLOC-token budget
+# and serves POOL_LONG_REQUESTS requests at a budget of POOL_LONG_BUDGET (the
+# allocation real, the steps cut); (d) sends the first POOL_HTTP requests and
+# one whose question overflows the bucket over HTTP. The exact gates run in
+# fp32 at the flagship's width and EXACT_LAYERS layers, as phase 15's; in
+# bf16 a request may part from its own greedy generate only where the
+# generate's top-2 margin is below BF16_MARGIN (the pool's batch-1 segment
+# sums over G·S_pre keys, a row's prompt over its own), and the beam pool's
+# answer from the continuous beam engine's only where either search made a
+# top-k decision of that request within BF16_MARGIN
+POOL_SCENES, POOL_QUESTIONS, POOL_BLOCKS = 3, 4, 2
+POOL_SLOTS, POOL_GROUP, POOL_SUFFIX, POOL_CHUNK = 8, 4, 64, 8
+POOL_SPEC_REQUESTS, POOL_HTTP = 6, 8
+POOL_ALLOC, POOL_LONG_REQUESTS, POOL_LONG_BUDGET = 256, 4, 16
+
+
+def pool_stream(seed: int, images: bool, scenes: int = POOL_SCENES,
+                questions: int = POOL_QUESTIONS):
+    """``scenes`` scenes made like ``make_requests``' rows, each asked
+    ``questions`` of GROUP_ASKS after its own scene prompt, interleaved: a
+    list of single-sample requests (request i is of scene i % scenes)."""
+    data = make_requests(seed, b=scenes, images=images)
+    heads = [p.split("USER:")[0] for p in data["msr3d_prompt"]]
+    arrays = {k: v for k, v in data.items() if k != "msr3d_prompt"}
+    return [dict({k: v[s] for k, v in arrays.items()},
+                 msr3d_prompt=f"{heads[s]}USER: {GROUP_ASKS[q]} ASSISTANT:")
+            for q in range(questions) for s in range(scenes)]
+
+
+def pool_kw(**kw):
+    return dict(dict(num_slots=POOL_SLOTS, num_prefixes=POOL_BLOCKS, suffix_len=POOL_SUFFIX,
+                     refill_group=POOL_GROUP, chunk_steps=POOL_CHUNK,
+                     max_new_tokens=NEW_TOKENS), **kw)
+
+
+def engine_run(model, engine, reqs, **kw):
+    """``engine.run(reqs)`` with K1/K2f counted, the prefills timed and the
+    peak memory: a dict of the numbers and the tokens (request order)."""
+    torch.cuda.reset_peak_memory_stats()
+    net, calls = model.network, [0]
+    prefill = net.prefill
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return prefill(*args, **kwargs)
+
+    with mock.patch.object(net, "prefill", counting):
+        (res, ms, pre, _), launches = counted(lambda: timed_decode(
+            model, lambda: engine.run(reqs, **kw)))
+    check([r.id for r in res] == list(range(len(reqs))),
+          f"{type(engine).__name__}: one result a request, in request order")
+    tokens = np.stack([np.asarray(r.output_tokens) for r in res])
+    return dict(ms=ms, prefill_ms=pre, decode_ms=(ms - pre) / max(1, engine.steps_run),
+                steps_run=engine.steps_run, prefills=calls[0],
+                prefix_prefills=getattr(engine, "prefix_prefills", None), launches=launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                tokens=tokens)
+
+
+def pool_launch_gate(row, what: str) -> None:
+    """K1 2 and K2f 32 launches a prefill; a pool engine's prefills are its
+    prefix prefills."""
+    prefills = row["prefills"]
+    check(row.get("prefix_prefills") in (None, prefills),
+          f"{what}: every prefill is a prefix prefill ({row.get('prefix_prefills')} of "
+          f"{prefills})")
+    check(row["launches"] == {"fps": 2 * prefills, "flash_attn_fwd": 32 * prefills},
+          f"{what}: K1 2 and K2f 32 launches a prefill ({prefills} prefills), got "
+          f"{row['launches']}")
+
+
+def public(row) -> dict:
+    return {k: v for k, v in row.items() if k != "tokens"}
+
+
+def pool_greedy_runs(model, pool, reqs):
+    """(a) The greedy pool engine and the continuous engine on the same
+    requests; both held by the bf16 margin rule to one greedy generate of
+    the requests as rows."""
+    from msr3d_tpu_torch.serving import ContinuousBatchingServer, _collate
+
+    model.generate(_collate(reqs[:1]), use_beam=False, max_new_tokens=2)  # warm-up
+    rows, picks = recorded_generate(model, _collate(reqs), max_new_tokens=NEW_TOKENS)
+    want = rows["output_tokens"]
+    out = dict(pool=engine_run(model, pool, reqs))
+    cont = ContinuousBatchingServer(model, num_slots=POOL_SLOTS, refill_group=POOL_GROUP,
+                                    chunk_steps=POOL_CHUNK, max_new_tokens=NEW_TOKENS)
+    out["continuous"] = engine_run(model, cont, reqs)
+    n = len(reqs)
+    for name, row in out.items():
+        row["parted"] = partings(want, row["tokens"], picks)
+        row["equal_answers"] = int((row["tokens"] == want).all(axis=1).sum())
+    p, c = out["pool"], out["continuous"]
+    print(f"  (a) bf16 greedy, {POOL_SCENES} scenes x {POOL_QUESTIONS} questions interleaved, "
+          f"{POOL_BLOCKS} blocks, {POOL_SLOTS} slots: pool {p['ms']:.2f} ms against "
+          f"continuous {c['ms']:.2f} ms, "
+          f"{p['prefix_prefills']} prefix prefills against {n} per-request prefills, prefill "
+          f"{p['prefill_ms'] / n:.2f} ms a request against {c['prefill_ms'] / n:.2f}; decode "
+          f"{p['decode_ms']:.2f} ms a step over steps_run {p['steps_run']} against "
+          f"{c['decode_ms']:.2f} over {c['steps_run']}; launches {p['launches']} against "
+          f"{c['launches']}; answers equal to generate's rows: pool {p['equal_answers']}, "
+          f"continuous {c['equal_answers']} of {n}; parted (request, step, top-2 margin): pool "
+          f"{p['parted']}, continuous {c['parted']}; on {card_line()}")
+    check(POOL_SCENES <= p["prefix_prefills"] < n,
+          f"the pool prefills each of the {POOL_SCENES} scenes, fewer times than {n} requests")
+    pool_launch_gate(p, "the pool engine")
+    pool_launch_gate(c, "the continuous engine")
+    for name, row in out.items():
+        check(all(m < BF16_MARGIN for _, _, m in row["parted"]),
+              f"bf16 {name}: where a request parts from greedy generate, the margin is below "
+              f"{BF16_MARGIN}")
+    return {k: public(v) for k, v in out.items()}
+
+
+def pool_spec_runs(model, pool, reqs):
+    """(b) The pool engine with SPEC_K drafts of SPEC_NGRAM-grams against
+    the pool at T = 1, at penalty 1.0; both held by the bf16 margin rule to
+    greedy generate at penalty 1.0."""
+    from msr3d_tpu_torch import serving as serving_mod
+    from msr3d_tpu_torch.serving import PrefixPoolContinuousBatchingServer, _collate
+
+    eos = model.tokenizer.eos_id
+    saved = model.repetition_penalty
+    model.repetition_penalty = 1.0
+    accepted = [0]
+    spec_accept = serving_mod.spec_accept
+
+    def counting(*args, **kw):
+        emit, acc, is_eos = spec_accept(*args, **kw)
+        accepted[0] += int(emit[:, 1:].sum())  # drafts emitted (the pick after them is not)
+        return emit, acc, is_eos
+
+    try:
+        rows, picks = recorded_generate(model, _collate(reqs), max_new_tokens=NEW_TOKENS)
+        out = dict(t1=engine_run(model, PrefixPoolContinuousBatchingServer(model, **pool_kw()),
+                                 reqs))
+        spec = PrefixPoolContinuousBatchingServer(model, **pool_kw(spec_k=SPEC_K,
+                                                                   spec_ngram=SPEC_NGRAM))
+        with mock.patch.object(serving_mod, "spec_accept", counting):
+            out["spec"] = engine_run(model, spec, reqs)
+    finally:
+        model.repetition_penalty = saved
+    for row in out.values():
+        row["emitted"] = emitted(row["tokens"], eos)
+        row["ms_per_token"] = (row["ms"] - row["prefill_ms"]) / row["emitted"]
+        row["parted"] = partings(rows["output_tokens"], row["tokens"], picks)
+    t1, sp = out["t1"], out["spec"]
+    sp["accepted_drafts"] = accepted[0]
+    same = int((t1["tokens"] == sp["tokens"]).sum())
+    print(f"  (b) bf16 pool, penalty 1.0, {len(reqs)} requests: T = 1 "
+          f"{t1['ms_per_token']:.3f} ms an emitted token ({t1['emitted']} over "
+          f"{t1['steps_run']} steps); spec_k {SPEC_K} ({SPEC_NGRAM}-grams) "
+          f"{sp['ms_per_token']:.3f} ms an emitted token ({sp['emitted']} over "
+          f"{sp['steps_run']} verify calls, {sp['accepted_drafts']} accepted drafts); "
+          f"prefix prefills {t1['prefix_prefills']} / {sp['prefix_prefills']}; equal tokens "
+          f"{same} of {t1['tokens'].size}; parted from generate: T = 1 {t1['parted']}, spec "
+          f"{sp['parted']}; on {card_line()}")
+    for name, row in out.items():
+        pool_launch_gate(row, f"the {name} pool")
+        check(all(m < BF16_MARGIN for _, _, m in row["parted"]),
+              f"bf16 {name} pool: where a request parts from greedy generate, the margin is "
+              f"below {BF16_MARGIN}")
+    return {k: public(v) for k, v in out.items()}
+
+
+def pool_beam_runs(model, pool_beam, reqs):
+    """(c) The beam pool engine against the continuous beam engine on the
+    same requests (beam 5, penalty 3.0), then both built at the reference's
+    POOL_ALLOC-token budget serving POOL_LONG_REQUESTS requests at a budget
+    of POOL_LONG_BUDGET: peak memory and ms a step."""
+    from msr3d_tpu_torch.serving import (
+        ContinuousBeamBatchingServer,
+        PrefixPoolContinuousBeamBatchingServer,
+    )
+
+    beam_kw = dict(num_slots=POOL_SLOTS, refill_group=POOL_GROUP, chunk_steps=POOL_CHUNK)
+    cont = ContinuousBeamBatchingServer(model, max_new_tokens=NEW_TOKENS, **beam_kw)
+    out, gaps = {}, dict(pool={}, continuous={})
+    for name, engine in (("pool", pool_beam), ("continuous", cont)):
+        with beam_request_gaps(engine, gaps[name]):
+            out[name] = engine_run(model, engine, reqs)
+    p, c = out["pool"], out["continuous"]
+    same = int((p["tokens"] == c["tokens"]).all(axis=1).sum())
+    # a request may part only where one engine's search made a top-k
+    # decision within BF16_MARGIN
+    parted = [(i, min(gaps["pool"].get(i, math.inf), gaps["continuous"].get(i, math.inf)))
+              for i in range(len(reqs)) if not np.array_equal(p["tokens"][i], c["tokens"][i])]
+    p["parted_gaps"] = parted
+    print(f"  (c) bf16 beam {model.num_beams}, {len(reqs)} requests: pool {p['ms']:.2f} ms, "
+          f"{p['prefix_prefills']} prefix prefills, decode {p['decode_ms']:.2f} ms a step over "
+          f"{p['steps_run']}, peak {p['peak_gib']:.2f} GiB; continuous {c['ms']:.2f} ms, "
+          f"decode {c['decode_ms']:.2f} ms a step over {c['steps_run']}, peak "
+          f"{c['peak_gib']:.2f} GiB; {same} of {len(reqs)} answers equal; parted at (request, "
+          f"smallest top-k gap of either search) {[(i, round(g, 5)) for i, g in parted]}; on "
+          f"{card_line()}")
+    pool_launch_gate(p, "the beam pool engine")
+    pool_launch_gate(c, "the continuous beam engine")
+    check(len(gaps["pool"]) == len(gaps["continuous"]) == len(reqs),
+          "every request's top-k decisions are recorded in both beam engines")
+    check(all(g < BF16_MARGIN for _, g in parted),
+          f"bf16 beam: where the pool and continuous beam answers part, a top-k decision of the "
+          f"request was within {BF16_MARGIN}")
+    budgets = [POOL_LONG_BUDGET] * POOL_LONG_REQUESTS
+    long = {}
+    for name, build in (
+        ("pool", lambda: PrefixPoolContinuousBeamBatchingServer(
+            model, num_prefixes=POOL_BLOCKS, suffix_len=POOL_SUFFIX, max_new_tokens=POOL_ALLOC,
+            **beam_kw)),
+        ("continuous", lambda: ContinuousBeamBatchingServer(
+            model, max_new_tokens=POOL_ALLOC, **beam_kw)),
+    ):
+        gc.collect()
+        torch.cuda.empty_cache()
+        long[name] = public(engine_run(model, build(), reqs[:POOL_LONG_REQUESTS],
+                                       budgets=budgets))
+    print(f"  (c) both beam engines built for {POOL_ALLOC} new tokens, {POOL_LONG_REQUESTS} "
+          f"requests at budget {POOL_LONG_BUDGET}: pool peak {long['pool']['peak_gib']:.2f} GiB, "
+          f"decode {long['pool']['decode_ms']:.2f} ms a step over "
+          f"{long['pool']['steps_run']}; continuous peak {long['continuous']['peak_gib']:.2f} "
+          f"GiB, decode {long['continuous']['decode_ms']:.2f} ms a step over "
+          f"{long['continuous']['steps_run']}; on {card_line()}")
+    out = {k: public(v) for k, v in out.items()}
+    out["alloc_256"] = long
+    return out
+
+
+def pool_http(fe, reqs):
+    """(d) The pool front end: POOL_HTTP requests from as many threads and
+    one whose question overflows the suffix bucket, all at once."""
+    import urllib.error
+    import urllib.request
+
+    from msr3d_tpu_torch.serving_http import encode_scene_b64
+
+    bad = dict(reqs[0], msr3d_prompt=reqs[0]["msr3d_prompt"] + " pad" * (2 * POOL_SUFFIX))
+    samples = list(reqs[:POOL_HTTP]) + [bad]
+    bodies = [json.dumps({"prompt": s["msr3d_prompt"], "scene_b64": encode_scene_b64(s)}).encode()
+              for s in samples]
+    url = f"http://127.0.0.1:{fe.port}"
+    answers, errors = {}, []
+
+    def post(i):
+        req = urllib.request.Request(f"{url}/v1/generate", data=bodies[i],
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                answers[i] = (resp.status, json.loads(resp.read()))
+        except urllib.error.HTTPError as err:
+            answers[i] = (err.code, json.loads(err.read()))
+        except Exception as exc:  # reported and gated below
+            errors.append(f"request {i}: {exc!r}")
+
+    def drive():
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(samples))]
+        start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - start
+
+    fe.start()
+    elapsed, launches = counted(drive)
+    with urllib.request.urlopen(f"{url}/v1/health", timeout=60) as resp:
+        health = json.loads(resp.read())
+    fe.close(timeout=None)
+    engine = fe.engine
+    row = dict(elapsed_s=elapsed, qa_s=POOL_HTTP / elapsed, launches=launches,
+               served=health["served"], prefix_prefills=engine.prefix_prefills,
+               steps_run=engine.steps_run, bad_status=answers.get(POOL_HTTP, (None,))[0])
+    print(f"  (d) serve --engine pool over HTTP: {POOL_HTTP} requests and one overflowing the "
+          f"{POOL_SUFFIX}-token suffix bucket from {len(samples)} threads in {elapsed:.3f} s, "
+          f"{row['qa_s']:.3f} QA/s; the overflow answered {row['bad_status']} "
+          f"({answers.get(POOL_HTTP, (None, {}))[1].get('error')}); served {health['served']}, "
+          f"prefix prefills {engine.prefix_prefills}, steps_run {engine.steps_run}, launches "
+          f"{launches}; on {card_line()}")
+    check(not errors and all(answers[i][0] == 200 for i in range(POOL_HTTP)),
+          f"serve --engine pool: the {POOL_HTTP} requests are answered 200 ({errors[:2]})")
+    check(row["bad_status"] == 400 and "suffix" in answers[POOL_HTTP][1]["error"],
+          "the request whose question overflows the suffix bucket is a 400 on its own")
+    check(health["served"] == POOL_HTTP, f"health counts {POOL_HTTP} served")
+    check(launches == {"fps": 2 * engine.prefix_prefills,
+                       "flash_attn_fwd": 32 * engine.prefix_prefills},
+          f"the pool front end: K1 2 and K2f 32 launches a prefix prefill, got {launches}")
+    return row
+
+
+def pool_exact_gates(dev, tokenizer):
+    """The fp32 gates at the flagship's width and EXACT_LAYERS layers, on
+    POOL_SCENES scenes x 2 questions without images over POOL_BLOCKS blocks
+    and 4 slots: the pool's tokens against each request's own batch-1
+    generate (penalty 3.0), the beam pool's against a batch-1 beam generate,
+    the speculative pool's and the T = 1 pool's at penalty 1.0 against
+    batch-1 generate (each equal, or parting only at a tie within
+    EXACT_MARGIN)."""
+    from msr3d_tpu_torch.serving import (
+        PrefixPoolContinuousBatchingServer,
+        PrefixPoolContinuousBeamBatchingServer,
+        _collate,
+    )
+
+    model = build_exact_model(dev, tokenizer)
+    reqs = pool_stream(seed=5, images=False, questions=2)
+    kw = pool_kw(num_slots=4, refill_group=2)
+    out = {}
+
+    def against_rows(tokens):
+        parted = []
+        for i, req in enumerate(reqs):
+            one, picks = recorded_generate(model, _collate([req]), max_new_tokens=NEW_TOKENS)
+            parted += [(i, s, m) for _, s, m in partings(one["output_tokens"],
+                                                         tokens[i:i + 1], picks)]
+        return parted
+
+    model.repetition_penalty = REP_PENALTY
+    pool = PrefixPoolContinuousBatchingServer(model, **kw)
+    toks = np.stack([r.output_tokens for r in pool.run(reqs)])
+    out["pool"] = dict(parted=against_rows(toks), prefix_prefills=pool.prefix_prefills)
+    beam = PrefixPoolContinuousBeamBatchingServer(model, **kw)
+    beam_toks, gap = top_k_boundaries(lambda: np.stack([r.output_tokens for r in beam.run(reqs)]))
+    rows_beam, rows_gap = top_k_boundaries(lambda: np.stack([model.generate(
+        _collate([req]), use_beam=True, max_new_tokens=NEW_TOKENS)["output_tokens"][0]
+        for req in reqs]))
+    out["beam"] = dict(equal=bool(np.array_equal(beam_toks, rows_beam)),
+                       min_gap=min(gap, rows_gap), prefix_prefills=beam.prefix_prefills)
+    model.repetition_penalty = 1.0
+    t1 = PrefixPoolContinuousBatchingServer(model, **kw)
+    t1_toks = np.stack([r.output_tokens for r in t1.run(reqs)])
+    spec = PrefixPoolContinuousBatchingServer(model, **kw, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM)
+    spec_toks = np.stack([r.output_tokens for r in spec.run(reqs)])
+    out["t1"] = dict(parted=against_rows(t1_toks), steps_run=t1.steps_run)
+    out["spec"] = dict(parted=against_rows(spec_toks), steps_run=spec.steps_run,
+                       equal_to_t1=bool(np.array_equal(spec_toks, t1_toks)))
+    print(f"  fp32, {EXACT_LAYERS} layers at the flagship width, {len(reqs)} requests over "
+          f"{POOL_BLOCKS} blocks: pool parted from batch-1 generate at (request, step, margin) "
+          f"{out['pool']['parted']} ({pool.prefix_prefills} prefix prefills); beam pool equal "
+          f"to batch-1 beam {BEAMS}: {out['beam']['equal']} (smallest top-k gap "
+          f"{out['beam']['min_gap']:.3e}); penalty 1.0: T = 1 pool parted at "
+          f"{out['t1']['parted']}, spec pool at {out['spec']['parted']}, spec equal to T = 1: "
+          f"{out['spec']['equal_to_t1']} (verify calls {spec.steps_run} against steps "
+          f"{t1.steps_run})")
+    for what in ("pool", "t1", "spec"):
+        check(all(m < EXACT_MARGIN for _, _, m in out[what]["parted"]),
+              f"fp32 {what} pool: tokens equal batch-1 generate's, or part only at a tie within "
+              f"{EXACT_MARGIN}")
+    check(out["beam"]["equal"] or out["beam"]["min_gap"] < EXACT_MARGIN,
+          f"fp32 beam pool: tokens equal batch-1 beam {BEAMS} generate's, or a top-k decision "
+          f"was a tie within {EXACT_MARGIN}")
+    del model
+    return out
+
+
+def phase_pool(exp_root: Path):
+    print("== phase 16: the prefix-pool engines (greedy, speculative and beam over a shared "
+          "scene-prefix KV pool) at the flagship width (configs/msr3d.yaml over phase 10's "
+          "cfg_path, random weights)")
+    from msr3d_tpu_torch import serve
+    from msr3d_tpu_torch.models import build as build_mod
+
+    t0 = time.perf_counter()
+    pool_args = ["--slots", str(POOL_SLOTS), "--refill-group", str(POOL_GROUP),
+                 "--chunk-steps", str(POOL_CHUNK), "--num-prefixes", str(POOL_BLOCKS),
+                 "--suffix-len", str(POOL_SUFFIX)]
+    fe = serve.create_frontend(serve.parse_args(serve_argv(exp_root, "--engine", "pool",
+                                                           *pool_args)))
+    model = fe.engine.model
+    # the pool-beam entry on the same model: its init redraws the same seeded weights
+    with mock.patch.object(build_mod, "build_model", lambda cfg, device=None: model):
+        fe_beam = serve.create_frontend(serve.parse_args(serve_argv(
+            exp_root, "--engine", "pool-beam", *pool_args)))
+    fe_beam.httpd.server_close()  # built for its engine; never started
+    torch.cuda.synchronize()
+    print(f"  built and initialised in {time.perf_counter() - t0:.1f} s; prefix bucket "
+          f"{fe.engine.prefix_len}, beams {fe_beam.engine.num_beams}, penalty "
+          f"{model.repetition_penalty}")
+    check(model.repetition_penalty == REP_PENALTY and fe_beam.engine.num_beams == BEAMS,
+          f"the config's eval decode: penalty {REP_PENALTY}, beam {BEAMS}")
+    reqs = pool_stream(seed=6, images=True)
+    out = dict(a=pool_greedy_runs(model, fe.engine, reqs))
+    out["b"] = pool_spec_runs(model, fe.engine, reqs[:POOL_SPEC_REQUESTS])
+    out["c"] = pool_beam_runs(model, fe_beam.engine, reqs)
+    out["d"] = pool_http(fe, reqs)
+    tokenizer = model.tokenizer
+    del fe, fe_beam, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["exact"] = pool_exact_gates(torch.device("cuda", 0), tokenizer)
+    return out
+
+
+def phase16_launches(out, kernel: str) -> dict:
+    """Phase 16's launches of one kernel for the kernels line."""
+    return dict(launches_pool=out["a"]["pool"]["launches"][kernel],
+                pool_prefix_prefills=out["a"]["pool"]["prefix_prefills"],
+                launches_pool_spec=out["b"]["spec"]["launches"][kernel],
+                launches_pool_beam=out["c"]["pool"]["launches"][kernel],
+                launches_pool_http=out["d"]["launches"][kernel])
+
+
 def phase15_launches(out, kernel: str) -> dict:
     """Phase 15's launches of one kernel for the kernels line."""
     return dict(launches_spec=out["a"]["launches"][kernel],
@@ -3489,6 +3958,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         serving2 = timed(phase_serving2, exp_root)  # on phase 10's cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool = timed(phase_pool, exp_root)  # on phase 10's cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3509,7 +3981,11 @@ def main() -> int:
         # crops (one step of TRAIN_ACCUM micro-batches, eval_batches_crops
         # eval batches); launches_spec, launches_sampled, launches_grouped:
         # phase 15's speculative and sampled generate and its grouped greedy
-        # generate (GROUP_SCENES scenes x GROUP_QUESTIONS questions)
+        # generate (GROUP_SCENES scenes x GROUP_QUESTIONS questions);
+        # launches_pool, launches_pool_spec, launches_pool_beam,
+        # launches_pool_http: phase 16's greedy pool engine over the stream
+        # (pool_prefix_prefills prefix prefills), its speculative pool, its
+        # beam pool and its HTTP traffic
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -3519,7 +3995,7 @@ def main() -> int:
              launches_leo=leo["launches"]["fps"], eval_batches_leo=leo["eval_batches"],
              launches_leo_modes=sum(r["launches"] for r in leo["modes"].values()),
              launches_crops=crops["launches"]["fps"], eval_batches_crops=crops["eval_batches"],
-             **phase15_launches(serving2, "fps"), **fps_row),
+             **phase15_launches(serving2, "fps"), **phase16_launches(pool, "fps"), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -3532,7 +4008,8 @@ def main() -> int:
              eval_batches_leo=leo["eval_batches"],
              launches_crops=crops["launches"]["flash_attn_fwd"],
              eval_batches_crops=crops["eval_batches"],
-             **phase15_launches(serving2, "flash_attn_fwd"), **flash_row),
+             **phase15_launches(serving2, "flash_attn_fwd"),
+             **phase16_launches(pool, "flash_attn_fwd"), **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],

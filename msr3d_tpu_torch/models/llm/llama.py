@@ -12,7 +12,9 @@ at one slot for every row or at each row's own slot (the continuous serving
 engines). A decode step takes a window of T > 1 tokens (speculative
 verification, the grouped path's question suffixes): query t also sees the
 window's own slots up to its own, and ``window_valid`` hides pad tokens of
-the window. With
+the window. The prompt side may be one segment shared by blocks of queries,
+a segment at batch 1 with a visibility row per query, or a tuple of such
+segments (the prefix-pool engines' block pool and per-slot suffixes). With
 ``flash_attention`` the training forward runs through the autograd
 Function of kernels K2f, K2dq and K2dkv, and the prefill through K2f;
 otherwise, and in decode, attention is dense with a -1e30 additive bias, as
@@ -45,7 +47,6 @@ from msr3d_tpu_torch.nn.layers import dropout
 from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention_train
 
 _NEG_INF = -1e30
-_POOL_ITEM = "ROADMAP.md section 1 item 3, the prefix-pool engines"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -368,16 +369,16 @@ class LlamaAttention(nn.Module):
             out = self._dense(q, k, v, attn_bias)
         return self._out(out), k, v
 
-    def decode_shared(self, x, positions, attn_bias, prompt: Dict[str, torch.Tensor],
-                      gen: Dict[str, torch.Tensor], gen_index,
-                      anc_rows: Optional[torch.Tensor] = None):
+    def decode_shared(self, x, positions, attn_bias, prompt, gen: Dict[str, torch.Tensor],
+                      gen_index, anc_rows: Optional[torch.Tensor] = None):
         """One decode token over a split cache: the prompt segment (k/v of
         (B', S_p, hkv, D)), shared by blocks of B / B' consecutive queries
-        (the beams of one request), and the generated segment (B, S_g, hkv,
-        D), into which this token's k/v are written in place at
-        ``gen_index``: an int, or a (B,) tensor of each row's slot (rows
-        out of range write nothing). ``attn_bias`` (B, 1, 1, S_p + S_g) masks both
-        segments.
+        (the beams of one request; B' = 1: every query), or a tuple of such
+        segments, and the generated segment (B, S_g, hkv, D), into which
+        this token's k/v are written in place at ``gen_index``: an int, or a
+        (B,) tensor of each row's slot (rows out of range write nothing).
+        ``attn_bias`` (B, 1, T, ΣS_p + S_g) masks the segments, in the
+        order ``(*prompt, gen)``.
 
         With ``anc_rows`` (B·S_g,) (beam ancestry) query r reads slot s of
         the generated segment from the flat (row, slot) entry
@@ -395,7 +396,7 @@ class LlamaAttention(nn.Module):
         if anc_rows is not None:
             gen = {key: val.flatten(0, 1).index_select(0, anc_rows).view(val.shape)
                    for key, val in gen.items()}
-        segments = (prompt, gen)
+        segments = (*prompt, gen) if isinstance(prompt, (list, tuple)) else (prompt, gen)
         weights = torch.softmax(
             torch.cat([self._seg_scores(q, seg) for seg in segments], dim=-1) + attn_bias,
             dim=-1)
@@ -684,26 +685,25 @@ class LlamaModel(nn.Module):
                    window_valid=None) -> torch.Tensor:
         """The (B·K, 1, T, S_p + S_g) additive bias of a decode step: the
         prompt's (B, S_p) mask repeated for the K queries of each prompt row,
-        then the generated segment's (B·K, S_g) mask. In a window of T > 1
-        query t also sees the generated slots ``start .. start+t`` (``start``
-        = ``gen_index``, an int or (B·K,)), and with ``window_valid`` (B·K,
-        T) only those whose window token is real: slot start+j carries
-        window token j, the j of a slot outside the window clipped to [0,
-        T-1] as JAX clips it. Raises on what is not ported: a tuple of
-        prompt segments or a per-query prompt mask (the prefix-pool serving
-        engines)."""
-        if isinstance(prompt_kv, (list, tuple)):
-            raise NotImplementedError(
-                "a tuple-of-segments prompt_kv (the prefix-pool serving engines) is not "
-                f"ported yet ({_POOL_ITEM})")
+        or taken as it is when it has a row per query (B·K, S_p), then the
+        generated segment's (B·K, S_g) mask. A tuple of prompt segments takes
+        a per-query mask over their summed widths, as JAX asserts. In a
+        window of T > 1 query t also sees the generated slots ``start ..
+        start+t`` (``start`` = ``gen_index``, an int or (B·K,)), and with
+        ``window_valid`` (B·K, T) only those whose window token is real: slot
+        start+j carries window token j, the j of a slot outside the window
+        clipped to [0, T-1] as JAX clips it."""
         bk, t, _ = inputs_embeds.shape
-        b = prompt_kv["k"].shape[1]
-        if prompt_mask.shape[0] != b or bk % b:
-            raise NotImplementedError(
-                f"a prompt mask of batch {prompt_mask.shape[0]} for a prompt cache of batch "
-                f"{b} and {bk} queries: per-query prompt masks (the prefix-pool serving "
-                f"engines) are not ported yet ({_POOL_ITEM})")
-        prompt_bias = _bias(prompt_mask.bool().repeat_interleave(bk // b, dim=0))
+        if isinstance(prompt_kv, (list, tuple)):
+            if prompt_mask.shape[0] != bk:
+                raise ValueError("a tuple of prompt segments needs a per-query prompt mask "
+                                 f"({bk} rows), got {prompt_mask.shape[0]} rows")
+            pm = prompt_mask.bool()
+        else:
+            b = prompt_kv["k"].shape[1]
+            pm = (prompt_mask.bool() if prompt_mask.shape[0] == bk
+                  else prompt_mask.bool().repeat_interleave(bk // b, dim=0))
+        prompt_bias = _bias(pm)
         valid_g = gen_mask.bool()[:, None, :]  # (B·K, 1, S_g)
         if t > 1:
             dev = gen_mask.device
@@ -723,9 +723,12 @@ class LlamaModel(nn.Module):
     def _decode_layers(self, inputs_embeds, positions, attn_bias, prompt_kv, gen_kv,
                        gen_index, anc_rows=None) -> torch.Tensor:
         x = inputs_embeds.to(self.cfg.dtype)
+        segmented = isinstance(prompt_kv, (list, tuple))
         for i, block in enumerate(self.layer):
+            layer_prompt = (tuple({key: val[i] for key, val in seg.items()} for seg in prompt_kv)
+                            if segmented else {key: val[i] for key, val in prompt_kv.items()})
             x = block.decode_shared(
-                x, positions, attn_bias, {key: val[i] for key, val in prompt_kv.items()},
+                x, positions, attn_bias, layer_prompt,
                 {key: val[i] for key, val in gen_kv.items()}, gen_index, anc_rows,
             )
         return self.logits(self.final_norm(x))
@@ -735,7 +738,7 @@ class LlamaModel(nn.Module):
         inputs_embeds: torch.Tensor,  # (B·K, 1, H)
         positions: torch.Tensor,  # (B·K, 1)
         prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
-        prompt_mask: torch.Tensor,  # (B, S_p)
+        prompt_mask: torch.Tensor,  # (B, S_p), or (B·K, S_p) a row per query
         gen_kv: Dict[str, torch.Tensor],  # k/v (L, B·K, S_g, hkv, D) [+ scales], written in place
         gen_index,  # int, or (B·K,) each row's start slot (negative: no write)
         gen_mask: torch.Tensor,  # (B·K, S_g); T = 1: including the slot written now
@@ -748,7 +751,12 @@ class LlamaModel(nn.Module):
         speculative verify window (``gen_index`` then (B,), rows at their
         own depths) or the grouped path's suffix pass, where
         ``window_valid`` keeps the left-pad tokens of each row's window
-        unseen."""
+        unseen.
+
+        A ``prompt_mask`` of batch B·K is a visibility row per query: the
+        prefix-pool engines pass their (G, S_pre) block pool as a batch-1
+        (1, G·S_pre) segment (a view of the pool), which every slot reads,
+        and admit each slot's own block's rows only."""
         return self._decode_layers(
             inputs_embeds, positions,
             self._attn_bias(inputs_embeds, prompt_kv, prompt_mask, gen_mask, gen_index,
@@ -759,8 +767,8 @@ class LlamaModel(nn.Module):
         self,
         inputs_embeds: torch.Tensor,  # (B·K, 1, H)
         positions: torch.Tensor,  # (B·K, 1)
-        prompt_kv: Dict[str, torch.Tensor],  # k/v (L, B, S_p, hkv, D) [+ scales], read-only
-        prompt_mask: torch.Tensor,  # (B, S_p)
+        prompt_kv,  # k/v (L, B, S_p, hkv, D) [+ scales], or a tuple of such; read-only
+        prompt_mask: torch.Tensor,  # (B, S_p), or (B·K, ΣS_p) a row per query
         gen_kv: Dict[str, torch.Tensor],  # k/v (L, B·K, S_g, hkv, D) [+ scales], written in place
         gen_index,  # int, or (B·K,) each row's slot (out of range: no write)
         gen_mask: torch.Tensor,  # (B·K, S_g) valid generated slots
@@ -779,7 +787,15 @@ class LlamaModel(nn.Module):
         history into a row after the step's write, and attends over it as
         the reordered cache is attended: the same arithmetic, so the same
         tokens, without moving the cache's rows (a layer's gathered copy is
-        the only extra memory)."""
+        the only extra memory).
+
+        ``prompt_kv`` may be a tuple of segments, attended in order before
+        the generated one, with a per-query ``prompt_mask`` over their summed
+        widths: the prefix-pool beam engine's block pool and its per-slot
+        question suffixes, each a batch-1 view, so a suffix is stored once a
+        slot and never copied into its K beam rows. JAX sums the generated
+        pairs first and the prompt segments after, so with two prompt
+        segments the two packages' outputs part by fp32 rounding."""
         if inputs_embeds.shape[1] != 1:
             raise ValueError("the ancestry beam step takes one token a row (T = 1)")
         bk, s_g = gen_mask.shape

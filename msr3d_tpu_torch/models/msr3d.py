@@ -21,10 +21,9 @@ Counterpart of ``msr3d_tpu/models/msr3d.py``:
     vocabulary (``predict_answers``), the trainable set, and in-place
     weight-only quantization of the LLM for serving (``quantize_llm``).
 
-The serving engines over this model (slot refill, the fixed and the
-scene-grouped batchers, the HTTP front end) are in
-``msr3d_tpu_torch/serving.py``. Not ported yet: the prefix-pool serving
-engines (ROADMAP.md section 1 item 3) and ``layered_gen_cache``.
+The serving engines over this model (slot refill, the prefix-pool engines,
+the fixed and the scene-grouped batchers, the HTTP front end) are in
+``msr3d_tpu_torch/serving.py``. Not ported yet: ``layered_gen_cache``.
 """
 
 from __future__ import annotations
@@ -235,9 +234,9 @@ class MSR3DNetwork(nn.Module):
 
     def decode_step_shared(self, token_ids, positions, prompt_kv, prompt_mask, gen_kv,
                            gen_index, gen_mask, window_valid=None):
-        """Split-cache decode step: the prompt KV at batch B, the generated
-        KV at batch B·K, a window of T >= 1 tokens. See
-        ``LlamaModel.decode_step_shared``."""
+        """Split-cache decode step: the prompt KV at batch B (or a batch-1
+        segment with a per-query ``prompt_mask``), the generated KV at batch
+        B·K, a window of T >= 1 tokens. See ``LlamaModel.decode_step_shared``."""
         return self.llm.decode_step_shared(
             self.llm.embed(token_ids), positions, prompt_kv, prompt_mask, gen_kv,
             gen_index, gen_mask, window_valid,
@@ -246,7 +245,8 @@ class MSR3DNetwork(nn.Module):
     def decode_step_beam_anc(self, token_ids, positions, prompt_kv, prompt_mask, gen_kv,
                              gen_index, gen_mask, anc, num_beams: int):
         """Beam decode step over a generated KV whose rows never reorder,
-        read through the ancestry map ``anc``. See
+        read through the ancestry map ``anc``; ``prompt_kv`` may be a tuple
+        of segments under a per-query ``prompt_mask``. See
         ``LlamaModel.decode_step_beam_anc``."""
         return self.llm.decode_step_beam_anc(
             self.llm.embed(token_ids), positions, prompt_kv, prompt_mask, gen_kv,

@@ -16,13 +16,13 @@ from a seed, then from the checkpoints the config names
 ``--learnable``: the port's own ``best``/``latest`` learnable weights, as
 ``trainer/checkpoint.py`` saves them (not an orbax directory). The engine
 (``--engine continuous``, the default, with ``--spec-k`` drafts a verify
-window; ``beam``; or ``grouped``, the scene-grouped batcher of
-``--group-scenes`` scenes x ``--group-questions`` questions) runs behind the
-stdlib HTTP front end (``serving_http.py``). SIGINT or SIGTERM drains every
-accepted request, then exits 0.
-
-Not ported yet (raises ``NotImplementedError``): ``--engine pool`` and
-``pool-beam`` (ROADMAP.md section 1 item 3, the prefix-pool engines).
+window; ``beam``; ``grouped``, the scene-grouped batcher of
+``--group-scenes`` scenes x ``--group-questions`` questions; or ``pool`` and
+``pool-beam``, slot refill over a pool of ``--num-prefixes`` scene-prefix KV
+blocks of ``--prefix-len`` tokens with question windows of ``--suffix-len``,
+``pool`` with ``--spec-k`` too) runs behind the stdlib HTTP front end
+(``serving_http.py``). SIGINT or SIGTERM drains every accepted request,
+then exits 0.
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ import argparse
 import signal
 import sys
 import threading
-
-_POOL_ITEM = "ROADMAP.md section 1 item 3, the prefix-pool engines"
 
 
 def parse_args(argv=None):
@@ -51,14 +49,15 @@ def parse_args(argv=None):
                    help="decode chunks run before a chunk's flags are read")
     p.add_argument("--engine", choices=["continuous", "beam", "grouped", "pool", "pool-beam"],
                    default="continuous",
-                   help="greedy slot-refill engine, per-slot beam search, or the "
-                   "scene-grouped batcher; pool and pool-beam are not ported yet")
+                   help="greedy slot-refill engine, per-slot beam search, the "
+                   "scene-grouped batcher, or the prefix-pool engines (slot refill over "
+                   "shared scene-prefix KV blocks), greedy or beam")
     p.add_argument("--num-prefixes", type=int, default=8,
-                   help="pool engines (not ported yet): prefix KV blocks")
+                   help="pool engines: prefix KV blocks (G)")
     p.add_argument("--prefix-len", type=int, default=None,
-                   help="pool engines (not ported yet): prefix bucket")
+                   help="pool engines: prefix bucket (default: model prompt_pad_to)")
     p.add_argument("--suffix-len", type=int, default=48,
-                   help="pool engines (not ported yet): question bucket")
+                   help="pool engines: question bucket incl. trailing bos")
     p.add_argument("--group-scenes", type=int, default=4,
                    help="grouped engine: scene groups per batch")
     p.add_argument("--group-questions", type=int, default=8,
@@ -68,7 +67,8 @@ def parse_args(argv=None):
     p.add_argument("--prompt-len", type=int, default=None,
                    help="prompt width, trailing bos included (default: model prompt_pad_to)")
     p.add_argument("--spec-k", type=int, default=0,
-                   help="continuous engine: n-gram speculative drafts per verify window")
+                   help="continuous and pool engines: n-gram speculative drafts per verify "
+                   "window")
     p.add_argument("--learnable", default=None,
                    help="checkpoint directory of a training run of the port (its ckpt/); "
                    "loads the learnable weights 'best', else 'latest', or --learnable-name")
@@ -90,12 +90,12 @@ def create_frontend(args, cfg=None):
     from msr3d_tpu_torch.serving import (
         ContinuousBatchingServer,
         ContinuousBeamBatchingServer,
+        PrefixPoolContinuousBatchingServer,
+        PrefixPoolContinuousBeamBatchingServer,
         SceneGroupBatchingServer,
     )
     from msr3d_tpu_torch.serving_http import ServingFrontend
 
-    if args.engine in ("pool", "pool-beam"):
-        raise NotImplementedError(f"--engine {args.engine} is not ported yet ({_POOL_ITEM})")
     if cfg is None:
         cfg = load_config(args.config, overrides=list(args.opts))
     model = build_model(cfg, device=args.device)
@@ -128,11 +128,20 @@ def create_frontend(args, cfg=None):
     else:
         kw = dict(num_slots=args.slots, refill_group=min(args.refill_group, args.slots),
                   chunk_steps=args.chunk_steps, lookahead=args.lookahead,
-                  max_new_tokens=args.max_new_tokens, prompt_len=args.prompt_len)
-        if args.engine == "continuous":
-            engine = ContinuousBatchingServer(model, spec_k=args.spec_k, **kw)
+                  max_new_tokens=args.max_new_tokens)
+        if args.engine == "pool":
+            engine = PrefixPoolContinuousBatchingServer(
+                model, num_prefixes=args.num_prefixes, prefix_len=args.prefix_len,
+                suffix_len=args.suffix_len, spec_k=args.spec_k, **kw)
+        elif args.engine == "pool-beam":
+            engine = PrefixPoolContinuousBeamBatchingServer(
+                model, num_prefixes=args.num_prefixes, prefix_len=args.prefix_len,
+                suffix_len=args.suffix_len, **kw)
+        elif args.engine == "continuous":
+            engine = ContinuousBatchingServer(model, spec_k=args.spec_k,
+                                              prompt_len=args.prompt_len, **kw)
         else:
-            engine = ContinuousBeamBatchingServer(model, **kw)
+            engine = ContinuousBeamBatchingServer(model, prompt_len=args.prompt_len, **kw)
     return ServingFrontend(engine, host=args.host, port=args.port,
                            request_timeout=args.request_timeout)
 

@@ -1,22 +1,25 @@
 """Serving engines for MSR3D generation: the fixed and the scene-grouped
-batchers, and the slot-refill continuous engines, greedy (also speculative
-and sampled) and beam.
+batchers, the slot-refill continuous engines, greedy (also speculative
+and sampled) and beam, and the prefix-pool engines over a shared pool of
+scene-prefix KV blocks, greedy (also speculative) and beam.
 
 Counterpart of ``msr3d_tpu/serving.py`` (``Result``, ``RequestStreamIdle``,
 ``OnlineRequestStream``, ``_collate``, ``uncollate_batch``,
 ``BatchingServer``, ``scene_fingerprint``, ``SceneGroupBatchingServer``,
 ``ContinuousBatchingServer``, ``_hf_beam_machinery``,
-``ContinuousBeamBatchingServer``), with the same host loop, the same
-request ids and the same tokens request for request.
+``ContinuousBeamBatchingServer``, ``PrefixPoolContinuousBatchingServer``,
+``PrefixPoolContinuousBeamBatchingServer``), with the same host loop, the
+same request ids and the same tokens request for request.
 
 Each request is a single-sample dict with the keys a dataset item has
 (``msr3d_prompt``, ``obj_fts`` (O, P, 6), ``obj_masks``, ``obj_locs``,
 ``anchor_locs``, ``anchor_orientation``, optional ``msr3d_imgs`` with
 ``msr3d_img_masks``, or ``img_fts``).
 
-The JAX engines are three jitted programs over a donated device state
-(``prefill``, ``insert``, ``decode_chunk`` as a ``lax.while_loop``). Here
-the state is a dict of tensors on the model's device, updated in place: the
+The JAX engines are jitted programs over a donated device state
+(``prefill``, ``insert``, ``decode_chunk`` as a ``lax.while_loop``; the pool
+engines' ``prefix_prefill``, ``prefix_insert`` and ``suffix_insert``). Here
+the state is a dict of tensors on the model's device, updated in place: a
 prefill is ``MSR3DNetwork.prefill`` (kernels K1 and K2f, through the same
 wrappers ``MSR3D.generate`` uses), ``insert`` writes a refill group's rows
 at its slots, and a decode chunk is a Python loop of up to ``chunk_steps``
@@ -30,9 +33,10 @@ changed the state, so they are cloned on the device when the chunk ends.
 With ``spec_k`` > 0 a chunk step is one verify window of spec_k + 1 tokens
 a slot (``llama._cache_write`` then writes a window a row); with the
 model's ``do_sample`` each slot samples from a key folded from its
-request id at insert and from the row's step at each pick.
-
-Not ported yet: the prefix-pool engines (ROADMAP.md section 1 item 3).
+request id at insert and from the row's step at each pick. The pool
+engines' prefix prefill writes only its valid rows into their blocks (JAX
+scatters with ``mode="drop"``), and their decode reads the pool through a
+view, not a copy.
 """
 
 from __future__ import annotations
@@ -542,13 +546,15 @@ class ContinuousBatchingServer:
     def _llm_cfg(self):
         return self.model.network.llm.cfg
 
-    def _init_state(self):
-        """(prompt_kv, prompt_mask), state: every slot idle and finished."""
+    def _slot_state(self, gen_len: int, ids_len: int):
+        """Every slot idle and finished: a generated KV segment of ``gen_len``
+        slots a row and, with ``spec_k``, ``ids_len`` prompt ids a slot (the
+        drafts' context)."""
         cfg, dev = self._llm_cfg(), self.model.device
         b, s_g = self.num_slots, self.max_new
         eos = self.model.tokenizer.eos_id
         state = dict(
-            gen_kv=_make_cache(cfg, b, s_g, dev),
+            gen_kv=_make_cache(cfg, b, gen_len, dev),
             generated=torch.full((b, s_g), eos, dtype=torch.int32, device=dev),
             cnt=torch.zeros(b, dtype=torch.long, device=dev),
             pos=torch.zeros(b, dtype=torch.long, device=dev),
@@ -557,14 +563,19 @@ class ContinuousBatchingServer:
             seen=torch.zeros((b, cfg.vocab_size), dtype=torch.bool, device=dev),
             budget=torch.zeros(b, dtype=torch.long, device=dev),
         )
-        if self.spec_k:  # each slot's prompt ids, the drafts' context
-            state["prompt_ids"] = torch.zeros((b, self.prompt_len - 1), dtype=torch.int32,
-                                              device=dev)
+        if self.spec_k:
+            state["prompt_ids"] = torch.zeros((b, ids_len), dtype=torch.int32, device=dev)
         if self.sample:  # each slot's key, folded from its request id
             state["rng"] = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+        return state
+
+    def _init_state(self):
+        """(prompt_kv, prompt_mask), state: every slot idle and finished."""
+        cfg, dev = self._llm_cfg(), self.model.device
+        b = self.num_slots
         prompt = (_make_cache(cfg, b, self.prompt_len, dev),
                   torch.zeros((b, self.prompt_len), dtype=torch.bool, device=dev))
-        return prompt, state
+        return prompt, self._slot_state(self.max_new, self.prompt_len - 1)
 
     def _pick_rows(self, logits, seen, steps, keys=None):
         model = self.model
@@ -585,12 +596,17 @@ class ContinuousBatchingServer:
 
     def _insert(self, prompt_ctx, state, kv, mask, first, next_pos, slots, valid, budgets,
                 ids=None, rids=None):
-        """Write a prefilled group at ``slots``: its prompt KV and mask, its
-        first token (picked at step 0), count 1, position and budget, and
-        with ``spec_k`` its prompt ``ids``, with ``do_sample`` its keys
-        folded from the request ids ``rids``; padding rows (``valid`` False)
-        insert finished and idle."""
+        """Write a prefilled group at ``slots``: its prompt KV and mask, then
+        its rows (``_insert_rows``)."""
         self._insert_prompt(prompt_ctx, kv, mask, slots)
+        self._insert_rows(state, first, next_pos, slots, valid, budgets, ids, rids)
+
+    def _insert_rows(self, state, first, next_pos, slots, valid, budgets, ids=None, rids=None):
+        """Start a group's requests at ``slots``: the first token picked at
+        step 0 from ``first`` (R, V), count 1, position and budget, and with
+        ``spec_k`` their prompt ``ids``, with ``do_sample`` their keys folded
+        from the request ids ``rids``; padding rows (``valid`` False) insert
+        finished and idle."""
         r, v = first.shape
         dev = first.device
         eos = self.model.tokenizer.eos_id
@@ -616,6 +632,15 @@ class ContinuousBatchingServer:
         state["active"][slots] = valid
         state["budget"][slots] = budgets
 
+    def _gen_offset(self, state) -> int:
+        """Where a slot's tokens start in its generated KV segment."""
+        return 0
+
+    def _gen_mask(self, state, visible: torch.Tensor) -> torch.Tensor:
+        """The generated segment's mask from the token slots ``visible``
+        (B, S_g)."""
+        return visible
+
     def _running(self, state) -> Optional[torch.Tensor]:
         """The rows still decoding, or None when none is (one host read:
         the exit test of JAX's ``while_loop``)."""
@@ -634,6 +659,7 @@ class ContinuousBatchingServer:
         s_g = self.max_new
         rows = torch.arange(self.num_slots, device=dev)
         slot_iota = torch.arange(s_g, device=dev)[None, :]
+        w = self._gen_offset(state)
         steps = 0
         while steps < self.chunk_steps:
             run = self._running(state)
@@ -641,10 +667,10 @@ class ContinuousBatchingServer:
                 break
             cnt = state["cnt"]
             tok = state["generated"][rows, (cnt - 1).clamp(min=0)]
-            gen_index = torch.where(run, cnt - 1, -1)  # idle rows write nothing
+            gen_index = torch.where(run, w + cnt - 1, -1)  # idle rows write nothing
             logits = model.network.decode_step_shared(
                 tok[:, None].long(), state["pos"][:, None], prompt_kv, prompt_mask,
-                state["gen_kv"], gen_index, slot_iota < cnt[:, None])
+                state["gen_kv"], gen_index, self._gen_mask(state, slot_iota < cnt[:, None]))
             nxt = self._pick_rows(logits[:, -1, :].float(), state["seen"], cnt,
                                   state.get("rng"))
             nxt = torch.where(run, nxt, eos)
@@ -662,17 +688,19 @@ class ContinuousBatchingServer:
         """Up to ``chunk_steps`` verify windows over the slots in place:
         each running slot proposes spec_k drafts from its context (its
         prompt ids, then its tokens; the prefill's trailing bos between them
-        is not in it, which costs drafts, never tokens), writes the window
-        [last token, drafts] from slot cnt-1 of its generated segment
-        (slots before it are its accepted context) and emits the accepted
-        drafts and the model's next pick, up to EOS and its budget. Returns
-        the model calls run."""
+        is not in it, which costs drafts, never tokens; the prefix-pool
+        engine's ids end with the suffix's bos), writes the window [last
+        token, drafts] from token slot cnt-1 of its generated segment (slots
+        before it are its accepted context) and emits the accepted drafts
+        and the model's next pick, up to EOS and its budget. Returns the
+        model calls run."""
         prompt_kv, prompt_mask = prompt_ctx
         model = self.model
         eos = model.tokenizer.eos_id
         dev = state["cnt"].device
         s_g, k = self.max_new, self.spec_k
-        w = self.prompt_len - 1
+        n_ids = state["prompt_ids"].shape[1]
+        w = self._gen_offset(state)
         rows = torch.arange(self.num_slots, device=dev)
         slot_iota = torch.arange(s_g, device=dev)[None, :]
         win = torch.arange(k + 1, device=dev)
@@ -685,11 +713,12 @@ class ContinuousBatchingServer:
             generated = state["generated"]
             last_tok = generated[rows, (cnt - 1).clamp(min=0)]
             ctx = torch.cat([state["prompt_ids"], generated], dim=1)
-            props = ngram_propose(ctx, w + cnt, ngram_n=self.spec_ngram, k=k, pad_id=eos)
+            props = ngram_propose(ctx, n_ids + cnt, ngram_n=self.spec_ngram, k=k, pad_id=eos)
             verify = torch.cat([last_tok[:, None], props], dim=1).long()
             logits = model.network.decode_step_shared(
                 verify, state["pos"][:, None] + win, prompt_kv, prompt_mask, state["gen_kv"],
-                torch.where(run, cnt - 1, -1), slot_iota < (cnt - 1)[:, None])
+                torch.where(run, w + cnt - 1, -1),
+                self._gen_mask(state, slot_iota < (cnt - 1)[:, None]))
             lg = logits.float()
             if model.eos_logit_bias:
                 lg[..., eos] += model.eos_logit_bias
@@ -1048,44 +1077,20 @@ def _hf_beam_machinery(*, K, V, S_g, eos, pad, lp, rp, eos_bias, device, min_len
     return finalize_best, running_done, step0, rerank
 
 
-class ContinuousBeamBatchingServer(ContinuousBatchingServer):
-    """Slot-refill continuous batching for beam-search serving, the
-    reference's eval decode (``num_beams`` 5, repetition penalty 3.0).
-
-    Each slot owns a beam group: ``num_beams`` rows of the generated KV
-    segment and the slot's pool of hypotheses. A slot runs the per-request
-    search of ``beam_search_decode_shared`` (HF semantics, the ancestry map
-    over generated rows that never move) at its own depth: per-slot
-    ``cnt``/``pos``, per-row KV writes, per-slot done latching. A slot
-    finalizes as soon as its own search ends, which is where the fixed
-    loop ends at batch 1, and refills at once.
-
-    Against the greedy engine's state: ``state["generated"]`` holds each
-    slot's finalized best hypothesis (written on the step it finishes);
-    the live beams are ``state["beam_tokens"]`` (B·K, S_g). The prompt KV
-    stays at B slot rows, shared by a slot's beams. The host loop is the
-    greedy engine's.
+class _BeamSlots:
+    """Per-slot beam search for a slot-refill engine: the beam count, the
+    slots' beam state, beam step 0 where a group is inserted and the re-rank
+    each decode step. Both beam engines list it before their greedy base
+    (:class:`ContinuousBeamBatchingServer`,
+    :class:`PrefixPoolContinuousBeamBatchingServer`), so these methods take
+    the place of the greedy ones; each calls ``_init_beam`` at construction.
     """
 
     supports_progress = False  # hypotheses finalize at the end of the search
 
-    def __init__(
-        self,
-        model,
-        num_slots: int,
-        *,
-        num_beams: Optional[int] = None,
-        refill_group: int = 4,
-        chunk_steps: int = 16,
-        max_new_tokens: Optional[int] = None,
-        prompt_len: Optional[int] = None,
-        drain_between_batches: bool = False,
-        lookahead: int = 1,
-    ):
-        super().__init__(model, num_slots, refill_group=refill_group, chunk_steps=chunk_steps,
-                         max_new_tokens=max_new_tokens, prompt_len=prompt_len,
-                         drain_between_batches=drain_between_batches, lookahead=lookahead)
-        self.num_beams = int(num_beams or model.num_beams)
+    def _init_beam(self, num_beams: Optional[int]) -> None:
+        """The beam count (default the model's) and the per-slot search."""
+        self.num_beams = int(num_beams or self.model.num_beams)
         assert self.num_beams >= 1
         if self.sample:
             raise ValueError("do_sample requires the greedy engine — beam-sampling is not "
@@ -1097,13 +1102,13 @@ class ContinuousBeamBatchingServer(ContinuousBatchingServer):
             lp=model.length_penalty, rp=model.repetition_penalty,
             eos_bias=model.eos_logit_bias, device=model.device)
 
-    def _init_state(self):
+    def _slot_state(self, gen_len: int, ids_len: int):
         cfg, dev = self._llm_cfg(), self.model.device
         b, k, s_g = self.num_slots, self.num_beams, self.max_new
         pad = self.model.tokenizer.eos_id
-        state = dict(
+        return dict(
             # the beams' generated KV rows never reorder: the ancestry map does
-            gen_kv=_make_cache(cfg, b * k, s_g, dev),
+            gen_kv=_make_cache(cfg, b * k, gen_len, dev),
             anc=torch.zeros((b * k, s_g), dtype=torch.int32, device=dev),
             generated=torch.full((b, s_g), pad, dtype=torch.int32, device=dev),
             beam_tokens=torch.full((b * k, s_g), pad, dtype=torch.int32, device=dev),
@@ -1117,13 +1122,10 @@ class ContinuousBeamBatchingServer(ContinuousBatchingServer):
             active=torch.zeros(b, dtype=torch.bool, device=dev),
             budget=torch.zeros(b, dtype=torch.long, device=dev),
         )
-        prompt = (_make_cache(cfg, b, self.prompt_len, dev),
-                  torch.zeros((b, self.prompt_len), dtype=torch.bool, device=dev))
-        return prompt, state
 
-    def _insert(self, prompt_ctx, state, kv, mask, first, next_pos, slots, valid, budgets,
-                ids=None, rids=None):
-        self._insert_prompt(prompt_ctx, kv, mask, slots)
+    def _insert_rows(self, state, first, next_pos, slots, valid, budgets, ids=None, rids=None):
+        """Start a group's beam searches at ``slots``: beam step 0 on
+        ``first`` (R, V), count 1, position and budget."""
         k = self.num_beams
         r = slots.shape[0]
         pad = self.model.tokenizer.eos_id
@@ -1166,3 +1168,452 @@ class ContinuousBeamBatchingServer(ContinuousBatchingServer):
             state.update(self._rerank(state, logits, run, state["cnt"]))
             steps += 1
         return steps
+
+
+class ContinuousBeamBatchingServer(_BeamSlots, ContinuousBatchingServer):
+    """Slot-refill continuous batching for beam-search serving, the
+    reference's eval decode (``num_beams`` 5, repetition penalty 3.0).
+
+    Each slot owns a beam group: ``num_beams`` rows of the generated KV
+    segment and the slot's pool of hypotheses. A slot runs the per-request
+    search of ``beam_search_decode_shared`` (HF semantics, the ancestry map
+    over generated rows that never move) at its own depth: per-slot
+    ``cnt``/``pos``, per-row KV writes, per-slot done latching. A slot
+    finalizes as soon as its own search ends, which is where the fixed
+    loop ends at batch 1, and refills at once.
+
+    Against the greedy engine's state: ``state["generated"]`` holds each
+    slot's finalized best hypothesis (written on the step it finishes);
+    the live beams are ``state["beam_tokens"]`` (B·K, S_g). The prompt KV
+    stays at B slot rows, shared by a slot's beams. The host loop is the
+    greedy engine's.
+    """
+
+    def __init__(
+        self,
+        model,
+        num_slots: int,
+        *,
+        num_beams: Optional[int] = None,
+        refill_group: int = 4,
+        chunk_steps: int = 16,
+        max_new_tokens: Optional[int] = None,
+        prompt_len: Optional[int] = None,
+        drain_between_batches: bool = False,
+        lookahead: int = 1,
+    ):
+        super().__init__(model, num_slots, refill_group=refill_group, chunk_steps=chunk_steps,
+                         max_new_tokens=max_new_tokens, prompt_len=prompt_len,
+                         drain_between_batches=drain_between_batches, lookahead=lookahead)
+        self._init_beam(num_beams)
+
+
+# ---------------------------------------------------------------------------
+# Prefix-pool engines: slot refill over a shared scene-prefix KV pool
+# ---------------------------------------------------------------------------
+
+
+class PrefixPoolContinuousBatchingServer(ContinuousBatchingServer):
+    """Continuous batching over a shared pool of scene-prefix KV blocks: the
+    MSQA serving shape, many questions a scene arriving as a stream.
+
+    The plain engine prefills every request's whole prompt (preamble, scene
+    and image tokens, question) into a per-slot prompt segment, so the scene
+    encode and the prefix's attention repeat for each question. Here:
+
+    - ``pool``: ``num_prefixes`` blocks G of ``prefix_len`` S_pre slots. A
+      block holds one (scene, situation) prefix, the prompt up to and with
+      its last scene or image placeholder, prefilled once (K1 and K2f) when
+      it first appears and kept resident after its last request ends (LRU),
+      so a scene that returns later is free.
+    - a request's suffix (its question and the trailing bos) runs as one
+      left-padded window of T = ``suffix_len`` W over its block's prefix
+      (``window_valid`` hides the pad tokens); its k/v fill the head of the
+      slot's generated segment, so a slot's own KV is W + S_g wide.
+    - decode attends the pool as a batch-1 (1, G·S_pre) segment, a view of
+      the pool that every slot reads, with a visibility row per slot that
+      admits its own block's rows (the decode step's per-query
+      ``prompt_mask``).
+
+    A block's key is (``scene_fingerprint`` of the scene arrays, the prefix's
+    token bytes): two requests share a block only if the prefill they would
+    run is the same. A ``group_key`` is ignored for the key, so a miskeyed one
+    never makes two scenes share a prefill. Prompts without a placeholder
+    share one block that stays empty (the whole prompt rides the window).
+
+    Scheduling is the slot-refill loop of the base engine. One new stall:
+    when the next request needs a new block and every block is referenced
+    by a running slot, refill waits (head-of-line blocking) until a slot
+    frees one; a pool that can never take the request raises. Greedy, and
+    with ``spec_k`` > 0 speculative (n-gram drafts over the request's
+    prefix, suffix and generated tokens; repetition penalty 1.0); sampling
+    stays on the plain engine.
+
+    Counterpart of the JAX package's engine of the same name, with its host
+    loop and its tokens request for request.
+    """
+
+    supports_progress = True
+    _EMPTY_KEY = ("__no_placeholder_prefix__",)
+
+    def __init__(
+        self,
+        model,
+        num_slots: int,
+        *,
+        num_prefixes: int = 8,
+        prefix_len: Optional[int] = None,
+        suffix_len: int = 32,
+        refill_group: int = 4,
+        chunk_steps: int = 16,
+        max_new_tokens: Optional[int] = None,
+        drain_between_batches: bool = False,
+        lookahead: int = 1,
+        spec_k: int = 0,
+        spec_ngram: int = 3,
+    ):
+        super().__init__(model, num_slots, refill_group=refill_group, chunk_steps=chunk_steps,
+                         max_new_tokens=max_new_tokens,
+                         prompt_len=prefix_len or model.prompt_pad_to,
+                         drain_between_batches=drain_between_batches, lookahead=lookahead,
+                         spec_k=spec_k, spec_ngram=spec_ngram)
+        if self.sample:
+            # a request's logits reduce over the whole pool width, so which
+            # block it lands in moves its rounding: the plain engine's
+            # (seed, request id) contract would not hold
+            raise ValueError("do_sample serving is a plain-continuous-engine feature: the "
+                             "(seed, request-id) determinism contract cannot be kept across "
+                             "pool-block assignments")
+        self.num_prefixes = int(num_prefixes)
+        assert self.num_prefixes >= 1
+        self.prefix_len = self.prompt_len  # the prefix bucket S_pre (no trailing bos)
+        self.suffix_len = int(suffix_len)
+        self._reset_pool()
+
+    def _reset_pool(self) -> None:
+        """Empty host bookkeeping of the pool (a run starts with a new pool)."""
+        g = self.num_prefixes
+        self._block_of: Dict[Any, int] = {}  # resident key -> block
+        self._block_key: List[Any] = [None] * g
+        self._block_ref = [0] * g  # running slots on each block
+        self._free_tick = [0] * g  # LRU order among unreferenced blocks
+        self._tick = 0
+        self._slot_block: Dict[int, int] = {}
+        # rid -> (block, needs prefill, prefix, suffix, sample)
+        self._resolved: Dict[int, tuple] = {}
+        self._split_cache: Dict[int, tuple] = {}  # rid -> (key, prefix, suffix)
+        self._empty_bid: Optional[int] = None  # the block of prompts without a placeholder
+        self.prefix_prefills = 0  # prefix-prefill calls of the run
+
+    # -- host side: the pool ----------------------------------------------
+
+    def _split_sample(self, sample: Dict[str, Any]):
+        """(key, prefix token ids, suffix token ids) of one request. The split
+        is after the last scene or image placeholder (special tokens, never
+        merged), so requests whose text before the question and scene arrays
+        match share the prefix tokens; the suffix is text alone. Raises
+        ``ValueError`` where a part exceeds its bucket (the HTTP front end
+        answers 400)."""
+        tok = self.model.tokenizer
+        texts = self.model.build_text_prompt(_collate([sample]))
+        enc = tok.encode_batch(texts, padding_side="left", add_bos=True, pad_to=None)
+        row = enc.input_ids[0][enc.attention_mask[0].astype(bool)]
+        placeholders = {tok.scene_token_id, tok.img_token_id}
+        last = -1
+        for i, t in enumerate(row):
+            if int(t) in placeholders:
+                last = i
+        if last < 0:
+            prefix = np.zeros((0,), np.int32)
+            key = self._EMPTY_KEY
+        else:
+            prefix = np.asarray(row[: last + 1], np.int32)
+            arrays = {k: v for k, v in sample.items() if k != "group_key"}
+            key = (scene_fingerprint(arrays), prefix.tobytes())
+        suffix = [int(t) for t in row[last + 1:]] + [tok.bos_id]
+        if len(prefix) > self.prefix_len:
+            raise ValueError(f"scene prefix ({len(prefix)} tokens) exceeds the engine's prefix "
+                             f"bucket ({self.prefix_len}); raise prefix_len")
+        if len(suffix) > self.suffix_len:
+            raise ValueError(f"question suffix ({len(suffix)} tokens incl. trailing bos) "
+                             f"exceeds the engine's suffix bucket ({self.suffix_len}); raise "
+                             "suffix_len")
+        return key, prefix, suffix
+
+    def _alloc_block(self, key) -> Optional[int]:
+        """Claim a block for ``key``: a virgin block if any, else the least
+        recently freed resident one (evicted). None: every block is taken."""
+        virgin = None
+        lru_bid, lru_tick = None, None
+        for bid in range(self.num_prefixes):
+            if self._block_ref[bid] > 0 or bid == self._empty_bid:
+                continue
+            if self._block_key[bid] is None:
+                virgin = bid
+                break
+            if lru_tick is None or self._free_tick[bid] < lru_tick:
+                lru_bid, lru_tick = bid, self._free_tick[bid]
+        bid = virgin if virgin is not None else lru_bid
+        if bid is None:
+            return None
+        old = self._block_key[bid]
+        if old is not None:
+            del self._block_of[old]
+        self._block_key[bid] = key
+        self._block_of[key] = bid
+        return bid
+
+    def _take_group(self, queue: deque) -> list:
+        group = []
+        group_new: Dict[Any, int] = {}  # key -> block claimed by this group
+        while queue and len(group) < self.refill_group:
+            rid, sample, budget = queue[0]
+            pre_split = sample.get("_pool_split")
+            if pre_split is not None:  # split by the HTTP front end's validation
+                key, prefix, suffix = pre_split
+            elif rid in self._split_cache:
+                key, prefix, suffix = self._split_cache[rid]
+            else:
+                key, prefix, suffix = self._split_sample(sample)
+                self._split_cache[rid] = (key, prefix, suffix)
+            if key == self._EMPTY_KEY:
+                if self._empty_bid is None:
+                    # a permanent all-masked block, never prefilled
+                    bid = self._alloc_block(key)
+                    if bid is None:
+                        break
+                    self._empty_bid = bid
+                bid, needs = self._empty_bid, False
+            elif key in self._block_of:
+                bid, needs = self._block_of[key], False
+            elif key in group_new:
+                bid, needs = group_new[key], False
+            else:
+                bid = self._alloc_block(key)
+                if bid is None:
+                    if not self._slot_block and not group:
+                        # nothing runs and nothing is scheduled: no slot will
+                        # ever free a block
+                        raise RuntimeError(
+                            "prefix pool exhausted with no active slots — "
+                            f"num_prefixes={self.num_prefixes} cannot schedule this request "
+                            "mix; raise num_prefixes")
+                    break  # head-of-line blocked until a slot frees
+                group_new[key] = bid
+                needs = True
+            queue.popleft()
+            self._split_cache.pop(rid, None)
+            self._block_ref[bid] += 1
+            self._resolved[rid] = (bid, needs, prefix, suffix, sample)
+            group.append((rid, sample, budget))
+        return group
+
+    def _on_slot_free(self, slot: int) -> None:
+        bid = self._slot_block.pop(slot, None)
+        if bid is not None:
+            self._block_ref[bid] -= 1
+            if self._block_ref[bid] == 0:
+                self._tick += 1
+                self._free_tick[bid] = self._tick
+
+    # -- device side --------------------------------------------------------
+
+    def _engine_init(self):
+        """((pool k/v (L, G, S_pre, hkv, D), pool mask (G, S_pre), the
+        prefixes' next positions (G,)), slot state)."""
+        self._reset_pool()
+        cfg, dev = self._llm_cfg(), self.model.device
+        g, s_pre = self.num_prefixes, self.prefix_len
+        pool = (_make_cache(cfg, g, s_pre, dev),
+                torch.zeros((g, s_pre), dtype=torch.bool, device=dev),
+                torch.zeros(g, dtype=torch.long, device=dev))
+        return pool, self._pool_slot_state()
+
+    def _pool_slot_state(self):
+        """The slots: a generated KV segment of W + S_g slots a row whose
+        first W hold the question window, the window's mask ``sufmask`` (B,
+        W), each slot's block ``assign``; with ``spec_k`` the drafts' context
+        of S_pre + W prompt ids."""
+        b, w, dev = self.num_slots, self.suffix_len, self.model.device
+        state = self._slot_state(w + self.max_new, self.prefix_len + w)
+        state.update(sufmask=torch.zeros((b, w), dtype=torch.bool, device=dev),
+                     assign=torch.zeros(b, dtype=torch.long, device=dev))
+        return state
+
+    def _engine_refill(self, prompt_ctx, state, group, slots):
+        res = [self._resolved.pop(rid) for rid, _, _ in group]
+        # each new key comes once with needs=True
+        new = [(bid, pre, smp) for bid, needs, pre, _, smp in res if needs]
+        if new:
+            self._prefix_prefill(prompt_ctx, new)
+        self._suffix_insert(prompt_ctx, state, group, res, slots)
+        return prompt_ctx, state
+
+    def _prefix_prefill(self, pool, new) -> None:
+        """Prefill the group's new prefixes at batch R, left-padded to S_pre
+        without a trailing bos (rows past them repeat one and are computed,
+        not written), and write each new row into its block: k/v (with
+        their scales in an int8 cache), mask, next position."""
+        model = self.model
+        r, width = self.refill_group, self.prefix_len
+        ids = np.full((r, width), model.tokenizer.pad_id, np.int64)
+        attn = np.zeros((r, width), np.int32)
+        samples = []
+        for j, (_, pre, smp) in enumerate(new):
+            ids[j, width - len(pre):] = pre
+            attn[j, width - len(pre):] = 1
+            samples.append(smp)
+        ids[len(new):], attn[len(new):] = ids[0], attn[0]
+        samples += [samples[-1]] * (r - len(new))
+        dev = model.device
+        _, kv, mask, next_pos = model.network.prefill(
+            torch.as_tensor(ids, device=dev), torch.as_tensor(attn, device=dev),
+            **model._gen_scene_batch(_collate(samples)), bos_id=model.tokenizer.bos_id,
+            max_cache_len=width, append_bos=False)
+        self.prefix_prefills += 1
+        pool_kv, pool_mask, pool_npre = pool
+        n = len(new)
+        blocks = torch.as_tensor([bid for bid, _, _ in new], dtype=torch.long, device=dev)
+        for key, arr in pool_kv.items():
+            arr[:, blocks] = kv[key][:, :n].to(arr.dtype)
+        pool_mask[blocks] = mask[:n]
+        pool_npre[blocks] = next_pos[:n].long()
+
+    def _suffix_insert(self, pool, state, group, res, slots) -> None:
+        """The group's suffixes as one window of T = W over their blocks'
+        prefixes (gathered, R rows), then the slots: the window's k/v, its
+        mask and the block at each slot, the first token from the window's
+        last logits (rows past the group mirror row 0 and insert idle)."""
+        model = self.model
+        r, w = self.refill_group, self.suffix_len
+        pad_id = model.tokenizer.pad_id
+        sids = np.full((r, w), pad_id, np.int64)
+        wv = np.zeros((r, w), bool)
+        blocks = np.zeros(r, np.int64)
+        budgets = np.ones(r, np.int64)
+        for j, ((_, _, budget), (bid, _, _, suffix, _)) in enumerate(zip(group, res)):
+            sids[j, w - len(suffix):] = suffix
+            wv[j, w - len(suffix):] = True
+            blocks[j] = bid
+            budgets[j] = budget
+            self._slot_block[slots[j]] = bid
+        n = len(group)
+        sids[n:], wv[n:], blocks[n:] = sids[0], wv[0], blocks[0]
+        dev = model.device
+        pool_kv, pool_mask, pool_npre = pool
+        blocks_t = torch.as_tensor(blocks, device=dev)
+        wv_t = torch.as_tensor(wv, device=dev)
+        npre = pool_npre[blocks_t]
+        win_pos = (npre[:, None] + torch.cumsum(wv_t.long(), dim=1) - 1).clamp(min=0)
+        win_kv = _make_cache(self._llm_cfg(), r, w, dev)
+        logits = model.network.decode_step_shared(
+            torch.as_tensor(sids, device=dev), win_pos,
+            {key: val[:, blocks_t] for key, val in pool_kv.items()}, pool_mask[blocks_t],
+            win_kv, 0, torch.zeros((r, w), dtype=torch.bool, device=dev), wv_t)
+        slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        self._store_window(state, win_kv, slots_t)
+        state["sufmask"][slots_t] = wv_t
+        state["assign"][slots_t] = blocks_t
+        ids = None
+        if self.spec_k:  # the drafts' context: prefix + suffix, left-padded
+            cw = self.prefix_len + w
+            ctx = np.full((r, cw), pad_id, np.int64)
+            for j, (_, _, prefix, suffix, _) in enumerate(res):
+                seq = [int(t) for t in prefix] + list(suffix)
+                ctx[j, cw - len(seq):] = seq
+            ctx[n:] = ctx[0]
+            ids = torch.as_tensor(ctx, device=dev)
+        self._insert_rows(state, logits[:, -1, :].float(), npre + wv_t.long().sum(dim=1),
+                          slots_t, torch.arange(r, device=dev) < n,
+                          torch.as_tensor(budgets, device=dev), ids=ids)
+
+    def _gen_offset(self, state) -> int:
+        return self.suffix_len  # the question window heads the segment
+
+    def _gen_mask(self, state, visible: torch.Tensor) -> torch.Tensor:
+        return torch.cat([state["sufmask"], visible], dim=1)
+
+    def _store_window(self, state, win_kv, slots) -> None:
+        """The window's k/v at the head of each slot's generated segment."""
+        w = self.suffix_len
+        for key, arr in state["gen_kv"].items():
+            arr[:, slots, :w] = win_kv[key]
+
+    def _pool_view(self, pool, state):
+        """What a decode chunk reads of the pool: the (L, 1, G·S_pre) view
+        that every slot shares, and each slot's visibility of its own
+        block's valid rows (B, G·S_pre), fixed within a chunk."""
+        pool_kv, pool_mask, _ = pool
+        g, s_pre = self.num_prefixes, self.prefix_len
+        flat = {key: val.view((val.shape[0], 1, g * s_pre) + val.shape[3:])
+                for key, val in pool_kv.items()}
+        own = state["assign"][:, None] == torch.arange(g, device=pool_mask.device)[None, :]
+        return flat, (own[:, :, None] & pool_mask[None]).reshape(self.num_slots, g * s_pre)
+
+    def _engine_decode(self, prompt_ctx, state):
+        return self._decode_chunk(self._pool_view(prompt_ctx, state), state), state
+
+
+class PrefixPoolContinuousBeamBatchingServer(_BeamSlots, PrefixPoolContinuousBatchingServer):
+    """The prefix-pool engine for beam search, the reference's eval decode
+    (beam 5, repetition penalty 3.0), with each scene's prefix prefilled once
+    and slot refill.
+
+    Against the greedy pool engine:
+
+    - each slot's question window k/v live in their own (B, W) pool, read
+      as a second batch-1 (1, B·W) segment beside the block pool: stored
+      once a slot, never copied into its K beam rows;
+    - the generated segment is (B·K, S_g), read through the ancestry map as
+      in :class:`ContinuousBeamBatchingServer`, whose per-slot search (step
+      0 on the window's last logits, the re-rank a step) this engine runs.
+
+    The host side of the pool is the greedy pool engine's.
+    """
+
+    def __init__(
+        self,
+        model,
+        num_slots: int,
+        *,
+        num_beams: Optional[int] = None,
+        num_prefixes: int = 8,
+        prefix_len: Optional[int] = None,
+        suffix_len: int = 32,
+        refill_group: int = 4,
+        chunk_steps: int = 16,
+        max_new_tokens: Optional[int] = None,
+        drain_between_batches: bool = False,
+        lookahead: int = 1,
+    ):
+        super().__init__(model, num_slots, num_prefixes=num_prefixes, prefix_len=prefix_len,
+                         suffix_len=suffix_len, refill_group=refill_group,
+                         chunk_steps=chunk_steps, max_new_tokens=max_new_tokens,
+                         drain_between_batches=drain_between_batches, lookahead=lookahead)
+        self._init_beam(num_beams)
+
+    def _pool_slot_state(self):
+        """The beam slots of :class:`ContinuousBeamBatchingServer`, plus the
+        question windows' k/v ``suf_kv`` (L, B, W, hkv, D), their mask and
+        each slot's block."""
+        b, w, dev = self.num_slots, self.suffix_len, self.model.device
+        state = self._slot_state(self.max_new, 0)
+        state.update(suf_kv=_make_cache(self._llm_cfg(), b, w, dev),
+                     sufmask=torch.zeros((b, w), dtype=torch.bool, device=dev),
+                     assign=torch.zeros(b, dtype=torch.long, device=dev))
+        return state
+
+    def _store_window(self, state, win_kv, slots) -> None:
+        for key, arr in state["suf_kv"].items():
+            arr[:, slots] = win_kv[key]
+
+    def _engine_decode(self, prompt_ctx, state):
+        pool_flat, vis_pool = self._pool_view(prompt_ctx, state)
+        b, w = self.num_slots, self.suffix_len
+        suf_flat = {key: val.view((val.shape[0], 1, b * w) + val.shape[3:])
+                    for key, val in state["suf_kv"].items()}
+        own = torch.eye(b, dtype=torch.bool, device=vis_pool.device)
+        vis_suf = (own[:, :, None] & state["sufmask"][None]).reshape(b, b * w)
+        # a row per beam query over the pool, then every slot's window
+        mask = torch.cat([vis_pool, vis_suf], dim=1).repeat_interleave(self.num_beams, dim=0)
+        return self._decode_chunk(((pool_flat, suf_flat), mask), state), state

@@ -391,25 +391,36 @@ class ServingFrontend:
         engine thread (which would answer 503 to every later client):
 
         - the expanded prompt must fit the engine's prompt width, where the
-          engine has one;
+          engine has one; on a prefix-pool engine its prefix and its suffix
+          must fit their buckets, checked by the engine's own split, which
+          is attached to the sample (``_pool_split``) so that the engine
+          does not tokenize it again;
         - the scene arrays' shapes must match the serving shapes, which the
           first accepted request pins.
 
         Costs one host tokenize a request."""
         model = self.engine.model
-        try:
-            prompts = model.build_text_prompt(_collate([sample]))
-            ids, _ = model._encode_prompts(prompts)
-        except Exception as exc:
-            raise RequestError(f"prompt build failed: {exc}")
-        # an engine without a fixed prompt bucket (the scene-grouped server
-        # buckets each batch itself) needs no width check
-        engine_prompt_len = getattr(self.engine, "prompt_len", None)
-        if engine_prompt_len is not None and ids.shape[1] > engine_prompt_len - 1:
-            raise RequestError(
-                f"prompt expands to {ids.shape[1]} tokens; the engine's prompt bucket "
-                f"allows {engine_prompt_len - 1}"  # the trailing bos
-            )
+        if hasattr(self.engine, "_split_sample"):
+            try:
+                sample["_pool_split"] = self.engine._split_sample(sample)
+            except (AssertionError, ValueError) as exc:
+                raise RequestError(str(exc))
+            except Exception as exc:
+                raise RequestError(f"prompt build failed: {exc}")
+        else:
+            try:
+                prompts = model.build_text_prompt(_collate([sample]))
+                ids, _ = model._encode_prompts(prompts)
+            except Exception as exc:
+                raise RequestError(f"prompt build failed: {exc}")
+            # an engine without a fixed prompt bucket (the scene-grouped
+            # server buckets each batch itself) needs no width check
+            engine_prompt_len = getattr(self.engine, "prompt_len", None)
+            if engine_prompt_len is not None and ids.shape[1] > engine_prompt_len - 1:
+                raise RequestError(
+                    f"prompt expands to {ids.shape[1]} tokens; the engine's prompt bucket "
+                    f"allows {engine_prompt_len - 1}"  # the trailing bos
+                )
         shapes = tuple(
             (k, tuple(np.asarray(sample[k]).shape))
             for k in sorted(k for k in sample if k in _SCENE_KEYS)

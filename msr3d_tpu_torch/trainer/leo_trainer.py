@@ -33,8 +33,10 @@ epochs and over its ``test`` loader after the last, at most
 generation``) decodes each batch with ``MSR3D.generate_async``, at most
 ``eval_pipeline_depth`` batches (default 3) waiting for their
 ``finalize``, with ``eval_engine: continuous`` through the slot-refill
-engines of ``serving.py`` (``_eval_continuous``), or with ``eval_engine:
-grouped`` through the scene-grouped batcher (``_eval_grouped``); retrieval
+engines of ``serving.py`` (``_eval_continuous``; with
+``eval_engine_opts.prefix_pool`` the prefix-pool engines), or with
+``eval_engine: grouped`` through the scene-grouped batcher
+(``_eval_grouped``); retrieval
 scores the
 dataset's ``answer_cands`` with ``MSR3D.predict_answers``. Metrics are
 logged as ``{split}/{task}/{metric}`` at the current step, and a val
@@ -44,9 +46,7 @@ saves the learnable weights as ``best``. Any ``mode`` but ``train`` (``test``,
 config without a train task builds no optimizer.
 
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-queue): ``eval_engine_opts.prefix_pool`` (the prefix-pool engines), more
-than one ``torch.distributed``
-rank, ``parallel.tp/pp/sp > 1`` and fixed multi-host text buckets, ``remat``, and
+queue): more than one ``torch.distributed`` rank, ``parallel.tp/pp/sp > 1`` and fixed multi-host text buckets, ``remat``, and
 ``vision_freeze: False``.
 """
 
@@ -73,7 +73,6 @@ from msr3d_tpu_torch.utils.logging import MetricLogger, StepTimer, get_logger
 
 logger = get_logger("msr3d_tpu_torch.trainer")
 
-_POOL_ITEM = "ROADMAP.md section 1 item 3, the prefix-pool engines"
 # the data dict's keys that go to the evaluators beside the predictions
 _RECORD_KEYS = ("answer_list", "answer_label", "text_output", "data_idx", "sqa_type", "source",
                 "scan_id", "index", "type", "prompt", "prompt_after_obj", "obj_labels",
@@ -214,10 +213,6 @@ class LeoTrainer:
         if not model.cfg.prompter.vision_freeze:
             raise _not_ported("vision_freeze: False (the port's PointNet++ has inference "
                               "BatchNorm only)", "ROADMAP.md, queue: the other modes")
-        engine = str(cfg.get("eval_engine", "") or "").lower()
-        if engine == "continuous" and (cfg.get("eval_engine_opts") or {}).get("prefix_pool"):
-            raise _not_ported("eval_engine_opts.prefix_pool (the prefix-pool engines)",
-                              _POOL_ITEM)
 
     # ------------------------------------------------------------------
 
@@ -412,18 +407,35 @@ class LeoTrainer:
         continuous``): the requests of all loader batches share one pool of
         slots, so a short answer's slot refills at once. With ``num_beams``
         above 1 the beam engine serves (each slot one request's beam search
-        at its own depth). Engine options come from ``eval_engine_opts``
+        at its own depth). With ``prefix_pool: true`` the prefix-pool
+        engines serve instead (each scene's prefix prefilled once into a
+        shared pool of KV blocks: MSQA asks many questions a scene), greedy
+        or beam; their knobs are ``num_prefixes``, ``prefix_len`` and
+        ``suffix_len``. Engine options come from ``eval_engine_opts``
         (``num_slots``, ``refill_group``, ``chunk_steps``, ``lookahead``,
         ``spec_k``, ...), with the JAX trainer's defaults."""
-        from msr3d_tpu_torch.serving import ContinuousBatchingServer, ContinuousBeamBatchingServer
+        from msr3d_tpu_torch.serving import (
+            ContinuousBatchingServer,
+            ContinuousBeamBatchingServer,
+            PrefixPoolContinuousBatchingServer,
+            PrefixPoolContinuousBeamBatchingServer,
+        )
 
         opts = dict(self.cfg.get("eval_engine_opts", {}) or {})
-        opts.pop("prefix_pool", None)  # False here (_check_ported)
+        prefix_pool = bool(opts.pop("prefix_pool", False))
         if self.model.num_beams != 1:
             # beam slots carry num_beams KV rows each: a smaller default pool
-            engine = ContinuousBeamBatchingServer(
+            cls = (PrefixPoolContinuousBeamBatchingServer if prefix_pool
+                   else ContinuousBeamBatchingServer)
+            engine = cls(
                 self.model, num_slots=int(opts.pop("num_slots", 8)),
                 refill_group=int(opts.pop("refill_group", 4)),
+                chunk_steps=int(opts.pop("chunk_steps", 16)),
+                lookahead=int(opts.pop("lookahead", 1)), **opts)
+        elif prefix_pool:
+            engine = PrefixPoolContinuousBatchingServer(
+                self.model, num_slots=int(opts.pop("num_slots", 32)),
+                refill_group=int(opts.pop("refill_group", 8)),
                 chunk_steps=int(opts.pop("chunk_steps", 16)),
                 lookahead=int(opts.pop("lookahead", 1)), **opts)
         else:
@@ -434,7 +446,7 @@ class LeoTrainer:
                 lookahead=int(opts.pop("lookahead", 1)),
                 spec_k=int(opts.pop("spec_k", 0)), **opts)
         self._eval_requests(batches, emit, lambda samples, on_result: engine.run(
-            samples, on_result=on_result), "continuous")
+            samples, on_result=on_result), "prefix-pool" if prefix_pool else "continuous")
 
     def _eval_grouped(self, batches, emit) -> None:
         """Generation eval through the scene-grouped batcher (``eval_engine:

@@ -438,21 +438,27 @@ def test_preemption_saves_at_the_step_and_resumes(tmp_path, monkeypatch):
 
 def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     """Evaluation from the entry raises only on what it would need and the
-    port lacks: the prefix-pool engines as an eval route and more than one
-    rank.
-    ``mode: test``, the val split and ``inference_mode: retrieval`` build
-    and run (their parity with JAX: tests/test_torch_eval.py)."""
+    port lacks: a tensor-parallel mesh and more than one rank.
+    ``mode: test`` (also through the prefix-pool engines), the val split and
+    ``inference_mode: retrieval`` build and run (their parity with JAX:
+    tests/test_torch_eval.py)."""
     import torch.distributed as dist
 
     root = tmp_path / "data"
     synthetic.build_full_tree(root, np.random.default_rng(7))
     ovs = [o for o in _entry_overrides(root, tmp_path / "x", fp32=False)
            if not o.startswith("task.")]
-    # eval_engine: continuous and grouped are ported (tests/test_torch_eval.py,
-    # tests/test_torch_scene_group.py); the prefix-pool engines are not
-    with pytest.raises(NotImplementedError, match="prefix-pool engines"):
+    # eval_engine: continuous, with the prefix-pool engines too, and grouped
+    # are ported (tests/test_torch_eval.py, tests/test_torch_scene_group.py)
+    pooled = port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
+                            "eval_engine=continuous", "eval_engine_opts.prefix_pool=true",
+                            "eval_engine_opts.suffix_len=96", f"exp_dir={tmp_path / 'pool'}"])
+    assert pooled.step == 0 and pooled.cfg["eval_engine_opts"]["prefix_pool"]
+    assert [sorted(k for k in m if k.startswith("test/")) != [] for m in
+            _metrics(tmp_path / "pool")] == [True]
+    with pytest.raises(NotImplementedError, match="parallel.tp"):
         port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
-                       "eval_engine=continuous", "eval_engine_opts.prefix_pool=true"])
+                       "parallel.tp=2"])
     with monkeypatch.context() as m:  # two ranks
         m.setattr(dist, "is_initialized", lambda: True)
         m.setattr(dist, "get_world_size", lambda: 2)

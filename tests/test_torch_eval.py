@@ -57,7 +57,7 @@ from msr3d_tpu_torch.models.msr3d import MSR3D
 from msr3d_tpu_torch.trainer.checkpoint import CheckpointManager
 from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
 
-from torch_parity_utils import to_numpy_tree
+from torch_parity_utils import one_torch_thread, to_numpy_tree
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = REPO / "configs"
@@ -508,6 +508,41 @@ def test_eval_continuous_equals_jax(msqa, beams):
     assert len(got_records[0]["output_text"]) == 2
     assert got_records[0]["output_text"] == want_records[0]["output_text"]
     assert list(got_records[0]) == list(want_records[0]) and got == want
+
+
+@pytest.mark.parametrize("beams", [5, 1], ids=["beam5", "greedy"])
+def test_eval_prefix_pool_equals_jax(msqa, beams):
+    """``eval_engine: continuous`` with ``eval_engine_opts.prefix_pool``: the
+    val split through the prefix-pool engines (beam 5, or greedy), one slot
+    so that the second request refills it, two blocks; the texts the
+    evaluator receives and its results equal JAX's, and greedy's equal the
+    blocking route's."""
+    jtrainer, trainer, _ = msqa
+    opts = {"prefix_pool": True, "num_slots": 1, "refill_group": 1, "chunk_steps": 3,
+            "num_prefixes": 2, "suffix_len": 96}
+    saved = jtrainer.model.num_beams
+    try:
+        for t in (jtrainer, trainer):
+            t.model.num_beams = beams
+        with one_torch_thread():
+            if beams == 1:
+                blocking = _eval(trainer, "msqa_scannet", "val")[1][0]["output_text"]
+            jtrainer.cfg.eval_engine, jtrainer.cfg.eval_engine_opts = "continuous", dict(opts)
+            trainer.cfg.update(eval_engine="continuous", eval_engine_opts=dict(opts))
+            want, want_records = _eval(jtrainer, "msqa_scannet", "val")
+            got, got_records = _eval(trainer, "msqa_scannet", "val")
+    finally:
+        for t in (jtrainer, trainer):
+            t.model.num_beams = saved
+        jtrainer.cfg.eval_engine = ""
+        for key in ("eval_engine", "eval_engine_opts"):
+            trainer.cfg.pop(key, None)
+    assert len(got_records) == len(want_records) == 1
+    assert len(got_records[0]["output_text"]) == 2
+    assert got_records[0]["output_text"] == want_records[0]["output_text"]
+    assert list(got_records[0]) == list(want_records[0]) and got == want
+    if beams == 1:
+        assert got_records[0]["output_text"] == blocking
 
 
 def test_eval_grouped_equals_jax(msqa):

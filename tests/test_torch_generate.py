@@ -228,10 +228,13 @@ def test_greedy_eos_logit_bias_matches_jax():
 
 def test_generate_refuses_what_is_not_ported():
     """Greedy and beam generate run on seeded weights (as chip_smoke.py's do),
-    with images; what is not ported raises: the prefix-pool engines'
-    tuple-of-segments prompt cache and per-query prompt masks. Decode windows
+    with images. The prefix-pool engines' forms run: a per-query prompt mask
+    gives the logits of the same mask repeated for each row's queries, and a
+    tuple of prompt segments (the prompt split in two) those of the whole
+    segment; a tuple needs a per-query mask, as JAX asserts. Decode windows
     of T > 1 run (speculative and grouped-scene decoding); the ancestry beam
-    step refuses them, as JAX's asserts."""
+    step refuses them, as JAX's asserts. The pool engines are held to JAX's
+    in tests/test_torch_serving_pool.py."""
     cfg = MSR3DNetworkConfig(
         prompter=torch_prompter_config(TINY_PROMPTER),
         llm=LlamaConfig.tiny(vocab_size=ByteTokenizer().vocab_size, dtype=torch.float32),
@@ -253,15 +256,27 @@ def test_generate_refuses_what_is_not_ported():
             torch.from_numpy(ids).long(), torch.from_numpy(attn), **model._scene_batch(data),
             bos_id=model.tokenizer.bos_id, max_cache_len=ids.shape[1] + 1)
     gen_kv = _make_cache(llm.cfg, 4, 3, "cpu")
-    embeds = torch.zeros((4, 1, cfg.llm.hidden_size))
+    embeds = torch.randn((4, 1, cfg.llm.hidden_size), generator=torch.Generator().manual_seed(0))
     pos = next_pos.repeat_interleave(2)[:, None]
     gen_mask = torch.ones((4, 3), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="prefix-pool"):
-        llm.decode_step_beam_anc(embeds, pos, (prompt_kv, prompt_kv), prompt_mask, gen_kv, 0,
-                                 gen_mask, torch.zeros((4, 3), dtype=torch.int32), 2)
-    with pytest.raises(NotImplementedError, match="per-query prompt masks"):
-        llm.decode_step_shared(embeds, pos, prompt_kv, prompt_mask.repeat_interleave(2, dim=0),
-                               gen_kv, 0, gen_mask)
+    anc = torch.tensor([[0, 1, 0], [1, 1, 0], [0, 0, 1], [1, 0, 1]], dtype=torch.int32)
+    per_query = prompt_mask.repeat_interleave(2, dim=0)
+    half = ids.shape[1] // 2
+    halves = tuple({key: val[:, :, part] for key, val in prompt_kv.items()}
+                   for part in (slice(0, half), slice(half, None)))
+
+    def step(fn, prompt, mask, *extra):
+        with torch.no_grad():  # a fresh generated segment a call: the step writes it
+            return fn(embeds, pos, prompt, mask, {k: v.clone() for k, v in gen_kv.items()}, 0,
+                      gen_mask, *extra)
+
+    want = step(llm.decode_step_shared, prompt_kv, prompt_mask)
+    assert torch.equal(step(llm.decode_step_shared, prompt_kv, per_query), want)
+    want = step(llm.decode_step_beam_anc, prompt_kv, prompt_mask, anc, 2)
+    torch.testing.assert_close(step(llm.decode_step_beam_anc, halves, per_query, anc, 2), want,
+                               atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="per-query prompt mask"):
+        step(llm.decode_step_beam_anc, halves, prompt_mask, anc, 2)
     # windows of T > 1 are ported (tests/test_torch_speculative.py holds them
     # to JAX's); the ancestry beam step stays at one token a row, as JAX's
     with torch.no_grad():

@@ -719,6 +719,66 @@ def test_continuous_engine_on_card_equals_generate(cuda_device):
 
 
 @pytest.mark.cuda
+def test_pool_engine_on_card_equals_generate(cuda_device):
+    """The tiny model in fp32 (dense attention, TF32 off) on the card: the
+    greedy prefix-pool engine over 2 scenes x 2 questions with 2 blocks and
+    2 slots gives ``generate``'s tokens, one prefix prefill a scene (K1
+    twice each); the beam pool engine gives batch-1 beam ``generate``'s."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig
+    from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, SpatialEncoderConfig
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.serving import (
+        PrefixPoolContinuousBatchingServer,
+        PrefixPoolContinuousBeamBatchingServer,
+    )
+
+    prompter = OSE3DConfig(
+        hidden_size=32, spatial_encoder=SpatialEncoderConfig(
+            num_attention_heads=4, dim_feedforward=64, dropout=0.0, num_layers=1),
+        sa_n_points=(8, 4, None), sa_n_samples=(8, 8, None), sa_radii=(0.4, 0.8, None),
+        sa_mlps=((3, 8, 8, 16), (16, 16, 16, 32), (32, 32, 32, 64)))
+    llm = LlamaConfig.tiny(vocab_size=263, dtype=torch.float32, param_dtype=torch.float32)
+    cfg = MSR3DNetworkConfig(prompter=prompter, llm=llm, backbone_name="convnext_test")
+    model = MSR3D(cfg, scene_token_len=5, max_out_len=8, num_beams=2, repetition_penalty=1.5,
+                  device=cuda_device)
+    model.init_params(seed=0)
+    r = np.random.default_rng(1)
+    reqs = []
+    for s in range(2):
+        scene = {"obj_fts": (r.normal(size=(6, 32, 6)) * 0.3).astype(np.float32),
+                 "obj_masks": np.ones(6, bool), "obj_locs": r.normal(size=(6, 6)).astype(np.float32),
+                 "anchor_locs": r.normal(size=3).astype(np.float32),
+                 "anchor_orientation": np.array([0, 0, 0, 1], np.float32)}
+        reqs += [dict(scene, msr3d_prompt=f"Scene {s}: 景. USER: what is object {q}?")
+                 for q in range(2)]
+    keys = [k for k in reqs[0] if k != "msr3d_prompt"]
+
+    def batch(qs):
+        return {"msr3d_prompt": [q["msr3d_prompt"] for q in qs],
+                **{k: np.stack([q[k] for q in qs]) for k in keys}}
+
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = model.generate(batch(reqs), use_beam=False)["output_tokens"]
+        kw = dict(num_slots=2, num_prefixes=2, prefix_len=32, suffix_len=32, refill_group=1,
+                  chunk_steps=3)
+        engine = PrefixPoolContinuousBatchingServer(model, **kw)
+        FPS_KERNEL.launches = 0
+        got = engine.run(reqs)
+        assert engine.prefix_prefills == 2 and FPS_KERNEL.launches == 2 * 2
+        for res in got:
+            np.testing.assert_array_equal(res.output_tokens, want[res.id])
+        beam = PrefixPoolContinuousBeamBatchingServer(model, **kw)
+        for res in beam.run(reqs):
+            one = model.generate(batch([reqs[res.id]]), use_beam=True)["output_tokens"][0]
+            np.testing.assert_array_equal(res.output_tokens, one)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("situation_type", ["as_object", "as_cross_attention"])
 def test_situation_modes_on_card_match_cpu(cuda_device, situation_type):
     """The LEO prompter (``as_object``: the anchor as a token) at a small
@@ -821,7 +881,8 @@ def test_port_imports_no_jax():
     assert len(files) > 10 and REPO / "scripts" / "fps_variants.py" in files
     assert REPO / "scripts" / "w8_variants.py" in files
     assert REPO / "scripts" / "w4_variants.py" in files
-    for name in ("serving.py", "serving_http.py", "serve.py"):
+    for name in ("serving.py", "serving_http.py", "serve.py", "models/llm/llama.py",
+                 "models/msr3d.py", "trainer/leo_trainer.py"):
         assert REPO / "msr3d_tpu_torch" / name in files
     bad = []
     for path in files:

@@ -33,6 +33,8 @@ from msr3d_tpu_torch.serving import (
     ContinuousBatchingServer,
     ContinuousBeamBatchingServer,
     OnlineRequestStream,
+    PrefixPoolContinuousBatchingServer,
+    PrefixPoolContinuousBeamBatchingServer,
 )
 from msr3d_tpu_torch.serving_http import (
     RequestError,
@@ -351,9 +353,26 @@ def test_serve_cli_end_to_end():
         assert health["status"] == "ok" and health["served"] == 1 and health["slots"] == 2
     assert not fe._engine_thread.is_alive()
     base = ["--config", "configs/debug_synthetic.yaml", "--device", "cpu", "--random-init"]
-    for extra in (["--engine", "pool"], ["--engine", "pool-beam"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 3"):
-            create_frontend(parse_args(base + extra))
+    # --prompt-len reaches the continuous and beam engines
+    for engine in ("continuous", "beam"):
+        fe = create_frontend(parse_args(base + ["--engine", engine, "--port", "0",
+                                                "--slots", "2", "--prompt-len", "40"]))
+        with fe:
+            assert fe.engine.prompt_len == 40
+    # the prefix-pool engines build and serve (their parity with JAX's:
+    # tests/test_torch_serving_pool.py)
+    for engine, cls in (("pool", PrefixPoolContinuousBatchingServer),
+                        ("pool-beam", PrefixPoolContinuousBeamBatchingServer)):
+        fe = create_frontend(parse_args(base + [
+            "--engine", engine, "--port", "0", "--slots", "2", "--refill-group", "1",
+            "--num-prefixes", "2", "--max-new-tokens", "4"]))
+        assert type(fe.engine) is cls and fe.engine.num_prefixes == 2
+        with fe:
+            status, payload = _post(fe.port, {"prompt": "scene: 景 USER: what is here? "
+                                              "ASSISTANT:", "scene_b64": encode_scene_b64(
+                                                  _scene())}, timeout=300)
+            assert status == 200 and len(payload["tokens"]) == 4, payload
+        assert fe.engine.prefix_prefills == 1
     # ported: --engine grouped (tests/test_torch_scene_group.py) and --spec-k
     # (tests/test_torch_speculative.py), which refuses the config's penalty 3.0
     # as JAX's engine does

@@ -511,15 +511,18 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     model = _port_model(_jax_model(flash=False, window=False))
     loaders = {"msr3d_train": {"train": _Loader(1)}}
     cfg = _trainer_cfg(tmp_path)
-    # eval_engine: continuous and grouped are ported (tests/test_torch_eval.py,
-    # tests/test_torch_scene_group.py); the prefix-pool engines are not
-    with pytest.raises(NotImplementedError, match="prefix-pool engines"):
-        LeoTrainer(dict(cfg, eval_engine="continuous", eval_engine_opts={"prefix_pool": True}),
-                   loaders=loaders, model=model)
+    # eval_engine: continuous (with the prefix-pool engines too) and grouped
+    # are ported (tests/test_torch_eval.py, tests/test_torch_scene_group.py)
+    pooled = LeoTrainer(dict(cfg, eval_engine="continuous",
+                             eval_engine_opts={"prefix_pool": True}), loaders=loaders,
+                        model=model)
+    assert pooled.cfg["eval_engine_opts"] == {"prefix_pool": True}
     assert LeoTrainer(dict(cfg, eval_engine="grouped"), loaders=loaders,
                       model=model).cfg["eval_engine"] == "grouped"
     with pytest.raises(NotImplementedError, match="parallel.tp"):
         LeoTrainer(dict(cfg, parallel={"tp": 2}), loaders=loaders, model=model)
+    with pytest.raises(NotImplementedError, match="remat"):
+        LeoTrainer(dict(cfg, model={"llm": {"remat": True}}), loaders=loaders, model=model)
     with pytest.raises(NotImplementedError, match="tokenizer"):
         HFTokenizer(str(tmp_path))
     import torch.distributed as dist

@@ -4,6 +4,7 @@ same weights."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
@@ -163,3 +164,17 @@ def assert_beam_generate_matches(jmodel, model, data, new_tokens: int):
         assert got["output_text"] == want["output_text"]
     gaps = torch.cat(boundaries)
     assert len(boundaries) > 3 * new_tokens and float(gaps.min()) > BEAM_MARGIN, float(gaps.min())
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run the block on one intra-op thread. A tiny model's ops gain nothing
+    from more, and in a parallel test run each worker's thread pool would
+    oversubscribe the cores (a serving scenario then runs ten times
+    slower)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
