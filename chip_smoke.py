@@ -65,7 +65,18 @@ prefill; (b) the speculative pool against the pool at T = 1; (c) the beam
 pool against the continuous beam engine, and both at the reference's
 256-token allocation for their peak memory; (d) the pool over HTTP with a
 400 for an overflowing question; then fp32 token gates at 2 layers against
-batch-1 ``generate``), and checks that each
+batch-1 ``generate``), and the training-memory options (phase 17: (a)
+one step of 4 x 5 from one LoRA state without remat and under each
+``remat_policy`` (full, dots, residuals), with its peak memory, K2f launching
+twice a layer and micro-batch under remat and the loss and grad norm those
+of the step without it, then the same without images; (b) the entry on configs/msr3d.yaml with
+``model.llm.remat=true model.llm.remat_policy=dots``, one step, then
+``generate`` with and without remat; (c) QLoRA, a step over int8 and int4
+bases without remat and with ``full``, the buffers bit-unchanged, and one
+micro-batch's peak through ``_QuantizedBase`` against autograd over the
+plain weight rebuild; (d) the unfrozen point encoder's training BatchNorm on
+the card against the CPU; (e) the ``MSR3D_NAN_CHECKS`` guard's cost and an
+injected NaN; (f) ``train_metrics_lag`` 0 against 1), and checks that each
 path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
@@ -78,6 +89,7 @@ greedy and beam, int8) and the device busy share of one more optimizer step
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import hashlib
@@ -1096,13 +1108,13 @@ def profile_device(what: str, fn) -> None:
             print(f"    {ms:9.3f} ms {count:6d}x  {key[:100]}")
 
 
-def make_train_batches(n: int):
-    """``n`` batches of four requests built like phase 4's, images included,
-    each with answers of at most 30 characters: with bos and eos one 32-token
-    bucket, so T = 224 + 32 = 256."""
+def make_train_batches(n: int, images: bool = True):
+    """``n`` batches of four requests built like phase 4's, images included
+    unless ``images`` is False, each with answers of at most 30 characters:
+    with bos and eos one 32-token bucket, so T = 224 + 32 = 256."""
     batches = []
     for i in range(n):
-        data = make_requests(seed=100 + i, images=True)
+        data = make_requests(seed=100 + i, images=images)
         data["text_output"] = [f"the lamp left of chair {i}-{j}" for j in range(N_REQUESTS)]
         batches.append(data)
     return batches
@@ -3874,6 +3886,474 @@ def phase_pool(exp_root: Path):
     return out
 
 
+# Phase 17: the training-memory options and the trainer's last knobs. One
+# optimizer step is one group of TRAIN_ACCUM micro-batches of N_REQUESTS
+# requests with images (phase 6's); every policy's step starts from the same
+# LoRA state
+REMAT_POLICIES = (None, "full", "dots", "residuals")
+QLORA_BITS = (8, 4)
+LAG_STEPS_ACCUM = 2  # (f): 2 steps of 2 micro-batches a run
+NAN_GUARD_ITERS = 3
+# (a), (f): steps from one state and one group, remat or not, lag or not. The
+# forward is the same ops on the same inputs, and the recompute reruns them,
+# so bit-equal is expected; the gates allow fp32 rounding of the loss (1e-6)
+# and of the grad norm (1e-4), in case a library op sums in another order
+# from one call to the next, and the log says whether the bits were equal
+STEP_LOSS_RTOL, STEP_NORM_RTOL = 1e-6, 1e-4
+# (d) the unfrozen point encoder in fp32 on the card against the CPU: the
+# same arithmetic in other summation orders; the batch variance E[x²] - E[x]²
+# cancels, so each stage grows the rounding by E[x²] / Var (the CPU tests
+# hold the port to flax within 1e-4 on tiny clouds). A wrong axis, a biased
+# or unbiased slip, or a missed update moves values by O(1e-1) or more
+BN_EMBED_ATOL, BN_STATS_ATOL = 1e-3, 1e-4
+
+
+def kernel_launches(kernels) -> dict:
+    return {kernel.symbol.replace("_launch", ""): kernel.launches for kernel in kernels}
+
+
+def lora_state(net):
+    return {n: p.detach().clone() for n, p in net.named_parameters() if p.requires_grad}
+
+
+@torch.no_grad()
+def load_state(net, state) -> None:
+    params = dict(net.named_parameters())
+    for n, t in state.items():
+        params[n].copy_(t)
+
+
+def one_step(trainer, group, kernels):
+    """One optimizer step over ``group`` from a fresh optimizer and dropout
+    generator: (loss, grad norm, ms, peak GiB, kept GiB, launches). The peak
+    holds the frozen image encode's transient; ``kept_gb`` is what the
+    autograd graph holds at the end of a micro-batch's forward (the most
+    over the group), the activations the policy keeps for the backward."""
+    net, step = trainer.model.network, trainer._train_step
+    trainer.optimizer.state, trainer.optimizer.count = {}, 0
+    trainer.generator.manual_seed(0)
+    for kernel in kernels:
+        kernel.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    held = []
+    loss_fn = step.loss_fn
+
+    def measured(mb):
+        loss = loss_fn(mb)
+        held.append(torch.cuda.memory_allocated())  # host-side allocator count: no sync
+        return loss
+
+    t0 = time.perf_counter()
+    net.train()
+    step.loss_fn = measured
+    try:
+        metrics = step(group)
+    finally:
+        step.loss_fn = loss_fn
+        net.eval()
+    loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(loss=loss, grad_norm=norm, ms=ms, peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+                kept_gb=(max(held) - before) / 2**30, launches=kernel_launches(kernels))
+
+
+def remat_steps(model, trainer, group, kernels, label: str = "(a)"):
+    """(a): one step with each remat policy and without, from one state."""
+    net, llm = model.network, model.cfg.llm
+    saved = lora_state(net)
+    layers, n_micro = llm.num_hidden_layers, len(group)
+    rows = {}
+    try:
+        for policy in REMAT_POLICIES:
+            load_state(net, saved)
+            net.llm.cfg = dataclasses.replace(llm, remat=policy is not None,
+                                              remat_policy=policy or "full")
+            row = rows[policy or "none"] = one_step(trainer, group, kernels)
+            print(f"  {label} remat {policy or 'off'}: loss {row['loss']!r}, grad norm "
+                  f"{row['grad_norm']!r}, step {row['ms']:.1f} ms, peak {row['peak_gb']:.2f} GiB, "
+                  f"kept after a forward {row['kept_gb']:.3f} GiB, launches {row['launches']}")
+    finally:
+        net.llm.cfg = llm
+        load_state(net, saved)
+    base = rows["none"]
+    for policy in REMAT_POLICIES[1:]:
+        row = rows[policy]
+        check(row["launches"] == {"fps": 2 * n_micro, "flash_attn_fwd": 2 * layers * n_micro,
+                                  "flash_attn_bwd_dq": layers * n_micro,
+                                  "flash_attn_bwd_dkv": layers * n_micro},
+              f"remat {policy}: K1 {2 * n_micro}, K2f {2 * layers * n_micro} (the forward and its "
+              f"recompute), K2dq and K2dkv {layers * n_micro} launches a step")
+        same = row["loss"] == base["loss"] and row["grad_norm"] == base["grad_norm"]
+        check(abs(row["loss"] - base["loss"]) <= STEP_LOSS_RTOL * abs(base["loss"])
+              and abs(row["grad_norm"] - base["grad_norm"]) <= STEP_NORM_RTOL * base["grad_norm"],
+              f"remat {policy}: loss and grad norm those of the step without remat "
+              f"({'bit-equal' if same else 'not bit-equal'})")
+    check(base["launches"]["flash_attn_fwd"] == layers * n_micro,
+          f"without remat K2f launches {layers} times a micro-batch")
+    check(rows["full"]["peak_gb"] < base["peak_gb"],
+          f"remat full peaks below the step without remat ({rows['full']['peak_gb']:.2f} < "
+          f"{base['peak_gb']:.2f} GiB)")
+    check(rows["full"]["kept_gb"] < rows["residuals"]["kept_gb"] < base["kept_gb"],
+          "a micro-batch's forward keeps least under full, then residuals, most without remat")
+    return rows
+
+
+def lag_runs(model, exp_root: Path, loader):
+    """(f): train_metrics_lag 0 against 1 over the same steps, in turns."""
+    from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
+
+    net = model.network
+    saved = lora_state(net)
+    out = {0: [], 1: []}
+    first = None
+    try:
+        for i, lag in enumerate((0, 1, 1, 0)):
+            load_state(net, saved)
+            cfg = dict(trainer_cfg(exp_root / f"lag{i}", accum=LAG_STEPS_ACCUM, lr=3e-5,
+                                   warmup=400), train_metrics_lag=lag)
+            trainer = LeoTrainer(cfg, loaders={"t": {"train": loader}}, model=model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_one_epoch(0)
+            torch.cuda.synchronize()
+            steps = trainer.step
+            out[lag].append((time.perf_counter() - t0) * 1e3 / steps)
+            with open(exp_root / f"lag{i}" / "metrics.jsonl") as fh:
+                losses = [json.loads(line)["train/loss"] for line in fh]
+            first = losses if first is None else first
+            check(steps == 2 and np.allclose(losses, first, rtol=STEP_LOSS_RTOL, atol=0),
+                  f"run {i} at lag {lag}: {steps} steps, the losses of the first run "
+                  f"({'bit-equal' if losses == first else 'not bit-equal'})")
+    finally:
+        load_state(net, saved)
+    print(f"  (f) train_metrics_lag 0 / 1: {' / '.join(f'{t:.1f}' for t in out[0])} against "
+          f"{' / '.join(f'{t:.1f}' for t in out[1])} ms a step (wall, {LAG_STEPS_ACCUM} "
+          f"micro-batches a step, runs in the order 0, 1, 1, 0)")
+    return {"lag0_ms": out[0], "lag1_ms": out[1]}
+
+
+def nan_guard_runs(model, batch):
+    """(e): one micro-batch's forward with the NaN guard off and on, and a
+    NaN injected into the object locations with the guard on."""
+    import msr3d_tpu_torch.utils.debug as debug
+
+    net = model.network
+    times = {False: [], True: []}
+    saved = debug._ENABLED
+    try:
+        with torch.no_grad():
+            for on in (False, True) * NAN_GUARD_ITERS:
+                debug._ENABLED = on
+                times[on].append(wall_ms(lambda: net(**batch)["loss"]))
+            bad = dict(batch, obj_locs=batch["obj_locs"].clone())
+            bad["obj_locs"][0, 0, 0] = float("nan")
+            debug._ENABLED = False
+            unguarded = net(**bad)["loss"]
+            debug._ENABLED = True
+            try:
+                net(**bad)
+                raised = None
+            except FloatingPointError as exc:
+                raised = str(exc)
+    finally:
+        debug._ENABLED = saved
+    print(f"  (e) one micro-batch's forward, NaN guard off / on: "
+          f"{' / '.join(f'{t:.1f}' for t in times[False])} against "
+          f"{' / '.join(f'{t:.1f}' for t in times[True])} ms; a NaN in obj_locs with the guard "
+          f"on: {raised!r}")
+    check(raised is not None and raised.startswith("spatial fused_attn: ")
+          and not bool(torch.isfinite(unguarded).all()),
+          "an injected NaN raises FloatingPointError with the guard on and flows through with it "
+          "off")
+    return {"off_ms": times[False], "on_ms": times[True]}
+
+
+def quantized_buffers(net):
+    return {n: b for n, b in net.named_buffers() if n.endswith((".weight_q", ".weight_scale"))}
+
+
+def qlora_steps(model, trainer, group, kernels, bits: int):
+    """(c): one step over the quantized base without remat and with full
+    remat; then one micro-batch's forward and backward through
+    ``_QuantizedBase`` and through autograd over the plain rebuild, whose
+    kept bf16 weights are the memory trap."""
+    import msr3d_tpu_torch.models.llm.llama as llama_mod
+    import msr3d_tpu_torch.ops.w4_matmul as w4
+    import msr3d_tpu_torch.ops.w8_matmul as w8
+
+    net, llm = model.network, model.cfg.llm
+    buffers = quantized_buffers(net)
+    host = {n: b.cpu() for n, b in buffers.items()}
+    saved = lora_state(net)
+    quant_kernels = (w8.W8_MATMUL_KERNEL, w4.W4_MATMUL_KERNEL)
+    rows = {}
+    try:
+        for policy in (None, "full"):
+            load_state(net, saved)
+            net.llm.cfg = dataclasses.replace(llm, remat=policy is not None)
+            for kernel in quant_kernels:
+                kernel.launches = 0
+            row = rows[policy or "none"] = one_step(trainer, group, kernels)
+            row["quant_launches"] = sum(kernel.launches for kernel in quant_kernels)
+            moved = sum(not torch.equal(p, saved[n]) for n, p in net.named_parameters()
+                        if "lora_b" in n)
+            print(f"  (c) int{bits}, remat {policy or 'off'}: loss {row['loss']!r}, grad norm "
+                  f"{row['grad_norm']!r}, step {row['ms']:.1f} ms, peak {row['peak_gb']:.2f} GiB, "
+                  f"kept after a forward {row['kept_gb']:.3f} GiB, launches {row['launches']}, K3/K4 {row['quant_launches']}, LoRA B moved "
+                  f"{moved}")
+            check(np.isfinite(row["loss"]) and moved == 7 * llm.num_hidden_layers
+                  and row["quant_launches"] == 0,
+                  f"int{bits}, remat {policy or 'off'}: loss finite, every LoRA B moved, K3/K4 not "
+                  "launched (the base product is the JAX-order rebuild)")
+        net.llm.cfg = llm
+        load_state(net, saved)
+        peaks = {}
+        batch = group[0]
+        for label, apply in (("function", None), ("plain", lambda x, mod: mod._dequant_product(x))):
+            patch = (mock.patch.object(llama_mod._QuantizedBase, "apply", apply) if apply
+                     else contextlib.nullcontext())
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with patch:
+                net(**batch)["loss"].mean().backward()
+            peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+            for p in net.parameters():
+                p.grad = None
+        print(f"  (c) int{bits}: one micro-batch's forward and backward peaks at "
+              f"{peaks['function']:.2f} GiB through _QuantizedBase and at {peaks['plain']:.2f} "
+              f"GiB through autograd over the plain rebuild (+{peaks['plain'] - peaks['function']:.2f}"
+              " GiB of kept bf16 weights)")
+        check(peaks["plain"] - peaks["function"] > 8.0,
+              "the rebuilt bf16 weights (some 12 GiB over the 224 projections) are kept by "
+              "autograd over the plain rebuild and not by _QuantizedBase")
+    finally:
+        net.llm.cfg = llm
+        load_state(net, saved)
+    check(all(torch.equal(b.cpu(), host[n]) for n, b in buffers.items()),
+          f"int{bits}: weight_q and weight_scale bit-unchanged ({len(buffers)} buffers)")
+    rows["peaks"] = peaks
+    return rows
+
+
+def batchnorm_runs(dev):
+    """(d): the unfrozen point encoder in train() on the card against its CPU
+    plain route, fp32, at the flagship's encoder widths."""
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+    from msr3d_tpu_torch.nn.pointnet import PcdObjEncoder
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    cfg = OSE3DConfig()
+    g = torch.Generator().manual_seed(17)
+    cpu = PcdObjEncoder(cfg.sa_n_points, cfg.sa_n_samples, cfg.sa_radii, cfg.sa_mlps,
+                        compute_dtype=torch.float32, freeze=False)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if p.dim() == 2:
+                p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(p.shape[1]))
+            elif ".bn." in name:
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g) if name.endswith("weight")
+                        else 0.1 * torch.randn(p.shape, generator=g))
+            else:
+                p.zero_()
+    card = copy.deepcopy(cpu).to(dev)
+    pcds = torch.from_numpy(make_requests(seed=21)["obj_fts"])
+    FPS_KERNEL.launches = 0
+    card.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = card(pcds.to(dev))
+    weights = torch.randn(out.shape, generator=g)
+    (out * weights.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = FPS_KERNEL.launches
+    with torch.no_grad():
+        want = cpu.train()(pcds)
+    err = (out.detach().cpu() - want).abs().max().item()
+    stats_err = max((b.cpu() - w).abs().max().item()
+                    for b, w in zip(card.buffers(), cpu.buffers()))
+    moved = sum(not torch.equal(b, torch.zeros_like(b)) and not torch.equal(b, torch.ones_like(b))
+                for b in cpu.buffers())
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in card.parameters()
+                 if p.grad is not None)
+    n_grads = sum(p.grad is not None for p in card.parameters())
+    print(f"  (d) PcdObjEncoder(freeze=False).train() on {tuple(pcds.shape)}: forward and "
+          f"backward {ms:.1f} ms, K1 {launches}; max |card - cpu| embeddings {err:.3e}, running "
+          f"statistics {stats_err:.3e} ({moved} buffers moved); {n_grads} gradients")
+    check(launches == 2, "K1 launched twice (SA stages 1 and 2)")
+    check(err <= BN_EMBED_ATOL and stats_err <= BN_STATS_ATOL and moved == len(list(cpu.buffers())),
+          f"embeddings within {BN_EMBED_ATOL} and new running statistics within {BN_STATS_ATOL} of "
+          "the CPU's, every statistic updated")
+    check(finite and n_grads > 0, "the encoder's gradients are finite")
+    return dict(ms=ms, err=err, stats_err=stats_err, launches=launches)
+
+
+def remat_entry(exp_root: Path, kernels):
+    """(b): the entry on configs/msr3d.yaml with remat dots, one step; then
+    generate on its model with and without remat."""
+    from msr3d_tpu_torch import run as entry
+    from msr3d_tpu_torch.data import synthetic
+    from msr3d_tpu_torch.data.scan_loader import ScanCache
+
+    root = exp_root / "remat"
+    data = root / "data"
+    rng = np.random.default_rng(12)
+    synthetic.build_scannet_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    synthetic.build_rscan_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    synthetic.build_arkit_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    synthetic.build_msqa_annotations(data, ["scene0000_00", "scene0001_00"],
+                                     n=N_REQUESTS * TRAIN_ACCUM, domain="scannet")
+    ckpt = root / "vicuna7b"
+    if not (ckpt / "config.json").exists():
+        write_entry_checkpoint(ckpt)
+    argv = ["--config", str(_ROOT / "configs" / "msr3d.yaml"),
+            f"data.scan_family_base={data}/scan_family", f"data.rscan_base={data}/rscan",
+            f"data.ARkit_base={data}/arkit", f"data.msr3d_base={data}/msr3d",
+            f"model.llm.cfg_path={ckpt}", "model.llm.flash_attention=true",
+            "model.llm.remat=true", "model.llm.remat_policy=dots", "debug.flag=true",
+            f"debug.debug_size={N_REQUESTS * TRAIN_ACCUM}", "data.msr3dmix.args.mix=[msqa_scannet]",
+            "task.msqa_scannet.mode=[]", "task.msqa_3rscan.mode=[]",
+            "task.msqa_arkitscenes.mode=[]", "solver.epochs=1", f"exp_dir={root / 'exp'}"]
+    print(f"  (b) python -m msr3d_tpu_torch.run ... {' '.join(argv[12:16])} ...")
+    ScanCache.clear()
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = entry.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = kernel_launches(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    model = trainer.model
+    llm = model.cfg.llm
+    with open(trainer.exp_dir / "metrics.jsonl") as fh:
+        metrics = [json.loads(line) for line in fh]
+    print(f"  (b) main() {main_s:.1f} s, {trainer.step} step(s), loss "
+          f"{[m['train/loss'] for m in metrics]}, step "
+          f"{[round(1e3 * m['train/step_time_s'], 1) for m in metrics]} ms, peak "
+          f"{peak_gb:.2f} GiB, launches {launches}")
+    layers, n_micro = llm.num_hidden_layers, TRAIN_ACCUM
+    check(llm.remat and llm.remat_policy == "dots" and trainer.step == 1
+          and np.isfinite(metrics[0]["train/loss"]),
+          "the YAML's model.llm.remat=true remat_policy=dots trained one step, loss finite")
+    check(launches == {"fps": 2 * n_micro, "flash_attn_fwd": 2 * layers * n_micro,
+                       "flash_attn_bwd_dq": layers * n_micro, "flash_attn_bwd_dkv": layers * n_micro},
+          f"the entry's step: K1 {2 * n_micro}, K2f {2 * layers * n_micro}, K2dq and K2dkv "
+          f"{layers * n_micro} launches")
+    data_req = make_requests(seed=4)
+    tokens = {}
+    for remat in (True, False):
+        model.network.llm.cfg = dataclasses.replace(llm, remat=remat)
+        for kernel in kernels:
+            kernel.launches = 0
+        tokens[remat] = model.generate(dict(data_req), use_beam=False,
+                                       max_new_tokens=8)["output_tokens"]
+        check(kernel_launches(kernels)["flash_attn_fwd"] == layers,
+              f"generate with remat {remat}: K2f {layers} launches (the prefill, no recompute)")
+    model.network.llm.cfg = llm
+    check(np.array_equal(tokens[True], tokens[False]),
+          "generate on the remat model gives the tokens of its remat-free twin")
+    ScanCache.clear()
+    return dict(launches=launches, main_s=main_s, peak_gb=peak_gb,
+                step_ms=[1e3 * m["train/step_time_s"] for m in metrics])
+
+
+def build_quantized_model(dev, bits: int):
+    """The flagship of phases 4 and 6 with its base quantized (int4: by
+    init on the card, each projection quantized as it is drawn)."""
+    from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
+    from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+
+    llm = LlamaConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
+        num_attention_heads=32, lora_rank=16, dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16, flash_attention=True, quantize=True, quantize_bits=bits)
+    cfg = MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm, answer_window_loss=True)
+    model = MSR3D(cfg, ByteTokenizer(), scene_token_len=60, max_out_len=NEW_TOKENS,
+                  repetition_penalty=REP_PENALTY, device=dev)
+    model.init_params(seed=0)
+    return model
+
+
+def phase_train_options(exp_root: Path, dev=None):
+    print("== phase 17: the training-memory options at the flagship width ((a) remat off / "
+          "full / dots / residuals, one step of 4 x 5 each from one LoRA state; (b) the entry "
+          "on configs/msr3d.yaml with model.llm.remat=true remat_policy=dots, one step, then "
+          "generate; (c) QLoRA over int8 and int4 bases; (d) the unfrozen point encoder's "
+          "training BatchNorm; (e) the NaN guard; (f) train_metrics_lag 0 against 1), on "
+          f"{card_line()}")
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
+
+    dev = dev or torch.device("cuda", 0)
+    kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL)
+    out = {"b": remat_entry(exp_root, kernels)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_flagship_model(dev, what="the flagship model of phase 17")
+    net = model.network
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():  # a LoRA state with every adapter in play
+        for name, p in net.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(1e-3 * torch.randn(p.shape, generator=g, device=dev))
+    loader = make_train_batches(TRAIN_ACCUM)
+    trainer = LeoTrainer(trainer_cfg(exp_root / "phase17", accum=TRAIN_ACCUM, lr=3e-5,
+                                     warmup=400),
+                         loaders={"t": {"train": loader}}, model=model)
+    group = trainer._device_batch(loader)
+    out["a"] = remat_steps(model, trainer, group, kernels)
+    # the same without images: no image encode, so the step's peak is the LLM's
+    out["a_text"] = remat_steps(model, trainer,
+                                trainer._device_batch(make_train_batches(TRAIN_ACCUM,
+                                                                         images=False)),
+                                kernels, "(a) without images:")
+    out["f"] = lag_runs(model, exp_root, loader[:2 * LAG_STEPS_ACCUM])
+    out["e"] = nan_guard_runs(model, group[0])
+    model.quantize_llm(8)
+    out["c8"] = qlora_steps(model, trainer, group, kernels, 8)
+    del model, trainer, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_quantized_model(dev, 4)
+    trainer = LeoTrainer(trainer_cfg(exp_root / "phase17q4", accum=TRAIN_ACCUM, lr=3e-5,
+                                     warmup=400),
+                         loaders={"t": {"train": loader}}, model=model)
+    with torch.no_grad():
+        for name, p in model.network.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(1e-3 * torch.randn(p.shape, generator=g, device=dev))
+    out["c4"] = qlora_steps(model, trainer, trainer._device_batch(loader), kernels, 4)
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d"] = batchnorm_runs(dev)
+    return out
+
+
+def phase17_launches(out, kernel: str) -> dict:
+    """Phase 17's launches of one kernel for the kernels line: a step of
+    TRAIN_ACCUM micro-batches under each remat policy, and the entry's step
+    with dots."""
+    row = {f"launches_remat_{p}": out["a"][p]["launches"][kernel]
+           for p in ("none", "full", "dots", "residuals")}
+    row["launches_remat_entry"] = out["b"]["launches"][kernel]
+    if kernel == "fps":
+        row["launches_train_bn"] = out["d"]["launches"]
+    return row
+
+
 def phase16_launches(out, kernel: str) -> dict:
     """Phase 16's launches of one kernel for the kernels line."""
     return dict(launches_pool=out["a"]["pool"]["launches"][kernel],
@@ -3961,6 +4441,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         pool = timed(phase_pool, exp_root)  # on phase 10's cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        options = timed(phase_train_options, exp_root)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3985,7 +4468,10 @@ def main() -> int:
         # launches_pool, launches_pool_spec, launches_pool_beam,
         # launches_pool_http: phase 16's greedy pool engine over the stream
         # (pool_prefix_prefills prefix prefills), its speculative pool, its
-        # beam pool and its HTTP traffic
+        # beam pool and its HTTP traffic; launches_remat_*: phase 17 (a), one
+        # step of TRAIN_ACCUM micro-batches without remat and under each
+        # policy, launches_remat_entry (b) the entry's step with dots,
+        # launches_train_bn (d) the unfrozen encoder's training forward
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -3995,7 +4481,8 @@ def main() -> int:
              launches_leo=leo["launches"]["fps"], eval_batches_leo=leo["eval_batches"],
              launches_leo_modes=sum(r["launches"] for r in leo["modes"].values()),
              launches_crops=crops["launches"]["fps"], eval_batches_crops=crops["eval_batches"],
-             **phase15_launches(serving2, "fps"), **phase16_launches(pool, "fps"), **fps_row),
+             **phase15_launches(serving2, "fps"), **phase16_launches(pool, "fps"),
+             **phase17_launches(options, "fps"), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -4009,21 +4496,24 @@ def main() -> int:
              launches_crops=crops["launches"]["flash_attn_fwd"],
              eval_batches_crops=crops["eval_batches"],
              **phase15_launches(serving2, "flash_attn_fwd"),
-             **phase16_launches(pool, "flash_attn_fwd"), **flash_row),
+             **phase16_launches(pool, "flash_attn_fwd"),
+             **phase17_launches(options, "flash_attn_fwd"), **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
              launches_entry=entry_launches["flash_attn_bwd_dq"],
              launches_eval=ev["flash_attn_bwd_dq"],
              launches_leo=leo["launches"]["flash_attn_bwd_dq"],
-             launches_crops=crops["launches"]["flash_attn_bwd_dq"], **dq_row),
+             launches_crops=crops["launches"]["flash_attn_bwd_dq"],
+             **phase17_launches(options, "flash_attn_bwd_dq"), **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
              launches_entry=entry_launches["flash_attn_bwd_dkv"],
              launches_eval=ev["flash_attn_bwd_dkv"],
              launches_leo=leo["launches"]["flash_attn_bwd_dkv"],
-             launches_crops=crops["launches"]["flash_attn_bwd_dkv"], **dkv_row),
+             launches_crops=crops["launches"]["flash_attn_bwd_dkv"],
+             **phase17_launches(options, "flash_attn_bwd_dkv"), **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands

@@ -8,7 +8,8 @@ names (``model.name: MSR3D``; the prompter nodes ``OSE3DSituation``,
     where it holds a ``config.json``, the LLM geometry (``config_from_hf``);
     otherwise a tiny LLM sized to the tokenizer;
   * ``model.llm.{lora, param_dtype, quantize, quantize_bits,
-    quantize_group, flash_attention}`` as the JAX builder reads them;
+    quantize_group, remat, remat_policy, flash_attention}`` as the JAX
+    builder reads them;
   * the generation knobs ``eval_num_beams``, ``eval_repetition_penalty``,
     ``eval_length_penalty``, ``eval_eos_logit_bias``, ``eval_spec_k``,
     ``eval_spec_ngram``, ``eval_do_sample``, ``eval_temperature``,
@@ -16,8 +17,8 @@ names (``model.name: MSR3D``; the prompter nodes ``OSE3DSituation``,
     ``compact_transfer``.
 
 What the port does not run raises ``NotImplementedError`` when it is set
-to anything but its default: ``model.llm.remat`` (ROADMAP.md, QLoRA and
-the training-memory options) and ``parallel.sp > 1`` (parallelism).
+to anything but its default: ``parallel.sp > 1`` (ROADMAP.md,
+parallelism).
 
 The model lands on ``cfg.device`` (``cuda`` when unset; ``device=cpu``
 picks the CPU), through ``resolve_device``.
@@ -58,7 +59,8 @@ def build_llm_config(llm_cfg, tokenizer: BaseTokenizer,
         quantize=bool(llm_cfg.get("quantize", False)),
         quantize_bits=int(llm_cfg.get("quantize_bits", 8)),
         quantize_group=llm_cfg.get("quantize_group", None),
-        remat=bool(llm_cfg.get("remat", False)),  # LlamaConfig raises on True
+        remat=bool(llm_cfg.get("remat", False)),
+        remat_policy=str(llm_cfg.get("remat_policy", "full")),
         flash_attention=bool(llm_cfg.get("flash_attention", False)),
     )
     cfg_path = llm_cfg.get("cfg_path", "")

@@ -29,9 +29,17 @@ called here: the JAX package does not call its own either.
 The base LLM is frozen as in the JAX package (``stop_gradient``): the
 embeddings, RMSNorm scales, base projection weights and ``lm_head`` are
 created with ``requires_grad=False`` (quantized weights are buffers); only
-the LoRA A/B matrices train.
+the LoRA A/B matrices train. Over a quantized base (QLoRA) the product
+with the dequantized weight runs, under autograd, through ``_QuantizedBase``,
+which keeps the int8/int4 buffers for the backward and not the weight it
+rebuilt.
 
-Not ported yet (raise): sequence parallelism, activation checkpointing.
+``remat`` runs each block of the training forward under activation
+checkpointing (``torch.utils.checkpoint``), with the JAX package's three
+``remat_policy`` choices (see ``_remat_block``). Prefill and decode never
+checkpoint, as JAX generates through a remat-stripped copy of the network.
+
+Not ported yet (raises): sequence parallelism.
 """
 
 from __future__ import annotations
@@ -42,11 +50,13 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from msr3d_tpu_torch.nn.layers import dropout
 from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention_train
 
 _NEG_INF = -1e30
+REMAT_POLICIES = ("full", "dots", "residuals")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,15 +86,27 @@ class LlamaConfig:
     quantize_group: Optional[int] = None
     act_quantize: bool = False
     kv_quantize: bool = False  # int8 KV cache with a per-(position, head) bf16 scale
-    # JAX-package options this port does not run yet; setting one raises
-    sp_axis: Optional[str] = None
+    # activation checkpointing of the training forward's blocks: "full"
+    # (the block input saved), "dots" (the no-batch-dim products' outputs
+    # saved too), "residuals" (the block input and the attention branch's
+    # output saved, each branch recomputed from its input)
     remat: bool = False
+    remat_policy: str = "full"
+    # JAX-package option this port does not run yet; setting it raises
+    sp_axis: Optional[str] = None
 
     def __post_init__(self):
-        unported = [f for f in ("sp_axis", "remat") if getattr(self, f)]
-        if unported:
+        if self.sp_axis:
             raise NotImplementedError(
-                f"LlamaConfig options {unported} are not ported yet (see ROADMAP.md)"
+                "LlamaConfig option sp_axis is not ported yet (see ROADMAP.md)"
+            )
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy: {self.remat_policy!r}")
+        if self.remat and self.lora_rank > 0 and self.lora_dropout > 0:
+            raise ValueError(
+                "remat with lora_dropout > 0: the JAX package cannot trace it (under "
+                "nn.remat LoRA dropout's `deterministic` becomes a tracer, "
+                "TracerBoolConversionError), so neither runs it"
             )
         if self.act_quantize and not self.quantize:
             raise ValueError(
@@ -251,8 +273,8 @@ class LoraDense(nn.Module):
         """The frozen base's output, without LoRA."""
         if not self.bits:
             return F.linear(x, self.weight.to(self.dtype))
-        half = self.in_features // 2
         if self.act_quant:
+            half = self.in_features // 2
             lead = x.shape[:-1]
             xq, x_scale = self._act_quant(x.reshape(-1, self.in_features))
             if self.bits == 4:
@@ -262,18 +284,48 @@ class LoraDense(nn.Module):
                 y32 = int8_matmul(xq, self.weight_q)
             y = (y32.float() * x_scale * self.weight_scale.float()[None, :]).to(self.dtype)
             return y.reshape(*lead, self.out_features)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _QuantizedBase.apply(x, self)
+        return self._dequant_product(x)
+
+    def _dequant_kernels(self):
+        """The dequantized weights in the compute dtype: int8 → (K,); int4
+        per channel → (lo, hi) unscaled (the scale multiplies the sum of
+        the half-products); int4 by group → (K_lo, K_hi) scaled."""
         if self.bits == 8:
-            return x @ (self.weight_q.to(self.dtype) * self.weight_scale.to(self.dtype))
+            return (self.weight_q.to(self.dtype) * self.weight_scale.to(self.dtype),)
         lo, hi = self._unpack()
-        x_lo, x_hi = x[..., :half], x[..., half:]
-        if self.group:
-            g, n_g = self.group, half // self.group
-            gs = self.weight_scale.to(self.dtype)
-            k_lo = (lo.to(self.dtype).reshape(n_g, g, -1) * gs[:n_g, None, :]).reshape(half, -1)
-            k_hi = (hi.to(self.dtype).reshape(n_g, g, -1) * gs[n_g:, None, :]).reshape(half, -1)
-            return x_lo @ k_lo + x_hi @ k_hi
-        return (x_lo @ lo.to(self.dtype) + x_hi @ hi.to(self.dtype)) * self.weight_scale.to(
-            self.dtype)
+        if not self.group:
+            return lo.to(self.dtype), hi.to(self.dtype)
+        half = self.in_features // 2
+        g, n_g = self.group, half // self.group
+        gs = self.weight_scale.to(self.dtype)
+        k_lo = (lo.to(self.dtype).reshape(n_g, g, -1) * gs[:n_g, None, :]).reshape(half, -1)
+        k_hi = (hi.to(self.dtype).reshape(n_g, g, -1) * gs[n_g:, None, :]).reshape(half, -1)
+        return k_lo, k_hi
+
+    def _dequant_product(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ the dequantized weight, in the JAX package's rounding order:
+        the weight rebuilt in the compute dtype, then the product (int4:
+        the two half-products summed, then scaled per channel)."""
+        kernels = self._dequant_kernels()
+        if self.bits == 8:
+            return x @ kernels[0]
+        half = self.in_features // 2
+        y = x[..., :half] @ kernels[0] + x[..., half:] @ kernels[1]
+        return y if self.group else y * self.weight_scale.to(self.dtype)
+
+    def _dequant_product_grad(self, gy: torch.Tensor) -> torch.Tensor:
+        """d/dx of :meth:`_dequant_product` given dy, the products autograd
+        takes over the forward's ops (``dy · Kᵀ`` on the folded rows; int4
+        per channel: dy scaled first, the input halves concatenated), with
+        the weight rebuilt here."""
+        kernels = self._dequant_kernels()
+        if self.bits == 4 and not self.group:
+            gy = gy * self.weight_scale.to(self.dtype)
+        g = gy.reshape(-1, self.out_features)
+        gx = torch.cat([g.mm(k.t()) for k in kernels], dim=-1)
+        return gx.view(*gy.shape[:-1], self.in_features)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -284,6 +336,27 @@ class LoraDense(nn.Module):
                 F.linear(h, self.lora_a.to(self.dtype)), self.lora_b.to(self.dtype)
             ) * self.scale
         return y
+
+
+class _QuantizedBase(torch.autograd.Function):
+    """The product with a quantized ``LoraDense`` base, differentiable in x.
+
+    Autograd over the plain ops would keep the dequantized weight (the
+    rebuilt ``bf16(q)·bf16(s)``, 2 bytes a weight) for dx until the
+    backward: some 12 GiB at the 7B width, more than the int8 buffers
+    themselves. This Function keeps a reference to the module (its int8/int4
+    buffers, which exist anyway) and rebuilds the weight in the backward
+    with the forward's arithmetic, so its output and dx equal those of
+    autograd over the plain ops. The buffers get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, module):
+        ctx.module = module
+        return module._dequant_product(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return ctx.module._dequant_product_grad(gy), None
 
 
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -461,9 +534,16 @@ class LlamaBlock(nn.Module):
     def _mlp_residual(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         return x + self.mlp(self.post_attn_norm(x), generator)
 
+    def _attn_branch(self, x, positions, attn_bias, key_valid, generator=None):
+        """The attention branch's output (JAX's ``attn_out``)."""
+        return self.attn(self.input_norm(x), positions, attn_bias, key_valid, generator)
+
+    def _after_attn(self, x, attn_out, generator=None):
+        return self._mlp_residual(x + attn_out, generator)
+
     def forward(self, x, positions, attn_bias, key_valid, generator=None):
-        h = self.attn(self.input_norm(x), positions, attn_bias, key_valid, generator)
-        return self._mlp_residual(x + h, generator)
+        return self._after_attn(x, self._attn_branch(x, positions, attn_bias, key_valid,
+                                                     generator), generator)
 
     def prefill(self, x, positions, attn_bias, key_valid):
         h, k, v = self.attn.prefill(self.input_norm(x), positions, attn_bias, key_valid)
@@ -473,6 +553,42 @@ class LlamaBlock(nn.Module):
         h = self.attn.decode_shared(self.input_norm(x), positions, attn_bias, prompt, gen,
                                     gen_index, anc_rows)
         return self._mlp_residual(x + h)
+
+
+# the outputs the "dots" policy keeps: products without batch dims (the
+# projections and the LoRA products; F.linear and x @ W fold the leading dims
+# into aten.mm), not the attention's batched products (aten.bmm), as JAX's
+# dots_with_no_batch_dims_saveable. A kernel launched through ctypes is no
+# dispatcher op, so no policy can keep its output: K2f reruns in the recompute
+# and its output tensor is allocated anew there.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat_block(block: LlamaBlock, policy: str, x, positions, attn_bias, key_valid,
+                 generator=None) -> torch.Tensor:
+    """One block of the training forward under activation checkpointing,
+    equal in value to ``block(...)``:
+
+    * ``full``: the block input is kept, the whole block reruns in the
+      backward;
+    * ``dots``: the outputs of the products without batch dims are kept too
+      (a selective-checkpoint policy), everything else reruns;
+    * ``residuals``: the block input and the attention branch's output
+      (JAX's ``attn_out``) are kept, and each branch reruns from its own
+      input. JAX's policy names ``mlp_out`` as well, but no backward op reads
+      it (the next block's input carries it), so ``jax.checkpoint`` keeps the
+      same two (B, T, H) tensors a layer.
+
+    The blocks draw no random numbers under remat (LoRA dropout is refused),
+    so no RNG state is stashed."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "residuals":
+        attn_out = checkpoint(block._attn_branch, x, positions, attn_bias, key_valid,
+                              generator, **kw)
+        return checkpoint(block._after_attn, x, attn_out, generator, **kw)
+    if policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(list(_DOTS))
+    return checkpoint(block, x, positions, attn_bias, key_valid, generator, **kw)
 
 
 def _make_cache(cfg: LlamaConfig, batch: int, max_len: int, device) -> Dict[str, torch.Tensor]:
@@ -632,12 +748,18 @@ class LlamaModel(nn.Module):
         """Training forward → logits (B, T, V). ``answer_start`` computes
         logits only for positions ``answer_start-1 .. T-2``, the
         answer-predicting window (every target before it is -100).
-        ``generator`` feeds LoRA dropout in ``train()`` mode."""
+        ``generator`` feeds LoRA dropout in ``train()`` mode. With ``remat``
+        and grad enabled each block runs under activation checkpointing."""
         positions = self._positions(attention_mask)
         attn_bias, key_valid = self._attention_masks(attention_mask)
         x = inputs_embeds.to(self.cfg.dtype)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.layer:
-            x = block(x, positions, attn_bias, key_valid, generator)
+            if remat:
+                x = _remat_block(block, self.cfg.remat_policy, x, positions, attn_bias,
+                                 key_valid, generator)
+            else:
+                x = block(x, positions, attn_bias, key_valid, generator)
         x = self.final_norm(x)
         return self.logits(x if answer_start is None else x[:, answer_start - 1:-1])
 

@@ -59,7 +59,7 @@ from msr3d_tpu_torch.models.llm.tokenizer import (
 )
 from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, OSE3DSituation
 from msr3d_tpu_torch.models.vision2d import Backbone2D, ConvNeXtBlock
-from msr3d_tpu_torch.nn.pointnet import BatchNormInference
+from msr3d_tpu_torch.nn.pointnet import BatchNorm
 
 _SCENE_KEYS = ("obj_fts", "obj_masks", "obj_locs", "anchor_locs", "anchor_orientation")
 _PACKED = ("obj_fts_xyz_q", "obj_fts_rgb_q")  # compact_transfer's int16 and int8 points
@@ -294,12 +294,12 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), **g)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, (nn.LayerNorm, BatchNormInference)):
+        elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
             if mod.weight is None:  # DiTBlock's norms have neither scale nor bias
                 continue
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-            if isinstance(mod, BatchNormInference):
+            if isinstance(mod, BatchNorm):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
         elif isinstance(mod, RMSNorm):

@@ -1,11 +1,13 @@
 """PointNet++ set-abstraction encoder, channels-last.
 
 Counterpart of ``msr3d_tpu/nn/pointnet.py``: FPS (kernel K1) → gather →
-ball query → group → shared MLP (per-point Linear + inference BatchNorm +
-ReLU) → max-pool per group, three stages, then flatten + fc, and the
-semantic head on request. The MLPs run in ``compute_dtype`` (bfloat16 in
-the flagship config); FPS and ball-query geometry stay fp32 so the sampled
-indices do not depend on it.
+ball query → group → shared MLP (per-point Linear + BatchNorm + ReLU) →
+max-pool per group, three stages, then flatten + fc, and the semantic head
+on request. BatchNorm reads its running statistics, except in an unfrozen
+encoder in ``train()`` mode (batch statistics, flax's training BatchNorm).
+The MLPs run in ``compute_dtype`` (bfloat16 in the flagship config); FPS
+and ball-query geometry stay fp32 so the sampled indices do not depend on
+it.
 """
 
 from __future__ import annotations
@@ -20,10 +22,20 @@ from msr3d_tpu_torch.nn.layers import MLPHead
 from msr3d_tpu_torch.ops.pointnet2 import fps, gather_points, group_all, query_and_group
 
 
-class BatchNormInference(nn.Module):
-    """BatchNorm from running statistics (the encoder is frozen), computed
-    in fp32 as flax does: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``,
-    then cast back to the input's dtype."""
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over the trailing channel axis, in fp32:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast back to the
+    input's dtype.
+
+    By default (the encoder frozen, or in ``eval()``) mean and var are the
+    running statistics. With ``batch_stats`` they are the batch's, over every
+    axis but the channel axis (padded objects included): ``mean = E[x]`` and
+    flax's biased ``var = max(0, E[x²] - E[x]²)``, not torch's unbiased
+    running variance; the running statistics then move in place to ``0.9 ·
+    running + 0.1 · batch``, what ``apply(..., mutable=["batch_stats"])``
+    returns in the JAX package."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -33,9 +45,20 @@ class BatchNormInference(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+    def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
+        if batch_stats:
+            x32 = x.float().reshape(-1, x.shape[-1])
+            mean = x32.mean(dim=0)
+            var = torch.clamp_min(x32.square().mean(dim=0) - mean.square(), 0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean
+                                        + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var
+                                       + (1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x.float() - mean) * mul + self.bias).to(x.dtype)
 
 
 class SharedMLP(nn.Module):
@@ -50,12 +73,12 @@ class SharedMLP(nn.Module):
         self.dense = nn.ModuleList(
             nn.Linear(a, b, bias=False, device=device) for a, b in zip(dims[:-1], dims[1:])
         )
-        self.bn = nn.ModuleList(BatchNormInference(w, device=device) for w in widths)
+        self.bn = nn.ModuleList(BatchNorm(w, device=device) for w in widths)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
         for dense, bn in zip(self.dense, self.bn):
-            x = F.relu(bn(F.linear(x, dense.weight.to(self.dtype))))
+            x = F.relu(bn(F.linear(x, dense.weight.to(self.dtype)), batch_stats))
         return x
 
 
@@ -70,7 +93,7 @@ class PointnetSAModule(nn.Module):
         self.mlp = SharedMLP(in_channels, mlp, dtype, device)
 
     def forward(
-        self, xyz: torch.Tensor, features: Optional[torch.Tensor]
+        self, xyz: torch.Tensor, features: Optional[torch.Tensor], batch_stats: bool = False
     ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         if self.npoint is not None:
             new_xyz = gather_points(xyz, fps(xyz, self.npoint))
@@ -78,7 +101,7 @@ class PointnetSAModule(nn.Module):
         else:
             new_xyz = None
             grouped = group_all(xyz, features)
-        return new_xyz, self.mlp(grouped).amax(dim=2)
+        return new_xyz, self.mlp(grouped, batch_stats).amax(dim=2)
 
 
 class PointNetPP(nn.Module):
@@ -97,11 +120,11 @@ class PointNetPP(nn.Module):
         self.sa = nn.ModuleList(stages)
         self.fc = nn.Linear(feat, sa_mlps[-1][-1], device=device)
 
-    def forward(self, pc: torch.Tensor) -> torch.Tensor:
+    def forward(self, pc: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         xyz = pc[..., :3]
         features = pc[..., 3:] if pc.shape[-1] > 3 else None
         for stage in self.sa:
-            xyz, features = stage(xyz, features)
+            xyz, features = stage(xyz, features, batch_stats)
         # fc runs in fp32 on the upcast features, as flax promotes bf16 × fp32
         return self.fc(features.reshape(features.shape[0], -1).float())
 
@@ -111,8 +134,10 @@ class PcdObjEncoder(nn.Module):
 
     ``freeze`` (the flagship's) runs it without autograd, the counterpart of
     the JAX module's ``stop_gradient``, and BatchNorm always reads its
-    running statistics; training it unfrozen (batch statistics) is not
-    ported. The semantic-class head ``sem_head`` (607 classes) runs only
+    running statistics. Unfrozen, in ``train()`` mode, BatchNorm normalises
+    by batch statistics and updates its running ones (JAX's
+    ``use_running_average = freeze or deterministic``); in ``eval()`` it
+    reads the running ones and gradients flow. The semantic-class head ``sem_head`` (607 classes) runs only
     when asked (``return_sem=True``): every path of the package discards its
     output."""
 
@@ -131,7 +156,9 @@ class PcdObjEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None):
         b, o, p, d = obj_pcds.shape
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze):
-            embeds = self.pcd_net(obj_pcds.reshape(b * o, p, d)).reshape(b, o, -1)
+            embeds = self.pcd_net(obj_pcds.reshape(b * o, p, d),
+                                  batch_stats=self.training and not self.freeze)
+        embeds = embeds.reshape(b, o, -1)
         if not return_sem:
             return embeds
         return embeds, self.sem_head(embeds, generator)

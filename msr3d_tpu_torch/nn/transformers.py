@@ -21,7 +21,9 @@ Counterparts of ``msr3d_tpu/nn/transformers.py``:
   * ``DiTBlock``, the adaLN-Zero conditioning of ``as_dit_attention``.
 
 Masks are key-padding masks with True = pad. Dropout is active only in
-``train()`` mode and draws from the ``generator`` the caller passes.
+``train()`` mode and draws from the ``generator`` the caller passes. With
+``MSR3D_NAN_CHECKS`` set, the spatial attention's fused weights are checked
+for non-finite values (``utils/debug.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from msr3d_tpu_torch.nn.layers import dropout, get_activation
+from msr3d_tpu_torch.utils.debug import assert_finite
 
 _NEG_INF = -1e30
 FUSIONS = ("mul", "bias", "add", "ctx", "cond")
@@ -155,6 +158,9 @@ class MultiHeadAttentionSpatial(nn.Module):
             fused = torch.softmax(torch.log(loc_attn.clamp(min=1e-6)) + attn, dim=3)
         else:
             fused = torch.softmax(loc_attn + attn, dim=3)
+        # the reference's NaN assert on the fused attention, opt-in
+        # (MSR3D_NAN_CHECKS); the identity otherwise
+        fused = assert_finite(fused, "spatial fused_attn")
         out = self.fc(_merge_heads(torch.einsum("bhlt,bhtv->bhlv", fused, v)))
         out = dropout(out, self.dropout, self.training, generator)
         return self.layer_norm(out + x), fused

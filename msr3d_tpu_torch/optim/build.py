@@ -58,11 +58,12 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
                         norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: unchanged while ``‖g‖ < max_norm``,
     else ``(g / ‖g‖) · max_norm`` (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``)."""
+    ``torch.nn.utils.clip_grad_norm_``). The choice is made on the device,
+    without a host read of the norm, so a training step can run ahead of
+    its metrics."""
     norm = global_norm(grads) if norm is None else norm
-    if bool(norm < max_norm):
-        return grads
-    return [g / norm.to(g.dtype) * max_norm for g in grads]
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm) for g in grads]
 
 
 class Optimizer:

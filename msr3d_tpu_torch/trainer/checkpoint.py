@@ -13,12 +13,20 @@ place of orbax (which the GPU host does not have):
 
 Files are read back with ``torch.load(weights_only=True)``: tensors,
 numbers and strings only.
+
+With ``async_save`` (the config's ``async_checkpoint``) a full-state save
+takes a CPU copy of the state at once and writes it from one background
+thread, so training goes on while the file streams to disk; saves run one
+after another in the order they were made, and ``wait()`` fences them (the
+restore, ``latest_step`` and the end of a run wait), as orbax's
+``wait_until_finished`` does in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -54,25 +62,64 @@ def _save(obj: Any, path: Path) -> None:
     os.replace(tmp, path)
 
 
+def _to_cpu(obj: Any) -> Any:
+    """A copy of a nested state with every tensor on the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str | Path):
+    def __init__(self, ckpt_dir: str | Path, async_save: bool = False):
         self.dir = Path(ckpt_dir).resolve()
         self.state_dir = self.dir / "state"
         self.state_dir.mkdir(parents=True, exist_ok=True)
+        self.async_save = bool(async_save)
+        self._writer: Optional[ThreadPoolExecutor] = None  # one thread: saves in order
+        self._pending: list[Future] = []
 
     # -- full training state -------------------------------------------------
 
     def _steps(self):
         return sorted(int(p.stem) for p in self.state_dir.glob("*.pt") if p.stem.isdigit())
 
-    def save_state(self, step: int, state: Dict[str, Any], tracker: Tracker) -> None:
-        """``state``: {"params", "opt_state", "step"}; overwrites ``step``."""
-        _save({"state": state, "tracker": tracker.state_dict()},
-              self.state_dir / f"{step}.pt")
+    def _write_state(self, step: int, saved: Dict[str, Any]) -> None:
+        _save(saved, self.state_dir / f"{step}.pt")
         for old in self._steps()[:-1]:
             (self.state_dir / f"{old}.pt").unlink()
 
+    def save_state(self, step: int, state: Dict[str, Any], tracker: Tracker) -> None:
+        """``state``: {"params", "opt_state", "step"}; overwrites ``step``.
+        With ``async_save`` it returns once the CPU copy is taken."""
+        saved = {"state": _to_cpu(state), "tracker": tracker.state_dict()}
+        if not self.async_save:
+            self._write_state(step, saved)
+            return
+        if self._writer is None:
+            self._writer = ThreadPoolExecutor(max_workers=1,
+                                              thread_name_prefix="checkpoint-writer")
+        self._pending.append(self._writer.submit(self._write_state, step, saved))
+
+    def wait(self) -> None:
+        """Block until every save made so far is on disk; a failed save
+        raises here."""
+        pending, self._pending = self._pending, []
+        for future in pending:
+            future.result()
+
+    def close(self) -> None:
+        """``wait()``, then stop the writer thread."""
+        self.wait()
+        if self._writer is not None:
+            self._writer.shutdown()
+            self._writer = None
+
     def latest_step(self) -> Optional[int]:
+        self.wait()
         steps = self._steps()
         return steps[-1] if steps else None
 

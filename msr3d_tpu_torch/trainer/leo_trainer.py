@@ -21,6 +21,15 @@ Dropout draws from a ``torch.Generator`` seeded from ``rng_seed`` on the
 model's device; its state is part of the full training state. The time the
 loop waits on the loader is logged with each step (``train/data_wait_s``).
 
+A step's loss and grad norm are read from the device ``train_metrics_lag``
+steps after the step was dispatched (default 1, as in the JAX trainer; 0 reads
+each step at once), so the loop does not wait on the card between steps; the
+reads drain at the epoch's end and before a preemption save, and
+``train/step_time_s`` is the time from dispatch to that read.
+``async_checkpoint: true`` writes the full-state saves from a background
+thread (``CheckpointManager``). ``profile.steps: n`` traces the steps after
+step 2 through step 2 + n with ``torch.profiler`` into ``exp_dir/profile``.
+
 SIGTERM and SIGUSR1 set a flag that is read at the optimizer-step
 boundary: the trainer then saves the full state and returns, and a rerun
 with the same ``exp_dir`` and ``resume: True`` goes on from there
@@ -46,8 +55,11 @@ saves the learnable weights as ``best``. Any ``mode`` but ``train`` (``test``,
 config without a train task builds no optimizer.
 
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-queue): more than one ``torch.distributed`` rank, ``parallel.tp/pp/sp > 1`` and fixed multi-host text buckets, ``remat``, and
-``vision_freeze: False``.
+queue): more than one ``torch.distributed`` rank, ``parallel.tp/pp/sp > 1``
+and fixed multi-host text buckets. Training with the point encoder unfrozen
+(``vision.args.freeze: False``) raises ``ValueError``: the JAX trainer fails
+on it (its train step does not make ``batch_stats`` mutable), so the port
+does not run it either; evaluation with it runs.
 """
 
 from __future__ import annotations
@@ -142,7 +154,7 @@ class LeoTrainer:
             from msr3d_tpu_torch.models.build import build_model
 
             model = build_model(config)
-        self._check_ported(cfg, model)
+        self._check_ported(cfg)
         if built:  # weights after the checks: a 7B init is not cheap
             from msr3d_tpu_torch.models.load_weights import load_pretrained_from_config
 
@@ -166,10 +178,21 @@ class LeoTrainer:
         self.eval_interval = int(solver.get("eval_interval", 1))
         self.num_batch_eval = int(solver.get("num_batch_eval", 0) or 0) or None
         self.save_frequency = int(cfg.get("save_frequency", 0) or 0) or None
+        self.metrics_lag = max(0, int(cfg.get("train_metrics_lag", 1)))
+        self.profile_steps = int((cfg.get("profile") or {}).get("steps", 0) or 0)
+        self._profiler = None
         train_loaders = [splits["train"] for splits in loaders.values() if "train" in splits]
         if len(train_loaders) > 1:
             raise ValueError(f"one train loader expected, got {len(train_loaders)}")
         self.train_loader = train_loaders[0] if train_loaders else None
+        if (self.train_loader is not None and self.mode == "train"
+                and not model.cfg.prompter.vision_freeze):
+            raise ValueError(
+                "vision.args.freeze: False with a train loader: the JAX trainer fails on it "
+                "(flax.errors.ModifyScopeVariableError: its train step applies the "
+                "network without mutable=['batch_stats'], which the point encoder's "
+                "training BatchNorm writes), so the port does not train it; evaluation "
+                "with freeze: False runs")
         # ceil: the epoch's tail group trains too, and the schedule counts it
         self.steps_per_epoch = (max(1, -(-len(self.train_loader) // self.accum_steps))
                                 if self.train_loader is not None else 1)
@@ -188,7 +211,8 @@ class LeoTrainer:
                                          self.optimizer, grad_norm)
 
         self.tracker = Tracker(run_id=str(uuid.uuid4())[:8])
-        self.ckpt = CheckpointManager(self.exp_dir / "ckpt")
+        self.ckpt = CheckpointManager(self.exp_dir / "ckpt",
+                                      async_save=bool(cfg.get("async_checkpoint", False)))
         self.logger = MetricLogger(exp_dir=self.exp_dir)
         self.timer = StepTimer()
         self.data_wait_history: List[float] = []  # seconds the loop waited on the loader, a step
@@ -200,19 +224,13 @@ class LeoTrainer:
         """Optimizer steps taken (0 without a train loader)."""
         return self._train_step.step_count if self._train_step is not None else 0
 
-    def _check_ported(self, cfg, model) -> None:
+    def _check_ported(self, cfg) -> None:
         for axis in ("tp", "pp", "sp"):
             if int(_cfg(cfg, f"parallel.{axis}", 1)) > 1:
                 raise _not_ported(f"parallel.{axis} > 1", "ROADMAP.md, queue: parallelism")
         if cfg.get("fixed_text_buckets", False):
             raise _not_ported("fixed_text_buckets (the multi-host text widths)",
                               "ROADMAP.md, queue: parallelism")
-        if _cfg(cfg, "model.llm.remat", False) or model.cfg.llm.remat:
-            raise _not_ported("remat (activation checkpointing)",
-                              "ROADMAP.md, queue: QLoRA and the training-memory options")
-        if not model.cfg.prompter.vision_freeze:
-            raise _not_ported("vision_freeze: False (the port's PointNet++ has inference "
-                              "BatchNorm only)", "ROADMAP.md, queue: the other modes")
 
     # ------------------------------------------------------------------
 
@@ -250,13 +268,33 @@ class LeoTrainer:
         """One pass over the train loader. Raises ``Preempted`` at the first
         step boundary after a preemption signal (a partial group trains
         first, as the epoch's tail does, so ``tracker.loader_step`` marks
-        exactly what was trained on)."""
+        exactly what was trained on, and every step's metrics are read)."""
         if self.train_loader is None:
             raise ValueError("no train loader configured")
         losses: List[float] = []
         group: List[Dict[str, Any]] = []
         skip = self.tracker.loader_step if epoch == self.tracker.epoch else 0
         waited = 0.0
+        pending: deque = deque()  # (metrics, step, dispatch time, data wait)
+
+        def process_one() -> None:
+            metrics, step, t0, wait = pending.popleft()
+            loss = float(metrics["loss"])  # the read waits for the step
+            dt = time.perf_counter() - t0
+            self.timer.history.append(dt)
+            losses.append(loss)
+            if step % 10 == 0 or step <= 2:
+                self.logger.log(
+                    {
+                        "train/loss": loss,
+                        "train/grad_norm": float(metrics["grad_norm"]),
+                        "train/lr": float(self.schedule(step)),
+                        "train/step_time_s": dt,
+                        "train/data_wait_s": wait,
+                        "epoch": epoch,
+                    },
+                    step=step,
+                )
 
         def flush(consumed_through: int) -> None:
             nonlocal group, waited
@@ -265,29 +303,19 @@ class LeoTrainer:
             network = self.model.network
             network.train()
             try:
-                self.timer.tic()
+                t0 = time.perf_counter()
                 metrics = self._train_step(batches)
-                dt = self.timer.toc()
             finally:
                 network.eval()
             step = self._train_step.step_count
             self.tracker.loader_step = consumed_through
             self.data_wait_history.append(waited)
+            self._profile(step)
             if self.save_frequency and step % self.save_frequency == 0:
                 self.ckpt.save_state(step, self._state_dict(), self.tracker)
-            losses.append(metrics["loss"])
-            if step % 10 == 0 or step <= 2:
-                self.logger.log(
-                    {
-                        "train/loss": metrics["loss"],
-                        "train/grad_norm": metrics["grad_norm"],
-                        "train/lr": float(self.schedule(step)),
-                        "train/step_time_s": dt,
-                        "train/data_wait_s": waited,
-                        "epoch": epoch,
-                    },
-                    step=step,
-                )
+            pending.append((metrics, step, t0, waited))
+            while len(pending) > self.metrics_lag:
+                process_one()
             waited = 0.0
 
         batches = iter(self.train_loader)
@@ -309,14 +337,44 @@ class LeoTrainer:
                 if self._preempted:
                     if group:
                         flush(i + 1)
+                    while pending:
+                        process_one()
                     raise Preempted()
             if group:
                 flush(i + 1)
+            while pending:
+                process_one()
         finally:
             close = getattr(batches, "close", None)
             if close is not None:
                 close()  # stops the loader's prefetch thread
         return {"loss": float(np.mean(losses)) if losses else float("nan")}
+
+    def _profile(self, step: int) -> None:
+        """``profile.steps`` n: start a ``torch.profiler`` trace once step 2
+        is dispatched and write it to ``exp_dir/profile`` once step 2 + n is,
+        as the JAX trainer traces steps into the same place."""
+        if not self.profile_steps:
+            return
+        if step == 2 and self._profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.model.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+        elif step == 2 + self.profile_steps:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self._profiler is None:
+            return
+        self._profiler.stop()
+        out = self.exp_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"trace_step{self._train_step.step_count}.json"
+        self._profiler.export_chrome_trace(str(path))
+        self._profiler = None
+        logger.info(f"profiler trace written to {path}")
 
     @staticmethod
     def _trim_record(record: Dict[str, Any], batch: int, keep: int) -> Dict[str, Any]:
@@ -537,11 +595,15 @@ class LeoTrainer:
     def run(self) -> None:
         if self.mode == "train":
             with self._preemption_handlers():
-                self._run_train()
+                try:
+                    self._run_train()
+                finally:
+                    self._stop_profile()
         else:
             if self.ckpt.has_weights("best"):
                 self.load_learnable("best")
             self._run_eval("test", 0)
+        self.ckpt.close()  # every async save on disk before the run ends
         self.logger.close()
 
     def _run_train(self) -> None:
@@ -552,6 +614,7 @@ class LeoTrainer:
             except Preempted:
                 step = self._train_step.step_count
                 self.ckpt.save_state(step, self._state_dict(), self.tracker)
+                self.ckpt.wait()
                 logger.warning(f"preempted at epoch {epoch}, step {step}: full state saved; "
                                "rerun with the same exp_dir and resume=True to go on")
                 return

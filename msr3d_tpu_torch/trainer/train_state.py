@@ -5,7 +5,9 @@ for the trainable parameters (``requires_grad``; the frozen base never
 gets any). One step runs forward and backward per micro-batch, averages the
 gradients and the losses over the group's real micro-batches, reports the
 global gradient norm before clipping, clips it as optax does and applies
-the optimizer.
+the optimizer. It reads nothing back from the device: the loss and the
+norm it returns are device tensors, which the trainer fetches
+``train_metrics_lag`` steps later.
 
 The JAX step scans a fixed number of micro-batches, so it pads an epoch's
 tail group with weight-0 duplicates to keep one compiled program and then
@@ -26,7 +28,8 @@ from msr3d_tpu_torch.optim.build import Optimizer, clip_by_global_norm, global_n
 
 
 class TrainStep:
-    """``step(micro_batches) → {"loss", "grad_norm", "step"}``.
+    """``step(micro_batches) → {"loss", "grad_norm", "step"}``, the loss and
+    the norm as fp32 device scalars.
 
     ``loss_fn(micro_batch)`` returns the scalar mean loss of one micro-batch
     with its autograd graph. ``params`` are the trainable parameters by
@@ -42,7 +45,7 @@ class TrainStep:
         self.max_norm = grad_norm
         self.step_count = 0
 
-    def __call__(self, micro_batches: List[Any]) -> Dict[str, float]:
+    def __call__(self, micro_batches: List[Any]) -> Dict[str, Any]:
         if not micro_batches:
             raise ValueError("a training step needs at least one micro-batch")
         for p in self.params.values():
@@ -68,8 +71,7 @@ class TrainStep:
         for p in self.params.values():
             p.grad = None
         self.step_count += 1
-        return {"loss": float(loss_sum * scale), "grad_norm": float(norm),
-                "step": self.step_count}
+        return {"loss": loss_sum * scale, "grad_norm": norm, "step": self.step_count}
 
 
 def filter_learnable(module: torch.nn.Module, names) -> Dict[str, torch.Tensor]:

@@ -58,11 +58,19 @@ from msr3d_tpu_torch.trainer.leo_trainer import build_trainer
 
 from test_sentencepiece import _mini_bpe_pieces
 from test_torch_train import _jax_model, _port_model
-from torch_parity_utils import to_numpy_tree
+from torch_parity_utils import one_torch_thread, to_numpy_tree
 
 REPO = Path(__file__).resolve().parent.parent
 DEBUG = REPO / "configs" / "debug_synthetic.yaml"
 LEO = REPO / "configs" / "debug_synthetic_leo.yaml"
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The tiny models run on one intra-op thread: more gain nothing, and in
+    a parallel run each worker's thread pool would oversubscribe the cores."""
+    with one_torch_thread():
+        yield
 FLAGSHIP = REPO / "configs" / "msr3d.yaml"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the public Vicuna-7B geometry (its HF config.json)
@@ -189,7 +197,16 @@ def test_unported_knobs_raise(override, match):
     """What the port does not run raises. The serving knobs (``eval_spec_k``,
     ``eval_do_sample``, ``eval_top_k``, ``eval_top_p``, ``compact_transfer``)
     are ported: the model is built as JAX's ``build_model`` builds it, or
-    refused where JAX's refuses it (``eval_spec_k`` under the penalty 3.0)."""
+    refused where JAX's refuses it (``eval_spec_k`` under the penalty 3.0).
+    So is ``model.llm.remat``: the LLM config carries ``remat`` and
+    ``remat_policy`` as JAX's builder reads them."""
+    if match == "remat":
+        cfg = ["device=cpu", override, "model.llm.remat_policy=residuals"]
+        want = jax_build.build_model(jax_load_config(DEBUG, cfg)).cfg.llm
+        got = port_build.build_model(load_config(DEBUG, cfg)).cfg.llm
+        assert (got.remat, got.remat_policy) == (want.remat, want.remat_policy) == (
+            True, "residuals")
+        return
     if match in _SERVING_KNOBS:
         cfg = ["device=cpu", override]
         try:

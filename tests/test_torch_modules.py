@@ -172,8 +172,14 @@ def test_converter_lists_skipped_keys_and_rejects_unknown():
 def test_unported_llama_options_raise():
     with pytest.raises(NotImplementedError):
         torch_llama_config(JaxLlamaConfig.tiny(sp_axis="sp"))
-    with pytest.raises(NotImplementedError):
-        torch_llama_config(JaxLlamaConfig.tiny(), remat=True)
+    # remat is ported (tests/test_torch_remat.py): its policy is carried over,
+    # and what JAX cannot run raises
+    cfg = torch_llama_config(JaxLlamaConfig.tiny(remat=True, remat_policy="dots"))
+    assert (cfg.remat, cfg.remat_policy) == (True, "dots")
+    with pytest.raises(ValueError, match="remat_policy"):
+        torch_llama_config(JaxLlamaConfig.tiny(), remat_policy="bogus")
+    with pytest.raises(ValueError, match="lora_dropout"):
+        torch_llama_config(JaxLlamaConfig.tiny(lora_rank=4, lora_dropout=0.1), remat=True)
     # the quantization options are ported, and carried over field by field
     cfg = torch_llama_config(JaxLlamaConfig.tiny(quantize=True, quantize_bits=4,
                                                  kv_quantize=True))

@@ -55,6 +55,7 @@ from torch_parity_utils import (
     IMAGE_PROMPTS,
     TINY_PROMPTER,
     image_inputs,
+    one_torch_thread,
     perturbed,
     scene_inputs,
     torch_network_config,
@@ -64,6 +65,14 @@ SCENE_TOKENS = 6
 # fp32 on both sides, summed in other orders: values of order 1 agree to a
 # few ulps (1e-7), and 1e-5 leaves room for the depth of the model
 ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The tiny models run on one intra-op thread: more gain nothing, and in
+    a parallel run each worker's thread pool would oversubscribe the cores."""
+    with one_torch_thread():
+        yield
 
 
 def _tree_paths(tree):
@@ -521,8 +530,16 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
                       model=model).cfg["eval_engine"] == "grouped"
     with pytest.raises(NotImplementedError, match="parallel.tp"):
         LeoTrainer(dict(cfg, parallel={"tp": 2}), loaders=loaders, model=model)
-    with pytest.raises(NotImplementedError, match="remat"):
-        LeoTrainer(dict(cfg, model={"llm": {"remat": True}}), loaders=loaders, model=model)
+    # remat is ported (tests/test_torch_remat.py); training the point encoder
+    # unfrozen is refused, as the JAX trainer fails on it
+    # (tests/test_torch_train_options.py)
+    import dataclasses
+
+    thawed = _port_model(_jax_model(flash=False, window=False))
+    thawed.cfg = dataclasses.replace(thawed.cfg, prompter=dataclasses.replace(
+        thawed.cfg.prompter, vision_freeze=False))
+    with pytest.raises(ValueError, match="ModifyScopeVariableError"):
+        LeoTrainer(cfg, loaders=loaders, model=thawed)
     with pytest.raises(NotImplementedError, match="tokenizer"):
         HFTokenizer(str(tmp_path))
     import torch.distributed as dist
