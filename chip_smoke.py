@@ -47,7 +47,8 @@ entry on ``configs/msr3d.yaml`` with ``data.obj_img_base`` set, two or
 three crops a situation, one missing: one optimizer step of 4 x 5 and a
 val batch, every shown image bit-equal to its CPU preprocessing), and the
 serving engines' second part (phase 15, the flagship from configs/msr3d.yaml
-built by the serve entry with ``--engine grouped``, penalty 1.0: (a)
+built by the serve entry with ``--engine grouped``, penalty 1.0, 16 new
+tokens: (a)
 speculative greedy, ``generate`` and the continuous engine, against plain
 greedy, with ms an emitted token and ``spec_stats``; (b) sampled
 ``generate`` and engine, each twice at one seed, their threefry keys and
@@ -57,13 +58,13 @@ and K2f 32 launches: one scene encode, the prefix prefill), and the grouped
 engine over HTTP; (d) ``compact_transfer``'s bytes and its unpack on the
 card against the CPU's; then the exact token gates in fp32 at the
 flagship's width and 2 layers), and the prefix-pool engines (phase 16, the
-same YAML built by the serve entry with ``--engine pool`` and ``pool-beam``:
-3 scenes x 4 questions interleaved over 2 blocks of scene-prefix KV, so
+same YAML built by the serve entry with ``--engine pool`` and ``pool-beam``,
+16 new tokens: 3 scenes x 4 questions interleaved over 2 blocks of
+scene-prefix KV, so
 eviction, a scene's return and head-of-line blocking occur; (a) the greedy
 pool against the continuous engine, K1 2 and K2f 32 launches a prefix
 prefill; (b) the speculative pool against the pool at T = 1; (c) the beam
-pool against the continuous beam engine, and both at the reference's
-256-token allocation for their peak memory; (d) the pool over HTTP with a
+pool against the continuous beam engine; (d) the pool over HTTP with a
 400 for an overflowing question; then fp32 token gates at 2 layers against
 batch-1 ``generate``), and the training-memory options (phase 17: (a)
 one step of 4 x 5 from one LoRA state without remat and under each
@@ -76,7 +77,16 @@ bases without remat and with ``full``, the buffers bit-unchanged, and one
 micro-batch's peak through ``_QuantizedBase`` against autograd over the
 plain weight rebuild; (d) the unfrozen point encoder's training BatchNorm on
 the card against the CPU; (e) the ``MSR3D_NAN_CHECKS`` guard's cost and an
-injected NaN; (f) ``train_metrics_lag`` 0 against 1), and checks that each
+injected NaN; (f) ``train_metrics_lag`` 0 against 1), and data parallelism
+(phase 18, ``python -m msr3d_tpu_torch.launch --mode accelerate`` over phase
+10's tree: (a) one rank at the card count, NCCL; (b) two ranks sharing the
+card over gloo, 2 samples a rank a micro-batch; each one step of 4 x 5 and
+val of an odd-length split, each sample scored once, the ranks' parameters
+bit-equal, checked by the trainer; TrainStep's flat gradient all-reduce
+through NCCL at world 1, bit-unchanged; (c) two ranks against one process in
+fp32 at the flagship's width and 2 layers: the loss and the averaged
+gradients within 1e-5 relative, each parameter within the step AdamW
+computes from the two gradients, the same eval texts), and checks that each
 path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
@@ -167,6 +177,10 @@ SHAPES_7B = ((4096, 4096), (4096, 11008), (11008, 4096))  # (K, N): q/k/v/o, gat
 # weight from HBM as a decode step does
 L2_SPAN_BYTES = 256 * 2**20
 N_REQUESTS, NEW_TOKENS, REP_PENALTY = 4, 32, 3.0
+# phases 15 and 16 decode ENGINE_TOKENS tokens a request (their exact gates
+# in fp32 too, phase 15's NEW_TOKENS): their engines' decode steps, bound by
+# the host's dispatch, were a third of the script's time
+ENGINE_TOKENS = 16
 # the reference's eval decode (msr3d_tpu/models/build.py:101-105): beam 5,
 # repetition penalty 3.0, length penalty 1.0; cut from 256 to NEW_TOKENS tokens
 BEAMS, LENGTH_PENALTY = 5, 1.0
@@ -1356,6 +1370,21 @@ def write_entry_checkpoint(root: Path) -> Path:
     return root
 
 
+def write_entry_tree(exp_root: Path) -> Path:
+    """Phase 10's synthetic tree under ``exp_root/entry/data`` and its
+    ``cfg_path``; returns the ``cfg_path``."""
+    from msr3d_tpu_torch.data import synthetic
+
+    data = exp_root / "entry" / "data"
+    rng = np.random.default_rng(12)
+    synthetic.build_scannet_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    synthetic.build_rscan_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    synthetic.build_arkit_tree(data, rng, n_objects=ENTRY_OBJECTS)
+    for domain, scans, n in ENTRY_ANNOTATIONS:
+        synthetic.build_msqa_annotations(data, list(scans), n=n, domain=domain)
+    return write_entry_checkpoint(exp_root / "entry" / "vicuna7b")
+
+
 def flagship_parameter_count(vocab_size: int) -> int:
     """The parameters of ``build_flagship_model``'s network, counted on the
     meta device, with ``vocab_size`` rows of embeddings and lm_head."""
@@ -1376,7 +1405,6 @@ def phase_entry(exp_root: Path):
           f"{N_REQUESTS} x accumulation {TRAIN_ACCUM}, nothing injected)")
     import msr3d_tpu_torch.ops.flash_attention as fa
     from msr3d_tpu_torch import run as entry
-    from msr3d_tpu_torch.data import synthetic
     from msr3d_tpu_torch.data.scan_loader import ScanCache
     from msr3d_tpu_torch.models.llm.llama import LoraDense
     from msr3d_tpu_torch.models.msr3d import MSR3D
@@ -1385,13 +1413,7 @@ def phase_entry(exp_root: Path):
 
     root = exp_root / "entry"
     data = root / "data"
-    rng = np.random.default_rng(12)
-    synthetic.build_scannet_tree(data, rng, n_objects=ENTRY_OBJECTS)
-    synthetic.build_rscan_tree(data, rng, n_objects=ENTRY_OBJECTS)
-    synthetic.build_arkit_tree(data, rng, n_objects=ENTRY_OBJECTS)
-    for domain, scans, n in ENTRY_ANNOTATIONS:
-        synthetic.build_msqa_annotations(data, list(scans), n=n, domain=domain)
-    ckpt = write_entry_checkpoint(root / "vicuna7b")
+    ckpt = write_entry_tree(exp_root)
     argv = ["--config", str(Path(__file__).resolve().parent / "configs" / "msr3d.yaml"),
             f"data.scan_family_base={data}/scan_family", f"data.rscan_base={data}/rscan",
             f"data.ARkit_base={data}/arkit", f"data.msr3d_base={data}/msr3d",
@@ -1828,11 +1850,12 @@ def phase_retrieval(trainer, exp: Path):
 SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUDGETS, SERVE_STREAMED = 12, 4, (8, 16, 24, 32), 3
 
 
-def serve_argv(exp_root: Path, *extra: str):
+def serve_argv(exp_root: Path, *extra: str, tokens: int = NEW_TOKENS):
     """The serve entry's arguments of phase 12: configs/msr3d.yaml with
-    phase 10's ``cfg_path``, random weights, an ephemeral port."""
+    phase 10's ``cfg_path``, random weights, an ephemeral port, ``tokens``
+    new tokens."""
     return ["--config", str(_ROOT / "configs" / "msr3d.yaml"), "--random-init", "--port", "0",
-            "--max-new-tokens", str(NEW_TOKENS), *extra,
+            "--max-new-tokens", str(tokens), *extra,
             f"model.llm.cfg_path={exp_root / 'entry' / 'vicuna7b'}",
             "model.llm.flash_attention=true"]
 
@@ -3113,12 +3136,12 @@ def spec_runs(model):
     eos = model.tokenizer.eos_id
     model.generate(dict(data), use_beam=False, max_new_tokens=2)  # warm-up
     (plain, picks), plain_ms, plain_pre, plain_steps = timed_decode(
-        model, lambda: recorded_generate(model, data, max_new_tokens=NEW_TOKENS))
+        model, lambda: recorded_generate(model, data, max_new_tokens=ENGINE_TOKENS))
     model.spec_k, model.spec_ngram = SPEC_K, SPEC_NGRAM
     try:
         (spec, spec_ms, spec_pre, spec_calls), launches = counted(lambda: timed_decode(
             model, lambda: model.generate(dict(data), use_beam=False,
-                                          max_new_tokens=NEW_TOKENS)))
+                                          max_new_tokens=ENGINE_TOKENS)))
     finally:
         model.spec_k = 0
     want, got = plain["output_tokens"], spec["output_tokens"]
@@ -3130,7 +3153,7 @@ def spec_runs(model):
                equal_tokens=int((want == got).sum()), tokens=int(want.size), parted=parted)
     row["plain_ms_per_token"] = row["plain_decode_ms"] / n_plain
     row["spec_ms_per_token"] = row["spec_decode_ms"] / n_spec
-    print(f"  (a) bf16 generate, {N_REQUESTS} requests x {NEW_TOKENS} tokens: plain greedy "
+    print(f"  (a) bf16 generate, {N_REQUESTS} requests x {ENGINE_TOKENS} tokens: plain greedy "
           f"decode {row['plain_decode_ms']:.2f} ms over {plain_steps} steps, "
           f"{row['plain_ms_per_token']:.3f} ms an emitted token ({n_plain}); speculative "
           f"(spec_k {SPEC_K}, {SPEC_NGRAM}-grams) {row['spec_decode_ms']:.2f} ms over "
@@ -3153,7 +3176,7 @@ def spec_runs(model):
     engines = {}
     for spec_k in (0, SPEC_K):
         engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=N_REQUESTS,
-                                          chunk_steps=8, max_new_tokens=NEW_TOKENS,
+                                          chunk_steps=8, max_new_tokens=ENGINE_TOKENS,
                                           prompt_len=prompt_len, spec_k=spec_k,
                                           spec_ngram=SPEC_NGRAM)
         res, ms, pre, calls = timed_decode(model, lambda: engine.run(samples))
@@ -3210,7 +3233,7 @@ def sampled_runs(model, greedy_decode_ms: float, greedy_steps: int):
             model._sample_calls = 0
             (out, ms, pre, steps), launches = counted(lambda: timed_decode(
                 model, lambda: model.generate(dict(data), use_beam=False,
-                                              max_new_tokens=NEW_TOKENS)))
+                                              max_new_tokens=ENGINE_TOKENS)))
             runs.append((out["output_tokens"], ms - pre, steps, launches))
         check(np.array_equal(runs[0][0], runs[1][0]),
               "sampled generate: equal tokens in two runs at one seed")
@@ -3230,7 +3253,7 @@ def sampled_runs(model, greedy_decode_ms: float, greedy_steps: int):
         engine_runs = []
         for _ in range(2):
             engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=2,
-                                              chunk_steps=8, max_new_tokens=NEW_TOKENS)
+                                              chunk_steps=8, max_new_tokens=ENGINE_TOKENS)
             res, ms, pre, calls = timed_decode(model, lambda: engine.run(samples))
             engine_runs.append((np.stack([r.output_tokens for r in res]), ms - pre, calls))
         check(np.array_equal(engine_runs[0][0], engine_runs[1][0]),
@@ -3280,15 +3303,15 @@ def grouped_runs(fe, model):
     for label, use_beam in (("greedy", False), (f"beam {BEAMS}", True)):
         (g_out, g_ms, g_pre, g_steps), g_launch = counted(lambda: timed_decode(
             model, lambda: model.generate_scene_group(dict(group), use_beam=use_beam,
-                                                      max_new_tokens=NEW_TOKENS)))
+                                                      max_new_tokens=ENGINE_TOKENS)))
         if use_beam:
             (p_out, p_ms, p_pre, p_steps), p_launch = counted(lambda: timed_decode(
                 model, lambda: model.generate(dict(rows), use_beam=True,
-                                              max_new_tokens=NEW_TOKENS)))
+                                              max_new_tokens=ENGINE_TOKENS)))
             parted = None
         else:
             ((p_out, picks), p_ms, p_pre, p_steps), p_launch = counted(lambda: timed_decode(
-                model, lambda: recorded_generate(model, rows, max_new_tokens=NEW_TOKENS)))
+                model, lambda: recorded_generate(model, rows, max_new_tokens=ENGINE_TOKENS)))
             parted = partings(p_out["output_tokens"], g_out["output_tokens"], picks)
         same = int((g_out["output_tokens"] == p_out["output_tokens"]).all(axis=1).sum())
         out[label] = dict(grouped_ms=g_ms, grouped_prefix_prefill_ms=g_pre,
@@ -3343,7 +3366,7 @@ def grouped_runs(fe, model):
           and all(status == 200 for status, _ in answers.values()),
           f"serve --engine grouped: every one of the {n} answers is 200 ({errors[:2]})")
     # the engine serves with the config's num_beams, 5: the grouped beam's answers
-    beam = model.generate_scene_group(dict(group), max_new_tokens=NEW_TOKENS)["output_tokens"]
+    beam = model.generate_scene_group(dict(group), max_new_tokens=ENGINE_TOKENS)["output_tokens"]
     same = sum(int(np.array_equal(answers[i][1]["tokens"], beam[i])) for i in range(n))
     out["http"] = dict(elapsed_s=elapsed, qa_s=n / elapsed, launches=launches,
                        served=health["served"], equal_to_grouped_beam=same)
@@ -3394,9 +3417,10 @@ def compact_runs(model):
     return row
 
 
-def build_exact_model(dev, tokenizer):
+def build_exact_model(dev, tokenizer, prompter=None):
     """The flagship's width in fp32 at EXACT_LAYERS layers (dense attention,
-    LoRA r16, TF32 off), random weights from seed 1, penalty 1.0."""
+    LoRA r16, TF32 off), random weights from seed 1, penalty 1.0; the
+    prompter ``OSE3DConfig()`` unless given."""
     from msr3d_tpu_torch.models.llm.llama import LlamaConfig
     from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
     from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
@@ -3404,7 +3428,7 @@ def build_exact_model(dev, tokenizer):
     llm = LlamaConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                       num_hidden_layers=EXACT_LAYERS, num_attention_heads=32, lora_rank=16,
                       dtype=torch.float32, param_dtype=torch.float32)
-    model = MSR3D(MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm), tokenizer,
+    model = MSR3D(MSR3DNetworkConfig(prompter=prompter or OSE3DConfig(), llm=llm), tokenizer,
                   scene_token_len=60, max_out_len=NEW_TOKENS, num_beams=BEAMS,
                   repetition_penalty=1.0, device=dev)
     model.init_params(seed=1)
@@ -3469,7 +3493,8 @@ def phase_serving2(exp_root: Path):
     t0 = time.perf_counter()
     fe = serve.create_frontend(serve.parse_args(serve_argv(
         exp_root, "--engine", "grouped", "--group-scenes", str(GROUP_SCENES),
-        "--group-questions", str(GROUP_QUESTIONS), "eval_repetition_penalty=1.0")))
+        "--group-questions", str(GROUP_QUESTIONS), "eval_repetition_penalty=1.0",
+        tokens=ENGINE_TOKENS)))
     model = fe.engine.model
     torch.cuda.synchronize()
     print(f"  built and initialised in {time.perf_counter() - t0:.1f} s")
@@ -3494,11 +3519,9 @@ def phase_serving2(exp_root: Path):
 # bench_qa.py prompt with its own question after USER:), over POOL_BLOCKS
 # blocks, so LRU eviction, an evicted scene's return and head-of-line
 # blocking all occur: POOL_SLOTS slots, refill group POOL_GROUP, question
-# bucket POOL_SUFFIX, the prefix bucket the model's prompt_pad_to, NEW_TOKENS
-# tokens. (b) runs the first POOL_SPEC_REQUESTS requests at penalty 1.0; (c)
-# also builds both beam engines at the reference's POOL_ALLOC-token budget
-# and serves POOL_LONG_REQUESTS requests at a budget of POOL_LONG_BUDGET (the
-# allocation real, the steps cut); (d) sends the first POOL_HTTP requests and
+# bucket POOL_SUFFIX, the prefix bucket the model's prompt_pad_to, ENGINE_TOKENS
+# tokens. (b) runs the first POOL_SPEC_REQUESTS requests at penalty 1.0; (d)
+# sends the first POOL_HTTP requests and
 # one whose question overflows the bucket over HTTP. The exact gates run in
 # fp32 at the flagship's width and EXACT_LAYERS layers, as phase 15's; in
 # bf16 a request may part from its own greedy generate only where the
@@ -3509,7 +3532,6 @@ def phase_serving2(exp_root: Path):
 POOL_SCENES, POOL_QUESTIONS, POOL_BLOCKS = 3, 4, 2
 POOL_SLOTS, POOL_GROUP, POOL_SUFFIX, POOL_CHUNK = 8, 4, 64, 8
 POOL_SPEC_REQUESTS, POOL_HTTP = 6, 8
-POOL_ALLOC, POOL_LONG_REQUESTS, POOL_LONG_BUDGET = 256, 4, 16
 
 
 def pool_stream(seed: int, images: bool, scenes: int = POOL_SCENES,
@@ -3528,7 +3550,7 @@ def pool_stream(seed: int, images: bool, scenes: int = POOL_SCENES,
 def pool_kw(**kw):
     return dict(dict(num_slots=POOL_SLOTS, num_prefixes=POOL_BLOCKS, suffix_len=POOL_SUFFIX,
                      refill_group=POOL_GROUP, chunk_steps=POOL_CHUNK,
-                     max_new_tokens=NEW_TOKENS), **kw)
+                     max_new_tokens=ENGINE_TOKENS), **kw)
 
 
 def engine_run(model, engine, reqs, **kw):
@@ -3578,11 +3600,11 @@ def pool_greedy_runs(model, pool, reqs):
     from msr3d_tpu_torch.serving import ContinuousBatchingServer, _collate
 
     model.generate(_collate(reqs[:1]), use_beam=False, max_new_tokens=2)  # warm-up
-    rows, picks = recorded_generate(model, _collate(reqs), max_new_tokens=NEW_TOKENS)
+    rows, picks = recorded_generate(model, _collate(reqs), max_new_tokens=ENGINE_TOKENS)
     want = rows["output_tokens"]
     out = dict(pool=engine_run(model, pool, reqs))
     cont = ContinuousBatchingServer(model, num_slots=POOL_SLOTS, refill_group=POOL_GROUP,
-                                    chunk_steps=POOL_CHUNK, max_new_tokens=NEW_TOKENS)
+                                    chunk_steps=POOL_CHUNK, max_new_tokens=ENGINE_TOKENS)
     out["continuous"] = engine_run(model, cont, reqs)
     n = len(reqs)
     for name, row in out.items():
@@ -3629,7 +3651,7 @@ def pool_spec_runs(model, pool, reqs):
         return emit, acc, is_eos
 
     try:
-        rows, picks = recorded_generate(model, _collate(reqs), max_new_tokens=NEW_TOKENS)
+        rows, picks = recorded_generate(model, _collate(reqs), max_new_tokens=ENGINE_TOKENS)
         out = dict(t1=engine_run(model, PrefixPoolContinuousBatchingServer(model, **pool_kw()),
                                  reqs))
         spec = PrefixPoolContinuousBatchingServer(model, **pool_kw(spec_k=SPEC_K,
@@ -3663,16 +3685,11 @@ def pool_spec_runs(model, pool, reqs):
 
 def pool_beam_runs(model, pool_beam, reqs):
     """(c) The beam pool engine against the continuous beam engine on the
-    same requests (beam 5, penalty 3.0), then both built at the reference's
-    POOL_ALLOC-token budget serving POOL_LONG_REQUESTS requests at a budget
-    of POOL_LONG_BUDGET: peak memory and ms a step."""
-    from msr3d_tpu_torch.serving import (
-        ContinuousBeamBatchingServer,
-        PrefixPoolContinuousBeamBatchingServer,
-    )
+    same requests (beam 5, penalty 3.0)."""
+    from msr3d_tpu_torch.serving import ContinuousBeamBatchingServer
 
     beam_kw = dict(num_slots=POOL_SLOTS, refill_group=POOL_GROUP, chunk_steps=POOL_CHUNK)
-    cont = ContinuousBeamBatchingServer(model, max_new_tokens=NEW_TOKENS, **beam_kw)
+    cont = ContinuousBeamBatchingServer(model, max_new_tokens=ENGINE_TOKENS, **beam_kw)
     out, gaps = {}, dict(pool={}, continuous={})
     for name, engine in (("pool", pool_beam), ("continuous", cont)):
         with beam_request_gaps(engine, gaps[name]):
@@ -3698,28 +3715,7 @@ def pool_beam_runs(model, pool_beam, reqs):
     check(all(g < BF16_MARGIN for _, g in parted),
           f"bf16 beam: where the pool and continuous beam answers part, a top-k decision of the "
           f"request was within {BF16_MARGIN}")
-    budgets = [POOL_LONG_BUDGET] * POOL_LONG_REQUESTS
-    long = {}
-    for name, build in (
-        ("pool", lambda: PrefixPoolContinuousBeamBatchingServer(
-            model, num_prefixes=POOL_BLOCKS, suffix_len=POOL_SUFFIX, max_new_tokens=POOL_ALLOC,
-            **beam_kw)),
-        ("continuous", lambda: ContinuousBeamBatchingServer(
-            model, max_new_tokens=POOL_ALLOC, **beam_kw)),
-    ):
-        gc.collect()
-        torch.cuda.empty_cache()
-        long[name] = public(engine_run(model, build(), reqs[:POOL_LONG_REQUESTS],
-                                       budgets=budgets))
-    print(f"  (c) both beam engines built for {POOL_ALLOC} new tokens, {POOL_LONG_REQUESTS} "
-          f"requests at budget {POOL_LONG_BUDGET}: pool peak {long['pool']['peak_gib']:.2f} GiB, "
-          f"decode {long['pool']['decode_ms']:.2f} ms a step over "
-          f"{long['pool']['steps_run']}; continuous peak {long['continuous']['peak_gib']:.2f} "
-          f"GiB, decode {long['continuous']['decode_ms']:.2f} ms a step over "
-          f"{long['continuous']['steps_run']}; on {card_line()}")
-    out = {k: public(v) for k, v in out.items()}
-    out["alloc_256"] = long
-    return out
+    return {k: public(v) for k, v in out.items()}
 
 
 def pool_http(fe, reqs):
@@ -3805,7 +3801,7 @@ def pool_exact_gates(dev, tokenizer):
     def against_rows(tokens):
         parted = []
         for i, req in enumerate(reqs):
-            one, picks = recorded_generate(model, _collate([req]), max_new_tokens=NEW_TOKENS)
+            one, picks = recorded_generate(model, _collate([req]), max_new_tokens=ENGINE_TOKENS)
             parted += [(i, s, m) for _, s, m in partings(one["output_tokens"],
                                                          tokens[i:i + 1], picks)]
         return parted
@@ -3817,7 +3813,7 @@ def pool_exact_gates(dev, tokenizer):
     beam = PrefixPoolContinuousBeamBatchingServer(model, **kw)
     beam_toks, gap = top_k_boundaries(lambda: np.stack([r.output_tokens for r in beam.run(reqs)]))
     rows_beam, rows_gap = top_k_boundaries(lambda: np.stack([model.generate(
-        _collate([req]), use_beam=True, max_new_tokens=NEW_TOKENS)["output_tokens"][0]
+        _collate([req]), use_beam=True, max_new_tokens=ENGINE_TOKENS)["output_tokens"][0]
         for req in reqs]))
     out["beam"] = dict(equal=bool(np.array_equal(beam_toks, rows_beam)),
                        min_gap=min(gap, rows_gap), prefix_prefills=beam.prefix_prefills)
@@ -3860,12 +3856,12 @@ def phase_pool(exp_root: Path):
                  "--chunk-steps", str(POOL_CHUNK), "--num-prefixes", str(POOL_BLOCKS),
                  "--suffix-len", str(POOL_SUFFIX)]
     fe = serve.create_frontend(serve.parse_args(serve_argv(exp_root, "--engine", "pool",
-                                                           *pool_args)))
+                                                           *pool_args, tokens=ENGINE_TOKENS)))
     model = fe.engine.model
     # the pool-beam entry on the same model: its init redraws the same seeded weights
     with mock.patch.object(build_mod, "build_model", lambda cfg, device=None: model):
         fe_beam = serve.create_frontend(serve.parse_args(serve_argv(
-            exp_root, "--engine", "pool-beam", *pool_args)))
+            exp_root, "--engine", "pool-beam", *pool_args, tokens=ENGINE_TOKENS)))
     fe_beam.httpd.server_close()  # built for its engine; never started
     torch.cuda.synchronize()
     print(f"  built and initialised in {time.perf_counter() - t0:.1f} s; prefix bucket "
@@ -4342,6 +4338,398 @@ def phase_train_options(exp_root: Path, dev=None):
     return out
 
 
+# Phase 18: data parallelism through the port's launcher, over phase 10's tree
+# and cfg_path. The train mix takes DP_DEBUG_SIZE samples of each MSQA domain
+# (21: one step of 4 x 5, at one rank or two); msqa_scannet's val split takes
+# DP_DEBUG_SIZE too, an odd length, so two ranks at batch 2 take 4 samples
+# each and rank 1's last is a wrap-around duplicate
+DP_DEBUG_SIZE = 7
+DP_TIMEOUT_S = 420
+DP_KERNELS = ("fps", "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+DP_EXACT_ACCUM, DP_EXACT_EVAL = 2, 5
+# the flagship's trainable gradient values (phase 6 prints the count), in as
+# many tensors as a LoRA set of some size
+DP_FLAT_VALUES, DP_FLAT_TENSORS = 49427856, 256
+DP_NEW_TOKENS = 16  # (a), (b): val's answers, cut from NEW_TOKENS for the script's time
+
+
+def dp_argv(exp_root: Path, exp: Path, *extra: str):
+    """The entry's arguments of phase 18 (a) and (b): configs/msr3d.yaml over
+    phase 10's tree and ``cfg_path``, the msqa_scannet val task alone."""
+    root = exp_root / "entry"
+    data = root / "data"
+    return ["--config", str(Path(__file__).resolve().parent / "configs" / "msr3d.yaml"),
+            f"data.scan_family_base={data}/scan_family", f"data.rscan_base={data}/rscan",
+            f"data.ARkit_base={data}/arkit", f"data.msr3d_base={data}/msr3d",
+            f"model.llm.cfg_path={root / 'vicuna7b'}", "model.llm.flash_attention=true",
+            "debug.flag=true", f"debug.debug_size={DP_DEBUG_SIZE}", "task.msqa_scannet.mode=[val]",
+            "task.msqa_3rscan.mode=[]", "task.msqa_arkitscenes.mode=[]", "solver.epochs=1",
+            "solver.num_batch_eval=0", f"model.llm.max_out_len={DP_NEW_TOKENS}", f"exp_dir={exp}",
+            *extra]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_launcher(args, what: str):
+    """``python -m msr3d_tpu_torch.launch args`` from the repository root; its
+    ranks' ``run summary`` lines, by rank, the digests of the trainable
+    parameters that the trainer of a multi-rank run logs after training (it
+    raises when the ranks' differ), and the seconds it took. The launcher
+    and its ranks share a session that a timeout kills whole."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "msr3d_tpu_torch.launch", *args]
+    print(f"  ({what}) {' '.join(cmd[1:5])} ... {' '.join(args[-4:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out[-6000:])
+        raise SmokeFailure(f"({what}) the launcher ran past {DP_TIMEOUT_S} s")
+    took = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(out[-6000:])
+        raise SmokeFailure(f"({what}) the launcher exited with {proc.returncode}")
+    summaries = sorted((json.loads(m) for m in re.findall(r"run summary (\{.*\})", out)),
+                       key=lambda m: m["rank"])
+    digests = re.findall(r"agree across \d+ ranks after training \(sha256 (\w+)\)", out)
+    return summaries, digests, took
+
+
+def dp_gates(exp: Path, summaries, digests, world: int, backend: str, eval_batches: int,
+             what: str):
+    """The gates (a) and (b) share: the world, the backend, one step, each
+    val sample scored once in one results.json, the files written once (one
+    metrics line a logged step), every rank's kernels on the path and, with
+    more than one rank, its parameters bit-equal to the others' (the
+    trainer's own check after training, one digest a rank)."""
+    check([(m["rank"], m["world"], m["backend"]) for m in summaries]
+          == [(r, world, backend) for r in range(world)],
+          f"({what}) {world} rank(s) over {backend}")
+    check(all(m["steps"] == 1 for m in summaries), f"({what}) one optimizer step on each rank")
+    results = json.loads((exp / "eval" / "msqa_scannet" / "results.json").read_text())
+    indices = sorted(str(r["index"]) for r in results)
+    print(f"  ({what}) results.json: {len(results)} records, indices {indices}")
+    check(len(results) == DP_DEBUG_SIZE and len(set(indices)) == DP_DEBUG_SIZE,
+          f"({what}) results.json scores each of the {DP_DEBUG_SIZE} val samples once")
+    metrics = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    check([m["step"] for m in metrics if "train/loss" in m] == [1]
+          and sum(any(k.startswith("val/") for k in m) for m in metrics) == 1
+          and sorted(q.name for q in (exp / "ckpt" / "state").iterdir()) == ["1.pt"]
+          and (exp / "ckpt" / "latest.pt").exists() and (exp / "config.yaml").exists(),
+          f"({what}) metrics.jsonl, the checkpoint and the snapshot written once")
+    micro = TRAIN_ACCUM
+    want = {"fps": 2 * (micro + eval_batches), "flash_attn_fwd": 32 * (micro + eval_batches),
+            "flash_attn_bwd_dq": 32 * micro, "flash_attn_bwd_dkv": 32 * micro}
+    for m in summaries:
+        print(f"  ({what}) rank {m['rank']} on {m['device']}: launches {m['launches']}, step "
+              f"{' / '.join(f'{t:.1f}' for t in m['step_ms'])} ms, peak {m['peak_gib']:.2f} GiB")
+    check(all(m["launches"] == want for m in summaries),
+          f"({what}) each rank launched K1, K2f, K2dq, K2dkv {want} ({micro} micro-batches, "
+          f"{eval_batches} eval batches)")
+    if world > 1:
+        check(len(digests) == world and len(set(digests)) == 1,
+              f"({what}) the trainable parameters bit-equal across ranks after the step "
+              f"(the trainer's check, {world} equal digests)")
+
+
+def dp_nccl_reduce() -> dict:
+    """(a)'s collective: ``TrainStep``'s flat gradient reduction (an fp32 cat
+    of the gradients and the loss, one ``all_reduce`` through
+    ``mesh.all_reduce_sum_``, a divide, a split) on the card, under the
+    world-1 NCCL group that ``initialize_distributed_from_env`` joins from
+    the env contract, as a rank of a card a rank does. The gradients are
+    DP_FLAT_VALUES random fp32 values (the flagship's trainable count) in
+    DP_FLAT_TENSORS tensors. At world 1 the sum is the buffer itself, so
+    they and the loss come back bit-unchanged. Its device time is printed;
+    at world 1 NCCL moves nothing between cards."""
+    import os
+
+    import torch.distributed as dist
+
+    from msr3d_tpu_torch.parallel import mesh
+    from msr3d_tpu_torch.trainer.train_state import TrainStep
+
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), MSR3D_DIST_TIMEOUT_S="120")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(mesh.initialize_distributed_from_env("cuda") and dist.get_backend() == "nccl"
+              and mesh.world_size() == 1,
+              "(a) initialize_distributed_from_env joins a world of 1 over nccl in this process")
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        sizes = [DP_FLAT_VALUES // DP_FLAT_TENSORS] * DP_FLAT_TENSORS
+        sizes[-1] += DP_FLAT_VALUES - sum(sizes)
+        grads = [torch.randn(n, device="cuda", generator=gen) for n in sizes]
+        loss = torch.randn((), device="cuda", generator=gen)
+        step = TrainStep(None, {}, None, None, data_parallel=1)
+        out, out_loss = step._average_over_ranks(grads, loss)
+        same = all(torch.equal(a, b) for a, b in zip(out, grads)) and torch.equal(out_loss, loss)
+        ms = time_ms(lambda: step._average_over_ranks(grads, loss), iters=5, warmup=1)
+        buf = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        reduce_ms = time_ms(lambda: mesh.all_reduce_sum_(buf), iters=5, warmup=1)
+        print(f"  (a) TrainStep's flat reduction of {DP_FLAT_VALUES} fp32 values in "
+              f"{DP_FLAT_TENSORS} tensors and the loss over nccl at world 1: "
+              f"{'bit-unchanged' if same else 'CHANGED'}; {ms:.3f} ms (cat, all_reduce, "
+              f"divide, split), the all_reduce alone {reduce_ms:.3f} ms")
+        check(same, "(a) the flat NCCL all-reduce at world 1 gives the gradients and the "
+                    "loss back bit-unchanged")
+    finally:
+        mesh.destroy()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return dict(values=DP_FLAT_VALUES, ms=ms, all_reduce_ms=reduce_ms)
+
+
+def dp_collate(items):
+    out = {}
+    for k in items[0]:
+        vals = [it[k] for it in items]
+        out[k] = np.stack(vals) if isinstance(vals[0], np.ndarray) else list(vals)
+    return out
+
+
+class DpRows:
+    """Rows ``lo:hi`` of each global batch, one batch a loader step."""
+
+    def __init__(self, batches, lo: int, hi: int):
+        self.batches, self.lo, self.hi = batches, lo, hi
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for b in self.batches:
+            yield {k: v[self.lo:self.hi] for k, v in b.items()}
+
+
+class DpTexts:
+    """An evaluator that keeps each sample's text by its index."""
+
+    def __init__(self):
+        self.texts = {}
+
+    def reset(self):
+        self.texts = {}
+
+    def update(self, record):
+        self.texts.update(zip((int(i) for i in record["index"]), record["output_text"]))
+
+    def record(self, split):
+        return False, {"n": len(self.texts)}
+
+
+def dp_exact_job(out: Path, dev=None) -> dict:
+    """(c) at one rank or each of two: the fp32 model at the flagship width
+    and EXACT_LAYERS layers with the spatial encoder's dropout at 0 (each
+    rank draws its own masks, so with dropout the runs differ by design, as
+    the CPU parity tests say), ``eval_task`` over DP_EXACT_EVAL samples at batch
+    1 (this rank's shard), then one ``LeoTrainer`` step over this rank's rows
+    of DP_EXACT_ACCUM global batches of 4; the loss, the gradients the
+    optimizer took and the trainable parameters are written to ``out``."""
+    from msr3d_tpu_torch.data.build import DataLoader
+    from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, SpatialEncoderConfig
+    from msr3d_tpu_torch.parallel import mesh
+    from msr3d_tpu_torch.serving import uncollate_batch
+    from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r, w = mesh.rank(), mesh.world_size()
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    model = build_exact_model(dev, ByteTokenizer(), OSE3DConfig(
+        spatial_encoder=SpatialEncoderConfig(dropout=0.0)))
+    samples = uncollate_batch(make_requests(seed=21, b=DP_EXACT_EVAL))
+    for i, sample in enumerate(samples):
+        sample["index"] = i
+    rows = N_REQUESTS // w
+    trainer = LeoTrainer(
+        dict(trainer_cfg(out / f"exp{w}", accum=DP_EXACT_ACCUM, lr=0.1, warmup=1),
+             fixed_text_buckets=True),
+        loaders={"train": {"train": DpRows(make_train_batches(DP_EXACT_ACCUM, images=False),
+                                           r * rows, (r + 1) * rows)},
+                 "eval": {"val": DataLoader(samples, batch_size=1, collate_fn=dp_collate,
+                                            prefetch=0, num_shards=w, shard_id=r)}},
+        evaluators={"eval": DpTexts()}, model=model)
+    trainer.eval_task("eval", "val")
+    texts = trainer.evaluators["eval"].texts
+    grads, step = {}, trainer.optimizer.step
+
+    def recording(g):
+        grads.update({n: t.detach().cpu().clone() for n, t in g.items()})
+        return step(g)
+
+    trainer.optimizer.step = recording
+    loss = trainer.train_one_epoch(0)["loss"]  # the one step's, all-reduced
+    trainer.logger.close()
+    torch.save({"grads": grads, "params": {n: p.detach().cpu().clone()
+                                           for n, p in trainer.params.items()}},
+               out / f"exact_w{w}_r{r}.pt")
+    return dict(rank=r, world=w, loss=loss, steps=trainer.step,
+                texts={str(k): v for k, v in texts.items()},
+                digest=mesh.tensors_digest(trainer.params), lr=float(trainer.schedule(0)),
+                eps=trainer.optimizer.eps)
+
+
+def dp_exact_rank(out: str) -> None:
+    """One rank of (c), under the env contract the phase sets."""
+    from msr3d_tpu_torch.parallel import mesh
+
+    assert mesh.initialize_distributed_from_env("cuda"), "no env contract"
+    try:
+        result = dp_exact_job(Path(out))
+        (Path(out) / f"exact_rank{mesh.rank()}.json").write_text(json.dumps(result))
+    finally:
+        mesh.destroy()
+
+
+def dp_exact(out: Path):
+    """(c): two ranks on the card's one device over gloo against one process."""
+    import os
+
+    out.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   MSR3D_DIST_TIMEOUT_S="300")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as cs; cs.dp_exact_rank({str(out)!r})"],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    one = dp_exact_job(out)  # the one process, while the ranks run
+    logs, failed = [], False
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0])
+        failed |= p.returncode != 0
+    if failed:
+        for r, log in enumerate(logs):
+            print(f"  (c) rank {r}:\n{log[-4000:]}")
+        raise SmokeFailure("(c) a rank failed")
+    ranks = [json.loads((out / f"exact_rank{r}.json").read_text()) for r in range(2)]
+    return one, ranks
+
+
+def dp_exact_gates(out: Path, one, ranks) -> dict:
+    """(c)'s gates: one step on each side; the ranks' loss and the averaged
+    gradients the optimizer took (each tensor, in norm) within 1e-5 relative
+    of the one process's (the spatial attention's key bias, whose true
+    gradient is 0 and whose computed one is rounding noise, within 1e-5 of
+    the global gradient norm); the ranks' parameters bit-equal to each
+    other's; the same eval texts. The parameters are not held to 1e-5
+    relative: AdamW's first step moves an element by lr·u, u = g/(|g| +
+    eps) (the decay lr·wd·p is the same in both runs), which maps a gradient
+    of rounding noise about 0 to about ±lr, so two runs whose gradients part
+    by 1e-6 may step apart by up to 2·lr. Each element is held instead to
+    the step AdamW computes from the two captured gradients, |p₂ − p₁| <=
+    lr·|u₂ − u₁| + 1e-5·|p₁| + 2e-5·lr (fp32 rounding of the step): the
+    parameters must have moved as the two gradients say, where those share
+    a sign and where they do not."""
+    rel = 1e-5
+    check(ranks[0]["loss"] == ranks[1]["loss"] and ranks[0]["digest"] == ranks[1]["digest"],
+          "(c) both ranks report the same loss and hold bit-equal parameters")
+    check(one["steps"] == ranks[0]["steps"] == ranks[1]["steps"] == 1,
+          "(c) one optimizer step at one rank and at two")
+    loss_err = abs(ranks[0]["loss"] - one["loss"]) / abs(one["loss"])
+    want = torch.load(out / "exact_w1_r0.pt")
+    got = torch.load(out / "exact_w2_r0.pt")
+    total = float(torch.sqrt(sum(g.double().square().sum() for g in want["grads"].values())))
+    grad_err = max(float((got["grads"][n] - g).norm()) / (
+        total if n.endswith("self_attn.w_ks.bias") else float(g.norm()))
+        for n, g in want["grads"].items() if bool(g.any()))
+    lr, eps = one["lr"], one["eps"]
+    param_err, flip_err, flips, elements = 0.0, 0.0, 0, 0
+    for n, p1 in want["params"].items():
+        g1, g2 = want["grads"][n].double(), got["grads"][n].double()
+        same = torch.sign(g1) == torch.sign(g2)
+        step = (g2 / (g2.abs() + eps) - g1 / (g1.abs() + eps)).abs()
+        allowed = rel * p1.double().abs() + lr * (step + 2 * rel)
+        ratio = (got["params"][n].double() - p1.double()).abs() / allowed
+        param_err = max(param_err, float(ratio[same].max()) if bool(same.any()) else 0.0)
+        if not bool(same.all()):
+            flip_err = max(flip_err, float(ratio[~same].max()))
+        flips += int((~same).sum())
+        elements += p1.numel()
+    texts_equal = one["texts"] == ranks[0]["texts"] == ranks[1]["texts"]
+    print(f"  (c) fp32, {EXACT_LAYERS} layers at the flagship width, one step of "
+          f"{N_REQUESTS} x {DP_EXACT_ACCUM}: loss {one['loss']!r} (one process) against "
+          f"{ranks[0]['loss']!r} (two ranks), relative {loss_err:.3e}; the gradients the "
+          f"optimizer took, max relative (a tensor, in norm) {grad_err:.3e}; parameters, max "
+          f"|diff| / (lr·|u₂ − u₁|, AdamW's step from the two gradients, + 1e-5·|p| + "
+          f"2e-5·lr) over {elements} elements: {param_err:.6f} where the gradients share a "
+          f"sign, {flip_err:.6f} at the {flips} where they do not (lr {lr:.1e})")
+    print(f"  (c) eval_task texts ({DP_EXACT_EVAL} samples at batch 1, beam {BEAMS}): "
+          f"{'equal' if texts_equal else 'DIFFERENT'}; indices {sorted(ranks[0]['texts'])}")
+    check(loss_err <= rel and grad_err <= rel and max(param_err, flip_err) <= 1.0,
+          f"(c) the two ranks' loss and averaged gradients within {rel} relative of the one "
+          "process's on the global batch, and every parameter within the step AdamW computes "
+          "from the two gradients")
+    check(texts_equal and sorted(ranks[0]["texts"]) == [str(i) for i in range(DP_EXACT_EVAL)],
+          "(c) the two-rank eval_task gives the one process's texts, each sample once")
+    return dict(loss_err=loss_err, grad_err=grad_err, param_err=param_err, flip_err=flip_err,
+                flips=flips)
+
+
+def phase_dp(exp_root: Path):
+    print(f"== phase 18: data parallelism (python -m msr3d_tpu_torch.launch --mode accelerate "
+          f"on configs/msr3d.yaml over phase 10's tree: one step of {N_REQUESTS} x "
+          f"{TRAIN_ACCUM}, then val of {DP_DEBUG_SIZE} samples; on {card_line()})")
+    root = exp_root / "dp"
+    # (a) the launcher at the card count (one rank): NCCL, a world of 1
+    exp_a = root / "a"
+    one, _, took_a = run_launcher(["--mode", "accelerate", "--port", str(free_port()),
+                                   *dp_argv(exp_root, exp_a)], "a")
+    print(f"  (a) {took_a:.1f} s (start, build, init, data, one step, val)")
+    dp_gates(exp_a, one, [], 1, "nccl", eval_batches=-(-DP_DEBUG_SIZE // N_REQUESTS), what="a")
+    flat = dp_nccl_reduce()
+    # (b) two ranks sharing the one card over gloo, 2 samples a rank a micro-batch
+    exp_b = root / "b"
+    two, digests, took_b = run_launcher(["--mode", "accelerate", "--num_processes", "2", "--port",
+                                str(free_port()), *dp_argv(exp_root, exp_b,
+                                "dataloader.train.batchsize=2", "dataloader.eval.batchsize=2")],
+                               "b")
+    print(f"  (b) {took_b:.1f} s; two ranks share one card, so each is slower than (a)'s "
+          f"one: step {two[0]['step_ms'][0]:.1f} / {two[1]['step_ms'][0]:.1f} ms against "
+          f"{one[0]['step_ms'][0]:.1f}, peak {two[0]['peak_gib']:.2f} / {two[1]['peak_gib']:.2f} "
+          f"GiB against {one[0]['peak_gib']:.2f}")
+    dp_gates(exp_b, two, digests, 2, "gloo", eval_batches=-(-DP_DEBUG_SIZE // N_REQUESTS),
+             what="b")
+    # (c) the exact gate
+    t0 = time.perf_counter()
+    exact_one, exact_ranks = dp_exact(root / "c")
+    exact = dp_exact_gates(root / "c", exact_one, exact_ranks)
+    print(f"  (c) {time.perf_counter() - t0:.1f} s")
+    return dict(a=one, b=two, c=exact, flat=flat, seconds=dict(a=took_a, b=took_b))
+
+
+def phase18_launches(out, kernel: str) -> dict:
+    """Phase 18's launches of one kernel for the kernels line: the one-rank
+    run (a) and each rank of the two-rank run (b)."""
+    return dict(launches_dp_one_rank=out["a"][0]["launches"][kernel],
+                launches_dp=[m["launches"][kernel] for m in out["b"]])
+
+
 def phase17_launches(out, kernel: str) -> dict:
     """Phase 17's launches of one kernel for the kernels line: a step of
     TRAIN_ACCUM micro-batches under each remat policy, and the entry's step
@@ -4444,6 +4832,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         options = timed(phase_train_options, exp_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp = timed(phase_dp, exp_root)  # on phase 10's tree and cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4471,7 +4862,10 @@ def main() -> int:
         # beam pool and its HTTP traffic; launches_remat_*: phase 17 (a), one
         # step of TRAIN_ACCUM micro-batches without remat and under each
         # policy, launches_remat_entry (b) the entry's step with dots,
-        # launches_train_bn (d) the unfrozen encoder's training forward
+        # launches_train_bn (d) the unfrozen encoder's training forward;
+        # launches_dp: phase 18 (b), each of the two ranks' run (one step of
+        # TRAIN_ACCUM micro-batches, two eval batches), launches_dp_one_rank
+        # (a) the launcher's one-rank run
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -4482,7 +4876,7 @@ def main() -> int:
              launches_leo_modes=sum(r["launches"] for r in leo["modes"].values()),
              launches_crops=crops["launches"]["fps"], eval_batches_crops=crops["eval_batches"],
              **phase15_launches(serving2, "fps"), **phase16_launches(pool, "fps"),
-             **phase17_launches(options, "fps"), **fps_row),
+             **phase17_launches(options, "fps"), **phase18_launches(dp, "fps"), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -4497,7 +4891,8 @@ def main() -> int:
              eval_batches_crops=crops["eval_batches"],
              **phase15_launches(serving2, "flash_attn_fwd"),
              **phase16_launches(pool, "flash_attn_fwd"),
-             **phase17_launches(options, "flash_attn_fwd"), **flash_row),
+             **phase17_launches(options, "flash_attn_fwd"),
+             **phase18_launches(dp, "flash_attn_fwd"), **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
@@ -4505,7 +4900,8 @@ def main() -> int:
              launches_eval=ev["flash_attn_bwd_dq"],
              launches_leo=leo["launches"]["flash_attn_bwd_dq"],
              launches_crops=crops["launches"]["flash_attn_bwd_dq"],
-             **phase17_launches(options, "flash_attn_bwd_dq"), **dq_row),
+             **phase17_launches(options, "flash_attn_bwd_dq"),
+             **phase18_launches(dp, "flash_attn_bwd_dq"), **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
@@ -4513,7 +4909,8 @@ def main() -> int:
              launches_eval=ev["flash_attn_bwd_dkv"],
              launches_leo=leo["launches"]["flash_attn_bwd_dkv"],
              launches_crops=crops["launches"]["flash_attn_bwd_dkv"],
-             **phase17_launches(options, "flash_attn_bwd_dkv"), **dkv_row),
+             **phase17_launches(options, "flash_attn_bwd_dkv"),
+             **phase18_launches(dp, "flash_attn_bwd_dkv"), **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands

@@ -7,10 +7,10 @@ shuffling sampler, the wrapper's collate, a prefetch thread or fork
 workers); ``build_task_loaders(cfg)`` builds every task × split loader.
 
 The loaders yield numpy and strings and never touch CUDA: the trainer moves
-each batch to the card. One process loads the whole data set: with
-``torch.distributed`` initialised over more than one rank the builders
-raise (ROADMAP.md, queue: parallelism), and the JAX package's ``grain``
-backend is not ported.
+each batch to the card. With ``torch.distributed`` initialised over more
+than one rank each rank's loader takes its own shard of the split
+(``num_shards``/``shard_id``, below). The JAX package's ``grain`` backend
+is not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from msr3d_tpu_torch.data.datasets import dataset_wrapper as _dw  # noqa: F401 (
 from msr3d_tpu_torch.data.datasets import msr3d as _msr3d  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import one_step_navi as _osn  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import sqa3d as _sqa  # noqa: F401 (registers)
+from msr3d_tpu_torch.parallel.mesh import rank, world_size
 from msr3d_tpu_torch.registry import DATASET_REGISTRY, DATASETWRAPPER_REGISTRY
 
 # worker-process globals (fork start method: the dataset is inherited by
@@ -52,11 +53,23 @@ class DataLoader:
     ``shuffle`` (``epoch`` stays 0 unless ``set_epoch`` is called, as in
     the JAX trainer); ``drop_last`` drops the short tail batch. An iterator
     left early stops its prefetch thread.
+
+    Sharded (``num_shards`` > 1, one shard a rank): every rank draws the
+    same global order and takes the strided slice ``shard_id::num_shards``
+    of it, as torch's ``DistributedSampler`` and the JAX loader do. Train
+    (``drop_last``) truncates the order to a multiple of ``num_shards``;
+    eval wrap-pads it to one, and ``padded_tail`` says how many of this
+    shard's last samples are wrap-around duplicates (0 or 1), which the
+    eval loop drops. So every shard yields the same number of batches, and
+    no rank waits on a collective that another never reaches.
     """
 
     def __init__(self, dataset, batch_size: int = 4, shuffle: bool = False,
                  drop_last: bool = False, collate_fn=None, seed: int = 42,
-                 prefetch: int = 2, num_workers: int = 0):
+                 prefetch: int = 2, num_workers: int = 0, num_shards: int = 1,
+                 shard_id: int = 0):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} outside num_shards {num_shards}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -66,9 +79,28 @@ class DataLoader:
         self.prefetch = prefetch
         self.num_workers = num_workers
         self.epoch = 0
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+
+    def _shard_samples(self) -> int:
+        """Samples this shard yields an epoch (the same for every shard)."""
+        n = len(self.dataset)
+        if self.num_shards <= 1:
+            return n
+        if self.drop_last:
+            return n // self.num_shards
+        return -(-n // self.num_shards)
+
+    @property
+    def padded_tail(self) -> int:
+        """How many of this shard's last samples are wrap-around duplicates."""
+        n = len(self.dataset)
+        if self.num_shards <= 1 or self.drop_last or n % self.num_shards == 0:
+            return 0
+        return 1 if self.shard_id >= n % self.num_shards else 0
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._shard_samples()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -77,9 +109,19 @@ class DataLoader:
         self.epoch = epoch
 
     def _indices(self) -> List[int]:
-        idx = np.arange(len(self.dataset))
+        n = len(self.dataset)
+        idx = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        k = self.num_shards
+        if k > 1:
+            if self.drop_last:
+                idx = idx[:(n // k) * k]
+            elif n % k:
+                # the order repeated from its start; JAX's loader pads with
+                # idx[:k - n % k], which falls short when n < k - n % k
+                idx = np.resize(idx, -(-n // k) * k)
+            idx = idx[self.shard_id::k]
         return idx.tolist()
 
     def _batches(self) -> Iterator[List[int]]:
@@ -150,20 +192,11 @@ class DataLoader:
             yield from pool.imap(_worker_load, self._batches())
 
 
-def check_single_process() -> None:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "sharding the data over torch.distributed ranks is not ported yet "
-            "(ROADMAP.md, queue: parallelism)")
-
-
 def build_dataloader_leo(cfg, dataset_name: str, dataset_wrapper_name: str,
                          dataset_wrapper_args, dataloader_args, split: str) -> DataLoader:
     """Build the dataset, chain the wrapper, and a DataLoader with the
-    wrapper's collate (shuffled and dropping the tail for ``train``)."""
-    check_single_process()
+    wrapper's collate (shuffled and dropping the tail for ``train``); with
+    more than one rank, this rank's shard of it."""
     if dataloader_args.get("backend", "") == "grain":
         raise NotImplementedError("the grain loader backend is not ported")
     dataset = DATASET_REGISTRY.get(dataset_name)(cfg, split)
@@ -171,6 +204,9 @@ def build_dataloader_leo(cfg, dataset_name: str, dataset_wrapper_name: str,
     if dataset_wrapper_name:
         wrapper = DATASETWRAPPER_REGISTRY.get(dataset_wrapper_name)(
             cfg, dataset, dataset_wrapper_args)
+    shards = {}
+    if world_size() > 1:
+        shards = dict(num_shards=world_size(), shard_id=rank())
     return DataLoader(
         wrapper,
         batch_size=dataloader_args.get("batchsize", 4),
@@ -179,6 +215,7 @@ def build_dataloader_leo(cfg, dataset_name: str, dataset_wrapper_name: str,
         collate_fn=getattr(wrapper, "collate_fn", None),
         seed=int(cfg.get("rng_seed", 42)),
         num_workers=dataloader_args.get("num_workers", 0),
+        **shards,
     )
 
 

@@ -12,15 +12,27 @@ and test, any other mode (``test``, ``eval``) evaluates the test split from
 the ``best`` weights when there are some. It runs on the GPU; ``device=cpu`` picks
 the CPU, and without a GPU any other device raises. The JAX-only keys
 ``jax_platform`` and ``compile_cache*`` are ignored with a log line.
+
+Under the ``torch.distributed`` env contract (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``, as ``python -m msr3d_tpu_torch.launch
+--mode accelerate`` sets it) the process joins the group as one rank of a
+data-parallel run on its own card (``cuda:LOCAL_RANK``), rank 0 alone writes
+the snapshot, and the group is left on the way out, also on an exception.
+Each rank ends with a ``run summary`` log line: its rank, backend, device,
+steps and their ms, peak device memory and its kernels' launches.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 from pathlib import Path
+
+import torch
 
 from msr3d_tpu_torch.config import load_config, save_config
 from msr3d_tpu_torch.device import resolve_device
+from msr3d_tpu_torch.parallel import mesh
 from msr3d_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("msr3d_tpu_torch.run")
@@ -48,20 +60,49 @@ def main(argv=None):
 
     cfg = load_config(args.config, overrides=[o for o in args.opts if "=" in o])
     device = resolve_device(cfg.get("device"))
-    cfg["device"] = str(device)
-    for key in cfg:
-        if key == "jax_platform" or key.startswith("compile_cache"):
-            logger.info(f"ignoring {key}={cfg.get(key)!r}: a JAX-only setting")
-    cfg["exp_dir"] = compose_exp_dir(cfg)
-    Path(cfg.exp_dir).mkdir(parents=True, exist_ok=True)
-    save_config(cfg, Path(cfg.exp_dir) / "config.yaml")
-    logger.info(f"exp_dir: {cfg.exp_dir}, device: {device}")
+    joined = mesh.initialize_distributed_from_env(device.type)
+    try:
+        device = mesh.rank_device(device)
+        cfg["device"] = str(device)
+        for key in cfg:
+            if key == "jax_platform" or key.startswith("compile_cache"):
+                logger.info(f"ignoring {key}={cfg.get(key)!r}: a JAX-only setting")
+        cfg["exp_dir"] = compose_exp_dir(cfg)
+        Path(cfg.exp_dir).mkdir(parents=True, exist_ok=True)
+        if mesh.is_main_process():
+            save_config(cfg, Path(cfg.exp_dir) / "config.yaml")
+        logger.info(f"exp_dir: {cfg.exp_dir}, device: {device}, rank {mesh.rank()} of "
+                    f"{mesh.world_size()}")
 
-    from msr3d_tpu_torch.trainer.leo_trainer import build_trainer
+        from msr3d_tpu_torch.trainer.leo_trainer import build_trainer
 
-    trainer = build_trainer(cfg)
-    trainer.run()
-    return trainer
+        trainer = build_trainer(cfg)
+        trainer.run()
+        logger.info(f"run summary {json.dumps(run_summary(trainer, device))}")
+        return trainer
+    finally:
+        if joined:
+            mesh.destroy()
+
+
+def run_summary(trainer, device: torch.device) -> dict:
+    """What this rank did: steps, their ms (dispatch to read), peak device
+    memory and each kernel's launches."""
+    import torch.distributed as dist
+
+    import msr3d_tpu_torch.ops.flash_attention as fa
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+
+    kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL)
+    return {
+        "rank": mesh.rank(), "world": mesh.world_size(),
+        "backend": dist.get_backend() if dist.is_initialized() else None,
+        "device": str(device), "steps": trainer.step,
+        "step_ms": [1e3 * t for t in trainer.timer.history],
+        "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                     if device.type == "cuda" else None),
+        "launches": {k.symbol.replace("_launch", ""): k.launches for k in kernels},
+    }
 
 
 if __name__ == "__main__":

@@ -20,6 +20,11 @@ thread, so training goes on while the file streams to disk; saves run one
 after another in the order they were made, and ``wait()`` fences them (the
 restore, ``latest_step`` and the end of a run wait), as orbax's
 ``wait_until_finished`` does in the JAX package.
+
+With several ranks only rank 0 writes (``write=False`` elsewhere: the saves
+do nothing) into the one shared directory, which every rank reads; the
+trainer puts a barrier after each save. The JAX package writes from every
+process into its own directory.
 """
 
 from __future__ import annotations
@@ -74,11 +79,12 @@ def _to_cpu(obj: Any) -> Any:
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str | Path, async_save: bool = False):
+    def __init__(self, ckpt_dir: str | Path, async_save: bool = False, write: bool = True):
         self.dir = Path(ckpt_dir).resolve()
         self.state_dir = self.dir / "state"
         self.state_dir.mkdir(parents=True, exist_ok=True)
         self.async_save = bool(async_save)
+        self.write = write
         self._writer: Optional[ThreadPoolExecutor] = None  # one thread: saves in order
         self._pending: list[Future] = []
 
@@ -95,6 +101,8 @@ class CheckpointManager:
     def save_state(self, step: int, state: Dict[str, Any], tracker: Tracker) -> None:
         """``state``: {"params", "opt_state", "step"}; overwrites ``step``.
         With ``async_save`` it returns once the CPU copy is taken."""
+        if not self.write:
+            return
         saved = {"state": _to_cpu(state), "tracker": tracker.state_dict()}
         if not self.async_save:
             self._write_state(step, saved)
@@ -135,7 +143,8 @@ class CheckpointManager:
     # -- weights-only (learnable params) -------------------------------------
 
     def save_weights(self, name: str, learnable: Dict[str, torch.Tensor]) -> None:
-        _save(learnable, self.dir / f"{name}.pt")
+        if self.write:
+            _save(learnable, self.dir / f"{name}.pt")
 
     def load_weights(self, name: str) -> Dict[str, torch.Tensor]:
         return torch.load(self.dir / f"{name}.pt", map_location="cpu", weights_only=True)

@@ -54,9 +54,25 @@ saves the learnable weights as ``best``. Any ``mode`` but ``train`` (``test``,
 ``eval``) loads ``best`` when there is one and evaluates the test split; a
 config without a train task builds no optimizer.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-queue): more than one ``torch.distributed`` rank, ``parallel.tp/pp/sp > 1``
-and fixed multi-host text buckets. Training with the point encoder unfrozen
+Data parallelism (one process a rank over ``torch.distributed``,
+``parallel/mesh.py``): dp is the world size. Each rank's loaders hold its
+shard of each split (``data/build.py``), so every rank takes the same number
+of micro-batches a step, which the step checks; ``TrainStep`` averages the
+trainable gradients and the loss over the ranks. The trainable parameters
+start bit-equal on every rank (seeded init, a digest gathered after init and
+after a resume) and must end so (the same check after training raises on a
+divergence); each rank's dropout generator is seeded from ``rng_seed``
+plus its rank. Text widths are the fixed buckets of ``fixed_text_buckets``
+on every multi-rank run (``prompt_pad_to`` and ``max_out_len`` rounded up to
+32), as in the JAX trainer. Evaluation drops the last batch's wrap-around
+duplicates (``padded_tail``) and gathers every rank's records, rank 0's
+first, into each rank's evaluator. Rank 0 alone writes ``metrics.jsonl``,
+``results.json`` and the checkpoints, and a barrier follows each save; a
+preemption signal stops every rank at the same step boundary (the ranks
+agree the flag with each step's micro-batch count).
+
+Not ported yet: ``parallel.tp/pp/sp > 1`` (``NotImplementedError`` naming
+ROADMAP.md's queue). Training with the point encoder unfrozen
 (``vision.args.freeze: False``) raises ``ValueError``: the JAX trainer fails
 on it (its train step does not make ``batch_stats`` mutable), so the port
 does not run it either; evaluation with it runs.
@@ -76,8 +92,16 @@ import numpy as np
 import torch
 
 from msr3d_tpu_torch.config import Config, cfg2dict, config_from_dict
-from msr3d_tpu_torch.data.build import check_single_process
 from msr3d_tpu_torch.optim.build import build_optim
+from msr3d_tpu_torch.parallel.mesh import (
+    all_reduce_max,
+    barrier,
+    check_replicas_equal,
+    data_parallel_size,
+    is_main_process,
+    process_allgather_objects,
+    rank,
+)
 from msr3d_tpu_torch.registry import TRAINER_REGISTRY
 from msr3d_tpu_torch.trainer.checkpoint import CheckpointManager, Tracker
 from msr3d_tpu_torch.trainer.train_state import TrainStep, filter_learnable, merge_learnable
@@ -94,10 +118,6 @@ _RECORD_KEYS = ("answer_list", "answer_label", "text_output", "data_idx", "sqa_t
 class Preempted(Exception):
     """Raised at an optimizer-step boundary after SIGTERM/SIGUSR1; the
     epoch loop saves the full training state and returns."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def _cfg(cfg: Mapping[str, Any], path: str, default=None):
@@ -144,7 +164,9 @@ class LeoTrainer:
         # generation (the configs' route) or retrieval scoring over the
         # dataset's answer vocabulary
         self.inference_mode = _cfg(cfg, "model.llm.inference_mode", "generation")
-        check_single_process()
+        # dp: every rank (tp, pp and sp still raise)
+        self.dp = data_parallel_size(cfg.get("parallel") or {})
+        self.fixed_text_buckets = self.dp > 1 or bool(cfg.get("fixed_text_buckets", False))
         if loaders is None:
             from msr3d_tpu_torch.data.build import build_task_loaders
 
@@ -154,7 +176,6 @@ class LeoTrainer:
             from msr3d_tpu_torch.models.build import build_model
 
             model = build_model(config)
-        self._check_ported(cfg)
         if built:  # weights after the checks: a 7B init is not cheap
             from msr3d_tpu_torch.models.load_weights import load_pretrained_from_config
 
@@ -169,8 +190,13 @@ class LeoTrainer:
             from msr3d_tpu_torch.evaluator.build import build_task_evaluators
 
             evaluators = build_task_evaluators(cfg, self.exp_dir)
+        if not is_main_process():  # rank 0 writes results.json
+            for evaluator in evaluators.values():
+                if hasattr(evaluator, "save"):
+                    evaluator.save = False
         self.evaluators = evaluators
         self._preempted = False  # set by the SIGTERM/SIGUSR1 handler
+        self._stop = False  # the ranks' agreed preemption flag (dp > 1)
 
         solver = cfg["solver"]
         self.epochs = int(solver["epochs"])
@@ -200,7 +226,7 @@ class LeoTrainer:
 
         self.trainable_names = model.trainable_parameter_names()
         self.generator = torch.Generator(device=model.device)
-        self.generator.manual_seed(int(cfg.get("rng_seed", 42)))
+        self.generator.manual_seed(int(cfg.get("rng_seed", 42)) + rank())
         self.optimizer = self.schedule = self._train_step = None
         if self.train_loader is not None:  # evaluation alone needs no optimizer
             named = dict(model.network.named_parameters())
@@ -208,43 +234,55 @@ class LeoTrainer:
             self.optimizer, self.schedule, grad_norm = build_optim(cfg, total_steps,
                                                                    self.params)
             self._train_step = TrainStep(self._micro_batch_loss, self.params,
-                                         self.optimizer, grad_norm)
+                                         self.optimizer, grad_norm, data_parallel=self.dp)
 
         self.tracker = Tracker(run_id=str(uuid.uuid4())[:8])
         self.ckpt = CheckpointManager(self.exp_dir / "ckpt",
-                                      async_save=bool(cfg.get("async_checkpoint", False)))
-        self.logger = MetricLogger(exp_dir=self.exp_dir)
+                                      async_save=bool(cfg.get("async_checkpoint", False)),
+                                      write=is_main_process())
+        self.logger = MetricLogger(exp_dir=self.exp_dir, write=is_main_process())
         self.timer = StepTimer()
         self.data_wait_history: List[float] = []  # seconds the loop waited on the loader, a step
         if cfg.get("resume", False) and self._train_step is not None:
             self._try_resume()
+        if self.dp > 1:
+            self._check_replicas("after init" + (" and resume" if cfg.get("resume") else ""))
 
     @property
     def step(self) -> int:
         """Optimizer steps taken (0 without a train loader)."""
         return self._train_step.step_count if self._train_step is not None else 0
 
-    def _check_ported(self, cfg) -> None:
-        for axis in ("tp", "pp", "sp"):
-            if int(_cfg(cfg, f"parallel.{axis}", 1)) > 1:
-                raise _not_ported(f"parallel.{axis} > 1", "ROADMAP.md, queue: parallelism")
-        if cfg.get("fixed_text_buckets", False):
-            raise _not_ported("fixed_text_buckets (the multi-host text widths)",
-                              "ROADMAP.md, queue: parallelism")
+    def _check_replicas(self, when: str) -> str:
+        """Raise unless the trainable parameters are bit-equal on every rank;
+        returns their digest."""
+        named = dict(self.model.network.named_parameters())
+        return check_replicas_equal({n: named[n] for n in self.trainable_names},
+                                    f"the trainable parameters {when}")
 
     # ------------------------------------------------------------------
 
     def _device_batch(self, data_dicts: List[Dict[str, Any]]) -> List[Dict[str, torch.Tensor]]:
         """One loss batch per data dict, on the model's device, with prompt
-        and answer widths shared across the group (multiples of 32)."""
+        and answer widths shared across the group (multiples of 32), or the
+        fixed buckets: widths every rank shares, whatever its batch."""
         model = self.model
         encoded = []
         for dd in data_dicts:
             ii, am = model._encode_prompts(model.build_text_prompt(dd))
             oi, om = model._encode_answers(dd["text_output"])
             encoded.append((dd, ii, am, oi, om))
-        pad_in = _round_up(max(e[1].shape[1] for e in encoded), 32)
-        pad_out = _round_up(max(e[3].shape[1] for e in encoded), 32)
+        max_in = max(e[1].shape[1] for e in encoded)
+        if self.fixed_text_buckets:
+            pad_in = _round_up(model.prompt_pad_to, 32)
+            pad_out = _round_up(model.max_out_len, 32)
+            if max_in > pad_in:
+                raise ValueError(f"prompt length {max_in} exceeds prompt_pad_to="
+                                 f"{model.prompt_pad_to} (the fixed text bucket of "
+                                 "fixed_text_buckets and of every multi-rank run)")
+        else:
+            pad_in = _round_up(max_in, 32)
+            pad_out = _round_up(max(e[3].shape[1] for e in encoded), 32)
         pad_id = model.tokenizer.pad_id
 
         def pad(x, width, fill, left):
@@ -298,6 +336,8 @@ class LeoTrainer:
 
         def flush(consumed_through: int) -> None:
             nonlocal group, waited
+            if self.dp > 1:
+                self._agree_step(len(group))
             batches = self._device_batch(group)
             group = []
             network = self.model.network
@@ -312,7 +352,7 @@ class LeoTrainer:
             self.data_wait_history.append(waited)
             self._profile(step)
             if self.save_frequency and step % self.save_frequency == 0:
-                self.ckpt.save_state(step, self._state_dict(), self.tracker)
+                self._save_state(step)
             pending.append((metrics, step, t0, waited))
             while len(pending) > self.metrics_lag:
                 process_one()
@@ -334,7 +374,8 @@ class LeoTrainer:
                 group.append(data_dict)
                 if len(group) == self.accum_steps:
                     flush(i + 1)
-                if self._preempted:
+                # one process stops at once; ranks only where they agreed to
+                if self._preempted if self.dp == 1 else (self._stop and not group):
                     if group:
                         flush(i + 1)
                     while pending:
@@ -349,6 +390,16 @@ class LeoTrainer:
             if close is not None:
                 close()  # stops the loader's prefetch thread
         return {"loss": float(np.mean(losses)) if losses else float("nan")}
+
+    def _agree_step(self, n_micro: int) -> None:
+        """One host collective before each dp step: every rank must bring the
+        same number of micro-batches (equal-length shards guarantee it), and
+        a preemption flag raised on any rank stops them all after this step."""
+        got = all_reduce_max([n_micro, -n_micro, int(self._preempted)])
+        if got[:2] != [n_micro, -n_micro]:
+            raise RuntimeError(f"rank {rank()} has {n_micro} micro-batches this step, others "
+                               f"between {-got[1]} and {got[0]}")
+        self._stop = bool(got[2])
 
     def _profile(self, step: int) -> None:
         """``profile.steps`` n: start a ``torch.profiler`` trace once step 2
@@ -407,8 +458,9 @@ class LeoTrainer:
         if not generation and answer_cands is None:
             raise ValueError("inference_mode: retrieval needs a dataset with answer_cands "
                              "(e.g. ScanNetSQA3D)")
-        # one process loads the whole split (check_single_process), so no
-        # sample is a wrap-around duplicate and the gather is the identity
+        # a sharded loader's last batch may end in wrap-around duplicates
+        # (padded_tail); they go before the records are gathered from every
+        # rank, so each sample is scored once (the identity with one rank)
         n_batches = len(loader) if hasattr(loader, "__len__") else None
         padded_tail = getattr(loader, "padded_tail", 0)
 
@@ -421,7 +473,8 @@ class LeoTrainer:
             if padded_tail and n_batches is not None and i == n_batches - 1:
                 b = len(record.get("output_text", record.get("answers_id", [])))
                 record = self._trim_record(record, b, b - padded_tail)
-            evaluator.update(record)
+            for gathered in process_allgather_objects([record]):
+                evaluator.update(gathered)
 
         depth = max(0, int(self.cfg.get("eval_pipeline_depth", 3)))
         pending: deque = deque()  # (batch index, data_dict, finalize)
@@ -605,6 +658,7 @@ class LeoTrainer:
             self._run_eval("test", 0)
         self.ckpt.close()  # every async save on disk before the run ends
         self.logger.close()
+        barrier()
 
     def _run_train(self) -> None:
         for epoch in range(self.tracker.epoch, self.epochs):
@@ -613,17 +667,21 @@ class LeoTrainer:
                 stats = self.train_one_epoch(epoch)
             except Preempted:
                 step = self._train_step.step_count
-                self.ckpt.save_state(step, self._state_dict(), self.tracker)
+                self._save_state(step)
                 self.ckpt.wait()
                 logger.warning(f"preempted at epoch {epoch}, step {step}: full state saved; "
                                "rerun with the same exp_dir and resume=True to go on")
                 return
             logger.info(f"epoch {epoch}: loss {stats['loss']:.4f} ({time.time() - t0:.0f}s)")
             self.tracker.step_epoch()
-            self.ckpt.save_state(self._train_step.step_count, self._state_dict(), self.tracker)
+            self._save_state(self._train_step.step_count)
             self._save_learnable("latest")
             if (epoch + 1) % self.eval_interval == 0:
                 self._run_eval("val", epoch)
+        if self.dp > 1:
+            digest = self._check_replicas("after training")
+            logger.info(f"the trainable parameters agree across {self.dp} ranks after "
+                        f"training (sha256 {digest})")
         self._run_eval("test", self.epochs)
 
     def _preemption_handlers(self):
@@ -655,16 +713,27 @@ class LeoTrainer:
     # -- checkpoint plumbing --------------------------------------------
 
     def _state_dict(self) -> Dict[str, Any]:
-        return {
+        state = {
             "params": filter_learnable(self.model.network, self.trainable_names),
             "opt_state": self.optimizer.state_dict(),
             "step": self._train_step.step_count,
             "generator": self.generator.get_state(),
         }
+        if self.dp > 1:  # each rank's dropout generator, by rank
+            state["generators"] = process_allgather_objects([state["generator"]])
+        return state
+
+    def _save_state(self, step: int) -> None:
+        """The full state, written by rank 0; every rank waits for it."""
+        self.ckpt.save_state(step, self._state_dict(), self.tracker)
+        barrier()
 
     def _save_learnable(self, name: str) -> None:
+        """The learnable weights as ``name``, written by rank 0; every rank
+        waits for the file, so a load of it on any rank reads it whole."""
         self.ckpt.save_weights(name, filter_learnable(self.model.network,
                                                       self.trainable_names))
+        barrier()
 
     def load_learnable(self, name: str) -> None:
         """Overlay the learnable weights saved as ``name`` on the model."""
@@ -678,8 +747,12 @@ class LeoTrainer:
         merge_learnable(self.model.network, state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self._train_step.step_count = int(state["step"])
-        if "generator" in state:
-            self.generator.set_state(state["generator"])
+        generators = state.get("generators", [state["generator"]] if "generator" in state else [])
+        if len(generators) == self.dp:
+            self.generator.set_state(generators[rank()])
+        else:  # saved by another rank count: each rank restarts from its seed, as JAX's does
+            logger.info(f"the checkpoint holds {len(generators)} dropout generator states for "
+                        f"{self.dp} ranks: each rank's generator starts from its seed")
         logger.info(f"resumed from step {self._train_step.step_count} "
                     f"(epoch {self.tracker.epoch}, loader_step {self.tracker.loader_step})")
 

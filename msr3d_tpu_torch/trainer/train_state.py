@@ -9,6 +9,14 @@ the optimizer. It reads nothing back from the device: the loss and the
 norm it returns are device tensors, which the trainer fetches
 ``train_metrics_lag`` steps later.
 
+With ``data_parallel`` ranks (each its own shard of the global batch) the
+step averages the trainable gradients and the loss over the ranks before the
+norm, the clip and the optimizer, so all three see the global batch's, as
+the all-reduce that JAX's ``jit`` inserts for the dp sharding does: one flat
+fp32 buffer of every gradient and the loss, one ``all_reduce(SUM)``, a
+divide by the rank count. Every rank then applies the same update to the
+same parameters. With one rank no collective runs.
+
 The JAX step scans a fixed number of micro-batches, so it pads an epoch's
 tail group with weight-0 duplicates to keep one compiled program and then
 divides by the sum of the weights. Running just the real micro-batches
@@ -25,6 +33,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 
 from msr3d_tpu_torch.optim.build import Optimizer, clip_by_global_norm, global_norm
+from msr3d_tpu_torch.parallel.mesh import all_reduce_sum_
 
 
 class TrainStep:
@@ -33,16 +42,18 @@ class TrainStep:
 
     ``loss_fn(micro_batch)`` returns the scalar mean loss of one micro-batch
     with its autograd graph. ``params`` are the trainable parameters by
-    name, the ones ``optimizer`` updates.
+    name, the ones ``optimizer`` updates. ``data_parallel`` is the number of
+    ranks that each run this step on their own micro-batches.
     """
 
     def __init__(self, loss_fn: Callable[[Any], torch.Tensor],
                  params: Mapping[str, torch.nn.Parameter], optimizer: Optimizer,
-                 grad_norm: Optional[float]):
+                 grad_norm: Optional[float], data_parallel: int = 1):
         self.loss_fn = loss_fn
         self.params = dict(params)
         self.optimizer = optimizer
         self.max_norm = grad_norm
+        self.data_parallel = data_parallel
         self.step_count = 0
 
     def __call__(self, micro_batches: List[Any]) -> Dict[str, Any]:
@@ -64,6 +75,9 @@ class TrainStep:
             else torch.zeros_like(self.params[n])
             for n in names
         ]
+        loss = loss_sum * scale
+        if self.data_parallel > 1:
+            grads, loss = self._average_over_ranks(grads, loss)
         norm = global_norm(grads)
         if self.max_norm is not None:
             grads = clip_by_global_norm(grads, self.max_norm, norm)
@@ -71,7 +85,16 @@ class TrainStep:
         for p in self.params.values():
             p.grad = None
         self.step_count += 1
-        return {"loss": loss_sum * scale, "grad_norm": norm, "step": self.step_count}
+        return {"loss": loss, "grad_norm": norm, "step": self.step_count}
+
+    def _average_over_ranks(self, grads: List[torch.Tensor], loss: torch.Tensor):
+        flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1)])
+        all_reduce_sum_(flat).div_(self.data_parallel)
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+            at += g.numel()
+        return out, flat[at]
 
 
 def filter_learnable(module: torch.nn.Module, names) -> Dict[str, torch.Tensor]:

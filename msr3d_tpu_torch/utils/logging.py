@@ -29,14 +29,19 @@ def get_logger(name: str = "msr3d_tpu_torch", level: int = logging.INFO) -> logg
 
 
 class MetricLogger:
-    """Step-metric sink: ``<exp_dir>/metrics.jsonl``, one record a line."""
+    """Step-metric sink: ``<exp_dir>/metrics.jsonl``, one record a line.
+    ``write=False`` (every rank but rank 0) logs nothing."""
 
-    def __init__(self, exp_dir: str | Path):
-        path = Path(exp_dir) / "metrics.jsonl"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        self._fh = open(path, "a")
+    def __init__(self, exp_dir: str | Path, write: bool = True):
+        self._fh = None
+        if write:
+            path = Path(exp_dir) / "metrics.jsonl"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            self._fh = open(path, "a")
 
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        if self._fh is None:
+            return
         rec = dict(metrics)
         if step is not None:
             rec["step"] = step

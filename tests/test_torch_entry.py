@@ -455,7 +455,9 @@ def test_preemption_saves_at_the_step_and_resumes(tmp_path, monkeypatch):
 
 def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     """Evaluation from the entry raises only on what it would need and the
-    port lacks: a tensor-parallel mesh and more than one rank.
+    port lacks: a tensor-parallel mesh. In a (faked) world of two ranks the
+    loaders the entry builds take a rank's shard (the ranks themselves:
+    tests/test_torch_distributed.py, tests/test_torch_launch.py).
     ``mode: test`` (also through the prefix-pool engines), the val split and
     ``inference_mode: retrieval`` build and run (their parity with JAX:
     tests/test_torch_eval.py)."""
@@ -476,11 +478,15 @@ def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="parallel.tp"):
         port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
                        "parallel.tp=2"])
-    with monkeypatch.context() as m:  # two ranks
+    from msr3d_tpu_torch.data.build import build_task_loaders
+
+    with monkeypatch.context() as m:  # two ranks, this one rank 1
         m.setattr(dist, "is_initialized", lambda: True)
         m.setattr(dist, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="ranks"):
-            port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test"])
+        m.setattr(dist, "get_rank", lambda: 1)
+        sharded = build_task_loaders(load_config(DEBUG, ["device=cpu", *ovs, "mode=test"]))
+    loaders = [ld for splits in sharded.values() for ld in splits.values()]
+    assert loaders and all((ld.num_shards, ld.shard_id) == (2, 1) for ld in loaders)
     tested = port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test"])
     assert tested.step == 0 and tested.optimizer is not None
     assert [sorted(k for k in m if k.startswith("test/")) != [] for m in

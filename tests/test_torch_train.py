@@ -544,11 +544,26 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
         HFTokenizer(str(tmp_path))
     import torch.distributed as dist
 
-    with monkeypatch.context() as m:  # two ranks
+    from msr3d_tpu_torch.data.build import build_dataloader_leo
+    from msr3d_tpu_torch.registry import DATASET_REGISTRY
+
+    class Toy:  # a registered dataset of 5 samples
+        def __init__(self, cfg, split):
+            pass
+
+        def __len__(self):
+            return 5
+
+    monkeypatch.setitem(DATASET_REGISTRY._obj_map, "Toy", Toy)
+    with monkeypatch.context() as m:  # two ranks (the ranks themselves:
+        # tests/test_torch_distributed.py): each loader takes rank 1's shard
         m.setattr(dist, "is_initialized", lambda: True)
         m.setattr(dist, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="ranks"):
-            LeoTrainer(cfg, loaders=loaders, model=model)
+        m.setattr(dist, "get_rank", lambda: 1)
+        sharded = {split: build_dataloader_leo(cfg, "Toy", "", {}, {"batchsize": 2}, split)
+                   for split in ("train", "val")}
+    assert all((ld.num_shards, ld.shard_id) == (2, 1) for ld in sharded.values())
+    assert (len(sharded["train"]), sharded["val"].padded_tail) == (1, 1)
     # ported since: evaluation (val and test splits, evaluators, mode: test,
     # retrieval; tests/test_torch_eval.py), Lamb, and the model and loaders
     # built from the YAML (tests/test_torch_entry.py)
