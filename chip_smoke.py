@@ -67,7 +67,7 @@ prefill; (b) the speculative pool against the pool at T = 1; (c) the beam
 pool against the continuous beam engine; (d) the pool over HTTP with a
 400 for an overflowing question; then fp32 token gates at 2 layers against
 batch-1 ``generate``), and the training-memory options (phase 17: (a)
-one step of 4 x 5 from one LoRA state without remat and under each
+one step of 4 x 2 from one LoRA state without remat and under each
 ``remat_policy`` (full, dots, residuals), with its peak memory, K2f launching
 twice a layer and micro-batch under remat and the loss and grad norm those
 of the step without it, then the same without images; (b) the entry on configs/msr3d.yaml with
@@ -86,8 +86,16 @@ bit-equal, checked by the trainer; TrainStep's flat gradient all-reduce
 through NCCL at world 1, bit-unchanged; (c) two ranks against one process in
 fp32 at the flagship's width and 2 layers: the loss and the averaged
 gradients within 1e-5 relative, each parameter within the step AdamW
-computes from the two gradients, the same eval texts), and checks that each
-path launched its kernels. Any failed check exits
+computes from the two gradients, the same eval texts), tensor parallelism
+(phase 19, at tp = 2 on the one card, two ranks over gloo: (a) the launcher
+with ``parallel.tp=2``, one step of 4 x 5 and val, each rank holding half of
+each split LLM tensor, its peak memory and its launches, the replicated
+parameters bit-equal across the ranks; (b) the bf16 flagship's greedy and
+beam-5 ``generate`` on phase 4's requests, ms a token against phase 4's; (c)
+fp32 at the flagship's width and 2 layers: greedy and beam generate, the
+continuous and the prefix-pool engine equal to one process's tokens, one
+micro-batch's loss and gathered gradients within 1e-5 relative), and checks
+that each path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
 or without the package beside it, it exits non-zero and prints no result.
@@ -195,6 +203,9 @@ WIRING_LR, WIRING_STEPS = 1e-3, 4
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+FIGURES: dict = {}  # what an earlier phase hands a later one (phase 4's figures to phase 19)
 
 
 def check(cond: bool, what: str) -> None:
@@ -997,6 +1008,8 @@ def phase_generate(model, dev, profile: bool):
           f"({prefill_device:.3f} ms of device time), decode {decode_ms:.2f} ms/token over "
           f"{decode_steps} steps, generate {gen_ms:.2f} ms, {N_REQUESTS / gen_ms * 1e3:.3f} QA/s, "
           f"peak memory allocated {peak_gb:.2f} GiB")
+    FIGURES.update(phase4_decode_ms=decode_ms, phase4_gen_ms=gen_ms, phase4_peak_gib=peak_gb,
+                   phase4_tokens=tokens)
     if profile:
         profile_device("generate", lambda: model.generate(dict(data), use_beam=False))
     return launches
@@ -1848,6 +1861,7 @@ def phase_retrieval(trainer, exp: Path):
 # SERVE_STREAMED (budget 32, so that chunks of 8 end before it does) streams
 # over SSE
 SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUDGETS, SERVE_STREAMED = 12, 4, (8, 16, 24, 32), 3
+SERVE_BATCH1 = 4  # (b)'s answers held (not gated) to a batch-1 generate
 
 
 def serve_argv(exp_root: Path, *extra: str, tokens: int = NEW_TOKENS):
@@ -2029,9 +2043,10 @@ def serve_http(fe, model):
     check(not fe._engine_thread.is_alive() and not fe._http_thread.is_alive(),
           "close() drained: the engine and HTTP threads ended")
     # not gated: a batch-1 generate runs its GEMMs at another batch, and bf16
-    # may round otherwise there
+    # may round otherwise there; the first SERVE_BATCH1 requests only (one of
+    # each budget), for the script's time
     same = 0
-    for i, s in enumerate(samples):
+    for i, s in enumerate(samples[:SERVE_BATCH1]):
         want = model.generate(_collate([s]), use_beam=False,
                               max_new_tokens=budgets[i])["output_tokens"][0]
         same += int(np.array_equal(np.asarray(answers[i][1]["tokens"])[:budgets[i]], want))
@@ -2041,8 +2056,8 @@ def serve_http(fe, model):
                equal_to_batch1_generate=same)
     print(f"  (b) {n} requests in {elapsed:.3f} s: {row['requests_s']:.3f} requests/s, "
           f"{row['tokens_s']:.2f} answer tokens/s ({sum(emitted)} tokens), steps_run "
-          f"{fe.engine.steps_run}, launches {launches}; {same} of {n} answers equal a batch-1 "
-          f"generate (not gated); on {card_line()}")
+          f"{fe.engine.steps_run}, launches {launches}; {same} of the first {SERVE_BATCH1} "
+          f"answers equal a batch-1 generate (not gated); on {card_line()}")
     check(launches["fps"] > 0 and launches["flash_attn_fwd"] > 0,
           "K1 and K2f launched during the HTTP traffic (the refill groups' prefills)")
     return row
@@ -3883,9 +3898,11 @@ def phase_pool(exp_root: Path):
 
 
 # Phase 17: the training-memory options and the trainer's last knobs. One
-# optimizer step is one group of TRAIN_ACCUM micro-batches of N_REQUESTS
-# requests with images (phase 6's); every policy's step starts from the same
-# LoRA state
+# optimizer step of (a) and (c) is one group of OPTIONS_ACCUM micro-batches of
+# N_REQUESTS requests with images (phase 6's; a step's peak is one
+# micro-batch's, so 2 of TRAIN_ACCUM's 5 show it, for the script's time);
+# every policy's step starts from the same LoRA state
+OPTIONS_ACCUM = 2
 REMAT_POLICIES = (None, "full", "dots", "residuals")
 QLORA_BITS = (8, 4)
 LAG_STEPS_ACCUM = 2  # (f): 2 steps of 2 micro-batches a run
@@ -4282,7 +4299,8 @@ def build_quantized_model(dev, bits: int):
 
 def phase_train_options(exp_root: Path, dev=None):
     print("== phase 17: the training-memory options at the flagship width ((a) remat off / "
-          "full / dots / residuals, one step of 4 x 5 each from one LoRA state; (b) the entry "
+          f"full / dots / residuals, one step of {N_REQUESTS} x {OPTIONS_ACCUM} each from one "
+          "LoRA state; (b) the entry "
           "on configs/msr3d.yaml with model.llm.remat=true remat_policy=dots, one step, then "
           "generate; (c) QLoRA over int8 and int4 bases; (d) the unfrozen point encoder's "
           "training BatchNorm; (e) the NaN guard; (f) train_metrics_lag 0 against 1), on "
@@ -4304,15 +4322,15 @@ def phase_train_options(exp_root: Path, dev=None):
         for name, p in net.named_parameters():
             if name.endswith("lora_b"):
                 p.copy_(1e-3 * torch.randn(p.shape, generator=g, device=dev))
-    loader = make_train_batches(TRAIN_ACCUM)
-    trainer = LeoTrainer(trainer_cfg(exp_root / "phase17", accum=TRAIN_ACCUM, lr=3e-5,
+    loader = make_train_batches(max(OPTIONS_ACCUM, 2 * LAG_STEPS_ACCUM))
+    trainer = LeoTrainer(trainer_cfg(exp_root / "phase17", accum=OPTIONS_ACCUM, lr=3e-5,
                                      warmup=400),
                          loaders={"t": {"train": loader}}, model=model)
-    group = trainer._device_batch(loader)
+    group = trainer._device_batch(loader[:OPTIONS_ACCUM])
     out["a"] = remat_steps(model, trainer, group, kernels)
     # the same without images: no image encode, so the step's peak is the LLM's
     out["a_text"] = remat_steps(model, trainer,
-                                trainer._device_batch(make_train_batches(TRAIN_ACCUM,
+                                trainer._device_batch(make_train_batches(OPTIONS_ACCUM,
                                                                          images=False)),
                                 kernels, "(a) without images:")
     out["f"] = lag_runs(model, exp_root, loader[:2 * LAG_STEPS_ACCUM])
@@ -4323,14 +4341,15 @@ def phase_train_options(exp_root: Path, dev=None):
     gc.collect()
     torch.cuda.empty_cache()
     model = build_quantized_model(dev, 4)
-    trainer = LeoTrainer(trainer_cfg(exp_root / "phase17q4", accum=TRAIN_ACCUM, lr=3e-5,
+    trainer = LeoTrainer(trainer_cfg(exp_root / "phase17q4", accum=OPTIONS_ACCUM, lr=3e-5,
                                      warmup=400),
                          loaders={"t": {"train": loader}}, model=model)
     with torch.no_grad():
         for name, p in model.network.named_parameters():
             if name.endswith("lora_b"):
                 p.copy_(1e-3 * torch.randn(p.shape, generator=g, device=dev))
-    out["c4"] = qlora_steps(model, trainer, trainer._device_batch(loader), kernels, 4)
+    out["c4"] = qlora_steps(model, trainer, trainer._device_batch(loader[:OPTIONS_ACCUM]),
+                            kernels, 4)
     del model, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -4404,11 +4423,12 @@ def run_launcher(args, what: str):
     summaries = sorted((json.loads(m) for m in re.findall(r"run summary (\{.*\})", out)),
                        key=lambda m: m["rank"])
     digests = re.findall(r"agree across \d+ ranks after training \(sha256 (\w+)\)", out)
+    run_launcher.last_out = out
     return summaries, digests, took
 
 
 def dp_gates(exp: Path, summaries, digests, world: int, backend: str, eval_batches: int,
-             what: str):
+             what: str, tp: int = 1, n_val: int = DP_DEBUG_SIZE):
     """The gates (a) and (b) share: the world, the backend, one step, each
     val sample scored once in one results.json, the files written once (one
     metrics line a logged step), every rank's kernels on the path and, with
@@ -4421,8 +4441,8 @@ def dp_gates(exp: Path, summaries, digests, world: int, backend: str, eval_batch
     results = json.loads((exp / "eval" / "msqa_scannet" / "results.json").read_text())
     indices = sorted(str(r["index"]) for r in results)
     print(f"  ({what}) results.json: {len(results)} records, indices {indices}")
-    check(len(results) == DP_DEBUG_SIZE and len(set(indices)) == DP_DEBUG_SIZE,
-          f"({what}) results.json scores each of the {DP_DEBUG_SIZE} val samples once")
+    check(len(results) == n_val and len(set(indices)) == n_val,
+          f"({what}) results.json scores each of the {n_val} val samples once")
     metrics = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
     check([m["step"] for m in metrics if "train/loss" in m] == [1]
           and sum(any(k.startswith("val/") for k in m) for m in metrics) == 1
@@ -4438,7 +4458,7 @@ def dp_gates(exp: Path, summaries, digests, world: int, backend: str, eval_batch
     check(all(m["launches"] == want for m in summaries),
           f"({what}) each rank launched K1, K2f, K2dq, K2dkv {want} ({micro} micro-batches, "
           f"{eval_batches} eval batches)")
-    if world > 1:
+    if world > 1 and tp == 1:  # under tp each rank holds its own shards
         check(len(digests) == world and len(set(digests)) == 1,
               f"({what}) the trainable parameters bit-equal across ranks after the step "
               f"(the trainer's check, {world} equal digests)")
@@ -4458,6 +4478,7 @@ def dp_nccl_reduce() -> dict:
 
     import torch.distributed as dist
 
+    from msr3d_tpu_torch.optim.build import SGD
     from msr3d_tpu_torch.parallel import mesh
     from msr3d_tpu_torch.trainer.train_state import TrainStep
 
@@ -4474,7 +4495,7 @@ def dp_nccl_reduce() -> dict:
         sizes[-1] += DP_FLAT_VALUES - sum(sizes)
         grads = [torch.randn(n, device="cuda", generator=gen) for n in sizes]
         loss = torch.randn((), device="cuda", generator=gen)
-        step = TrainStep(None, {}, None, None, data_parallel=1)
+        step = TrainStep(None, {}, SGD({}, lambda count: 0.0), None, data_parallel=1)
         out, out_loss = step._average_over_ranks(grads, loss)
         same = all(torch.equal(a, b) for a, b in zip(out, grads)) and torch.equal(out_loss, loss)
         ms = time_ms(lambda: step._average_over_ranks(grads, loss), iters=5, warmup=1)
@@ -4723,6 +4744,359 @@ def phase_dp(exp_root: Path):
     return dict(a=one, b=two, c=exact, flat=flat, seconds=dict(a=took_a, b=took_b))
 
 
+# Phase 19: tensor parallelism on the one card. (a) the launcher with
+# parallel.tp=2 over phase 18's arguments: two ranks over gloo, one step of
+# 4 x 5 and val; (b) the bf16 flagship at tp = 2 in two processes, greedy
+# and beam-5 generate on phase 4's requests; (c) the fp32 gates at the
+# flagship's width and EXACT_LAYERS layers: tp = 2 against one process
+TP = 2
+TP_TIMEOUT_S = 420
+
+
+def llm_params_at_tp(tp: int) -> int:
+    """The flagship LLM's parameters one rank holds at ``tp``: half of each
+    tensor ``shard_dims`` splits, all of each replicated one (the shapes from
+    a model on the meta device)."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig, LlamaModel
+    from msr3d_tpu_torch.parallel.sharding import shard_dims
+
+    llm = LlamaModel(LlamaConfig(lora_rank=16, param_dtype=torch.bfloat16), device="meta")
+    shapes = {f"llm.{n}": tuple(p.shape) for n, p in llm.named_parameters()}
+    dims = shard_dims(shapes, tp)
+    return sum(int(np.prod(sh)) // (tp if dims[n] is not None else 1) for n, sh in shapes.items())
+
+
+def spawn_ranks(fn: str, out: Path, world: int = TP) -> list:
+    """``chip_smoke.fn(out)`` in ``world`` rank processes under the env
+    contract, sharing the card; each rank's JSON (``out/<fn>_rank<r>.json``).
+    A rank that fails or outlives TP_TIMEOUT_S fails the phase, its log
+    printed."""
+    import os
+
+    out.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   MSR3D_DIST_TIMEOUT_S="300")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as cs; cs.{fn}({str(out)!r})"],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+    return procs
+
+
+def wait_ranks(procs, out: Path, fn: str, what: str) -> list:
+    import os
+    import signal
+
+    logs, failed = [], False
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            logs.append(p.communicate()[0])
+        failed |= p.returncode != 0
+    if failed:
+        for r, log in enumerate(logs):
+            print(f"  ({what}) rank {r}:\n{log[-4000:]}")
+        raise SmokeFailure(f"({what}) a rank failed")
+    return [json.loads((out / f"{fn}_rank{r}.json").read_text()) for r in range(len(procs))]
+
+
+def _rank_main(fn, out: str) -> None:
+    """One rank of (b) or (c): join the group, build the tp mesh, run ``fn``,
+    write its JSON."""
+    from msr3d_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert mesh.initialize_distributed_from_env("cuda"), "no env contract"
+    try:
+        mesh.init_mesh({"tp": TP})
+        result = fn(Path(out))
+        (Path(out) / f"{fn.__name__}_rank{mesh.rank()}.json").write_text(json.dumps(result))
+    finally:
+        mesh.destroy()
+
+
+def tp_generate(out: Path) -> dict:
+    """(b) on one rank: the flagship (bf16, 32 layers, 32 heads, 16 a rank)
+    at tp = 2 from phase 4's seed, greedy and beam-5 generate on phase 4's
+    requests, each timed after a warm-up with K1 and K2f counted from 0."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig
+    from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
+    from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+    from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    llm = LlamaConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=32, num_attention_heads=32, lora_rank=16,
+                      dtype=torch.bfloat16, param_dtype=torch.bfloat16, flash_attention=True,
+                      tp_size=TP, tp_rank=mesh.tp_rank())
+    model = MSR3D(MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm, answer_window_loss=True),
+                  ByteTokenizer(), scene_token_len=60, max_out_len=ENGINE_TOKENS,
+                  repetition_penalty=REP_PENALTY, device=dev)
+    model.init_params(seed=0)  # phase 4's weights, this rank's shards
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    llm_params = sum(p.numel() for p in model.network.llm.parameters())
+    data = make_requests(seed=0, images=True)
+    net = model.network
+    ids, attn = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
+                                     side="left")
+    scene = model._scene_batch(data)
+    ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    attn_t = torch.as_tensor(attn, dtype=torch.int32, device=dev)
+    out_row = dict(rank=mesh.rank(), tp_rank=mesh.tp_rank(), llm_params=llm_params,
+                   build_s=build_s)
+    for beam in (False, True):
+        model.num_beams, model.length_penalty = (BEAMS, LENGTH_PENALTY) if beam else (1, 1.0)
+        model.generate(dict(data), use_beam=beam, max_new_tokens=2)  # warm-up
+        FPS_KERNEL.launches = FLASH_FWD_KERNEL.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        got = {}
+        gen_ms = wall_ms(lambda: got.update(model.generate(dict(data), use_beam=beam)))
+        launches = {"fps": FPS_KERNEL.launches, "flash_attn_fwd": FLASH_FWD_KERNEL.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tokens = got["output_tokens"]
+        with torch.no_grad():
+            prefill_ms = wall_ms(lambda: net.prefill(
+                ids_t, attn_t, **scene, bos_id=model.tokenizer.bos_id,
+                max_cache_len=ids.shape[1] + 1))
+        finished_at = [list(row).index(model.tokenizer.eos_id) if model.tokenizer.eos_id in row
+                       else ENGINE_TOKENS for row in tokens]
+        steps = max(1, min(ENGINE_TOKENS, max(finished_at) + 1) - 1)
+        out_row["beam" if beam else "greedy"] = dict(
+            tokens=np.asarray(tokens).tolist(), gen_ms=gen_ms, prefill_ms=prefill_ms,
+            decode_ms=(gen_ms - prefill_ms) / steps, steps=steps, launches=launches,
+            peak_gib=peak)
+    return out_row
+
+
+TP_CLIP = 1e-2  # (c)'s clip: the step's norm is far above it, so it scales
+TP_LR = 1e5  # (c)'s SGD rate: 100 at the first step (1e-3 of it in warm-up),
+# so the clipped update's norm is 1
+
+
+def tp_exact(out: Path) -> dict:
+    """(c) at tp = 1 (the parent process) or on one of two tp ranks: the fp32
+    model of ``build_exact_model`` with random LoRA B (so every LoRA factor
+    has a gradient), split by ``shard_for_serving`` on a rank; greedy and
+    beam-5 generate, the continuous greedy engine and the prefix-pool engine
+    (ENGINE_TOKENS tokens); one ``TrainStep`` of one micro-batch in eval
+    mode through ``LeoTrainer`` (SGD, the clip at TP_CLIP): its loss and
+    grad norm, the gradients the optimizer took and the updated trainable
+    parameters, gathered whole (rank 0 writes them, and the one process the
+    parameters before the step)."""
+    from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
+    from msr3d_tpu_torch.parallel import mesh
+    from msr3d_tpu_torch.parallel.sharding import gather_full_state_dict
+    from msr3d_tpu_torch.serving import (
+        ContinuousBatchingServer,
+        PrefixPoolContinuousBatchingServer,
+        uncollate_batch,
+    )
+    from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tp = mesh.tp_size()
+    model = build_exact_model(dev, ByteTokenizer())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        for name, p in model.network.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 1e-2)
+    model.shard_for_serving(tensor_parallel=True)
+    data = make_requests(seed=3)
+    res = dict(rank=mesh.rank(), tp=tp)
+    for beam in (False, True):
+        res["beam" if beam else "greedy"] = np.asarray(model.generate(
+            dict(data), use_beam=beam, max_new_tokens=ENGINE_TOKENS)["output_tokens"]).tolist()
+    prompt_len = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
+                                      side="left")[0].shape[1] + 1
+    engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=N_REQUESTS,
+                                      chunk_steps=8, max_new_tokens=ENGINE_TOKENS,
+                                      prompt_len=prompt_len)
+    res["engine"] = [np.asarray(r.output_tokens).tolist()
+                     for r in engine.run(uncollate_batch(data))]
+    pool = PrefixPoolContinuousBatchingServer(model, **pool_kw(num_slots=4, refill_group=2))
+    res["pool"] = [np.asarray(r.output_tokens).tolist()
+                   for r in pool.run(pool_stream(seed=5, images=False, questions=2))]
+    res["digests"] = dict(engine=engine.tokens_digest, pool=pool.tokens_digest)
+
+    cfg = trainer_cfg(out / f"exp_tp{tp}", accum=1, lr=TP_LR, warmup=1)
+    cfg["solver"].update(grad_norm=TP_CLIP, optim={"name": "SGD", "args": {"lr": TP_LR}})
+    batches = make_train_batches(1, images=False)
+    trainer = LeoTrainer(dict(cfg, parallel={"tp": tp}),
+                         loaders={"msr3d_train": {"train": batches}}, evaluators={}, model=model)
+    before = trainer._learnable()
+    dims, taken, step = model.network.tp_dims(), [], trainer.optimizer.step
+
+    def record(grads):
+        taken.append({n: g.cpu() for n, g in gather_full_state_dict(
+            {n: g.detach().clone() for n, g in grads.items()}, dims).items()})
+        return step(grads)
+
+    trainer.optimizer.step = record
+    metrics = trainer._train_step(trainer._device_batch(batches))
+    after = trainer._learnable()
+    if mesh.rank() == 0:
+        torch.save(dict(grads=taken[0], params=after, before=before),
+                   out / f"exact_step_tp{tp}.pt")
+    res.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+               lr=float(trainer.schedule(0)))
+    return res
+
+
+def tp_generate_rank(out: str) -> None:
+    _rank_main(tp_generate, out)
+
+
+def tp_exact_rank(out: str) -> None:
+    _rank_main(tp_exact, out)
+
+
+def phase_tp(exp_root: Path, dp: "dict | None" = None):
+    print(f"== phase 19: tensor parallelism at tp = {TP} on one card (two ranks over gloo: "
+          f"(a) python -m msr3d_tpu_torch.launch --mode accelerate parallel.tp={TP} on "
+          f"configs/msr3d.yaml over phase 10's tree, one step of {N_REQUESTS} x {TRAIN_ACCUM} "
+          f"and a val batch of {N_REQUESTS}; (b) the bf16 flagship's generate, {ENGINE_TOKENS} "
+          f"tokens; (c) fp32 gates; on "
+          f"{card_line()})")
+    root = exp_root / "tp"
+    want_params = llm_params_at_tp(TP)
+    full_params = llm_params_at_tp(1)
+    exp_a = root / "a"
+    summaries, digests, took_a = run_launcher(
+        ["--mode", "accelerate", "--port", str(free_port()),
+         *dp_argv(exp_root, exp_a, f"parallel.tp={TP}", "solver.num_batch_eval=1")], "a")
+    print(f"  (a) {took_a:.1f} s (start, build, init, data, one step, val)")
+    dp_gates(exp_a, summaries, digests, TP, "gloo", eval_batches=1, what="a", tp=TP,
+             n_val=N_REQUESTS)
+    check([(m["dp"], m["tp"], m["tp_rank"]) for m in summaries] == [(1, TP, r) for r in range(TP)],
+          f"(a) the launcher started dp 1 x tp {TP} ranks from parallel.tp={TP}")
+    tp_digests = re.findall(r"agree across \d+ tp ranks after training \(sha256 (\w+)\)",
+                            run_launcher.last_out)
+    b18 = dp["b"][0] if dp else dict(peak_gib=float("nan"), step_ms=[float("nan")])
+    for m in summaries:
+        print(f"  (a) rank {m['rank']}: {m['llm_params']} LLM parameters (of {full_params} "
+              f"whole), peak {m['peak_gib']:.2f} GiB against phase 18 (b)'s "
+              f"{b18['peak_gib']:.2f} (two dp ranks, each the whole LLM), data wait "
+              f"{m['data_wait_ms'][0]:.1f} ms before the step (tp rank 0 loads, then "
+              f"broadcasts the batch), step "
+              f"{m['step_ms'][0]:.1f} ms against {b18['step_ms'][0]:.1f}, of it "
+              f"{1e3 * m['step_tp_comm_s'][0]:.1f} ms ({m['step_tp_comm_s'][0] / m['step_ms'][0] * 1e3:.1%}) "
+              f"in the host-routed tp collectives; {m['tp_comm']['calls']} collectives over the "
+              f"run, {m['tp_comm']['seconds']:.2f} s")
+    check(all(m["llm_params"] == want_params for m in summaries),
+          f"(a) each rank holds {want_params} LLM parameters: half of every split tensor")
+    check(len(tp_digests) == TP and len(set(tp_digests)) == 1,
+          f"(a) the ranks' replicated trainable parameters bit-equal after the step "
+          f"({len(tp_digests)} digests, {len(set(tp_digests))} distinct)")
+
+    # (b) the bf16 flagship at tp = 2
+    t0 = time.perf_counter()
+    gen = wait_ranks(spawn_ranks("tp_generate_rank", root / "b"), root / "b", "tp_generate",
+                     "b")
+    took_b = time.perf_counter() - t0
+    p4_tokens = FIGURES.get("phase4_tokens")
+    for way in ("greedy", "beam"):
+        rows = [g[way] for g in gen]
+        for g in gen:
+            r = g[way]
+            print(f"  (b) rank {g['rank']} {way}{f' {BEAMS}' if way == 'beam' else ''}: "
+                  f"generate {r['gen_ms']:.2f} ms, prefill {r['prefill_ms']:.2f} ms, decode "
+                  f"{r['decode_ms']:.2f} ms a token over {r['steps']} steps, peak "
+                  f"{r['peak_gib']:.2f} GiB, launches {r['launches']}")
+        check(rows[0]["tokens"] == rows[1]["tokens"],
+              f"(b) {way}: both tp ranks emit the same tokens")
+        check(all(r["launches"] == {"fps": 2, "flash_attn_fwd": 32} for r in rows),
+              f"(b) {way}: each rank launches K1 2 and K2f 32 (its 16 heads) a generate")
+    if p4_tokens is not None:
+        same = float(np.mean(np.asarray(gen[0]["greedy"]["tokens"])
+                             == np.asarray(p4_tokens)[:, :ENGINE_TOKENS]))
+        print(f"  (b) greedy at tp = {TP} against phase 4's one process (bf16, the partial sums "
+              f"add in another order): {same:.3f} of the tokens equal; decode "
+              f"{gen[0]['greedy']['decode_ms']:.2f} ms a token against phase 4's "
+              f"{FIGURES['phase4_decode_ms']:.2f}, peak {gen[0]['greedy']['peak_gib']:.2f} GiB "
+              f"against {FIGURES['phase4_peak_gib']:.2f}; built in {gen[0]['build_s']:.1f} s")
+    print(f"  (b) {took_b:.1f} s")
+
+    # (c) fp32 gates: two tp ranks against one process, the one process
+    # running while the ranks do
+    t0 = time.perf_counter()
+    out_c = root / "c"
+    procs = spawn_ranks("tp_exact_rank", out_c)
+    try:
+        one = tp_exact(out_c)
+    finally:  # the ranks end, whatever happened here
+        ranks = wait_ranks(procs, out_c, "tp_exact", "c")
+    for what in ("greedy", "beam", "engine", "pool"):
+        check(ranks[0][what] == ranks[1][what] == one[what],
+              f"(c) fp32 {what}: the tp = {TP} tokens equal the one process's on both ranks")
+    check(all(ranks[0]["digests"][k] == ranks[1]["digests"][k] for k in ("engine", "pool")),
+          "(c) the engines' token digests agree across the tp ranks")
+    want = torch.load(out_c / "exact_step_tp1.pt")
+    got = torch.load(out_c / f"exact_step_tp{TP}.pt")
+
+    def max_rel(got_d, want_d, size, total, allow=lambda n: 0.0):
+        """The largest of each tensor's (‖got − want‖ − ``allow``) over its
+        ``size``; the key bias's over ``total`` (its true gradient is 0,
+        ROADMAP §3)."""
+        return max((float((got_d[n] - w).double().norm()) - allow(n)) / (
+            total if n.endswith("self_attn.w_ks.bias") else size(n))
+            for n, w in want_d.items() if size(n))
+
+    grads = want["grads"]
+    grad_total = float(torch.sqrt(sum(g.double().square().sum() for g in grads.values())))
+    grad_err = max_rel(got["grads"], grads, lambda n: float(grads[n].double().norm()),
+                       grad_total)
+    update = {n: want["params"][n].double() - want["before"][n].double() for n in grads}
+    update_total = float(torch.sqrt(sum(u.square().sum() for u in update.values())))
+    # each side stores its parameters in fp32: up to one spacing apart an
+    # element for the rounding alone
+    update_err = max_rel(got["params"], want["params"], lambda n: float(update[n].norm()),
+                         update_total, allow=lambda n: float(np.linalg.norm(
+                             np.spacing(np.abs(want["params"][n].numpy())))))
+    loss_err = abs(ranks[0]["loss"] - one["loss"]) / abs(one["loss"])
+    norm_err = abs(ranks[0]["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    print(f"  (c) fp32, {EXACT_LAYERS} layers at the flagship width: greedy, beam {BEAMS}, the "
+          f"continuous and the pool engine's tokens equal at tp = {TP} and tp = 1; one "
+          f"TrainStep of a micro-batch of {N_REQUESTS} (SGD at {one['lr']!r}, clip "
+          f"{TP_CLIP}): loss {one['loss']!r} against {ranks[0]['loss']!r}, relative "
+          f"{loss_err:.3e}; grad norm {one['grad_norm']!r} against {ranks[0]['grad_norm']!r}, "
+          f"relative {norm_err:.3e}; the {len(grads)} clipped gradients the optimizer took, "
+          f"gathered, max relative (a tensor, in norm) {grad_err:.3e}; the updated parameters, "
+          f"gathered, max relative to the update (a tensor, in norm, less fp32 storage) "
+          f"{update_err:.3e} (update norm {update_total:.4f}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(ranks[0]["loss"] == ranks[1]["loss"] and ranks[0]["grad_norm"] == ranks[1]["grad_norm"],
+          "(c) both tp ranks report the same loss and grad norm")
+    check(one["grad_norm"] > TP_CLIP, f"(c) the clip at {TP_CLIP} engaged")
+    check(loss_err <= 1e-5 and norm_err <= 1e-5 and grad_err <= 1e-5 and update_err <= 1e-5,
+          f"(c) the tp = {TP} TrainStep's loss, grad norm, clipped gradients and updated "
+          f"parameters (gathered) within 1e-5 relative of one process's")
+    return dict(a=summaries, b=gen, c=dict(loss_err=loss_err, norm_err=norm_err,
+                                           grad_err=grad_err, update_err=update_err),
+                seconds=dict(a=took_a, b=took_b))
+
+
+def phase19_launches(out, kernel: str) -> dict:
+    """Phase 19's launches of one kernel for the kernels line: each tp rank's
+    run of (a) and, K1 and K2f, each rank's greedy generate of (b)."""
+    row = dict(launches_tp=[m["launches"][kernel] for m in out["a"]])
+    if kernel in ("fps", "flash_attn_fwd"):
+        row["launches_tp_generate"] = [g["greedy"]["launches"][kernel] for g in out["b"]]
+    return row
+
+
 def phase18_launches(out, kernel: str) -> dict:
     """Phase 18's launches of one kernel for the kernels line: the one-rank
     run (a) and each rank of the two-rank run (b)."""
@@ -4732,7 +5106,7 @@ def phase18_launches(out, kernel: str) -> dict:
 
 def phase17_launches(out, kernel: str) -> dict:
     """Phase 17's launches of one kernel for the kernels line: a step of
-    TRAIN_ACCUM micro-batches under each remat policy, and the entry's step
+    OPTIONS_ACCUM micro-batches under each remat policy, and the entry's step
     with dots."""
     row = {f"launches_remat_{p}": out["a"][p]["launches"][kernel]
            for p in ("none", "full", "dots", "residuals")}
@@ -4835,6 +5209,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dp = timed(phase_dp, exp_root)  # on phase 10's tree and cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp = timed(phase_tp, exp_root, dp)  # on phase 10's tree and cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4860,12 +5237,14 @@ def main() -> int:
         # launches_pool_http: phase 16's greedy pool engine over the stream
         # (pool_prefix_prefills prefix prefills), its speculative pool, its
         # beam pool and its HTTP traffic; launches_remat_*: phase 17 (a), one
-        # step of TRAIN_ACCUM micro-batches without remat and under each
+        # step of OPTIONS_ACCUM micro-batches without remat and under each
         # policy, launches_remat_entry (b) the entry's step with dots,
         # launches_train_bn (d) the unfrozen encoder's training forward;
         # launches_dp: phase 18 (b), each of the two ranks' run (one step of
         # TRAIN_ACCUM micro-batches, two eval batches), launches_dp_one_rank
-        # (a) the launcher's one-rank run
+        # (a) the launcher's one-rank run; launches_tp: phase 19 (a), each tp
+        # rank's run (the same step and eval over its 16 heads a layer),
+        # launches_tp_generate (b) each tp rank's greedy generate
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -4876,7 +5255,8 @@ def main() -> int:
              launches_leo_modes=sum(r["launches"] for r in leo["modes"].values()),
              launches_crops=crops["launches"]["fps"], eval_batches_crops=crops["eval_batches"],
              **phase15_launches(serving2, "fps"), **phase16_launches(pool, "fps"),
-             **phase17_launches(options, "fps"), **phase18_launches(dp, "fps"), **fps_row),
+             **phase17_launches(options, "fps"), **phase18_launches(dp, "fps"),
+             **phase19_launches(tp, "fps"), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -4892,7 +5272,8 @@ def main() -> int:
              **phase15_launches(serving2, "flash_attn_fwd"),
              **phase16_launches(pool, "flash_attn_fwd"),
              **phase17_launches(options, "flash_attn_fwd"),
-             **phase18_launches(dp, "flash_attn_fwd"), **flash_row),
+             **phase18_launches(dp, "flash_attn_fwd"),
+             **phase19_launches(tp, "flash_attn_fwd"), **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
@@ -4901,7 +5282,8 @@ def main() -> int:
              launches_leo=leo["launches"]["flash_attn_bwd_dq"],
              launches_crops=crops["launches"]["flash_attn_bwd_dq"],
              **phase17_launches(options, "flash_attn_bwd_dq"),
-             **phase18_launches(dp, "flash_attn_bwd_dq"), **dq_row),
+             **phase18_launches(dp, "flash_attn_bwd_dq"),
+             **phase19_launches(tp, "flash_attn_bwd_dq"), **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
@@ -4910,7 +5292,8 @@ def main() -> int:
              launches_leo=leo["launches"]["flash_attn_bwd_dkv"],
              launches_crops=crops["launches"]["flash_attn_bwd_dkv"],
              **phase17_launches(options, "flash_attn_bwd_dkv"),
-             **phase18_launches(dp, "flash_attn_bwd_dkv"), **dkv_row),
+             **phase18_launches(dp, "flash_attn_bwd_dkv"),
+             **phase19_launches(tp, "flash_attn_bwd_dkv"), **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands

@@ -42,6 +42,8 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
+from msr3d_tpu_torch.parallel.sharding import shard_like
+
 SKIPPED_SUBTREES: Tuple[str, ...] = ()
 # created by flax only when a batch with images reaches the network
 IMAGE_MODULES = ("image_encoder.", "llm_proj_img.")
@@ -123,9 +125,11 @@ def load_jax_params(module: torch.nn.Module, variables: Mapping[str, Any]) -> Li
     """Load converted JAX variables into ``module`` (strict: every port
     parameter and buffer must be covered, nothing extra, except that a tree
     without images leaves the image encoder and ``llm_proj_img`` as they
-    are). Values are cast to each parameter's dtype and device. Returns the
-    skipped JAX keys."""
+    are). Values are cast to each parameter's dtype and device; a module
+    under tensor parallelism takes its shards of them. Returns the skipped
+    JAX keys."""
     state, skipped = jax_to_torch_state_dict(variables)
+    state = shard_like(module, state)
     if not any(name.startswith(IMAGE_MODULES) for name in state):
         state.update((name, val) for name, val in module.state_dict().items()
                      if name.startswith(IMAGE_MODULES))

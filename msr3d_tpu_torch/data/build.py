@@ -8,8 +8,9 @@ workers); ``build_task_loaders(cfg)`` builds every task × split loader.
 
 The loaders yield numpy and strings and never touch CUDA: the trainer moves
 each batch to the card. With ``torch.distributed`` initialised over more
-than one rank each rank's loader takes its own shard of the split
-(``num_shards``/``shard_id``, below). The JAX package's ``grain`` backend
+than one dp rank each dp rank's loader takes its own shard of the split
+(``num_shards``/``shard_id``, below); the tp ranks of one dp group load the
+same rows. The JAX package's ``grain`` backend
 is not ported.
 """
 
@@ -26,7 +27,7 @@ from msr3d_tpu_torch.data.datasets import dataset_wrapper as _dw  # noqa: F401 (
 from msr3d_tpu_torch.data.datasets import msr3d as _msr3d  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import one_step_navi as _osn  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import sqa3d as _sqa  # noqa: F401 (registers)
-from msr3d_tpu_torch.parallel.mesh import rank, world_size
+from msr3d_tpu_torch.parallel.mesh import dp_rank, dp_size
 from msr3d_tpu_torch.registry import DATASET_REGISTRY, DATASETWRAPPER_REGISTRY
 
 # worker-process globals (fork start method: the dataset is inherited by
@@ -205,8 +206,8 @@ def build_dataloader_leo(cfg, dataset_name: str, dataset_wrapper_name: str,
         wrapper = DATASETWRAPPER_REGISTRY.get(dataset_wrapper_name)(
             cfg, dataset, dataset_wrapper_args)
     shards = {}
-    if world_size() > 1:
-        shards = dict(num_shards=world_size(), shard_id=rank())
+    if dp_size() > 1:  # by dp rank: the tp ranks of a dp group load the same rows
+        shards = dict(num_shards=dp_size(), shard_id=dp_rank())
     return DataLoader(
         wrapper,
         batch_size=dataloader_args.get("batchsize", 4),

@@ -3,14 +3,17 @@
     python -m msr3d_tpu_torch.launch --mode python --config configs/debug_synthetic.yaml device=cpu
     python -m msr3d_tpu_torch.launch --mode accelerate --num_processes 2 \
         --config configs/debug_synthetic.yaml device=cpu
+    python -m msr3d_tpu_torch.launch --mode accelerate --config configs/msr3d.yaml parallel.tp=2
     python -m msr3d_tpu_torch.launch --mode submitit --num_nodes 2 --partition P --config ...
 
 Counterpart of the JAX package's root ``launch.py``, with its three modes:
 
   python      ``msr3d_tpu_torch.run.main`` in this process, one rank.
   accelerate  one process a rank on this node (``--num_processes``, the
-              reference's ``accelerate launch`` flag; the card count by
-              default), each ``python -m msr3d_tpu_torch.run`` under the
+              reference's ``accelerate launch`` flag; by default the card
+              count rounded up to a multiple of ``parallel.tp``, so
+              ``parallel.tp=2`` on one card starts two ranks that share it
+              over gloo), each ``python -m msr3d_tpu_torch.run`` under the
               ``torch.distributed`` env contract with node 0 at
               127.0.0.1:``--port``. It waits for every rank; when one fails
               it ends the others and exits with the first failure's code.
@@ -94,7 +97,17 @@ def run_ranks(argv: List[str], envs: List[Dict[str, str]], grace_s: float = 30.0
                 p.wait()
 
 
+def _tensor_parallel(args) -> int:
+    """``parallel.tp`` of the config with its overrides (1 when unset)."""
+    from msr3d_tpu_torch.config import load_config
+
+    cfg = load_config(args.config, overrides=[o for o in args.opts if "=" in o])
+    return int((cfg.get("parallel") or {}).get("tp", 1))
+
+
 def _per_node(args) -> int:
+    """``--num_processes``, else a rank a card rounded up to a multiple of
+    ``parallel.tp`` (tp ranks share a card where there are fewer cards)."""
     if args.num_processes is not None:
         return args.num_processes
     import torch
@@ -103,7 +116,8 @@ def _per_node(args) -> int:
     if n == 0:
         raise SystemExit("no CUDA device to count: give --num_processes (with device=cpu "
                          "for ranks on the CPU)")
-    return n
+    tp = _tensor_parallel(args)
+    return -(-n // tp) * tp
 
 
 def _entry_argv(args) -> List[str]:

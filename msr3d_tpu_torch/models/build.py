@@ -16,9 +16,10 @@ names (``model.name: MSR3D``; the prompter nodes ``OSE3DSituation``,
     ``eval_top_k``, ``eval_top_p``, ``eval_sample_seed`` and
     ``compact_transfer``.
 
-What the port does not run raises ``NotImplementedError`` when it is set
-to anything but its default: ``parallel.sp > 1`` (ROADMAP.md,
-parallelism).
+``parallel.tp`` > 1 builds the rank's tensor-parallel shard of the LLM over
+the process group's tp ranks (``parallel/mesh.py``). What the port does not
+run raises ``NotImplementedError`` when it is set to anything but its
+default: ``parallel.sp > 1`` (ROADMAP.md, parallelism).
 
 The model lands on ``cfg.device`` (``cuda`` when unset; ``device=cpu``
 picks the CPU), through ``resolve_device``.
@@ -77,6 +78,19 @@ def _check_ported(cfg) -> None:
                                   "(ROADMAP.md, queue: parallelism)")
 
 
+def _tensor_parallel(cfg, llama_cfg: LlamaConfig) -> LlamaConfig:
+    """``parallel.tp`` > 1: the mesh's tp layout over the process group
+    (``parallel/mesh.py``'s ``init_mesh``), the rank's index in its tp
+    group into the LLM config."""
+    parallel = cfg.get("parallel") or {}
+    if int(parallel.get("tp", 1)) == 1:
+        return llama_cfg
+    from msr3d_tpu_torch.parallel import mesh
+
+    _, tp = mesh.init_mesh(parallel)
+    return dataclasses.replace(llama_cfg, tp_size=tp, tp_rank=mesh.tp_rank())
+
+
 def build_msr3d_from_config(cfg, device=None) -> MSR3D:
     """The full config (``configs/msr3d.yaml`` layout) → a port MSR3D on
     ``device`` (default ``cfg.device``, else CUDA), parameters not yet
@@ -87,7 +101,7 @@ def build_msr3d_from_config(cfg, device=None) -> MSR3D:
     tokenizer = build_tokenizer(llm_cfg.get("cfg_path", ""),
                                 truncation_side=llm_cfg.get("truncation_side", "right"))
     prompter_cfg = OSE3DConfig.from_config(model_cfg.prompter.model)
-    llama_cfg = build_llm_config(llm_cfg, tokenizer)
+    llama_cfg = _tensor_parallel(cfg, build_llm_config(llm_cfg, tokenizer))
 
     vision2d = model_cfg.get("vision_2d")
     backbone_name, freeze_2d = "convnext_base", True

@@ -39,7 +39,24 @@ checkpointing (``torch.utils.checkpoint``), with the JAX package's three
 ``remat_policy`` choices (see ``_remat_block``). Prefill and decode never
 checkpoint, as JAX generates through a remat-stripped copy of the network.
 
-Not ported yet (raises): sequence parallelism.
+Tensor parallelism (``tp_size`` > 1, this rank ``tp_rank`` of the tp group
+of ``parallel/mesh.py``) is JAX's megatron layout (``parallel/sharding.py``)
+with the collectives written out (``parallel/tensor_parallel.py``): q/k/v
+and gate/up are column-parallel (the rank's Hq/tp and Hkv/tp heads, I/tp
+columns), their input passes through ``copy_to_tp``; o and down are
+row-parallel and end in one ``reduce_from_tp`` over the base and LoRA
+partial sums; the embeddings are looked up vocab-parallel, the logits
+computed over the rank's vocab slice and gathered. The config stays the
+global one (``head_dim`` is the full model's), and the ``local_*``
+properties give a rank's counts. Which tensors split is decided once, in
+``parallel/sharding.py``'s ``llm_tp_dims``: a group of leaves whose dim
+does not divide by tp replicates, as JAX's fallback does. The replicated
+LoRA factors inside the tp region (column-parallel A, row-parallel B) get
+per-rank partial gradients, which ``TrainStep`` sums over the tp group.
+
+Not ported yet (raises): sequence parallelism, and a quantized base under
+tp (the int4 split-nibble packing does not slice over a row-parallel
+layer's input rows).
 """
 
 from __future__ import annotations
@@ -54,6 +71,13 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from msr3d_tpu_torch.nn.layers import dropout
 from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention_train
+from msr3d_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tp,
+    gather_last_dim,
+    reduce_from_tp,
+    vocab_parallel_embed,
+)
+from msr3d_tpu_torch.parallel.sharding import llm_tp_dims
 
 _NEG_INF = -1e30
 REMAT_POLICIES = ("full", "dots", "residuals")
@@ -94,12 +118,23 @@ class LlamaConfig:
     remat_policy: str = "full"
     # JAX-package option this port does not run yet; setting it raises
     sp_axis: Optional[str] = None
+    # tensor parallelism: this rank's index in a tp group of tp_size ranks
+    tp_size: int = 1
+    tp_rank: int = 0
 
     def __post_init__(self):
         if self.sp_axis:
             raise NotImplementedError(
                 "LlamaConfig option sp_axis is not ported yet (see ROADMAP.md)"
             )
+        if not 0 <= self.tp_rank < self.tp_size:
+            raise ValueError(f"tp_rank {self.tp_rank} outside a tp group of {self.tp_size}")
+        if self.tp_size > 1:
+            if self.quantize:
+                raise NotImplementedError(
+                    "a quantized base under tp > 1 is not ported yet: the int4 split-nibble "
+                    "packing does not slice over a row-parallel layer's input rows "
+                    "(ROADMAP.md, queue 1: quantized weights under tp)")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy: {self.remat_policy!r}")
         if self.remat and self.lora_rank > 0 and self.lora_dropout > 0:
@@ -131,6 +166,35 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    def _splits(self, name: str) -> bool:
+        """Whether tensor ``name`` is split over tp (``llm_tp_dims``)."""
+        return self.tp_size > 1 and name in llm_tp_dims(self)
+
+    @property
+    def tp_attn(self) -> bool:
+        """q/k/v column- and o row-parallel, by whole heads."""
+        return self._splits("layer.0.attn.q_proj.weight")
+
+    @property
+    def tp_mlp(self) -> bool:
+        return self._splits("layer.0.mlp.gate_proj.weight")
+
+    @property
+    def tp_vocab(self) -> bool:
+        return self._splits("embed_tokens.weight")
+
+    @property
+    def local_heads(self) -> int:
+        return self.num_attention_heads // (self.tp_size if self.tp_attn else 1)
+
+    @property
+    def local_kv_heads(self) -> int:
+        return self.kv_heads // (self.tp_size if self.tp_attn else 1)
+
+    @property
+    def local_vocab(self) -> int:
+        return self.vocab_size // (self.tp_size if self.tp_vocab else 1)
 
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":
@@ -192,11 +256,25 @@ class LoraDense(nn.Module):
     token by absmax/127, the product is exact in int32 and rescaled in
     fp32. The scale is kept as loaded (fp32, or a bf16 value) and rounded to
     the compute dtype inside the forward, as the JAX module does.
+
+    Under tensor parallelism ``tp_mode`` ``"col"`` holds the rank's
+    out/tp output rows of the weight and of B (A replicated); ``"row"`` the
+    rank's in/tp input columns of the weight and of A (B replicated), takes
+    the rank's slice of the input, and ends in one ``reduce_from_tp`` of
+    the base and LoRA partial sums. ``in_features``/``out_features`` are
+    the rank's; ``full_in``/``full_out`` the layer's.
     """
 
     def __init__(self, in_features: int, out_features: int, cfg: LlamaConfig,
-                 use_lora: bool, device=None):
+                 use_lora: bool, device=None, tp_mode: Optional[str] = None):
         super().__init__()
+        self.full_in, self.full_out = in_features, out_features
+        self.tp_mode = tp_mode if cfg.tp_size > 1 else None
+        self.tp_rank, self.tp_size = cfg.tp_rank, cfg.tp_size
+        if self.tp_mode == "col":
+            out_features //= cfg.tp_size
+        elif self.tp_mode == "row":
+            in_features //= cfg.tp_size
         self.in_features, self.out_features = in_features, out_features
         self.dtype = cfg.dtype
         self.param_dtype = cfg.param_dtype
@@ -327,15 +405,26 @@ class LoraDense(nn.Module):
         gx = torch.cat([g.mm(k.t()) for k in kernels], dim=-1)
         return gx.view(*gy.shape[:-1], self.in_features)
 
+    def tp_partial(self) -> Tuple[str, ...]:
+        """The replicated LoRA factor whose gradient on a rank is a partial
+        sum over the tp group (column-parallel A, row-parallel B)."""
+        if not self.scale:
+            return ()
+        return {"col": ("lora_a",), "row": ("lora_b",)}.get(self.tp_mode, ())
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = self.base_forward(x)
         if self.scale:
-            h = dropout(x, self.lora_dropout, self.training, generator)
+            # a row-parallel input is the rank's slice of the full one: its
+            # dropout mask is the full mask's slice
+            whole = ((self.full_in, self.tp_rank * self.in_features)
+                     if self.tp_mode == "row" else None)
+            h = dropout(x, self.lora_dropout, self.training, generator, whole)
             y = y + F.linear(
                 F.linear(h, self.lora_a.to(self.dtype)), self.lora_b.to(self.dtype)
             ) * self.scale
-        return y
+        return reduce_from_tp(y) if self.tp_mode == "row" else y
 
 
 class _QuantizedBase(torch.autograd.Function):
@@ -374,8 +463,10 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, wq)[:rows]
 
 
-def _proj(cfg: LlamaConfig, name: str, n_in: int, n_out: int, device) -> LoraDense:
-    return LoraDense(n_in, n_out, cfg, cfg.lora_rank > 0 and name in cfg.lora_targets, device)
+def _proj(cfg: LlamaConfig, name: str, n_in: int, n_out: int, device,
+          tp_mode: Optional[str] = None) -> LoraDense:
+    return LoraDense(n_in, n_out, cfg, cfg.lora_rank > 0 and name in cfg.lora_targets, device,
+                     tp_mode)
 
 
 def _attn_scale(head_dim: int, device) -> torch.Tensor:
@@ -384,21 +475,27 @@ def _attn_scale(head_dim: int, device) -> torch.Tensor:
 
 
 class LlamaAttention(nn.Module):
+    """Self-attention over the rank's ``local_heads`` query and
+    ``local_kv_heads`` key/value heads (all of them at tp = 1)."""
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
         h, hd = cfg.hidden_size, cfg.head_dim
-        self.q_proj = _proj(cfg, "q_proj", h, cfg.num_attention_heads * hd, device)
-        self.k_proj = _proj(cfg, "k_proj", h, cfg.kv_heads * hd, device)
-        self.v_proj = _proj(cfg, "v_proj", h, cfg.kv_heads * hd, device)
-        self.o_proj = _proj(cfg, "o_proj", cfg.num_attention_heads * hd, h, device)
+        col, row = ("col", "row") if cfg.tp_attn else (None, None)
+        self.q_proj = _proj(cfg, "q_proj", h, cfg.num_attention_heads * hd, device, col)
+        self.k_proj = _proj(cfg, "k_proj", h, cfg.kv_heads * hd, device, col)
+        self.v_proj = _proj(cfg, "v_proj", h, cfg.kv_heads * hd, device, col)
+        self.o_proj = _proj(cfg, "o_proj", cfg.num_attention_heads * hd, h, device, row)
 
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor, generator=None):
         cfg = self.cfg
         b, t, _ = x.shape
-        q = self.q_proj(x, generator).view(b, t, cfg.num_attention_heads, cfg.head_dim)
-        k = self.k_proj(x, generator).view(b, t, cfg.kv_heads, cfg.head_dim)
-        v = self.v_proj(x, generator).view(b, t, cfg.kv_heads, cfg.head_dim)
+        if cfg.tp_attn:
+            x = copy_to_tp(x)
+        q = self.q_proj(x, generator).view(b, t, cfg.local_heads, cfg.head_dim)
+        k = self.k_proj(x, generator).view(b, t, cfg.local_kv_heads, cfg.head_dim)
+        v = self.v_proj(x, generator).view(b, t, cfg.local_kv_heads, cfg.head_dim)
         return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
     def _rep(self, x: torch.Tensor) -> torch.Tensor:
@@ -512,11 +609,15 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         h, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _proj(cfg, "gate_proj", h, m, device)
-        self.up_proj = _proj(cfg, "up_proj", h, m, device)
-        self.down_proj = _proj(cfg, "down_proj", m, h, device)
+        self.tp = cfg.tp_mlp
+        col, row = ("col", "row") if self.tp else (None, None)
+        self.gate_proj = _proj(cfg, "gate_proj", h, m, device, col)
+        self.up_proj = _proj(cfg, "up_proj", h, m, device, col)
+        self.down_proj = _proj(cfg, "down_proj", m, h, device, row)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if self.tp:
+            x = copy_to_tp(x)
         h = F.silu(self.gate_proj(x, generator)) * self.up_proj(x, generator)
         return self.down_proj(h, generator)
 
@@ -592,10 +693,11 @@ def _remat_block(block: LlamaBlock, policy: str, x, positions, attn_bias, key_va
 
 
 def _make_cache(cfg: LlamaConfig, batch: int, max_len: int, device) -> Dict[str, torch.Tensor]:
-    """An empty cache, k/v (L, B, max_len, hkv, D) zeros in the compute
+    """An empty cache of the rank's kv heads (all of them at tp = 1), k/v
+    (L, B, max_len, hkv, D) zeros in the compute
     dtype, or with ``kv_quantize`` the int8 layout of the zeros: values 0
     and every scale bf16(1e-6 / 127), as ``quantize_kv_cache`` gives them."""
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.num_hidden_layers, batch, max_len, cfg.local_kv_heads, cfg.head_dim)
     if cfg.kv_quantize:
         zero_scale = (torch.tensor(1e-6, dtype=torch.float32) / 127.0).to(torch.bfloat16)
         cache = {key: torch.zeros(shape, dtype=torch.int8, device=device) for key in ("k", "v")}
@@ -698,28 +800,50 @@ def _bias(valid: torch.Tensor) -> torch.Tensor:
 
 class LlamaModel(nn.Module):
     """Decoder-only Llama driven by ``inputs_embeds`` (the MSR3D model
-    splices scene embeddings between the token embeddings)."""
+    splices scene embeddings between the token embeddings). Under tp the
+    embedding table and ``lm_head`` hold the rank's ``local_vocab`` rows."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        vocab = cfg.local_vocab
         self.embed_tokens = nn.Embedding(
-            cfg.vocab_size, cfg.hidden_size,
-            _weight=torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=cfg.param_dtype,
-                                device=device),
+            vocab, cfg.hidden_size,
+            _weight=torch.empty(vocab, cfg.hidden_size, dtype=cfg.param_dtype, device=device),
         )
         self.embed_tokens.weight.requires_grad_(False)
         self.layer = nn.ModuleList(LlamaBlock(cfg, device) for _ in range(cfg.num_hidden_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype,
                                   cfg.param_dtype, device)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+        self.lm_head = nn.Linear(cfg.hidden_size, vocab, bias=False,
                                  dtype=cfg.param_dtype, device=device)
         self.lm_head.weight.requires_grad_(False)
 
+    def tp_dims(self) -> Dict[str, int]:
+        """name (inside the LLM) → the split dim of each tensor sharded over
+        tp (``llm_tp_dims``); every other tensor is replicated (empty at tp
+        = 1)."""
+        return dict(llm_tp_dims(self.cfg))
+
+    def tp_partial(self) -> List[str]:
+        """The replicated parameters (inside the LLM) whose per-rank gradient
+        is a partial sum over the tp group (``LoraDense.tp_partial``)."""
+        return [f"{prefix}.{leaf}" for prefix, mod in self.named_modules()
+                if isinstance(mod, LoraDense) for leaf in mod.tp_partial()]
+
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tp_vocab:
+            start = self.cfg.tp_rank * self.cfg.local_vocab
+            return vocab_parallel_embed(input_ids, self.embed_tokens.weight,
+                                        start).to(self.cfg.dtype)
         return self.embed_tokens(input_ids).to(self.cfg.dtype)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(…, V) over the whole vocab; under a vocab-parallel head the
+        rank's slice, gathered over the tp group."""
+        if self.cfg.tp_vocab:
+            local = F.linear(copy_to_tp(hidden), self.lm_head.weight.to(self.cfg.dtype))
+            return gather_last_dim(local)
         return F.linear(hidden, self.lm_head.weight.to(self.cfg.dtype))
 
     def _positions(self, attention_mask: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,8 @@ buffers, through flax-layout trees (``models/llm/convert.py``,
 ``msr3d_tpu/utils/torch_convert.py``'s) and the names of
 ``msr3d_tpu_torch.convert``. As in JAX, only entries the network has are
 written (shape-checked, cast to the destination's dtype and device);
-anything absent keeps its value.
+anything absent keeps its value. Under tensor parallelism the checkpoint
+is converted whole and each rank keeps its shards (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from msr3d_tpu_torch.models.llm.convert import (
     quantize_llm_params,
 )
 from msr3d_tpu_torch.models.vision2d import CONVNEXT_SPECS, convert_convnext_state_dict
+from msr3d_tpu_torch.parallel.sharding import shard_tensor
 
 
 @torch.no_grad()
@@ -43,6 +45,8 @@ def _overlay(network: torch.nn.Module, module: str, params: Dict[str, Any],
     equals the JAX one loaded from the same checkpoint."""
     targets = dict(network.named_parameters())
     targets.update(network.named_buffers())
+    # under tensor parallelism a sharded tensor takes its shard of the value
+    dims = network.tp_dims() if hasattr(network, "tp_dims") else {}
     for path, value in _flatten(params).items():
         if value is None:
             continue
@@ -57,6 +61,9 @@ def _overlay(network: torch.nn.Module, module: str, params: Dict[str, Any],
             value = value.permute(3, 2, 0, 1) if value.dim() == 4 else value.t()
         if path.endswith("kernel_scale"):
             value = value.to(torch.bfloat16)
+        if dims.get(name) is not None:
+            tp = network.llm.cfg
+            value = shard_tensor(value, dims[name], tp.tp_rank, tp.tp_size)
         dst = targets[name]
         if tuple(value.shape) != tuple(dst.shape):
             raise ValueError(f"shape mismatch at {name}: checkpoint {tuple(value.shape)} vs "
@@ -76,7 +83,8 @@ def load_llm_weights(network: torch.nn.Module, cfg_path, llm_cfg,
         params = quantize_llm_params(params, llm_cfg)
     _overlay(network, "llm", params)
     got = network.llm.embed_tokens.weight[:1, :4].float().cpu()
-    want = params["embed_tokens"]["embedding"][:1, :4].float()
+    first = network.llm.cfg.tp_rank * network.llm.cfg.local_vocab  # the rank's first row
+    want = params["embed_tokens"]["embedding"][first:first + 1, :4].float()
     if not torch.allclose(got, want, atol=1e-2):
         raise RuntimeError("LLM overlay failed to land")
 

@@ -154,6 +154,16 @@ class MSR3DNetwork(nn.Module):
         self.llm_proj_img = nn.Linear(self.image_encoder.out_channels, cfg.llm.hidden_size,
                                       device=device)
 
+    def tp_dims(self) -> Dict[str, int]:
+        """name → the split dim of each parameter sharded over tp (the
+        LLM's; everything else is replicated)."""
+        return {f"llm.{name}": dim for name, dim in self.llm.tp_dims().items()}
+
+    def tp_partial(self) -> List[str]:
+        """The replicated parameters whose per-rank gradient is a partial
+        sum over the tp group (``LlamaModel.tp_partial``)."""
+        return [f"llm.{name}" for name in self.llm.tp_partial()]
+
     def encode_images(self, images: torch.Tensor) -> torch.Tensor:
         """(B, M, H, W, 3) → projected image embeddings (B, M, ·), one token
         an image with ``avg``, ``conv`` or ``attn`` pooling."""
@@ -266,8 +276,28 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
     A quantized projection draws the same N(0, 0.02) weight as its bf16
     counterpart and quantizes it (the JAX initialiser's int8 zeros with
     scale 1 would make a dead base), so a quantized model initialised from
-    a seed equals the bf16 one initialised from it, then quantized."""
+    a seed equals the bf16 one initialised from it, then quantized.
+
+    Under tensor parallelism each rank draws every sharded tensor whole, as
+    tp = 1 draws it, and keeps its shard, so the ranks' draws stay in step
+    and their shards join into the tp = 1 model."""
     g = dict(generator=generator)
+    cfg = network.cfg.llm
+    dims = network.tp_dims()
+    owner = {id(p): n for n, p in network.named_parameters()}
+
+    def draw(param: torch.Tensor, fill) -> None:
+        # fill(t) draws into t; a sharded param draws its whole, then slices
+        dim = dims.get(owner.get(id(param)))
+        if dim is None:
+            fill(param)
+            return
+        shape = list(param.shape)
+        shape[dim] *= cfg.tp_size
+        whole = torch.empty(shape, dtype=param.dtype, device=param.device)
+        fill(whole)
+        param.copy_(whole.chunk(cfg.tp_size, dim=dim)[cfg.tp_rank])
+
     for mod in network.modules():
         if isinstance(mod, LoraDense):
             if mod.bits:
@@ -275,13 +305,13 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
                                      device=mod.weight_q.device).normal_(0.0, 0.02, **g)
                 mod.quantize_(mod.bits, mod.group, mod.act_quant, weight=weight)
             else:
-                mod.weight.normal_(0.0, 0.02, **g)
+                draw(mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
             if mod.scale:
-                limit = math.sqrt(6.0 / mod.lora_a.shape[1])
-                mod.lora_a.uniform_(-limit, limit, **g)
+                limit = math.sqrt(6.0 / mod.full_in)
+                draw(mod.lora_a, lambda t: t.uniform_(-limit, limit, **g))
                 mod.lora_b.zero_()
         elif isinstance(mod, nn.Embedding):
-            mod.weight.normal_(0.0, 0.02, **g)
+            draw(mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
         elif isinstance(mod, nn.Conv2d):
             mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.weight[0].numel()), **g)
             mod.bias.zero_()
@@ -289,7 +319,7 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
             mod.gamma.fill_(mod.layer_scale_init)
         elif isinstance(mod, nn.Linear):
             if mod is network.llm.lm_head:
-                mod.weight.normal_(0.0, 0.02, **g)
+                draw(mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
             else:
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), **g)
             if mod.bias is not None:
@@ -363,9 +393,7 @@ class MSR3D:
             img_token_id=self.tokenizer.img_token_id,
         )
         self.network = MSR3DNetwork(self.cfg, device=self.device).eval()
-        trainable = set(self.trainable_parameter_names())
-        for name, param in self.network.named_parameters():
-            param.requires_grad_(name in trainable)
+        self._mark_trainable()
         self.scene_token_len = scene_token_len
         self.image_token_len = image_token_len
         self.max_context_len = max_context_len
@@ -394,6 +422,11 @@ class MSR3D:
         self.compact_transfer = bool(compact_transfer)
         self._seed = seed
 
+    def _mark_trainable(self) -> None:
+        trainable = set(self.trainable_parameter_names())
+        for name, param in self.network.named_parameters():
+            param.requires_grad_(name in trainable)
+
     # -- weights -----------------------------------------------------------
 
     def init_params(self, seed: Optional[int] = None) -> None:
@@ -407,6 +440,34 @@ class MSR3D:
         """Load the JAX package's flax variables (nested numpy dicts).
         Returns the JAX keys skipped as not on this path."""
         return load_jax_params(self.network, variables)
+
+    @torch.no_grad()
+    def shard_for_serving(self, *, tensor_parallel: bool = False) -> None:
+        """Serve over the ranks of ``parallel/mesh.py``'s mesh (after
+        ``init_mesh``), the counterpart of the JAX package's
+        ``shard_for_serving``. Its dp mode, the params replicated over the
+        devices one process drives, is already what a rank holds here, so it
+        does nothing. ``tensor_parallel=True`` splits the LLM's weights of
+        this full model over the tp group in the megatron layout
+        (``parallel/sharding.py``): the rank rebuilds its LLM at the shard
+        shapes and keeps its shards; every tp rank then runs ``generate``
+        and the engines on the same requests, and their tokens are the
+        unsharded model's."""
+        from msr3d_tpu_torch.parallel import mesh
+        from msr3d_tpu_torch.parallel.sharding import shard_like
+
+        if not tensor_parallel or mesh.tp_size() == 1:
+            return
+        if self.cfg.llm.tp_size > 1:
+            raise ValueError("shard_for_serving: the LLM is tp-sharded already")
+        llm_cfg = dataclasses.replace(self.cfg.llm, tp_size=mesh.tp_size(),
+                                      tp_rank=mesh.tp_rank())
+        llm = LlamaModel(llm_cfg, device=self.device)
+        llm.load_state_dict(shard_like(llm, self.network.llm.state_dict()))
+        self.network.llm = llm.train(self.network.training)  # frees the full LLM
+        self.cfg = dataclasses.replace(self.cfg, llm=llm_cfg)
+        self.network.cfg = self.cfg
+        self._mark_trainable()
 
     @torch.no_grad()
     def quantize_llm(self, bits: int = 8, group: Optional[int] = None, *,

@@ -82,6 +82,18 @@ class Optimizer:
         self.schedule = schedule
         self.count = 0
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        # the parameters split over the tp group (a per-tensor norm is the
+        # whole tensor's: its shards' squares summed over the group); set
+        # by ``TrainStep``
+        self.tp_sharded: frozenset = frozenset()
+
+    def _norm(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """‖t‖ of parameter ``name``'s tensor (its whole, under tp)."""
+        if name not in self.tp_sharded:
+            return t.norm()
+        from msr3d_tpu_torch.parallel.tensor_parallel import sum_over_tp_
+
+        return sum_over_tp_(t.float().square().sum().reshape(1))[0].sqrt().to(t.dtype)
 
     def _update(self, name: str, param: torch.Tensor, grad: torch.Tensor,
                 lr: float) -> None:
@@ -153,7 +165,7 @@ class Lamb(Adam):
 
     def _update(self, name, param, grad, lr):
         update = self._direction(name, param, grad)
-        param_norm, update_norm = param.norm(), update.norm()
+        param_norm, update_norm = self._norm(name, param), self._norm(name, update)
         trust = torch.where((param_norm == 0) | (update_norm == 0),
                             torch.ones_like(param_norm), param_norm / update_norm)
         param.add_(update * trust * -lr)

@@ -16,10 +16,13 @@ the CPU, and without a GPU any other device raises. The JAX-only keys
 Under the ``torch.distributed`` env contract (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``, as ``python -m msr3d_tpu_torch.launch
 --mode accelerate`` sets it) the process joins the group as one rank of a
-data-parallel run on its own card (``cuda:LOCAL_RANK``), rank 0 alone writes
-the snapshot, and the group is left on the way out, also on an exception.
-Each rank ends with a ``run summary`` log line: its rank, backend, device,
-steps and their ms, peak device memory and its kernels' launches.
+run on the card ``cuda:LOCAL_RANK % cards``, rank 0 alone writes the
+snapshot, and the group is left on the way out, also on an exception. The
+ranks form dp × tp with ``parallel.tp`` from the YAML or an override
+(``parallel.tp=2``; dp is what tp leaves). Each rank ends with a ``run
+summary`` log line: its rank, dp, tp and tp rank, backend, device, the LLM
+parameters it holds, the tp collectives' count and host seconds, steps
+and their ms, peak device memory and its kernels' launches.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from msr3d_tpu_torch.config import load_config, save_config
 from msr3d_tpu_torch.device import resolve_device
-from msr3d_tpu_torch.parallel import mesh
+from msr3d_tpu_torch.parallel import mesh, tensor_parallel
 from msr3d_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("msr3d_tpu_torch.run")
@@ -94,11 +97,20 @@ def run_summary(trainer, device: torch.device) -> dict:
     from msr3d_tpu_torch.ops.fps import FPS_KERNEL
 
     kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL)
+    llm = trainer.model.network.llm
     return {
-        "rank": mesh.rank(), "world": mesh.world_size(),
+        "rank": mesh.rank(), "world": mesh.world_size(), "dp": trainer.dp, "tp": trainer.tp,
+        "tp_rank": mesh.tp_rank(),
         "backend": dist.get_backend() if dist.is_initialized() else None,
+        # the LLM's parameters this rank holds (its shards under tp), and
+        # the tp operators' collectives with their host seconds
+        "llm_params": sum(p.numel() for p in llm.parameters()),
+        "tp_comm": dict(tensor_parallel.COMM), "step_tp_comm_s": trainer.tp_comm_history,
         "device": str(device), "steps": trainer.step,
         "step_ms": [1e3 * t for t in trainer.timer.history],
+        # the loop's wait on the loader a step (under tp, tp rank 0's loading
+        # and the batch's broadcast over the tp group)
+        "data_wait_ms": [1e3 * t for t in trainer.data_wait_history],
         "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                      if device.type == "cuda" else None),
         "launches": {k.symbol.replace("_launch", ""): k.launches for k in kernels},

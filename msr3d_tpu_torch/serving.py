@@ -37,6 +37,13 @@ request id at insert and from the row's step at each pick. The pool
 engines' prefix prefill writes only its valid rows into their blocks (JAX
 scatters with ``mode="drop"``), and their decode reads the pool through a
 view, not a copy.
+
+Under tensor parallelism (a model whose LLM is split over the tp group,
+``MSR3D.shard_for_serving``) every tp rank runs the engine SPMD on the same
+requests: the logits are gathered whole on every rank, so each rank makes
+the same host decisions, and a continuous engine checks at the end of
+``run`` that the ranks emitted the same tokens (one sha256 gathered over
+the tp group).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ import numpy as np
 import torch
 
 from msr3d_tpu_torch.models.llm import prng
+from msr3d_tpu_torch.parallel.tensor_parallel import check_tp_agree
 from msr3d_tpu_torch.models.llm.llama import _make_cache, _write_rows
 from msr3d_tpu_torch.models.llm.sampling import (
     _NEG,
@@ -540,6 +548,7 @@ class ContinuousBatchingServer:
         # read, so scheduling lags by at most that many chunks
         self.lookahead = max(0, lookahead)
         self.steps_run = 0  # decode steps (model calls), for utilization reporting
+        self.tokens_digest: Optional[str] = None  # sha256 of the last run's emitted tokens
 
     # -- device state ----------------------------------------------------
 
@@ -864,6 +873,10 @@ class ContinuousBatchingServer:
         # a long-lived online server delivers through on_result only
         retain_results = not (online and on_result is not None)
         results: Dict[int, Result] = {}
+        # every request's tokens in completion order: under tensor
+        # parallelism each tp rank serves the same requests, and its host
+        # decisions (finished rows, beam reorders, refills) must agree
+        emitted = hashlib.sha256()
 
         prompt_ctx, state = self._engine_init()
         free: deque = deque(range(self.num_slots))
@@ -894,6 +907,7 @@ class ContinuousBatchingServer:
                 texts = model.batch_detokenize(np.stack([gen[s] for s in done]))
                 for j, s in enumerate(done):
                     rid = slot_rid.pop(s)
+                    emitted.update(np.int64(rid).tobytes() + gen[s].tobytes())
                     res = Result(id=rid, output_text=texts[j], output_tokens=gen[s])
                     if retain_results:
                         results[rid] = res
@@ -949,6 +963,8 @@ class ContinuousBatchingServer:
                         continue
                     break  # everything served
 
+        self.tokens_digest = emitted.hexdigest()
+        check_tp_agree(self.tokens_digest, "the tokens this engine emitted")
         return [results[k] for k in sorted(results)]
 
 

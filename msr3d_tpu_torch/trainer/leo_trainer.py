@@ -68,10 +68,25 @@ on every multi-rank run (``prompt_pad_to`` and ``max_out_len`` rounded up to
 duplicates (``padded_tail``) and gathers every rank's records, rank 0's
 first, into each rank's evaluator. Rank 0 alone writes ``metrics.jsonl``,
 ``results.json`` and the checkpoints, and a barrier follows each save; a
-preemption signal stops every rank at the same step boundary (the ranks
-agree the flag with each step's micro-batch count).
+preemption signal stops every rank, dp and tp, at the same step boundary
+(the ranks agree the flag with each step's micro-batch count).
 
-Not ported yet: ``parallel.tp/pp/sp > 1`` (``NotImplementedError`` naming
+Tensor parallelism (``parallel.tp`` > 1): the ranks form dp × tp
+(``parallel/mesh.py``'s ``init_mesh``, tp the fastest-varying rank index),
+the model is built with the rank's shard of the LLM (``parallel/sharding.py``).
+The tp ranks of one dp group compute on the same rows (the loaders shard by
+dp rank, and tp rank 0 alone iterates its loader and broadcasts each batch
+over the tp group), draw the same dropout masks (the generator is seeded by
+dp rank; a row-parallel input's mask is the full mask's slice) and compute
+the same loss; ``TrainStep`` sums the partial gradients over tp and
+averages over the dp group. The replica checks compare each trainable
+parameter within its tp index's dp group, and the replicated ones across the
+tp group too. Evaluation gathers records over the dp group only, so each
+sample counts once. The checkpoints hold the full tensors, gathered over tp
+(rank 0 writes), so a run saved at one tp resumes at another; a load
+shards them again.
+
+Not ported yet: ``parallel.pp/sp > 1`` (``NotImplementedError`` naming
 ROADMAP.md's queue). Training with the point encoder unfrozen
 (``vision.args.freeze: False``) raises ``ValueError``: the JAX trainer fails
 on it (its train step does not make ``batch_stats`` mutable), so the port
@@ -93,15 +108,16 @@ import torch
 
 from msr3d_tpu_torch.config import Config, cfg2dict, config_from_dict
 from msr3d_tpu_torch.optim.build import build_optim
+from msr3d_tpu_torch.parallel import mesh, tensor_parallel
 from msr3d_tpu_torch.parallel.mesh import (
     all_reduce_max,
     barrier,
     check_replicas_equal,
-    data_parallel_size,
     is_main_process,
     process_allgather_objects,
     rank,
 )
+from msr3d_tpu_torch.parallel.sharding import gather_full_state_dict, shard_like, shard_tensor
 from msr3d_tpu_torch.registry import TRAINER_REGISTRY
 from msr3d_tpu_torch.trainer.checkpoint import CheckpointManager, Tracker
 from msr3d_tpu_torch.trainer.train_state import TrainStep, filter_learnable, merge_learnable
@@ -131,6 +147,39 @@ def _cfg(cfg: Mapping[str, Any], path: str, default=None):
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _batches(loader, tp: int):
+    """An iterator over ``loader``'s batches. Under tp only tp rank 0 of
+    each dp group iterates the loader (its reads, augmentation and workers)
+    and broadcasts each batch over the tp group, then None at its end; the
+    other tp ranks take the broadcasts. So the tp ranks of a dp group
+    compute on one batch (a loader draws its points and answers from each
+    process's own global generators). Closing it closes the loader's
+    iterator."""
+    if tp == 1:
+        return iter(loader)
+    return _tp_rank0_batches(loader) if mesh.tp_rank() == 0 else _tp_broadcast_batches()
+
+
+def _tp_rank0_batches(loader):
+    batches = iter(loader)
+    try:
+        for data_dict in batches:
+            yield mesh.tp_broadcast_object(data_dict)
+        mesh.tp_broadcast_object(None)  # the end, for the other tp ranks
+    finally:
+        close = getattr(batches, "close", None)
+        if close is not None:
+            close()
+
+
+def _tp_broadcast_batches():
+    while True:
+        data_dict = mesh.tp_broadcast_object(None)
+        if data_dict is None:
+            return
+        yield data_dict
 
 
 def _find_answer_cands(loader) -> Optional[List[str]]:
@@ -164,8 +213,8 @@ class LeoTrainer:
         # generation (the configs' route) or retrieval scoring over the
         # dataset's answer vocabulary
         self.inference_mode = _cfg(cfg, "model.llm.inference_mode", "generation")
-        # dp: every rank (tp, pp and sp still raise)
-        self.dp = data_parallel_size(cfg.get("parallel") or {})
+        # dp x tp over the ranks (pp and sp still raise)
+        self.dp, self.tp = mesh.init_mesh(cfg.get("parallel") or {})
         self.fixed_text_buckets = self.dp > 1 or bool(cfg.get("fixed_text_buckets", False))
         if loaders is None:
             from msr3d_tpu_torch.data.build import build_task_loaders
@@ -182,6 +231,9 @@ class LeoTrainer:
             model.init_params()
             for src in load_pretrained_from_config(model, config):
                 logger.info(f"loaded pretrained weights: {src}")
+        if model.cfg.llm.tp_size != self.tp:
+            raise ValueError(f"the model's LLM is split over tp={model.cfg.llm.tp_size}, the "
+                             f"config's parallel.tp is {self.tp}")
         self.model = model
         self.loaders = loaders
         self.exp_dir = Path(cfg.get("exp_dir") or "./exp_default")
@@ -196,7 +248,8 @@ class LeoTrainer:
                     evaluator.save = False
         self.evaluators = evaluators
         self._preempted = False  # set by the SIGTERM/SIGUSR1 handler
-        self._stop = False  # the ranks' agreed preemption flag (dp > 1)
+        self._stop = False  # the ranks' agreed preemption flag (more than one rank)
+        self.replicated_digest: Optional[str] = None  # of the last tp replica check
 
         solver = cfg["solver"]
         self.epochs = int(solver["epochs"])
@@ -226,15 +279,19 @@ class LeoTrainer:
 
         self.trainable_names = model.trainable_parameter_names()
         self.generator = torch.Generator(device=model.device)
-        self.generator.manual_seed(int(cfg.get("rng_seed", 42)) + rank())
+        # by dp rank: the tp ranks of a dp group draw the same masks
+        self.generator.manual_seed(int(cfg.get("rng_seed", 42)) + mesh.dp_rank())
         self.optimizer = self.schedule = self._train_step = None
         if self.train_loader is not None:  # evaluation alone needs no optimizer
             named = dict(model.network.named_parameters())
             self.params = {n: named[n] for n in self.trainable_names}
             self.optimizer, self.schedule, grad_norm = build_optim(cfg, total_steps,
                                                                    self.params)
+            network = model.network
             self._train_step = TrainStep(self._micro_batch_loss, self.params,
-                                         self.optimizer, grad_norm, data_parallel=self.dp)
+                                         self.optimizer, grad_norm, data_parallel=self.dp,
+                                         tp_sharded=network.tp_dims(),
+                                         tp_partial=network.tp_partial())
 
         self.tracker = Tracker(run_id=str(uuid.uuid4())[:8])
         self.ckpt = CheckpointManager(self.exp_dir / "ckpt",
@@ -243,9 +300,10 @@ class LeoTrainer:
         self.logger = MetricLogger(exp_dir=self.exp_dir, write=is_main_process())
         self.timer = StepTimer()
         self.data_wait_history: List[float] = []  # seconds the loop waited on the loader, a step
+        self.tp_comm_history: List[float] = []  # host seconds in tp collectives, a step
         if cfg.get("resume", False) and self._train_step is not None:
             self._try_resume()
-        if self.dp > 1:
+        if mesh.world_size() > 1:
             self._check_replicas("after init" + (" and resume" if cfg.get("resume") else ""))
 
     @property
@@ -254,11 +312,18 @@ class LeoTrainer:
         return self._train_step.step_count if self._train_step is not None else 0
 
     def _check_replicas(self, when: str) -> str:
-        """Raise unless the trainable parameters are bit-equal on every rank;
-        returns their digest."""
+        """Raise unless each trainable parameter is bit-equal on the ranks of
+        its tp index's dp group, and a replicated one on the tp ranks too;
+        returns the digest of this rank's."""
         named = dict(self.model.network.named_parameters())
-        return check_replicas_equal({n: named[n] for n in self.trainable_names},
-                                    f"the trainable parameters {when}")
+        mine = {n: named[n] for n in self.trainable_names}
+        if self.tp > 1:
+            sharded = self.model.network.tp_dims()
+            self.replicated_digest = check_replicas_equal(
+                {n: t for n, t in mine.items() if n not in sharded},
+                f"the replicated trainable parameters {when}", group=mesh.tp_control_group())
+        return check_replicas_equal(mine, f"the trainable parameters {when}",
+                                    group=mesh.dp_control_group())
 
     # ------------------------------------------------------------------
 
@@ -336,7 +401,7 @@ class LeoTrainer:
 
         def flush(consumed_through: int) -> None:
             nonlocal group, waited
-            if self.dp > 1:
+            if self.dp * self.tp > 1:
                 self._agree_step(len(group))
             batches = self._device_batch(group)
             group = []
@@ -344,7 +409,10 @@ class LeoTrainer:
             network.train()
             try:
                 t0 = time.perf_counter()
+                comm0 = tensor_parallel.COMM["seconds"]
                 metrics = self._train_step(batches)
+                # host seconds in the tp collectives (each waits for the card)
+                self.tp_comm_history.append(tensor_parallel.COMM["seconds"] - comm0)
             finally:
                 network.eval()
             step = self._train_step.step_count
@@ -358,7 +426,7 @@ class LeoTrainer:
                 process_one()
             waited = 0.0
 
-        batches = iter(self.train_loader)
+        batches = _batches(self.train_loader, self.tp)
         i = -1
         try:
             while True:
@@ -375,7 +443,7 @@ class LeoTrainer:
                 if len(group) == self.accum_steps:
                     flush(i + 1)
                 # one process stops at once; ranks only where they agreed to
-                if self._preempted if self.dp == 1 else (self._stop and not group):
+                if self._preempted if self.dp * self.tp == 1 else (self._stop and not group):
                     if group:
                         flush(i + 1)
                     while pending:
@@ -392,9 +460,10 @@ class LeoTrainer:
         return {"loss": float(np.mean(losses)) if losses else float("nan")}
 
     def _agree_step(self, n_micro: int) -> None:
-        """One host collective before each dp step: every rank must bring the
-        same number of micro-batches (equal-length shards guarantee it), and
-        a preemption flag raised on any rank stops them all after this step."""
+        """One host collective over every rank (dp x tp) before each step of
+        more than one rank: every rank must bring the same number of
+        micro-batches (equal-length shards guarantee it), and a preemption
+        flag raised on any rank stops them all after this step."""
         got = all_reduce_max([n_micro, -n_micro, int(self._preempted)])
         if got[:2] != [n_micro, -n_micro]:
             raise RuntimeError(f"rank {rank()} has {n_micro} micro-batches this step, others "
@@ -473,7 +542,9 @@ class LeoTrainer:
             if padded_tail and n_batches is not None and i == n_batches - 1:
                 b = len(record.get("output_text", record.get("answers_id", [])))
                 record = self._trim_record(record, b, b - padded_tail)
-            for gathered in process_allgather_objects([record]):
+            # over the dp group: the tp ranks of a dp group hold the same
+            # samples, so each counts once
+            for gathered in process_allgather_objects([record], mesh.dp_control_group()):
                 evaluator.update(gathered)
 
         depth = max(0, int(self.cfg.get("eval_pipeline_depth", 3)))
@@ -483,7 +554,7 @@ class LeoTrainer:
             i, data_dict, finalize = pending.popleft()
             emit(i, data_dict, {"output_text": finalize()["output_text"]})
 
-        batches = iter(loader)
+        batches = _batches(loader, self.tp)
         try:
             eval_engine = str(self.cfg.get("eval_engine", "") or "").lower()
             if generation and eval_engine == "continuous":
@@ -678,10 +749,13 @@ class LeoTrainer:
             self._save_learnable("latest")
             if (epoch + 1) % self.eval_interval == 0:
                 self._run_eval("val", epoch)
-        if self.dp > 1:
+        if mesh.world_size() > 1:
             digest = self._check_replicas("after training")
             logger.info(f"the trainable parameters agree across {self.dp} ranks after "
                         f"training (sha256 {digest})")
+            if self.tp > 1:
+                logger.info(f"the replicated trainable parameters agree across {self.tp} tp "
+                            f"ranks after training (sha256 {self.replicated_digest})")
         self._run_eval("test", self.epochs)
 
     def _preemption_handlers(self):
@@ -712,15 +786,29 @@ class LeoTrainer:
 
     # -- checkpoint plumbing --------------------------------------------
 
+    def _learnable(self) -> Dict[str, torch.Tensor]:
+        """The learnable parameters, full (gathered over tp), on the CPU."""
+        return gather_full_state_dict(
+            filter_learnable(self.model.network, self.trainable_names),
+            self.model.network.tp_dims())
+
     def _state_dict(self) -> Dict[str, Any]:
+        """The full training state: full tensors (the sharded parameters and
+        their moments gathered over tp), as JAX's checkpoints hold global
+        arrays. Every rank calls it (the gathers), rank 0 writes it."""
+        opt_state = self.optimizer.state_dict()
+        dims = self.model.network.tp_dims()
+        opt_state["state"] = {n: gather_full_state_dict(st, {k: dims.get(n) for k in st})
+                              for n, st in opt_state["state"].items()}
         state = {
-            "params": filter_learnable(self.model.network, self.trainable_names),
-            "opt_state": self.optimizer.state_dict(),
+            "params": self._learnable(),
+            "opt_state": opt_state,
             "step": self._train_step.step_count,
             "generator": self.generator.get_state(),
         }
-        if self.dp > 1:  # each rank's dropout generator, by rank
-            state["generators"] = process_allgather_objects([state["generator"]])
+        if self.dp > 1:  # each dp rank's dropout generator, by dp rank
+            state["generators"] = process_allgather_objects([state["generator"]],
+                                                            mesh.dp_control_group())
         return state
 
     def _save_state(self, step: int) -> None:
@@ -731,25 +819,29 @@ class LeoTrainer:
     def _save_learnable(self, name: str) -> None:
         """The learnable weights as ``name``, written by rank 0; every rank
         waits for the file, so a load of it on any rank reads it whole."""
-        self.ckpt.save_weights(name, filter_learnable(self.model.network,
-                                                      self.trainable_names))
+        self.ckpt.save_weights(name, self._learnable())
         barrier()
 
     def load_learnable(self, name: str) -> None:
         """Overlay the learnable weights saved as ``name`` on the model."""
-        merge_learnable(self.model.network, self.ckpt.load_weights(name))
+        merge_learnable(self.model.network,
+                        shard_like(self.model.network, self.ckpt.load_weights(name)))
         logger.info(f"loaded the learnable weights {name!r} from {self.ckpt.dir}")
 
     def _try_resume(self) -> None:
         state = self.ckpt.restore_state(self.tracker)
         if state is None:
             return
-        merge_learnable(self.model.network, state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        merge_learnable(self.model.network, shard_like(self.model.network, state["params"]))
+        opt_state, dims, llm = state["opt_state"], self.model.network.tp_dims(), self.model.cfg.llm
+        opt_state["state"] = {n: {k: shard_tensor(v, dims.get(n), llm.tp_rank, llm.tp_size)
+                                  for k, v in st.items()}
+                              for n, st in opt_state["state"].items()}
+        self.optimizer.load_state_dict(opt_state)
         self._train_step.step_count = int(state["step"])
         generators = state.get("generators", [state["generator"]] if "generator" in state else [])
         if len(generators) == self.dp:
-            self.generator.set_state(generators[rank()])
+            self.generator.set_state(generators[mesh.dp_rank()])
         else:  # saved by another rank count: each rank restarts from its seed, as JAX's does
             logger.info(f"the checkpoint holds {len(generators)} dropout generator states for "
                         f"{self.dp} ranks: each rank's generator starts from its seed")

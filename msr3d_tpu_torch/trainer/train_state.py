@@ -14,8 +14,16 @@ step averages the trainable gradients and the loss over the ranks before the
 norm, the clip and the optimizer, so all three see the global batch's, as
 the all-reduce that JAX's ``jit`` inserts for the dp sharding does: one flat
 fp32 buffer of every gradient and the loss, one ``all_reduce(SUM)``, a
-divide by the rank count. Every rank then applies the same update to the
-same parameters. With one rank no collective runs.
+divide by the rank count, over the dp group. Every rank then applies the
+same update to the same parameters. With one rank no collective runs.
+
+Under tensor parallelism (``tp_dims``: the trainable parameters split over
+the tp group, ``tp_partial``: the replicated ones whose per-rank gradient is
+a partial sum) the partial gradients are first summed over the tp group
+(one flat buffer), and the global norm is the norm of the full gradients:
+the sharded parameters' squares summed over the tp group, the replicated
+ones counted once. The optimizer's moments follow their parameters'
+shards.
 
 The JAX step scans a fixed number of micro-batches, so it pads an epoch's
 tail group with weight-0 duplicates to keep one compiled program and then
@@ -28,12 +36,14 @@ checkpoint helpers, by parameter name.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 import torch
 
 from msr3d_tpu_torch.optim.build import Optimizer, clip_by_global_norm, global_norm
+from msr3d_tpu_torch.parallel import mesh
 from msr3d_tpu_torch.parallel.mesh import all_reduce_sum_
+from msr3d_tpu_torch.parallel.tensor_parallel import sum_over_tp_
 
 
 class TrainStep:
@@ -43,17 +53,26 @@ class TrainStep:
     ``loss_fn(micro_batch)`` returns the scalar mean loss of one micro-batch
     with its autograd graph. ``params`` are the trainable parameters by
     name, the ones ``optimizer`` updates. ``data_parallel`` is the number of
-    ranks that each run this step on their own micro-batches.
+    ranks (of the dp group) that each run this step on their own
+    micro-batches. ``tp_sharded`` and ``tp_partial`` name the trainable
+    parameters split over the tp group and the replicated ones whose
+    gradient is a partial sum over it (none at tp = 1).
     """
 
     def __init__(self, loss_fn: Callable[[Any], torch.Tensor],
                  params: Mapping[str, torch.nn.Parameter], optimizer: Optimizer,
-                 grad_norm: Optional[float], data_parallel: int = 1):
+                 grad_norm: Optional[float], data_parallel: int = 1,
+                 tp_sharded: Iterable[str] = (), tp_partial: Iterable[str] = ()):
         self.loss_fn = loss_fn
         self.params = dict(params)
         self.optimizer = optimizer
         self.max_norm = grad_norm
         self.data_parallel = data_parallel
+        self.tp_sharded = [n for n in self.params if n in set(tp_sharded)]
+        self.tp_partial = [n for n in self.params if n in set(tp_partial)]
+        # a per-tensor norm of the optimizer (Lamb's trust ratio) of a split
+        # parameter is its whole tensor's
+        optimizer.tp_sharded = frozenset(self.tp_sharded)
         self.step_count = 0
 
     def __call__(self, micro_batches: List[Any]) -> Dict[str, Any]:
@@ -76,9 +95,11 @@ class TrainStep:
             for n in names
         ]
         loss = loss_sum * scale
+        if self.tp_partial:
+            grads = self._sum_partial_over_tp(names, grads)
         if self.data_parallel > 1:
             grads, loss = self._average_over_ranks(grads, loss)
-        norm = global_norm(grads)
+        norm = self._global_norm(names, grads)
         if self.max_norm is not None:
             grads = clip_by_global_norm(grads, self.max_norm, norm)
         self.optimizer.step(dict(zip(names, grads)))
@@ -89,12 +110,40 @@ class TrainStep:
 
     def _average_over_ranks(self, grads: List[torch.Tensor], loss: torch.Tensor):
         flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1)])
-        all_reduce_sum_(flat).div_(self.data_parallel)
-        out, at = [], 0
-        for g in grads:
-            out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
-            at += g.numel()
-        return out, flat[at]
+        all_reduce_sum_(flat, group=mesh.dp_group()).div_(self.data_parallel)
+        out = _unflatten(flat, grads)
+        return out, flat[-1]
+
+    def _sum_partial_over_tp(self, names: List[str], grads: List[torch.Tensor]):
+        at = {n: i for i, n in enumerate(names)}
+        part = [grads[at[n]] for n in self.tp_partial]
+        summed = _unflatten(sum_over_tp_(torch.cat([g.reshape(-1).float() for g in part])), part)
+        grads = list(grads)
+        for n, g in zip(self.tp_partial, summed):
+            grads[at[n]] = g
+        return grads
+
+    def _global_norm(self, names: List[str], grads: List[torch.Tensor]) -> torch.Tensor:
+        """The norm of the full gradients: a sharded parameter's squares
+        summed over the tp group, a replicated one's counted once."""
+        if not self.tp_sharded:
+            return global_norm(grads)
+        sharded = set(self.tp_sharded)
+
+        def squares(keep: bool) -> torch.Tensor:
+            sq = [g.float().square().sum() for n, g in zip(names, grads) if (n in sharded) == keep]
+            return torch.stack(sq).sum() if sq else torch.zeros((), device=grads[0].device)
+
+        return torch.sqrt(sum_over_tp_(squares(True).reshape(1))[0] + squares(False))
+
+
+def _unflatten(flat: torch.Tensor, like: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``flat``'s leading elements as tensors shaped and typed like ``like``."""
+    out, at = [], 0
+    for g in like:
+        out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+        at += g.numel()
+    return out
 
 
 def filter_learnable(module: torch.nn.Module, names) -> Dict[str, torch.Tensor]:

@@ -57,11 +57,22 @@ ANSWERS = [("a chair", "yes", "the red lamp", "no"), ("two", "behind me", "yes",
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
 def test_data_parallel_size_resolves_as_jax(n, monkeypatch):
-    # dp is every rank, as JAX's MeshConfig(dp=-1) resolves at tp = pp = sp = 1
+    # dp is what tp leaves of the ranks, as JAX's MeshConfig(dp=-1) resolves
+    # it; a rank count tp does not divide raises as JAX's assert does
     monkeypatch.setattr(mesh, "world_size", lambda: n)
     assert mesh.data_parallel_size({}) == JaxMeshConfig(dp=-1).resolve(n)[0] == n
     assert mesh.data_parallel_size({"tp": 1, "pp": 1, "sp": 1}) == n
-    for axis in ("tp", "pp", "sp"):
+    for tp in (2, 4):
+        if n % tp == 0:
+            assert mesh.data_parallel_size({"tp": tp}) == JaxMeshConfig(
+                dp=-1, tp=tp).resolve(n)[0] == n // tp
+        else:
+            with pytest.raises(AssertionError):
+                JaxMeshConfig(dp=-1, tp=tp).resolve(n)
+            with pytest.raises(ValueError, match="not divisible by tp"):
+                mesh.data_parallel_size({"tp": tp})
+    # pp and sp are not ported yet
+    for axis in ("pp", "sp"):
         with pytest.raises(NotImplementedError, match=f"parallel.{axis} > 1.*ROADMAP"):
             mesh.data_parallel_size({axis: 2})
 

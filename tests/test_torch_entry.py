@@ -87,8 +87,13 @@ def _as_port(value):
 
 def _assert_fields_equal(port_cfg, jax_cfg) -> None:
     """Every field of the port's dataclass equals the JAX one's (nested
-    dataclasses field by field, dtypes by name)."""
+    dataclasses field by field, dtypes by name). A field the JAX dataclass
+    lacks (``LlamaConfig.tp_size``/``tp_rank``: JAX takes tp from its mesh)
+    is at the port's default."""
     for f in dataclasses.fields(port_cfg):
+        if not hasattr(jax_cfg, f.name):
+            assert getattr(port_cfg, f.name) == f.default, f.name
+            continue
         got, want = getattr(port_cfg, f.name), getattr(jax_cfg, f.name)
         if dataclasses.is_dataclass(got):
             _assert_fields_equal(got, want)
@@ -475,9 +480,14 @@ def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     assert pooled.step == 0 and pooled.cfg["eval_engine_opts"]["prefix_pool"]
     assert [sorted(k for k in m if k.startswith("test/")) != [] for m in
             _metrics(tmp_path / "pool")] == [True]
-    with pytest.raises(NotImplementedError, match="parallel.tp"):
+    # parallel.tp is read from the overrides; one process cannot hold tp = 2
+    # ranks (tests/test_torch_tp.py runs them); pp still raises
+    with pytest.raises(ValueError, match="1 ranks not divisible by tp"):
         port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
                        "parallel.tp=2"])
+    with pytest.raises(NotImplementedError, match="parallel.pp > 1.*ROADMAP"):
+        port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
+                       "parallel.pp=2"])
     from msr3d_tpu_torch.data.build import build_task_loaders
 
     with monkeypatch.context() as m:  # two ranks, this one rank 1

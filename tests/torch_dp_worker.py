@@ -83,13 +83,14 @@ def wait_all(procs, timeout: float = RANK_TIMEOUT_S) -> list:
     return outs
 
 
-def run_ranks(job: dict, out_dir: Path, world: int = 2) -> list:
-    """Run ``job`` on ``world`` ranks; each rank's JSON result."""
+def run_ranks(job: dict, out_dir: Path, world: int = 2, script: str = __file__) -> list:
+    """Run ``job`` on ``world`` ranks of ``script`` (this file's jobs by
+    default); each rank's JSON result."""
     out_dir.mkdir(parents=True, exist_ok=True)
     job_path = out_dir / "job.pkl"
     job_path.write_bytes(pickle.dumps(job))
     port = free_port()
-    procs = [subprocess.Popen([sys.executable, __file__, str(job_path), str(out_dir)],
+    procs = [subprocess.Popen([sys.executable, script, str(job_path), str(out_dir)],
                               env=rank_env(world, r, port), cwd=str(REPO),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(world)]
@@ -227,14 +228,16 @@ def train_eval(job: dict, out_dir: Path) -> dict:
 
 
 class _Recording:
-    """A ``TrainStep`` that also keeps each step's (all-reduced) loss."""
+    """A ``TrainStep`` that also keeps each step's (all-reduced) loss and
+    its grad norm."""
 
     def __init__(self, step):
-        self.step, self.losses = step, []
+        self.step, self.losses, self.grad_norms = step, [], []
 
     def __call__(self, batches):
         metrics = self.step(batches)
         self.losses.append(float(metrics["loss"]))
+        self.grad_norms.append(float(metrics["grad_norm"]))
         return metrics
 
     @property
@@ -245,13 +248,13 @@ class _Recording:
 JOBS = {"collectives": collectives, "loaders": loaders, "train_eval": train_eval}
 
 
-def main(job_path: str, out_dir: str) -> None:
+def main(job_path: str, out_dir: str, jobs: dict = JOBS) -> None:
     torch.set_num_threads(1)
     assert mesh.initialize_distributed_from_env(
         "cpu", timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S)), "no env contract"
     try:
         job = pickle.loads(Path(job_path).read_bytes())
-        result = JOBS[job["kind"]](job, Path(out_dir))
+        result = jobs[job["kind"]](job, Path(out_dir))
         (Path(out_dir) / f"rank{mesh.rank()}.json").write_text(json.dumps(result, default=str))
     finally:
         mesh.destroy()

@@ -90,7 +90,7 @@ def torch_llama_config(cfg, **overrides):
     from msr3d_tpu_torch.models.llm.llama import LlamaConfig
 
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(LlamaConfig)
-          if f.name not in ("dtype", "param_dtype")}
+          if f.name not in ("dtype", "param_dtype") and hasattr(cfg, f.name)}
     kw["dtype"] = _TORCH_DTYPES[np.dtype(cfg.dtype).name]
     kw["param_dtype"] = _TORCH_DTYPES[np.dtype(cfg.param_dtype).name]
     kw.update(overrides)
