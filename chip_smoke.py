@@ -94,8 +94,17 @@ parameters bit-equal across the ranks; (b) the bf16 flagship's greedy and
 beam-5 ``generate`` on phase 4's requests, ms a token against phase 4's; (c)
 fp32 at the flagship's width and 2 layers: greedy and beam generate, the
 continuous and the prefix-pool engine equal to one process's tokens, one
-micro-batch's loss and gathered gradients within 1e-5 relative), and checks
-that each path launched its kernels. Any failed check exits
+micro-batch's loss and gathered gradients within 1e-5 relative), pipeline
+parallelism and quantized bases under tp (phase 20, two ranks over gloo on
+the one card: (a) the launcher with ``parallel.pp=2``, one step and val,
+each rank holding its stage's 16 blocks beside the embedding and head, its
+peak, its step's share in the host-routed pp transfers and its launches,
+the stages' replicated parameters bit-equal; (b) greedy generate of the
+int8 and the int4-grouped flagship at tp = 2, ms a token and peak beside
+phase 8's; (c) fp32 at the flagship's width and 2 layers: pp = 2's loss and
+LoRA gradients within 1e-5 and 1e-4 relative of one process's, the tp = 2
+greedy tokens of int8, int4, int4 by group and s8xs8 equal to tp = 1's), and
+checks that each path launched its kernels. Any failed check exits
 non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
 or without the package beside it, it exits non-zero and prints no result.
@@ -918,7 +927,7 @@ def phase_generate(model, dev, profile: bool):
 
     llm = model.cfg.llm
     data = make_requests(seed=0, images=True)
-    model.generate(dict(data), use_beam=False)  # warm-up: cuBLAS handles, allocator
+    model.generate(dict(data), use_beam=False, max_new_tokens=2)  # warm-up
 
     FPS_KERNEL.launches = FLASH_FWD_KERNEL.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1861,7 +1870,7 @@ def phase_retrieval(trainer, exp: Path):
 # SERVE_STREAMED (budget 32, so that chunks of 8 end before it does) streams
 # over SSE
 SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUDGETS, SERVE_STREAMED = 12, 4, (8, 16, 24, 32), 3
-SERVE_BATCH1 = 4  # (b)'s answers held (not gated) to a batch-1 generate
+SERVE_BATCH1 = 1  # (b)'s answers held (not gated) to a batch-1 generate
 
 
 def serve_argv(exp_root: Path, *extra: str, tokens: int = NEW_TOKENS):
@@ -2043,8 +2052,8 @@ def serve_http(fe, model):
     check(not fe._engine_thread.is_alive() and not fe._http_thread.is_alive(),
           "close() drained: the engine and HTTP threads ended")
     # not gated: a batch-1 generate runs its GEMMs at another batch, and bf16
-    # may round otherwise there; the first SERVE_BATCH1 requests only (one of
-    # each budget), for the script's time
+    # may round otherwise there; the first SERVE_BATCH1 requests only, for
+    # the script's time
     same = 0
     for i, s in enumerate(samples[:SERVE_BATCH1]):
         want = model.generate(_collate([s]), use_beam=False,
@@ -2901,7 +2910,7 @@ def phase_quantized(dev, profile: bool):
               f"{model.network.llm.cfg}")
         net = model.network
         data = make_requests(seed=0, b=batch)
-        model.generate(dict(data), use_beam=False)  # warm-up: cuBLAS handles, allocator
+        model.generate(dict(data), use_beam=False, max_new_tokens=2)  # warm-up
         for kernel in counted:
             kernel.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -2931,15 +2940,6 @@ def phase_quantized(dev, profile: bool):
         check(bool(torch.isfinite(first).all()), "first-token logits finite")
         if quant.get("kv_quantize"):
             kv_roundtrip_gate(prefill)
-            llm = net.llm.cfg
-            net.llm.cfg = dataclasses.replace(llm, kv_quantize=False)
-            try:
-                bf16_cache = model.generate(dict(data), use_beam=False)["output_tokens"]
-            finally:
-                net.llm.cfg = llm
-            row["same_as_bf16_cache"] = float((bf16_cache == tokens).mean())
-            print(f"  tokens equal to a bf16-cache run: {row['same_as_bf16_cache']:.3f} "
-                  f"(not gated)")
         with torch.no_grad():
             captured = capture_decode_inputs(model, data)
             if label in ("b", "c"):
@@ -4806,16 +4806,16 @@ def wait_ranks(procs, out: Path, fn: str, what: str) -> list:
     return [json.loads((out / f"{fn}_rank{r}.json").read_text()) for r in range(len(procs))]
 
 
-def _rank_main(fn, out: str) -> None:
-    """One rank of (b) or (c): join the group, build the tp mesh, run ``fn``,
-    write its JSON."""
+def _rank_main(fn, out: str, parallel: "dict | None" = None) -> None:
+    """One rank of a multi-rank part: join the group, build the mesh
+    (``parallel``, tp = TP by default), run ``fn``, write its JSON."""
     from msr3d_tpu_torch.parallel import mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     assert mesh.initialize_distributed_from_env("cuda"), "no env contract"
     try:
-        mesh.init_mesh({"tp": TP})
+        mesh.init_mesh(parallel or {"tp": TP})
         result = fn(Path(out))
         (Path(out) / f"{fn.__name__}_rank{mesh.rank()}.json").write_text(json.dumps(result))
     finally:
@@ -5088,6 +5088,329 @@ def phase_tp(exp_root: Path, dp: "dict | None" = None):
                 seconds=dict(a=took_a, b=took_b))
 
 
+# phase 20: pipeline parallelism at pp = PP and quantized bases at tp = TP,
+# two ranks sharing the card over gloo: (a) the launcher with parallel.pp=PP
+# over phase 18's arguments (one step, one val batch); (b) greedy generate of
+# the int8 and the int4-grouped flagship at tp = TP (phase 8's (a) and (c));
+# (c) the fp32 gates at the flagship's width and EXACT_LAYERS layers
+PP = 2
+PP_QUANT_RUNS = (
+    # (label of phase 8, what, batch, LoRA rank, quantization of the LlamaConfig)
+    ("a", "int8 per channel, merged LoRA, int8 KV cache", 16, 0,
+     dict(quantize_bits=8, kv_quantize=True)),
+    ("c", "int4 with group 128, int8 KV cache", 4, 16,
+     dict(quantize_bits=4, quantize_group=128, kv_quantize=True)),
+)
+# (c): a one-process gradient whose norm is below this share of the whole
+# gradient's is rounding noise (fp32 spacing is 1.2e-7 of a value; the
+# spatial key biases' gradients, zero in exact arithmetic, sit far below it)
+PP_GRAD_FLOOR = 1e-6
+PP_EXACT_QUANT = {  # (c)'s quantize_llm arguments
+    "int8": dict(bits=8), "int4": dict(bits=4), "int4-g128": dict(bits=4, group=128),
+    "s8s8": dict(bits=8, act_quantize=True)}
+
+
+def llm_params_at_pp(pp: int, pp_rank: int) -> int:
+    """The flagship LLM's parameters stage ``pp_rank`` of ``pp`` holds: its
+    blocks beside the embedding, the final norm and the head (a model on
+    the meta device)."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig, LlamaModel
+
+    llm = LlamaModel(LlamaConfig(lora_rank=16, param_dtype=torch.bfloat16, pp_size=pp,
+                                 pp_rank=pp_rank), device="meta")
+    return sum(p.numel() for p in llm.parameters())
+
+
+def tpq_generate(out: Path) -> dict:
+    """(b) on one rank: each of PP_QUANT_RUNS's flagships at tp = TP from
+    phase 8's seed (each projection drawn whole, quantized whole on the
+    card and this rank's shards kept), greedy generate of ENGINE_TOKENS
+    tokens on phase 8's requests, timed after a warm-up with K1 and K2f
+    counted from 0."""
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig
+    from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
+    from msr3d_tpu_torch.models.msr3d import MSR3D, MSR3DNetworkConfig
+    from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig
+    from msr3d_tpu_torch.ops.flash_attention import FLASH_FWD_KERNEL
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = dict(rank=mesh.rank(), tp_rank=mesh.tp_rank())
+    for label, _, batch, rank, quant in PP_QUANT_RUNS:
+        t0 = time.perf_counter()
+        llm = LlamaConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                          num_hidden_layers=32, num_attention_heads=32, lora_rank=rank,
+                          dtype=torch.bfloat16, param_dtype=torch.bfloat16, flash_attention=True,
+                          quantize=True, tp_size=TP, tp_rank=mesh.tp_rank(), **quant)
+        model = MSR3D(MSR3DNetworkConfig(prompter=OSE3DConfig(), llm=llm, answer_window_loss=True),
+                      ByteTokenizer(), scene_token_len=60, max_out_len=ENGINE_TOKENS,
+                      repetition_penalty=REP_PENALTY, device=dev)
+        model.init_params(seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        data = make_requests(seed=0, b=batch)
+        model.generate(dict(data), use_beam=False, max_new_tokens=2)  # warm-up
+        FPS_KERNEL.launches = FLASH_FWD_KERNEL.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        got = {}
+        gen_ms = wall_ms(lambda: got.update(model.generate(dict(data), use_beam=False)))
+        launches = {"fps": FPS_KERNEL.launches, "flash_attn_fwd": FLASH_FWD_KERNEL.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        net = model.network
+        ids, attn = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
+                                         side="left")
+        scene = model._scene_batch(data)
+        with torch.no_grad():
+            prefill_ms = wall_ms(lambda: net.prefill(
+                torch.as_tensor(ids, dtype=torch.long, device=dev),
+                torch.as_tensor(attn, dtype=torch.int32, device=dev), **scene,
+                bos_id=model.tokenizer.bos_id, max_cache_len=ids.shape[1] + 1))
+        tokens = np.asarray(got["output_tokens"])
+        finished_at = [list(row).index(model.tokenizer.eos_id) if model.tokenizer.eos_id in row
+                       else ENGINE_TOKENS for row in tokens]
+        steps = max(1, min(ENGINE_TOKENS, max(finished_at) + 1) - 1)
+        res[label] = dict(tokens=tokens.tolist(), gen_ms=gen_ms, prefill_ms=prefill_ms,
+                          decode_ms=(gen_ms - prefill_ms) / steps, steps=steps,
+                          launches=launches, peak_gib=peak, build_s=build_s,
+                          llm_bytes=sum(t.numel() * t.element_size()
+                                        for t in net.llm.state_dict().values()))
+        del model, net, scene
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+PP_LR = 1e-3  # (c)'s SGD rate: its updates are not gated, its gradients are
+
+
+def pp_exact(out: Path) -> dict:
+    """(c)'s pipeline half, at pp = 1 (the parent process) or on one of two
+    pp ranks: ``build_exact_model`` with random LoRA B, one ``TrainStep`` of
+    one micro-batch of N_REQUESTS (PP micro-batches under pp) in eval mode
+    through ``LeoTrainer`` (SGD, no clip): its loss and the gradients the
+    optimizer took, gathered whole over the stages (rank 0 writes them)."""
+    from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
+    from msr3d_tpu_torch.parallel import mesh
+    from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pp = mesh.pp_size()
+    model = build_exact_model(dev, ByteTokenizer())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        for name, p in model.network.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 1e-2)
+    cfg = trainer_cfg(out / f"exp_pp{pp}", accum=1, lr=PP_LR, warmup=1)
+    cfg["solver"].update(grad_norm=None, optim={"name": "SGD", "args": {"lr": PP_LR}})
+    batches = make_train_batches(1, images=False)
+    trainer = LeoTrainer(dict(cfg, parallel={"pp": pp}),
+                         loaders={"msr3d_train": {"train": batches}}, evaluators={}, model=model)
+    taken, step = [], trainer.optimizer.step
+
+    def record(grads):
+        taken.append(trainer._gather_stages({n: g.detach().cpu() for n, g in grads.items()}))
+        return step(grads)
+
+    trainer.optimizer.step = record
+    metrics = trainer._train_step(trainer._device_batch(batches))
+    if mesh.rank() == 0:
+        torch.save(taken[0], out / f"exact_grads_pp{pp}.pt")
+    return dict(rank=mesh.rank(), pp=pp, loss=float(metrics["loss"]),
+                blocks=sorted({n.split(".")[2] for n, _ in model.network.named_parameters()
+                               if n.startswith("llm.layer.")}))
+
+
+def tpq_exact(out: Path) -> dict:
+    """(c)'s quantized half, at tp = 1 (the parent) or on one of two tp
+    ranks: ``build_exact_model`` quantized whole by each of PP_EXACT_QUANT's
+    settings, split by ``shard_for_serving`` on a rank, greedy generate of
+    ENGINE_TOKENS tokens on phase 4's requests."""
+    from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
+    from msr3d_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = dict(rank=mesh.rank(), tp=mesh.tp_size())
+    for name, quant in PP_EXACT_QUANT.items():
+        model = build_exact_model(dev, ByteTokenizer())
+        model.quantize_llm(**quant)
+        model.shard_for_serving(tensor_parallel=True)
+        got = model.generate(make_requests(seed=3), use_beam=False, max_new_tokens=ENGINE_TOKENS)
+        res[name] = np.asarray(got["output_tokens"]).tolist()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def tpq_generate_rank(out: str) -> None:
+    _rank_main(tpq_generate, out)
+
+
+def pp_exact_rank(out: str) -> None:
+    _rank_main(pp_exact, out, {"pp": PP})
+
+
+def tpq_exact_rank(out: str) -> None:
+    _rank_main(tpq_exact, out)
+
+
+def phase_pp(exp_root: Path, tp: "dict | None" = None, quantized: "dict | None" = None):
+    print(f"== phase 20: pipeline parallelism at pp = {PP} and quantized bases at tp = {TP}, "
+          f"on one card (two ranks over gloo: (a) python -m msr3d_tpu_torch.launch --mode "
+          f"accelerate parallel.pp={PP} on configs/msr3d.yaml over phase 10's tree, one step of "
+          f"{N_REQUESTS} x {TRAIN_ACCUM} and a val batch of {N_REQUESTS}; (b) greedy generate of "
+          f"the int8 and the int4-grouped flagship at tp = {TP}, {ENGINE_TOKENS} tokens; (c) fp32 "
+          f"gates; on {card_line()})")
+    root = exp_root / "pp"
+    exp_a = root / "a"
+    summaries, _, took_a = run_launcher(
+        ["--mode", "accelerate", "--port", str(free_port()),
+         *dp_argv(exp_root, exp_a, f"parallel.pp={PP}", "solver.num_batch_eval=1")], "a")
+    print(f"  (a) {took_a:.1f} s (start, build, init, data, one step, val)")
+    check([(m["rank"], m["world"], m["backend"], m["dp"], m["tp"], m["pp"], m["pp_rank"])
+           for m in summaries] == [(r, PP, "gloo", 1, 1, PP, r) for r in range(PP)],
+          f"(a) the launcher started dp 1 x pp {PP} ranks over gloo from parallel.pp={PP}")
+    check(all(m["steps"] == 1 for m in summaries), "(a) one optimizer step on each rank")
+    results = json.loads((exp_a / "eval" / "msqa_scannet" / "results.json").read_text())
+    indices = sorted(str(r["index"]) for r in results)
+    check(len(results) == N_REQUESTS and len(set(indices)) == N_REQUESTS,
+          f"(a) results.json scores each of the {N_REQUESTS} val samples once (pp rank 0 "
+          f"evaluates with the whole LLM, pp rank 1 waits)")
+    metrics = [json.loads(line) for line in (exp_a / "metrics.jsonl").read_text().splitlines()]
+    check([m["step"] for m in metrics if "train/loss" in m] == [1]
+          and sorted(q.name for q in (exp_a / "ckpt" / "state").iterdir()) == ["1.pt"]
+          and (exp_a / "ckpt" / "latest.pt").exists(),
+          "(a) metrics.jsonl and the checkpoint written once, by rank 0")
+    pp_digests = re.findall(r"agree across \d+ pp ranks after training \(sha256 (\w+)\)",
+                            run_launcher.last_out)
+    check(len(pp_digests) == PP and len(set(pp_digests)) == 1,
+          f"(a) the ranks' trainable parameters outside the blocks bit-equal after the step "
+          f"({len(pp_digests)} digests, {len(set(pp_digests))} distinct)")
+    micro, layers = TRAIN_ACCUM * PP, 32 // PP  # PP pipeline micro-batches a loader batch
+    b19 = tp["a"][0] if tp else dict(peak_gib=float("nan"), step_ms=[float("nan")],
+                                     launches={k: -1 for k in DP_KERNELS})
+    for m in summaries:
+        r = m["rank"]
+        want = {"fps": 2 * (TRAIN_ACCUM + 1) if r == 0 else 0,
+                "flash_attn_fwd": layers * micro + (32 if r == 0 else 0),
+                "flash_attn_bwd_dq": layers * micro, "flash_attn_bwd_dkv": layers * micro}
+        share = m["step_pp_comm_s"][0] / m["step_ms"][0] * 1e3
+        print(f"  (a) rank {r} (stage {m['pp_rank']}): {m['llm_params']} LLM parameters "
+              f"(blocks {layers * r}..{layers * (r + 1) - 1} of 32, the embedding, norm and head), "
+              f"peak {m['peak_gib']:.2f} GiB against phase 19 (a)'s {b19['peak_gib']:.2f}, step "
+              f"{m['step_ms'][0]:.1f} ms against {b19['step_ms'][0]:.1f}, of it "
+              f"{1e3 * m['step_pp_comm_s'][0]:.1f} ms ({share:.1%}) in the host-routed pp "
+              f"transfers ({m['pp_comm']['calls']} over the run, "
+              f"{m['pp_comm']['bytes'] / 2**30:.2f} GiB, {m['pp_comm']['seconds']:.2f} s, the "
+              f"eval's gather of the blocks included); "
+              f"data wait {m['data_wait_ms'][0]:.1f} ms; launches {m['launches']} (phase 19 (a) "
+              f"a rank: {b19['launches']})")
+        check(m["llm_params"] == llm_params_at_pp(PP, r),
+              f"(a) rank {r} holds its stage's {layers} blocks beside the embedding and head")
+        check(m["launches"] == want,
+              f"(a) rank {r} launched K1, K2f, K2dq, K2dkv {want} ({layers} layers x {micro} "
+              f"pipeline micro-batches{'; K1 and the eval batch on stage 0' if r == 0 else ''})")
+
+    # (b) the quantized flagships at tp = TP
+    t0 = time.perf_counter()
+    gen = wait_ranks(spawn_ranks("tpq_generate_rank", root / "b"), root / "b", "tpq_generate",
+                     "b")
+    took_b = time.perf_counter() - t0
+    for label, what, batch, _, _ in PP_QUANT_RUNS:
+        rows = [g[label] for g in gen]
+        p8 = (quantized or {}).get(label, {})
+        for g in gen:
+            r = g[label]
+            print(f"  (b) {label} ({what}, batch {batch}) rank {g['rank']}: generate "
+                  f"{r['gen_ms']:.2f} ms, prefill {r['prefill_ms']:.2f} ms, decode "
+                  f"{r['decode_ms']:.2f} ms a token over {r['steps']} steps against phase 8 "
+                  f"({label})'s {p8.get('decode_ms', float('nan')):.2f} at tp = 1, peak "
+                  f"{r['peak_gib']:.2f} GiB against {p8.get('peak_gb', float('nan')):.2f}, LLM "
+                  f"{r['llm_bytes'] / 2**30:.2f} GiB a rank, built in {r['build_s']:.1f} s, "
+                  f"launches {r['launches']}")
+        check(rows[0]["tokens"] == rows[1]["tokens"],
+              f"(b) {label}: both tp ranks emit the same tokens")
+        check(all(r["launches"] == {"fps": 2, "flash_attn_fwd": 32} for r in rows),
+              f"(b) {label}: each rank launches K1 2 and K2f 32 a generate")
+        toks = np.asarray(rows[0]["tokens"])
+        check(toks.shape == (batch, ENGINE_TOKENS) and bool(((toks >= 0) & (toks < 32000)).all()),
+              f"(b) {label}: tokens of shape {toks.shape} inside the vocabulary")
+    print(f"  (b) {took_b:.1f} s")
+
+    # (c) fp32 gates: two pp ranks and two tp ranks against one process, the
+    # one process running while the ranks do
+    t0 = time.perf_counter()
+    out_c = root / "c"
+    procs_pp = spawn_ranks("pp_exact_rank", out_c / "pp")
+    procs_tp = spawn_ranks("tpq_exact_rank", out_c / "tp")
+    try:
+        one_pp = pp_exact(out_c / "pp")
+        one_tp = tpq_exact(out_c / "tp")
+    finally:  # the ranks end, whatever happened here
+        ranks_pp = wait_ranks(procs_pp, out_c / "pp", "pp_exact", "c")
+        ranks_tp = wait_ranks(procs_tp, out_c / "tp", "tpq_exact", "c")
+    want = torch.load(out_c / "pp" / "exact_grads_pp1.pt")
+    got = torch.load(out_c / "pp" / f"exact_grads_pp{PP}.pt")
+    check(sorted(got) == sorted(want), "(c) the gathered gradients name every trainable tensor")
+    # a gradient that the model's invariance makes zero is rounding noise on
+    # both sides (the spatial attention's key biases: softmax over the keys
+    # is blind to a shift); such a one, below PP_GRAD_FLOOR of the whole
+    # gradient's norm in one process, is held to that floor, every other to
+    # 1e-4 of its own norm
+    whole = math.sqrt(sum(float(g.double().square().sum()) for g in want.values()))
+    norms = {n: float(g.double().norm()) for n, g in want.items()}
+    errs = {n: float((got[n] - want[n]).double().norm()) for n in want}
+    noise = sorted(n for n in want if norms[n] <= PP_GRAD_FLOOR * whole)
+
+    def rel(names):  # max relative error (a tensor, in norm) over those above the floor
+        return max((errs[n] / norms[n] for n in names if n not in noise), default=0.0)
+
+    lora = [n for n in want if "lora_" in n]
+    outside = [n for n in want if not n.startswith("llm.layer.")]
+    grad_err, outside_err, all_err = rel(lora), rel(outside), rel(want)
+    noise_err = max((errs[n] / whole for n in noise), default=0.0)
+    loss_err = abs(ranks_pp[0]["loss"] - one_pp["loss"]) / abs(one_pp["loss"])
+    worst = sorted((n for n in want if n not in noise), key=lambda n: -errs[n] / norms[n])[:3]
+    print(f"  (c) fp32, {EXACT_LAYERS} layers at the flagship width, pp = {PP} (stages hold blocks "
+          f"{[r['blocks'] for r in ranks_pp]}) against one process: loss {one_pp['loss']!r} "
+          f"against {ranks_pp[0]['loss']!r}, relative {loss_err:.3e}; the {len(want)} trainable "
+          f"gradients, gathered (whole norm {whole:.6g}), max relative (a tensor, in norm) "
+          f"{all_err:.3e}: the {len(lora)} LoRA ones' {grad_err:.3e}, the {len(outside)} outside "
+          f"the blocks' (stage 0's backward from the pipe's input gradients, broadcast over pp) "
+          f"{outside_err:.3e}; the largest {[(n, f'{errs[n] / norms[n]:.3e}') for n in worst]}; "
+          f"{len(noise)} at rounding noise {[(n, f'{norms[n]:.3e}') for n in noise]}, their "
+          f"|diff| / whole norm at most {noise_err:.3e}")
+    check(ranks_pp[0]["loss"] == ranks_pp[1]["loss"], "(c) both pp ranks report the same loss")
+    check(loss_err <= 1e-5 and all_err <= 1e-4 and noise_err <= PP_GRAD_FLOOR,
+          f"(c) the pp = {PP} loss within 1e-5 and every trainable gradient within 1e-4 "
+          f"relative of one process's (those at rounding noise within {PP_GRAD_FLOOR:g} of the "
+          "whole gradient's norm)")
+    for name in PP_EXACT_QUANT:
+        check(ranks_tp[0][name] == ranks_tp[1][name] == one_tp[name],
+              f"(c) fp32 {name}: the tp = {TP} greedy tokens equal the one process's on both "
+              "ranks")
+    print(f"  (c) fp32 greedy tokens at tp = {TP} equal tp = 1's for {list(PP_EXACT_QUANT)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(a=summaries, b=gen, c=dict(loss_err=loss_err, grad_err=all_err,
+                                           lora_grad_err=grad_err, outside_grad_err=outside_err,
+                                           noise_grad_err=noise_err),
+                seconds=dict(a=took_a, b=took_b))
+
+
+def phase20_launches(out, kernel: str) -> dict:
+    """Phase 20's launches of one kernel for the kernels line: each pp rank's
+    run of (a) and, K1 and K2f, each tp rank's greedy generate of (b)'s
+    int8 and int4-grouped flagships."""
+    row = dict(launches_pp=[m["launches"][kernel] for m in out["a"]])
+    if kernel in ("fps", "flash_attn_fwd"):
+        row["launches_tp_quantized_generate"] = {
+            label: [g[label]["launches"][kernel] for g in out["b"]]
+            for label, *_ in PP_QUANT_RUNS}
+    return row
+
+
 def phase19_launches(out, kernel: str) -> dict:
     """Phase 19's launches of one kernel for the kernels line: each tp rank's
     run of (a) and, K1 and K2f, each rank's greedy generate of (b)."""
@@ -5212,6 +5535,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tp = timed(phase_tp, exp_root, dp)  # on phase 10's tree and cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp = timed(phase_pp, exp_root, tp, quantized)  # on phase 10's tree and cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5244,7 +5570,12 @@ def main() -> int:
         # TRAIN_ACCUM micro-batches, two eval batches), launches_dp_one_rank
         # (a) the launcher's one-rank run; launches_tp: phase 19 (a), each tp
         # rank's run (the same step and eval over its 16 heads a layer),
-        # launches_tp_generate (b) each tp rank's greedy generate
+        # launches_tp_generate (b) each tp rank's greedy generate;
+        # launches_pp: phase 20 (a), each pp rank's run (the step over its
+        # stage's 16 layers at 2 pipeline micro-batches a loader batch, the
+        # eval batch on stage 0 with the whole LLM),
+        # launches_tp_quantized_generate (b) each tp rank's greedy generate
+        # of the int8 (a) and int4-grouped (c) flagship
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -5256,7 +5587,8 @@ def main() -> int:
              launches_crops=crops["launches"]["fps"], eval_batches_crops=crops["eval_batches"],
              **phase15_launches(serving2, "fps"), **phase16_launches(pool, "fps"),
              **phase17_launches(options, "fps"), **phase18_launches(dp, "fps"),
-             **phase19_launches(tp, "fps"), **fps_row),
+             **phase19_launches(tp, "fps"),
+             **phase20_launches(pp, "fps"), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -5273,7 +5605,8 @@ def main() -> int:
              **phase16_launches(pool, "flash_attn_fwd"),
              **phase17_launches(options, "flash_attn_fwd"),
              **phase18_launches(dp, "flash_attn_fwd"),
-             **phase19_launches(tp, "flash_attn_fwd"), **flash_row),
+             **phase19_launches(tp, "flash_attn_fwd"),
+             **phase20_launches(pp, "flash_attn_fwd"), **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
@@ -5283,7 +5616,8 @@ def main() -> int:
              launches_crops=crops["launches"]["flash_attn_bwd_dq"],
              **phase17_launches(options, "flash_attn_bwd_dq"),
              **phase18_launches(dp, "flash_attn_bwd_dq"),
-             **phase19_launches(tp, "flash_attn_bwd_dq"), **dq_row),
+             **phase19_launches(tp, "flash_attn_bwd_dq"),
+             **phase20_launches(pp, "flash_attn_bwd_dq"), **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
@@ -5293,7 +5627,8 @@ def main() -> int:
              launches_crops=crops["launches"]["flash_attn_bwd_dkv"],
              **phase17_launches(options, "flash_attn_bwd_dkv"),
              **phase18_launches(dp, "flash_attn_bwd_dkv"),
-             **phase19_launches(tp, "flash_attn_bwd_dkv"), **dkv_row),
+             **phase19_launches(tp, "flash_attn_bwd_dkv"),
+             **phase20_launches(pp, "flash_attn_bwd_dkv"), **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands

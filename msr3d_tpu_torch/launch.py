@@ -4,6 +4,7 @@
     python -m msr3d_tpu_torch.launch --mode accelerate --num_processes 2 \
         --config configs/debug_synthetic.yaml device=cpu
     python -m msr3d_tpu_torch.launch --mode accelerate --config configs/msr3d.yaml parallel.tp=2
+    python -m msr3d_tpu_torch.launch --mode accelerate --config configs/msr3d.yaml parallel.pp=2
     python -m msr3d_tpu_torch.launch --mode submitit --num_nodes 2 --partition P --config ...
 
 Counterpart of the JAX package's root ``launch.py``, with its three modes:
@@ -11,9 +12,9 @@ Counterpart of the JAX package's root ``launch.py``, with its three modes:
   python      ``msr3d_tpu_torch.run.main`` in this process, one rank.
   accelerate  one process a rank on this node (``--num_processes``, the
               reference's ``accelerate launch`` flag; by default the card
-              count rounded up to a multiple of ``parallel.tp``, so
-              ``parallel.tp=2`` on one card starts two ranks that share it
-              over gloo), each ``python -m msr3d_tpu_torch.run`` under the
+              count rounded up to a multiple of ``parallel.tp`` x
+              ``parallel.pp``, so ``parallel.tp=2`` or ``parallel.pp=2`` on
+              one card starts two ranks that share it over gloo), each ``python -m msr3d_tpu_torch.run`` under the
               ``torch.distributed`` env contract with node 0 at
               127.0.0.1:``--port``. It waits for every rank; when one fails
               it ends the others and exits with the first failure's code.
@@ -97,17 +98,19 @@ def run_ranks(argv: List[str], envs: List[Dict[str, str]], grace_s: float = 30.0
                 p.wait()
 
 
-def _tensor_parallel(args) -> int:
-    """``parallel.tp`` of the config with its overrides (1 when unset)."""
+def _model_parallel(args) -> int:
+    """``parallel.tp`` x ``parallel.pp`` of the config with its overrides (1
+    when unset)."""
     from msr3d_tpu_torch.config import load_config
 
     cfg = load_config(args.config, overrides=[o for o in args.opts if "=" in o])
-    return int((cfg.get("parallel") or {}).get("tp", 1))
+    parallel = cfg.get("parallel") or {}
+    return int(parallel.get("tp", 1)) * int(parallel.get("pp", 1))
 
 
 def _per_node(args) -> int:
     """``--num_processes``, else a rank a card rounded up to a multiple of
-    ``parallel.tp`` (tp ranks share a card where there are fewer cards)."""
+    tp x pp (tp and pp ranks share a card where there are fewer cards)."""
     if args.num_processes is not None:
         return args.num_processes
     import torch
@@ -116,8 +119,8 @@ def _per_node(args) -> int:
     if n == 0:
         raise SystemExit("no CUDA device to count: give --num_processes (with device=cpu "
                          "for ranks on the CPU)")
-    tp = _tensor_parallel(args)
-    return -(-n // tp) * tp
+    mp = _model_parallel(args)
+    return -(-n // mp) * mp
 
 
 def _entry_argv(args) -> List[str]:

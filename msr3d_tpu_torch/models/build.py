@@ -17,7 +17,9 @@ names (``model.name: MSR3D``; the prompter nodes ``OSE3DSituation``,
     ``compact_transfer``.
 
 ``parallel.tp`` > 1 builds the rank's tensor-parallel shard of the LLM over
-the process group's tp ranks (``parallel/mesh.py``). What the port does not
+the process group's tp ranks (``parallel/mesh.py``), a quantized base
+included; ``parallel.pp`` > 1 builds the rank's pipeline stage (its blocks,
+with everything outside them). What the port does not
 run raises ``NotImplementedError`` when it is set to anything but its
 default: ``parallel.sp > 1`` (ROADMAP.md, parallelism).
 
@@ -78,17 +80,18 @@ def _check_ported(cfg) -> None:
                                   "(ROADMAP.md, queue: parallelism)")
 
 
-def _tensor_parallel(cfg, llama_cfg: LlamaConfig) -> LlamaConfig:
-    """``parallel.tp`` > 1: the mesh's tp layout over the process group
-    (``parallel/mesh.py``'s ``init_mesh``), the rank's index in its tp
-    group into the LLM config."""
+def _model_parallel(cfg, llama_cfg: LlamaConfig) -> LlamaConfig:
+    """``parallel.tp`` or ``parallel.pp`` > 1: the mesh's layout over the
+    process group (``parallel/mesh.py``'s ``init_mesh``), the rank's index
+    in its tp group and its pipeline stage into the LLM config."""
     parallel = cfg.get("parallel") or {}
-    if int(parallel.get("tp", 1)) == 1:
+    if int(parallel.get("tp", 1)) == 1 and int(parallel.get("pp", 1)) == 1:
         return llama_cfg
     from msr3d_tpu_torch.parallel import mesh
 
     _, tp = mesh.init_mesh(parallel)
-    return dataclasses.replace(llama_cfg, tp_size=tp, tp_rank=mesh.tp_rank())
+    return dataclasses.replace(llama_cfg, tp_size=tp, tp_rank=mesh.tp_rank(),
+                               pp_size=mesh.pp_size(), pp_rank=mesh.pp_rank())
 
 
 def build_msr3d_from_config(cfg, device=None) -> MSR3D:
@@ -101,7 +104,7 @@ def build_msr3d_from_config(cfg, device=None) -> MSR3D:
     tokenizer = build_tokenizer(llm_cfg.get("cfg_path", ""),
                                 truncation_side=llm_cfg.get("truncation_side", "right"))
     prompter_cfg = OSE3DConfig.from_config(model_cfg.prompter.model)
-    llama_cfg = _tensor_parallel(cfg, build_llm_config(llm_cfg, tokenizer))
+    llama_cfg = _model_parallel(cfg, build_llm_config(llm_cfg, tokenizer))
 
     vision2d = model_cfg.get("vision_2d")
     backbone_name, freeze_2d = "convnext_base", True

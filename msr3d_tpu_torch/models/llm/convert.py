@@ -241,6 +241,26 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([(packed << 4) >> 4, packed >> 4], dim=0)
 
 
+def shard_int4_rows(packed: torch.Tensor, tp_rank: int, tp_size: int) -> torch.Tensor:
+    """A row-parallel rank's shard of a split-nibble packed (in/2, F) kernel:
+    its input rows [r·in/tp, (r+1)·in/tp) (the column-parallel layer before
+    it hands the rank that contiguous slice), unpacked from the whole and
+    packed again into the rank's own low and high halves, (in/(2·tp), F).
+    A plain slice of the packed rows would pair the rank's rows with rows
+    of other ranks."""
+    rows = unpack_int4(packed)
+    if rows.shape[0] % (2 * tp_size):
+        raise ValueError(f"shard_int4_rows: {rows.shape[0]} input rows do not split into "
+                         f"{tp_size} ranks of whole packed bytes")
+    return pack_int4(rows.chunk(tp_size, dim=0)[tp_rank].contiguous())
+
+
+def gather_int4_rows(shards) -> torch.Tensor:
+    """The inverse of :func:`shard_int4_rows` over every rank's shard, rank
+    0's first: JAX's packed bits of the whole kernel."""
+    return pack_int4(torch.cat([unpack_int4(s) for s in shards], dim=0))
+
+
 def quantize_kernel(kernel: torch.Tensor, bits: int, group: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One flax-layout kernel (in, out) → (values, fp32 scale) on its

@@ -54,9 +54,22 @@ does not divide by tp replicates, as JAX's fallback does. The replicated
 LoRA factors inside the tp region (column-parallel A, row-parallel B) get
 per-rank partial gradients, which ``TrainStep`` sums over the tp group.
 
-Not ported yet (raises): sequence parallelism, and a quantized base under
-tp (the int4 split-nibble packing does not slice over a row-parallel
-layer's input rows).
+A quantized base under tp keeps JAX's (in, out) layout split as JAX splits
+it: a row-parallel int4 rank holds its input rows repacked into its own
+nibble halves. A half that holds whole groups (always so at tp = 1) is
+scaled by broadcasting over its groups; one that cuts a group takes each
+row's scale by its global row (2752 rows of the 7B ``down_proj``'s 5504 at
+tp = 2 is 21.5 groups of 128). s8×s8 takes each token's absmax as the max over the tp
+group and sums the rank's int32 partial products over it as integers, so
+its output is tp = 1's bit for bit. The int8 KV cache splits with the heads.
+
+Pipeline parallelism (``pp_size`` > 1): a stage's model holds the blocks
+``stage_layers`` of the global ``num_hidden_layers`` (under their global
+indices, ``layer.16`` …) beside the whole embedding, final norm and head,
+and ``parallel/llm_pp.py`` drives them; the model's own forward, prefill
+and decode need every block and raise on a stage.
+
+Not ported yet (raises): sequence parallelism.
 """
 
 from __future__ import annotations
@@ -74,10 +87,12 @@ from msr3d_tpu_torch.ops.flash_attention import flash_attention, flash_attention
 from msr3d_tpu_torch.parallel.tensor_parallel import (
     copy_to_tp,
     gather_last_dim,
+    max_over_tp,
     reduce_from_tp,
+    sum_int_over_tp,
     vocab_parallel_embed,
 )
-from msr3d_tpu_torch.parallel.sharding import llm_tp_dims
+from msr3d_tpu_torch.parallel.sharding import Spec, llm_tp_dims
 
 _NEG_INF = -1e30
 REMAT_POLICIES = ("full", "dots", "residuals")
@@ -121,6 +136,9 @@ class LlamaConfig:
     # tensor parallelism: this rank's index in a tp group of tp_size ranks
     tp_size: int = 1
     tp_rank: int = 0
+    # pipeline parallelism: this rank's stage of pp_size (its blocks only)
+    pp_size: int = 1
+    pp_rank: int = 0
 
     def __post_init__(self):
         if self.sp_axis:
@@ -129,12 +147,11 @@ class LlamaConfig:
             )
         if not 0 <= self.tp_rank < self.tp_size:
             raise ValueError(f"tp_rank {self.tp_rank} outside a tp group of {self.tp_size}")
-        if self.tp_size > 1:
-            if self.quantize:
-                raise NotImplementedError(
-                    "a quantized base under tp > 1 is not ported yet: the int4 split-nibble "
-                    "packing does not slice over a row-parallel layer's input rows "
-                    "(ROADMAP.md, queue 1: quantized weights under tp)")
+        if not 0 <= self.pp_rank < self.pp_size:
+            raise ValueError(f"pp_rank {self.pp_rank} outside a pipeline of {self.pp_size}")
+        if self.num_hidden_layers % self.pp_size:
+            raise ValueError(f"{self.num_hidden_layers} layers not divisible into "
+                             f"pp={self.pp_size} stages")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy: {self.remat_policy!r}")
         if self.remat and self.lora_rank > 0 and self.lora_dropout > 0:
@@ -167,18 +184,28 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
 
+    @property
+    def stage_layers(self) -> range:
+        """The global indices of this pipeline stage's blocks (all at pp = 1)."""
+        k = self.num_hidden_layers // self.pp_size
+        return range(self.pp_rank * k, (self.pp_rank + 1) * k)
+
     def _splits(self, name: str) -> bool:
         """Whether tensor ``name`` is split over tp (``llm_tp_dims``)."""
         return self.tp_size > 1 and name in llm_tp_dims(self)
 
+    def _base(self, proj: str) -> str:
+        """The name of a projection's base tensor in layer 0."""
+        return f"layer.0.{proj}.{'weight_q' if self.quantize else 'weight'}"
+
     @property
     def tp_attn(self) -> bool:
         """q/k/v column- and o row-parallel, by whole heads."""
-        return self._splits("layer.0.attn.q_proj.weight")
+        return self._splits(self._base("attn.q_proj"))
 
     @property
     def tp_mlp(self) -> bool:
-        return self._splits("layer.0.mlp.gate_proj.weight")
+        return self._splits(self._base("mlp.gate_proj"))
 
     @property
     def tp_vocab(self) -> bool:
@@ -262,15 +289,26 @@ class LoraDense(nn.Module):
     rank's in/tp input columns of the weight and of A (B replicated), takes
     the rank's slice of the input, and ends in one ``reduce_from_tp`` of
     the base and LoRA partial sums. ``in_features``/``out_features`` are
-    the rank's; ``full_in``/``full_out`` the layer's.
+    the rank's; ``full_in``/``full_out`` the layer's. A quantized base holds
+    the rank's columns (``"col"``) or input rows (``"row"``; int4 repacked
+    into the rank's own halves) of ``weight_q``; a 1-D scale whole (a
+    column-parallel rank reads its outputs' slice); a group scale its
+    columns, or (``"row"``) its groups when ``scale_split``, else all of
+    them (JAX's fallback where the groups do not divide by tp). Each row
+    takes the scale of its global row's group (``_group_scaled``). s8×s8 in
+    ``"row"`` mode takes the token's absmax over the tp group and sums the
+    int32 partial products over it, so its output is the whole layer's bit
+    for bit; its LoRA partial sums are reduced apart, before B.
     """
 
     def __init__(self, in_features: int, out_features: int, cfg: LlamaConfig,
-                 use_lora: bool, device=None, tp_mode: Optional[str] = None):
+                 use_lora: bool, device=None, tp_mode: Optional[str] = None,
+                 scale_split: bool = True):
         super().__init__()
         self.full_in, self.full_out = in_features, out_features
         self.tp_mode = tp_mode if cfg.tp_size > 1 else None
         self.tp_rank, self.tp_size = cfg.tp_rank, cfg.tp_size
+        self.scale_split = scale_split
         if self.tp_mode == "col":
             out_features //= cfg.tp_size
         elif self.tp_mode == "row":
@@ -298,15 +336,18 @@ class LoraDense(nn.Module):
     def _quantized_buffers(self, bits: int, group: Optional[int], act_quant: bool,
                            device) -> None:
         n_in, n_out = self.in_features, self.out_features
-        if bits == 4:
-            if n_in % 2 or (group and (n_in // 2) % group):
-                raise ValueError(
-                    f"int4 packing needs an even input dim and a group dividing its half, "
-                    f"got in={n_in}, group={group}"
-                )
-            rows, scale_shape = n_in // 2, ((n_in // group, n_out) if group else (n_out,))
+        if bits == 4 and (n_in % 2 or (group and (self.full_in // 2) % group)):
+            raise ValueError(
+                f"int4 packing needs an even input dim and a group dividing its half, "
+                f"got in={self.full_in} ({n_in} a rank), group={group}"
+            )
+        rows = n_in // 2 if bits == 4 else n_in
+        if group:
+            n_g = self.full_in // group
+            split = self.tp_mode == "row" and self.scale_split
+            scale_shape = (n_g // self.tp_size if split else n_g, n_out)
         else:
-            rows, scale_shape = n_in, (n_out,)
+            scale_shape = (self.full_out,)
         self.bits, self.group, self.act_quant = bits, group, act_quant
         self.register_buffer("weight_q", torch.empty(rows, n_out, dtype=torch.int8,
                                                      device=device))
@@ -322,6 +363,9 @@ class LoraDense(nn.Module):
         initialiser of a quantized module passes the weight it drew)."""
         from msr3d_tpu_torch.models.llm.convert import quantize_kernel
 
+        if self.tp_mode is not None:
+            raise ValueError("LoraDense.quantize_: quantize the whole model, then shard it "
+                             "(MSR3D.shard_for_serving); a shard's scales need the whole layer")
         if weight is None:
             if self.bits:
                 raise ValueError("LoraDense.quantize_: the base is quantized already")
@@ -337,8 +381,11 @@ class LoraDense(nn.Module):
     def _act_quant(self, x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-token absmax int8 quantization of x (rows, in): the max stays
         in x's dtype (as ``jnp.maximum`` of a bf16 amax does), the divide is
-        fp32."""
+        fp32. A row-parallel rank's row is a slice: its max is taken over
+        the tp group, which gives the whole row's."""
         amax = x2.abs().amax(dim=-1, keepdim=True)
+        if self.tp_mode == "row":
+            amax = max_over_tp(amax)
         x_scale = torch.clamp_min(amax, 1e-6).float() / 127.0
         xq = torch.clamp(torch.round(x2.float() / x_scale), -127, 127).to(torch.int8)
         return xq, x_scale
@@ -360,27 +407,53 @@ class LoraDense(nn.Module):
                 y32 = int8_matmul(xq[:, :half], lo) + int8_matmul(xq[:, half:], hi)
             else:
                 y32 = int8_matmul(xq, self.weight_q)
-            y = (y32.float() * x_scale * self.weight_scale.float()[None, :]).to(self.dtype)
+            if self.tp_mode == "row":  # integer partial sums: the sum is exact
+                y32 = sum_int_over_tp(y32)
+            y = (y32.float() * x_scale * self._channel_scale().float()[None, :]).to(self.dtype)
             return y.reshape(*lead, self.out_features)
         if torch.is_grad_enabled() and x.requires_grad:
             return _QuantizedBase.apply(x, self)
         return self._dequant_product(x)
 
+    def _channel_scale(self) -> torch.Tensor:
+        """The per-channel scale of this rank's outputs (a column-parallel
+        rank holds the whole 1-D scale and reads its slice)."""
+        if self.tp_mode != "col":
+            return self.weight_scale
+        n = self.out_features
+        return self.weight_scale[self.tp_rank * n:(self.tp_rank + 1) * n]
+
+    def _group_scaled(self, w: torch.Tensor, first: int) -> torch.Tensor:
+        """``w`` (rows, out), an unpacked half whose first input row has the
+        global index ``first``, times each row's group scale in the compute
+        dtype. A half that starts on a group boundary and holds whole groups
+        (always so at tp = 1) multiplies by broadcasting over its groups; a
+        row-parallel half that cuts a group takes each row's scale by the
+        row's index (a replicated scale holds every group)."""
+        g, rows = self.group, w.shape[0]
+        scales = self.weight_scale.to(self.dtype)
+        split = self.tp_mode == "row" and self.scale_split
+        local = first - (self.tp_rank * self.in_features if split else 0)
+        w = w.to(self.dtype)
+        if first % g == 0 and rows % g == 0:
+            n_g, g0 = rows // g, local // g
+            return (w.reshape(n_g, g, -1) * scales[g0:g0 + n_g, None, :]).reshape(rows, -1)
+        index = torch.arange(local, local + rows, device=scales.device) // g
+        return w * scales.index_select(0, index)
+
     def _dequant_kernels(self):
         """The dequantized weights in the compute dtype: int8 → (K,); int4
         per channel → (lo, hi) unscaled (the scale multiplies the sum of
-        the half-products); int4 by group → (K_lo, K_hi) scaled."""
+        the half-products); int4 by group → (K_lo, K_hi), each row scaled by
+        its group's scale (the products JAX's reshape by groups takes)."""
         if self.bits == 8:
-            return (self.weight_q.to(self.dtype) * self.weight_scale.to(self.dtype),)
+            return (self.weight_q.to(self.dtype) * self._channel_scale().to(self.dtype),)
         lo, hi = self._unpack()
         if not self.group:
             return lo.to(self.dtype), hi.to(self.dtype)
         half = self.in_features // 2
-        g, n_g = self.group, half // self.group
-        gs = self.weight_scale.to(self.dtype)
-        k_lo = (lo.to(self.dtype).reshape(n_g, g, -1) * gs[:n_g, None, :]).reshape(half, -1)
-        k_hi = (hi.to(self.dtype).reshape(n_g, g, -1) * gs[n_g:, None, :]).reshape(half, -1)
-        return k_lo, k_hi
+        first = self.tp_rank * self.in_features if self.tp_mode == "row" else 0
+        return self._group_scaled(lo, first), self._group_scaled(hi, first + half)
 
     def _dequant_product(self, x: torch.Tensor) -> torch.Tensor:
         """x @ the dequantized weight, in the JAX package's rounding order:
@@ -391,7 +464,7 @@ class LoraDense(nn.Module):
             return x @ kernels[0]
         half = self.in_features // 2
         y = x[..., :half] @ kernels[0] + x[..., half:] @ kernels[1]
-        return y if self.group else y * self.weight_scale.to(self.dtype)
+        return y if self.group else y * self._channel_scale().to(self.dtype)
 
     def _dequant_product_grad(self, gy: torch.Tensor) -> torch.Tensor:
         """d/dx of :meth:`_dequant_product` given dy, the products autograd
@@ -400,7 +473,7 @@ class LoraDense(nn.Module):
         the weight rebuilt here."""
         kernels = self._dequant_kernels()
         if self.bits == 4 and not self.group:
-            gy = gy * self.weight_scale.to(self.dtype)
+            gy = gy * self._channel_scale().to(self.dtype)
         g = gy.reshape(-1, self.out_features)
         gx = torch.cat([g.mm(k.t()) for k in kernels], dim=-1)
         return gx.view(*gy.shape[:-1], self.in_features)
@@ -415,16 +488,24 @@ class LoraDense(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = self.base_forward(x)
+        # a row-parallel rank's partial sums end in one reduce; the s8×s8
+        # base has summed its integer partials already
+        row_partial = self.tp_mode == "row" and not self.act_quant
         if self.scale:
             # a row-parallel input is the rank's slice of the full one: its
             # dropout mask is the full mask's slice
             whole = ((self.full_in, self.tp_rank * self.in_features)
                      if self.tp_mode == "row" else None)
-            h = dropout(x, self.lora_dropout, self.training, generator, whole)
-            y = y + F.linear(
-                F.linear(h, self.lora_a.to(self.dtype)), self.lora_b.to(self.dtype)
-            ) * self.scale
-        return reduce_from_tp(y) if self.tp_mode == "row" else y
+            h = F.linear(dropout(x, self.lora_dropout, self.training, generator, whole),
+                         self.lora_a.to(self.dtype))
+            if self.tp_mode == "row" and not row_partial:
+                # beside the reduced s8×s8 base, the LoRA's (rows, r) partial
+                # sums are reduced before B, where XLA's partitioner reduces
+                # them: an ulp more or less here moves the next layer's int8
+                # activations a whole step
+                h = reduce_from_tp(h)
+            y = y + F.linear(h, self.lora_b.to(self.dtype)) * self.scale
+        return reduce_from_tp(y) if row_partial else y
 
 
 class _QuantizedBase(torch.autograd.Function):
@@ -465,8 +546,10 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 def _proj(cfg: LlamaConfig, name: str, n_in: int, n_out: int, device,
           tp_mode: Optional[str] = None) -> LoraDense:
+    block = "mlp" if name in ("gate_proj", "up_proj", "down_proj") else "attn"
+    split = f"layer.0.{block}.{name}.weight_scale" in llm_tp_dims(cfg)
     return LoraDense(n_in, n_out, cfg, cfg.lora_rank > 0 and name in cfg.lora_targets, device,
-                     tp_mode)
+                     tp_mode, scale_split=split)
 
 
 def _attn_scale(head_dim: int, device) -> torch.Tensor:
@@ -798,10 +881,27 @@ def _bias(valid: torch.Tensor) -> torch.Tensor:
     )
 
 
+class StageLayers(nn.ModuleList):
+    """The blocks a model holds (a pipeline stage's, or every block at
+    pp = 1) under their global indices: ``layer.16`` of the whole model is
+    ``layer.16`` of the stage that holds it, so names, checkpoints and the
+    tp layout are the whole model's. Iterates in order; ``[i]`` is the i-th
+    block held."""
+
+    def __init__(self, blocks: Dict[int, nn.Module]):
+        super().__init__()
+        for index, block in blocks.items():
+            self.add_module(str(index), block)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+
 class LlamaModel(nn.Module):
     """Decoder-only Llama driven by ``inputs_embeds`` (the MSR3D model
     splices scene embeddings between the token embeddings). Under tp the
-    embedding table and ``lm_head`` hold the rank's ``local_vocab`` rows."""
+    embedding table and ``lm_head`` hold the rank's ``local_vocab`` rows;
+    ``layer`` holds the stage's blocks (all of them at pp = 1)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -812,17 +912,17 @@ class LlamaModel(nn.Module):
             _weight=torch.empty(vocab, cfg.hidden_size, dtype=cfg.param_dtype, device=device),
         )
         self.embed_tokens.weight.requires_grad_(False)
-        self.layer = nn.ModuleList(LlamaBlock(cfg, device) for _ in range(cfg.num_hidden_layers))
+        self.layer = StageLayers({i: LlamaBlock(cfg, device) for i in cfg.stage_layers})
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype,
                                   cfg.param_dtype, device)
         self.lm_head = nn.Linear(cfg.hidden_size, vocab, bias=False,
                                  dtype=cfg.param_dtype, device=device)
         self.lm_head.weight.requires_grad_(False)
 
-    def tp_dims(self) -> Dict[str, int]:
-        """name (inside the LLM) → the split dim of each tensor sharded over
-        tp (``llm_tp_dims``); every other tensor is replicated (empty at tp
-        = 1)."""
+    def tp_dims(self) -> Dict[str, Spec]:
+        """name (inside the LLM) → the spec of each tensor sharded over tp
+        (``llm_tp_dims``: a dim, or ``PACKED_ROWS``); every other tensor is
+        replicated (empty at tp = 1)."""
         return dict(llm_tp_dims(self.cfg))
 
     def tp_partial(self) -> List[str]:
@@ -845,6 +945,13 @@ class LlamaModel(nn.Module):
             local = F.linear(copy_to_tp(hidden), self.lm_head.weight.to(self.cfg.dtype))
             return gather_last_dim(local)
         return F.linear(hidden, self.lm_head.weight.to(self.cfg.dtype))
+
+    def _whole(self, what: str) -> None:
+        if self.cfg.pp_size > 1:
+            layers = self.cfg.stage_layers
+            raise RuntimeError(f"{what} runs every block; pipeline stage {self.cfg.pp_rank} "
+                               f"holds blocks {layers.start}..{layers.stop - 1} only "
+                               "(parallel/llm_pp.py drives a stage)")
 
     def _positions(self, attention_mask: torch.Tensor) -> torch.Tensor:
         """HF left-padding positions: cumsum(mask) - 1, floored at 0."""
@@ -874,6 +981,7 @@ class LlamaModel(nn.Module):
         answer-predicting window (every target before it is -100).
         ``generator`` feeds LoRA dropout in ``train()`` mode. With ``remat``
         and grad enabled each block runs under activation checkpointing."""
+        self._whole("the training forward")
         positions = self._positions(attention_mask)
         attn_bias, key_valid = self._attention_masks(attention_mask)
         x = inputs_embeds.to(self.cfg.dtype)
@@ -903,6 +1011,7 @@ class LlamaModel(nn.Module):
         ``v_scale`` (L, B, max_cache_len, hkv); padding slots are 0, scales
         included."""
         cfg = self.cfg
+        self._whole("prefill")
         b, t, _ = inputs_embeds.shape
         if t > max_cache_len:
             raise ValueError(f"prompt length {t} exceeds max_cache_len {max_cache_len}")
@@ -968,6 +1077,7 @@ class LlamaModel(nn.Module):
 
     def _decode_layers(self, inputs_embeds, positions, attn_bias, prompt_kv, gen_kv,
                        gen_index, anc_rows=None) -> torch.Tensor:
+        self._whole("a decode step")
         x = inputs_embeds.to(self.cfg.dtype)
         segmented = isinstance(prompt_kv, (list, tuple))
         for i, block in enumerate(self.layer):

@@ -38,11 +38,14 @@ import torch.nn as nn
 
 from msr3d_tpu_torch.convert import load_jax_params
 from msr3d_tpu_torch.device import resolve_device
+from msr3d_tpu_torch.models.llm.convert import quantize_kernel
 from msr3d_tpu_torch.models.llm.llama import (
+    LlamaBlock,
     LlamaConfig,
     LlamaModel,
     LoraDense,
     RMSNorm,
+    StageLayers,
     _make_cache,
 )
 from msr3d_tpu_torch.models.llm import prng
@@ -60,6 +63,7 @@ from msr3d_tpu_torch.models.llm.tokenizer import (
 from msr3d_tpu_torch.models.ose3d_situation import OSE3DConfig, OSE3DSituation
 from msr3d_tpu_torch.models.vision2d import Backbone2D, ConvNeXtBlock
 from msr3d_tpu_torch.nn.pointnet import BatchNorm
+from msr3d_tpu_torch.parallel.sharding import Spec, shard_tensor
 
 _SCENE_KEYS = ("obj_fts", "obj_masks", "obj_locs", "anchor_locs", "anchor_orientation")
 _PACKED = ("obj_fts_xyz_q", "obj_fts_rgb_q")  # compact_transfer's int16 and int8 points
@@ -154,9 +158,9 @@ class MSR3DNetwork(nn.Module):
         self.llm_proj_img = nn.Linear(self.image_encoder.out_channels, cfg.llm.hidden_size,
                                       device=device)
 
-    def tp_dims(self) -> Dict[str, int]:
-        """name → the split dim of each parameter sharded over tp (the
-        LLM's; everything else is replicated)."""
+    def tp_dims(self) -> Dict[str, Spec]:
+        """name → the spec of each tensor sharded over tp (the LLM's;
+        everything else is replicated)."""
         return {f"llm.{name}": dim for name, dim in self.llm.tp_dims().items()}
 
     def tp_partial(self) -> List[str]:
@@ -279,16 +283,19 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
     a seed equals the bf16 one initialised from it, then quantized.
 
     Under tensor parallelism each rank draws every sharded tensor whole, as
-    tp = 1 draws it, and keeps its shard, so the ranks' draws stay in step
-    and their shards join into the tp = 1 model."""
+    tp = 1 draws it, and keeps its shard (a quantized projection quantizes
+    its whole weight, then keeps its shards of the values and scales), so
+    the ranks' draws stay in step and their shards join into the tp = 1
+    model. A pipeline stage draws the blocks of the other stages too, in
+    their place, and throws them away: every stage's replicated tensors are
+    the same draws, and its blocks are the whole model's."""
     g = dict(generator=generator)
     cfg = network.cfg.llm
     dims = network.tp_dims()
-    owner = {id(p): n for n, p in network.named_parameters()}
 
-    def draw(param: torch.Tensor, fill) -> None:
+    def draw(name: str, param: torch.Tensor, fill) -> None:
         # fill(t) draws into t; a sharded param draws its whole, then slices
-        dim = dims.get(owner.get(id(param)))
+        dim = dims.get(name)
         if dim is None:
             fill(param)
             return
@@ -296,22 +303,26 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
         shape[dim] *= cfg.tp_size
         whole = torch.empty(shape, dtype=param.dtype, device=param.device)
         fill(whole)
-        param.copy_(whole.chunk(cfg.tp_size, dim=dim)[cfg.tp_rank])
+        param.copy_(shard_tensor(whole, dim, cfg.tp_rank, cfg.tp_size))
 
-    for mod in network.modules():
+    for prefix, mod in _init_order(network):
         if isinstance(mod, LoraDense):
             if mod.bits:
-                weight = torch.empty((mod.out_features, mod.in_features), dtype=mod.param_dtype,
+                weight = torch.empty((mod.full_out, mod.full_in), dtype=mod.param_dtype,
                                      device=mod.weight_q.device).normal_(0.0, 0.02, **g)
-                mod.quantize_(mod.bits, mod.group, mod.act_quant, weight=weight)
+                q, scale = quantize_kernel(weight.t(), mod.bits, mod.group)
+                del weight
+                for leaf, value in (("weight_q", q), ("weight_scale", scale)):
+                    getattr(mod, leaf).copy_(shard_tensor(value, dims.get(f"{prefix}.{leaf}"),
+                                                          cfg.tp_rank, cfg.tp_size))
             else:
-                draw(mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
+                draw(f"{prefix}.weight", mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
             if mod.scale:
                 limit = math.sqrt(6.0 / mod.full_in)
-                draw(mod.lora_a, lambda t: t.uniform_(-limit, limit, **g))
+                draw(f"{prefix}.lora_a", mod.lora_a, lambda t: t.uniform_(-limit, limit, **g))
                 mod.lora_b.zero_()
         elif isinstance(mod, nn.Embedding):
-            draw(mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
+            draw(f"{prefix}.weight", mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
         elif isinstance(mod, nn.Conv2d):
             mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.weight[0].numel()), **g)
             mod.bias.zero_()
@@ -319,7 +330,7 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
             mod.gamma.fill_(mod.layer_scale_init)
         elif isinstance(mod, nn.Linear):
             if mod is network.llm.lm_head:
-                draw(mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
+                draw(f"{prefix}.weight", mod.weight, lambda t: t.normal_(0.0, 0.02, **g))
             else:
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), **g)
             if mod.bias is not None:
@@ -340,6 +351,32 @@ def init_network_params(network: MSR3DNetwork, generator: torch.Generator) -> No
     if prompter.prepend_anchor:
         prompter.anchor_feat.normal_(0.0, 0.02, **g)
         prompter.anchor_size.fill_(1.0)
+
+
+def _init_order(network: nn.Module):
+    """(name, module) of every module of ``network`` in the order the whole
+    model's ``named_modules`` gives: ``StageLayers`` yields every block of
+    the model in turn, on a pipeline stage the other stages' built for the
+    draw on the stage's device and dropped after it."""
+    cfg = network.cfg.llm
+    seen = set()
+
+    def walk(prefix: str, module: nn.Module):
+        if id(module) in seen:
+            return
+        seen.add(id(module))
+        yield prefix, module
+        if isinstance(module, StageLayers):
+            held = dict(module.named_children())
+            device = next(module.parameters()).device
+            for i in range(cfg.num_hidden_layers):
+                block = held.get(str(i)) or LlamaBlock(cfg, device)
+                yield from walk(f"{prefix}.{i}", block)
+            return
+        for name, child in module.named_children():
+            yield from walk(f"{prefix}.{name}" if prefix else name, child)
+
+    return walk("", network)
 
 
 class MSR3D:
@@ -449,21 +486,40 @@ class MSR3D:
         devices one process drives, is already what a rank holds here, so it
         does nothing. ``tensor_parallel=True`` splits the LLM's weights of
         this full model over the tp group in the megatron layout
-        (``parallel/sharding.py``): the rank rebuilds its LLM at the shard
-        shapes and keeps its shards; every tp rank then runs ``generate``
-        and the engines on the same requests, and their tokens are the
-        unsharded model's."""
+        (``parallel/sharding.py``), a quantized base included: the rank
+        rebuilds its LLM at the shard shapes and keeps its shards; every tp
+        rank then runs ``generate`` and the engines on the same requests,
+        and their tokens are the unsharded model's."""
         from msr3d_tpu_torch.parallel import mesh
-        from msr3d_tpu_torch.parallel.sharding import shard_like
 
         if not tensor_parallel or mesh.tp_size() == 1:
             return
         if self.cfg.llm.tp_size > 1:
             raise ValueError("shard_for_serving: the LLM is tp-sharded already")
-        llm_cfg = dataclasses.replace(self.cfg.llm, tp_size=mesh.tp_size(),
-                                      tp_rank=mesh.tp_rank())
+        self._reshard_llm(mesh.tp_size(), mesh.tp_rank(), 1, 0)
+
+    @torch.no_grad()
+    def shard_for_training(self) -> None:
+        """Split this full model over the mesh's tp and pp ranks (after
+        ``init_mesh``): the LLM keeps this rank's tp shards of its pipeline
+        stage's blocks (``LlamaConfig.pp_size``/``pp_rank``) beside the
+        embedding, norm and head; everything else stays whole. ``LeoTrainer``
+        does it for a full model it is given under pp."""
+        from msr3d_tpu_torch.parallel import mesh
+
+        if (self.cfg.llm.tp_size, self.cfg.llm.pp_size) != (1, 1):
+            raise ValueError("shard_for_training: the LLM is split already")
+        self._reshard_llm(mesh.tp_size(), mesh.tp_rank(), mesh.pp_size(), mesh.pp_rank())
+
+    def _reshard_llm(self, tp: int, tp_rank: int, pp: int, pp_rank: int) -> None:
+        from msr3d_tpu_torch.parallel.sharding import shard_like
+
+        llm_cfg = dataclasses.replace(self.cfg.llm, tp_size=tp, tp_rank=tp_rank, pp_size=pp,
+                                      pp_rank=pp_rank)
         llm = LlamaModel(llm_cfg, device=self.device)
-        llm.load_state_dict(shard_like(llm, self.network.llm.state_dict()))
+        keep = set(llm.state_dict())
+        llm.load_state_dict(shard_like(llm, {n: t for n, t in self.network.llm.state_dict()
+                                             .items() if n in keep}))
         self.network.llm = llm.train(self.network.training)  # frees the full LLM
         self.cfg = dataclasses.replace(self.cfg, llm=llm_cfg)
         self.network.cfg = self.cfg
@@ -477,7 +533,11 @@ class MSR3D:
         ``models/llm/convert.py::quantize_kernel`` (each projection's weight
         is freed as its quantized form lands, so the peak is one projection
         above the quantized model), and switch the config to the quantized
-        serving options."""
+        serving options. A split model raises: quantize the whole model,
+        then shard it (``shard_for_serving``), as a shard's scales need its
+        whole layer."""
+        if (self.cfg.llm.tp_size, self.cfg.llm.pp_size) != (1, 1):
+            raise ValueError("quantize_llm: quantize the whole model, then shard it")
         llm = dataclasses.replace(self.cfg.llm, quantize=True, quantize_bits=bits,
                                   quantize_group=group, act_quantize=act_quantize,
                                   kv_quantize=kv_quantize)

@@ -1,17 +1,24 @@
-"""The process mesh over ``torch.distributed``: one process a rank, dp × tp.
+"""The process mesh over ``torch.distributed``: one process a rank, dp × tp × pp.
 
 Counterpart of ``msr3d_tpu/parallel/mesh.py``. JAX lays one mesh over the
 devices and lets XLA insert the collectives; here each rank is a process.
 ``MeshConfig.resolve`` is JAX's arithmetic (dp is what tp·pp·sp leave of
 the ranks), and the ranks are laid out as JAX reshapes its device array,
-``(dp, tp, pp, sp)``: tp is the fastest-varying rank index, so rank
-``d·tp + t`` is tp rank ``t`` of dp group ``d``. ``init_mesh`` builds a tp
-group over each run of ``tp`` consecutive ranks and a dp group over the
-ranks that share a tp index. Each dp rank loads its own shard of the data
-and averages the trainable gradients over its dp group
-(``trainer/train_state.py``); the tp ranks of one dp group hold one shard
-each of the LLM's weights (``parallel/sharding.py``) and meet in the
-collectives of ``parallel/tensor_parallel.py``.
+``(dp, tp, pp, sp)`` row-major: pp is the fastest-varying rank index, then
+tp, then dp, so rank ``(d·tp + t)·pp + p`` is pp rank ``p`` of tp rank ``t``
+of dp group ``d`` (at pp = 1, ``d·tp + t``). ``init_mesh`` builds, over
+every rank in one order:
+
+* a pp group over each run of ``pp`` consecutive ranks (the stages of one
+  (d, t)), which hands activations down the pipeline
+  (``parallel/pipeline.py``);
+* a tp group over the ranks of one (d, p), strided by pp, whose ranks hold
+  one shard each of the LLM's weights (``parallel/sharding.py``) and meet
+  in the collectives of ``parallel/tensor_parallel.py``;
+* a dp group over the ranks of one (t, p), strided by tp·pp, over which the
+  trainable gradients are averaged (``trainer/train_state.py``);
+* the model-parallel group of a dp index: its tp·pp consecutive ranks, over
+  which the first of them broadcasts each batch.
 
 The env contract is torch's own, as ``torchrun`` and the port's launcher
 (``msr3d_tpu_torch/launch.py``) set it: ``RANK``, ``WORLD_SIZE``,
@@ -25,11 +32,12 @@ card of its own, ``gloo`` when ranks share a card (NCCL refuses two ranks on
 one device) and on the CPU. Beside the default group a ``gloo`` group over
 the same ranks carries the host-side traffic (object gathers, barriers,
 flags), so none of it waits on a card; with a ``gloo`` default group it is
-that group. The dp and tp groups take the default group's backend, each
-with a gloo twin for its host-side traffic when that backend is ``nccl``.
+that group. The dp, tp, pp and model-parallel groups take the default
+group's backend, each with a gloo twin for its host-side traffic when that
+backend is ``nccl``.
 
-pp and sp above 1 are not ported: ``MeshConfig.resolve`` raises
-``NotImplementedError`` for them.
+sp above 1 is not ported: ``MeshConfig.resolve`` raises
+``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -38,13 +46,14 @@ import dataclasses
 import datetime
 import hashlib
 import os
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 _NOT_PORTED = "ROADMAP.md, queue: parallelism"
 _CONTROL_GROUP = None  # the gloo group of host-side collectives, once initialised
+AXES = ("dp", "tp", "pp", "mp")  # mp: the tp·pp ranks of one dp index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +75,9 @@ class MeshConfig:
 
     def resolve(self, n_ranks: int) -> Tuple[int, int, int, int]:
         """(dp, tp, pp, sp) over ``n_ranks``, as JAX's ``MeshConfig.resolve``
-        computes it; pp and sp above 1 raise (not ported)."""
-        for axis in ("pp", "sp"):
-            if getattr(self, axis) > 1:
-                raise NotImplementedError(
-                    f"parallel.{axis} > 1 is not ported yet ({_NOT_PORTED})")
+        computes it; sp above 1 raises (not ported)."""
+        if self.sp > 1:
+            raise NotImplementedError(f"parallel.sp > 1 is not ported yet ({_NOT_PORTED})")
         tp, pp, sp, dp = self.tp, self.pp, self.sp, self.dp
         if min(tp, pp, sp) < 1:
             raise ValueError(f"mesh axes must be >= 1, got tp={tp} pp={pp} sp={sp}")
@@ -87,12 +94,13 @@ class MeshConfig:
 class _Mesh:
     dp: int
     tp: int
+    pp: int
     dp_rank: int
     tp_rank: int
-    dp_group: object  # the compute group of this rank's dp ranks
-    tp_group: object
-    dp_control: object  # its gloo twin (the group itself under gloo)
-    tp_control: object
+    pp_rank: int
+    # axis → (the compute group of this rank's ranks on it, its gloo twin:
+    # the group itself under gloo)
+    groups: Dict[str, Tuple[object, object]]
 
 
 _MESH: Optional[_Mesh] = None  # set by init_mesh
@@ -100,23 +108,24 @@ _MESH: Optional[_Mesh] = None  # set by init_mesh
 
 def data_parallel_size(parallel: Optional[Mapping]) -> int:
     """dp over the ranks of the group, as JAX's ``MeshConfig`` resolves it
-    from the config's ``parallel`` section; pp and sp above 1 raise."""
+    from the config's ``parallel`` section; sp above 1 raises."""
     return MeshConfig.from_parallel(parallel).resolve(world_size())[0]
 
 
 def init_mesh(parallel: Optional[Mapping]) -> Tuple[int, int]:
     """Resolve the config's ``parallel`` section over the ranks and build the
-    dp and tp groups (every rank builds every group, in one order); returns
-    (dp, tp). Idempotent for one layout; another layout raises."""
+    dp, tp, pp and model-parallel groups (every rank builds every group, in
+    one order); returns (dp, tp). Idempotent for one layout; another layout
+    raises."""
     global _MESH
-    dp, tp, _, _ = MeshConfig.from_parallel(parallel).resolve(world_size())
+    dp, tp, pp, _ = MeshConfig.from_parallel(parallel).resolve(world_size())
     if _MESH is not None:
-        if (_MESH.dp, _MESH.tp) != (dp, tp):
-            raise RuntimeError(f"the mesh is dp={_MESH.dp} x tp={_MESH.tp} already, "
-                               f"not dp={dp} x tp={tp}")
+        if (_MESH.dp, _MESH.tp, _MESH.pp) != (dp, tp, pp):
+            raise RuntimeError(f"the mesh is dp={_MESH.dp} x tp={_MESH.tp} x pp={_MESH.pp} "
+                               f"already, not dp={dp} x tp={tp} x pp={pp}")
         return dp, tp
     r = rank()
-    if world_size() == 1:  # nothing to build: dp = tp = 1
+    if world_size() == 1:  # nothing to build: dp = tp = pp = 1
         return dp, tp
     gloo = dist.get_backend() == "gloo"
 
@@ -129,24 +138,37 @@ def init_mesh(parallel: Optional[Mapping]) -> Tuple[int, int]:
                 mine = (compute, control)
         return mine
 
-    tp_ranks, dp_ranks = mesh_groups(dp, tp)
-    tp_groups, dp_groups = groups(tp_ranks), groups(dp_ranks)
-    _MESH = _Mesh(dp, tp, r // tp, r % tp, dp_groups[0], tp_groups[0], dp_groups[1],
-                  tp_groups[1])
+    layout = mesh_groups(dp, tp, pp)
+    sizes = {"dp": dp, "tp": tp, "pp": pp, "mp": tp * pp}
+    # an axis of one rank needs no group (its accessors answer without one)
+    mine = {axis: groups(layout[axis]) for axis in AXES if axis == "dp" or sizes[axis] > 1}
+    _MESH = _Mesh(dp, tp, pp, r // (tp * pp), r // pp % tp, r % pp, mine)
     return dp, tp
 
 
-def mesh_groups(dp: int, tp: int) -> Tuple[List[List[int]], List[List[int]]]:
-    """The ranks of each tp group (the rows of JAX's (dp, tp) device array:
-    ``tp`` consecutive ranks) and of each dp group (its columns: the ranks
-    of one tp index)."""
-    return ([list(range(d * tp, (d + 1) * tp)) for d in range(dp)],
-            [list(range(t, dp * tp, tp)) for t in range(tp)])
+def mesh_groups(dp: int, tp: int, pp: int = 1) -> Dict[str, List[List[int]]]:
+    """axis → the ranks of each of its groups, from JAX's (dp, tp, pp) device
+    array (rank ``(d·tp + t)·pp + p``): ``tp`` the ranks of one (d, p),
+    ``dp`` of one (t, p), ``pp`` of one (d, t), ``mp`` (the model-parallel
+    ranks) of one d."""
+    at = lambda d, t, p: (d * tp + t) * pp + p  # noqa: E731
+    return {
+        "tp": [[at(d, t, p) for t in range(tp)] for d in range(dp) for p in range(pp)],
+        "dp": [[at(d, t, p) for d in range(dp)] for t in range(tp) for p in range(pp)],
+        "pp": [[at(d, t, p) for p in range(pp)] for d in range(dp) for t in range(tp)],
+        "mp": [list(range(d * tp * pp, (d + 1) * tp * pp)) for d in range(dp)],
+    }
 
 
 def _mesh() -> _Mesh:
-    return _MESH if _MESH is not None else _Mesh(world_size(), 1, rank(), 0, None, None,
-                                                 None, None)
+    if _MESH is not None:
+        return _MESH
+    return _Mesh(world_size(), 1, 1, rank(), 0, 0, {})
+
+
+def _group(axis: str, control: bool = False):
+    pair = _mesh().groups.get(axis)
+    return None if pair is None else pair[int(control)]
 
 
 def dp_size() -> int:
@@ -169,15 +191,39 @@ def tp_rank() -> int:
     return _mesh().tp_rank
 
 
+def pp_size() -> int:
+    """Stages in this rank's pipeline (1 before ``init_mesh``)."""
+    return _mesh().pp
+
+
+def pp_rank() -> int:
+    """This rank's stage: its index in its pp group."""
+    return _mesh().pp_rank
+
+
+def mp_size() -> int:
+    """The model-parallel ranks of a dp index: tp · pp."""
+    return _mesh().tp * _mesh().pp
+
+
 def tp_group():
     """The tp group's compute group (None at tp = 1)."""
-    return _mesh().tp_group if tp_size() > 1 else None
+    return _group("tp") if tp_size() > 1 else None
+
+
+def pp_group():
+    """The pp group's compute group (None at pp = 1)."""
+    return _group("pp") if pp_size() > 1 else None
+
+
+def pp_control_group():
+    """The gloo group of the pp ranks' host-side traffic (None at pp = 1)."""
+    return _group("pp", control=True) if pp_size() > 1 else None
 
 
 def dp_group():
-    """The dp group's compute group: the default group at tp = 1."""
-    m = _mesh()
-    return m.dp_group if m.tp > 1 else None
+    """The dp group's compute group: the default group at tp = pp = 1."""
+    return _group("dp") if mp_size() > 1 else None
 
 
 def dp_control_group():
@@ -185,13 +231,25 @@ def dp_control_group():
     process)."""
     if world_size() == 1:
         return None
-    m = _mesh()
-    return m.dp_control if m.tp > 1 else _control_group()
+    return _group("dp", control=True) if mp_size() > 1 else _control_group()
 
 
 def tp_control_group():
     """The gloo group of the tp ranks' host-side traffic."""
-    return _mesh().tp_control
+    return _group("tp", control=True)
+
+
+def mp_control_group():
+    """The gloo group of the model-parallel ranks of this dp index."""
+    return _group("mp", control=True)
+
+
+def global_rank(axis: str, index: int) -> int:
+    """The rank of the ``index``-th member of this rank's ``axis`` group."""
+    m = _mesh()
+    d, t, p = m.dp_rank, m.tp_rank, m.pp_rank
+    d, t, p = {"dp": (index, t, p), "tp": (d, index, p), "pp": (d, t, index)}[axis]
+    return (d * m.tp + t) * m.pp + p
 
 
 def _initialised() -> bool:
@@ -288,16 +346,29 @@ def process_allgather_objects(objs: list, group=None) -> list:
     return [obj for part in gathered for obj in part]
 
 
-def tp_broadcast_object(obj):
-    """Tp rank 0's ``obj`` on every rank of its tp group (the identity at tp
-    = 1): the tp ranks of a dp group must compute on the same batch, and a
-    loader draws its points and answers from each process's own global
-    generators."""
-    m = _mesh()
-    if m.tp == 1:
+def broadcast_from_first(obj, axis: str = "mp"):
+    """The ``obj`` of the first rank of this rank's ``axis`` group on every
+    rank of it (the identity where the group has one rank). ``mp``: rank
+    (d, 0, 0)'s on the tp × pp ranks of dp index d, which must compute on
+    the same batch (a loader draws its points and answers from each
+    process's own global generators); ``tp``: tp rank 0's."""
+    if first_group_size(axis) == 1:
         return obj
+    src = _mesh().dp_rank * mp_size() if axis == "mp" else global_rank("tp", 0)
+    return broadcast_object(obj, src, _group(axis, control=True))
+
+
+def first_group_size(axis: str) -> int:
+    """Ranks in this rank's ``axis`` group of ``broadcast_from_first``:
+    ``mp`` (the tp × pp ranks of its dp index) or ``tp``."""
+    return {"mp": mp_size, "tp": tp_size}[axis]()
+
+
+def broadcast_object(obj, src: int, group):
+    """Rank ``src``'s ``obj`` (a global rank of ``group``, a gloo group) on
+    every rank of ``group``."""
     box = [obj]
-    dist.broadcast_object_list(box, src=m.dp_rank * m.tp, group=m.tp_control)
+    dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
 
 
@@ -316,16 +387,34 @@ def all_reduce_max(values: Sequence[int]) -> List[int]:
     return t.tolist()
 
 
-def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over ``group``'s ranks (the default group when None) in
-    place; a CUDA tensor under ``gloo`` (ranks sharing a card) goes through
-    the host."""
+def all_reduce_(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` by ``op`` over ``group``'s ranks (the default group when
+    None) in place; a CUDA tensor under ``gloo`` (ranks sharing a card) goes
+    through the host."""
     if t.device.type == "cuda" and dist.get_backend(group) == "gloo":
         host = t.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over ``group``'s ranks (the default group when None) in
+    place, as ``all_reduce_``."""
+    return all_reduce_(t, group)
+
+
+def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Rank ``src``'s ``t`` (a global rank of ``group``) on every rank of
+    ``group``, in place; a CUDA tensor under ``gloo`` goes through the host."""
+    if t.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        host = t.cpu()
+        dist.broadcast(host, src=src, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src=src, group=group)
     return t
 
 

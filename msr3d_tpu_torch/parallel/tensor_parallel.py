@@ -15,7 +15,9 @@ JAX writes sharding annotations and lets XLA insert the collectives
   slice first), the rank's slice of the gradient backward. It joins the
   vocab-parallel logits;
 * ``vocab_parallel_embed``: the ids outside the rank's vocab range masked,
-  the rest looked up in the rank's rows, the rows summed over the tp group.
+  the rest looked up in the rank's rows, the rows summed over the tp group;
+* ``max_over_tp`` and ``sum_int_over_tp``: s8×s8's per-token absmax and its
+  int32 partial products over a row-parallel layer's ranks.
 
 A CUDA tensor under a gloo group (tp ranks that share a card) goes through
 the host, as ``mesh.all_reduce_sum_`` does. ``COMM`` counts the collectives
@@ -51,6 +53,14 @@ def _counted(fn):
 @_counted
 def _all_reduce(x: torch.Tensor) -> torch.Tensor:
     return mesh.all_reduce_sum_(x.contiguous().clone(), group=mesh.tp_group())
+
+
+@_counted
+def _all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    # fp32 on the wire: a max of bf16 values is exact in fp32 and back
+    out = mesh.all_reduce_(x.detach().float().contiguous(), group=mesh.tp_group(),
+                           op=dist.ReduceOp.MAX)
+    return out.to(x.dtype)
 
 
 def gather_along(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -112,6 +122,18 @@ def gather_last_dim(x: torch.Tensor) -> torch.Tensor:
     """The tp ranks' slices joined along the last dim, rank 0's first; the
     gradient's own slice goes back."""
     return _GatherLastDim.apply(x)
+
+
+def max_over_tp(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the tp group (no autograd: s8×s8's
+    per-token absmax)."""
+    return _all_reduce_max(x)
+
+
+def sum_int_over_tp(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the tp group of an integer tensor (s8×s8's int32 partial
+    products): exact, so every rank holds the whole product."""
+    return _all_reduce(x)
 
 
 def vocab_parallel_embed(ids: torch.Tensor, weight: torch.Tensor,

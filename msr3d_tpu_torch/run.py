@@ -18,11 +18,12 @@ Under the ``torch.distributed`` env contract (``RANK``, ``WORLD_SIZE``,
 --mode accelerate`` sets it) the process joins the group as one rank of a
 run on the card ``cuda:LOCAL_RANK % cards``, rank 0 alone writes the
 snapshot, and the group is left on the way out, also on an exception. The
-ranks form dp × tp with ``parallel.tp`` from the YAML or an override
-(``parallel.tp=2``; dp is what tp leaves). Each rank ends with a ``run
-summary`` log line: its rank, dp, tp and tp rank, backend, device, the LLM
-parameters it holds, the tp collectives' count and host seconds, steps
-and their ms, peak device memory and its kernels' launches.
+ranks form dp × tp × pp with ``parallel.tp`` and ``parallel.pp`` from the
+YAML or an override (``parallel.tp=2``, ``parallel.pp=2``; dp is what they
+leave). Each rank ends with a ``run summary`` log line: its rank, dp, tp,
+pp and its tp rank and stage, backend, device, the LLM parameters it holds,
+the tp collectives' and the pp transfers' counts and host seconds (a step's
+too), steps and their ms, peak device memory and its kernels' launches.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 
 from msr3d_tpu_torch.config import load_config, save_config
 from msr3d_tpu_torch.device import resolve_device
-from msr3d_tpu_torch.parallel import mesh, tensor_parallel
+from msr3d_tpu_torch.parallel import mesh, pipeline, tensor_parallel
 from msr3d_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("msr3d_tpu_torch.run")
@@ -100,12 +101,15 @@ def run_summary(trainer, device: torch.device) -> dict:
     llm = trainer.model.network.llm
     return {
         "rank": mesh.rank(), "world": mesh.world_size(), "dp": trainer.dp, "tp": trainer.tp,
-        "tp_rank": mesh.tp_rank(),
+        "tp_rank": mesh.tp_rank(), "pp": trainer.pp, "pp_rank": mesh.pp_rank(),
         "backend": dist.get_backend() if dist.is_initialized() else None,
         # the LLM's parameters this rank holds (its shards under tp), and
         # the tp operators' collectives with their host seconds
         "llm_params": sum(p.numel() for p in llm.parameters()),
         "tp_comm": dict(tensor_parallel.COMM), "step_tp_comm_s": trainer.tp_comm_history,
+        # the pp transfers (activations, their gradients, the masks) with
+        # their host seconds, the step's, and their bytes
+        "pp_comm": dict(pipeline.COMM), "step_pp_comm_s": trainer.pp_comm_history,
         "device": str(device), "steps": trainer.step,
         "step_ms": [1e3 * t for t in trainer.timer.history],
         # the loop's wait on the loader a step (under tp, tp rank 0's loading

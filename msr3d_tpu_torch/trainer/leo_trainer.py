@@ -86,7 +86,26 @@ sample counts once. The checkpoints hold the full tensors, gathered over tp
 (rank 0 writes), so a run saved at one tp resumes at another; a load
 shards them again.
 
-Not ported yet: ``parallel.pp/sp > 1`` (``NotImplementedError`` naming
+Pipeline parallelism (``parallel.pp`` > 1, ``parallel.microbatches``
+default pp): the ranks form dp × tp × pp (pp the fastest-varying rank
+index), and each rank's model holds its stage's blocks beside everything
+outside them (an injected full model is split, ``MSR3D.shard_for_training``).
+Rank (d, 0, 0) iterates the loader and broadcasts each batch over the dp
+index's tp × pp ranks. A step's loss runs the GPipe schedule of
+``parallel/llm_pp.py`` over the micro-batches of each accumulation
+micro-batch, forward and backward; the trainable parameters outside the
+blocks get their gradient on stage 0 alone, which is broadcast over the pp
+group before the norm and the clip, so the stages' replicas stay bit-equal
+(checked with the dp and tp replicas). The global norm adds each stage's
+block gradients once (a sum over pp) and the replicated ones once.
+Evaluation gathers the other stages' blocks onto the ranks of pp rank 0,
+which evaluate with the whole LLM as at pp = 1 while the other pp ranks wait
+at a barrier, and every pp rank gets the results; each sample is scored
+once. Checkpoints hold the full tensors, gathered over tp and pp (rank 0
+writes), so a run saved at one pp resumes at another; JAX saves its stacked
+layout instead, a deliberate difference beside the rank-0 writes.
+
+Not ported yet: ``parallel.sp > 1`` (``NotImplementedError`` naming
 ROADMAP.md's queue). Training with the point encoder unfrozen
 (``vision.args.freeze: False``) raises ``ValueError``: the JAX trainer fails
 on it (its train step does not make ``batch_stats`` mutable), so the port
@@ -96,6 +115,7 @@ does not run it either; evaluation with it runs.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import signal
 import time
 import uuid
@@ -108,7 +128,7 @@ import torch
 
 from msr3d_tpu_torch.config import Config, cfg2dict, config_from_dict
 from msr3d_tpu_torch.optim.build import build_optim
-from msr3d_tpu_torch.parallel import mesh, tensor_parallel
+from msr3d_tpu_torch.parallel import mesh, pipeline, tensor_parallel
 from msr3d_tpu_torch.parallel.mesh import (
     all_reduce_max,
     barrier,
@@ -149,34 +169,36 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _batches(loader, tp: int):
-    """An iterator over ``loader``'s batches. Under tp only tp rank 0 of
-    each dp group iterates the loader (its reads, augmentation and workers)
-    and broadcasts each batch over the tp group, then None at its end; the
-    other tp ranks take the broadcasts. So the tp ranks of a dp group
-    compute on one batch (a loader draws its points and answers from each
-    process's own global generators). Closing it closes the loader's
-    iterator."""
-    if tp == 1:
+def _batches(loader, axis: str = "mp"):
+    """An iterator over ``loader``'s batches. Where this rank's ``axis``
+    group has more than one rank (the tp·pp model-parallel ranks of a dp
+    index for ``mp``, the tp ranks for ``tp``) only its first rank
+    iterates the loader (its reads, augmentation and workers) and broadcasts
+    each batch over the group, then None at its end; the other ranks take
+    the broadcasts. So the tp and pp ranks of a dp index compute on one
+    batch (a loader draws its points and answers from each process's own
+    global generators). Closing it closes the loader's iterator."""
+    if mesh.first_group_size(axis) == 1:
         return iter(loader)
-    return _tp_rank0_batches(loader) if mesh.tp_rank() == 0 else _tp_broadcast_batches()
+    first = mesh.tp_rank() == 0 and (axis == "tp" or mesh.pp_rank() == 0)
+    return _first_rank_batches(loader, axis) if first else _broadcast_batches(axis)
 
 
-def _tp_rank0_batches(loader):
+def _first_rank_batches(loader, axis: str):
     batches = iter(loader)
     try:
         for data_dict in batches:
-            yield mesh.tp_broadcast_object(data_dict)
-        mesh.tp_broadcast_object(None)  # the end, for the other tp ranks
+            yield mesh.broadcast_from_first(data_dict, axis)
+        mesh.broadcast_from_first(None, axis)  # the end, for the other ranks
     finally:
         close = getattr(batches, "close", None)
         if close is not None:
             close()
 
 
-def _tp_broadcast_batches():
+def _broadcast_batches(axis: str):
     while True:
-        data_dict = mesh.tp_broadcast_object(None)
+        data_dict = mesh.broadcast_from_first(None, axis)
         if data_dict is None:
             return
         yield data_dict
@@ -213,8 +235,11 @@ class LeoTrainer:
         # generation (the configs' route) or retrieval scoring over the
         # dataset's answer vocabulary
         self.inference_mode = _cfg(cfg, "model.llm.inference_mode", "generation")
-        # dp x tp over the ranks (pp and sp still raise)
-        self.dp, self.tp = mesh.init_mesh(cfg.get("parallel") or {})
+        # dp x tp x pp over the ranks (sp still raises)
+        parallel = cfg.get("parallel") or {}
+        self.dp, self.tp = mesh.init_mesh(parallel)
+        self.pp = mesh.pp_size()
+        self.microbatches = int(parallel.get("microbatches", self.pp))
         self.fixed_text_buckets = self.dp > 1 or bool(cfg.get("fixed_text_buckets", False))
         if loaders is None:
             from msr3d_tpu_torch.data.build import build_task_loaders
@@ -231,9 +256,14 @@ class LeoTrainer:
             model.init_params()
             for src in load_pretrained_from_config(model, config):
                 logger.info(f"loaded pretrained weights: {src}")
-        if model.cfg.llm.tp_size != self.tp:
-            raise ValueError(f"the model's LLM is split over tp={model.cfg.llm.tp_size}, the "
-                             f"config's parallel.tp is {self.tp}")
+        llm = model.cfg.llm
+        if (llm.tp_size, llm.pp_size) == (1, 1) and self.pp > 1:
+            model.shard_for_training()  # a full model: this rank's stage (and tp shard)
+            llm = model.cfg.llm
+        if (llm.tp_size, llm.pp_size) != (self.tp, self.pp):
+            raise ValueError(f"the model's LLM is split over tp={llm.tp_size} x pp="
+                             f"{llm.pp_size}, the config's parallel.tp x pp is {self.tp} x "
+                             f"{self.pp}")
         self.model = model
         self.loaders = loaders
         self.exp_dir = Path(cfg.get("exp_dir") or "./exp_default")
@@ -250,6 +280,8 @@ class LeoTrainer:
         self._preempted = False  # set by the SIGTERM/SIGUSR1 handler
         self._stop = False  # the ranks' agreed preemption flag (more than one rank)
         self.replicated_digest: Optional[str] = None  # of the last tp replica check
+        self.pp_digest: Optional[str] = None  # of the last pp replica check
+        self._whole_depth = 0  # open _whole_llm contexts (pp: the other stages' blocks held)
 
         solver = cfg["solver"]
         self.epochs = int(solver["epochs"])
@@ -288,10 +320,16 @@ class LeoTrainer:
             self.optimizer, self.schedule, grad_norm = build_optim(cfg, total_steps,
                                                                    self.params)
             network = model.network
+            if self.pp > 1:
+                from msr3d_tpu_torch.parallel.llm_pp import make_pp_loss_fn
+
+                self._pp_loss = make_pp_loss_fn(network, self.microbatches)
             self._train_step = TrainStep(self._micro_batch_loss, self.params,
                                          self.optimizer, grad_norm, data_parallel=self.dp,
                                          tp_sharded=network.tp_dims(),
-                                         tp_partial=network.tp_partial())
+                                         tp_partial=network.tp_partial(),
+                                         pp_local=self._stage_names(self.params)
+                                         if self.pp > 1 else None)
 
         self.tracker = Tracker(run_id=str(uuid.uuid4())[:8])
         self.ckpt = CheckpointManager(self.exp_dir / "ckpt",
@@ -301,6 +339,7 @@ class LeoTrainer:
         self.timer = StepTimer()
         self.data_wait_history: List[float] = []  # seconds the loop waited on the loader, a step
         self.tp_comm_history: List[float] = []  # host seconds in tp collectives, a step
+        self.pp_comm_history: List[float] = []  # host seconds in pp transfers, a step
         if cfg.get("resume", False) and self._train_step is not None:
             self._try_resume()
         if mesh.world_size() > 1:
@@ -311,12 +350,24 @@ class LeoTrainer:
         """Optimizer steps taken (0 without a train loader)."""
         return self._train_step.step_count if self._train_step is not None else 0
 
+    @staticmethod
+    def _stage_names(names) -> List[str]:
+        """The names among ``names`` of a pipeline stage's own parameters
+        (its blocks'); the others are on every stage."""
+        return [n for n in names if n.startswith("llm.layer.")]
+
     def _check_replicas(self, when: str) -> str:
         """Raise unless each trainable parameter is bit-equal on the ranks of
-        its tp index's dp group, and a replicated one on the tp ranks too;
-        returns the digest of this rank's."""
+        its dp group, a tp-replicated one on the tp ranks too and one outside
+        the blocks on the pp ranks too; returns the digest of this rank's."""
         named = dict(self.model.network.named_parameters())
         mine = {n: named[n] for n in self.trainable_names}
+        if self.pp > 1:
+            stage = set(self._stage_names(mine))
+            self.pp_digest = check_replicas_equal(
+                {n: t for n, t in mine.items() if n not in stage},
+                f"the trainable parameters outside the blocks {when}",
+                group=mesh.pp_control_group())
         if self.tp > 1:
             sharded = self.model.network.tp_dims()
             self.replicated_digest = check_replicas_equal(
@@ -365,6 +416,8 @@ class LeoTrainer:
         ]
 
     def _micro_batch_loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.pp > 1:  # the pipelined forward and backward: a detached loss
+            return self._pp_loss(batch, self.generator)
         return self.model.network(**batch, generator=self.generator)["loss"].mean()
 
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
@@ -401,7 +454,7 @@ class LeoTrainer:
 
         def flush(consumed_through: int) -> None:
             nonlocal group, waited
-            if self.dp * self.tp > 1:
+            if mesh.world_size() > 1:
                 self._agree_step(len(group))
             batches = self._device_batch(group)
             group = []
@@ -409,10 +462,12 @@ class LeoTrainer:
             network.train()
             try:
                 t0 = time.perf_counter()
-                comm0 = tensor_parallel.COMM["seconds"]
+                comm0, pp0 = tensor_parallel.COMM["seconds"], pipeline.COMM["seconds"]
                 metrics = self._train_step(batches)
-                # host seconds in the tp collectives (each waits for the card)
+                # host seconds in the tp collectives and the pp transfers
+                # (each waits for the card)
                 self.tp_comm_history.append(tensor_parallel.COMM["seconds"] - comm0)
+                self.pp_comm_history.append(pipeline.COMM["seconds"] - pp0)
             finally:
                 network.eval()
             step = self._train_step.step_count
@@ -426,7 +481,7 @@ class LeoTrainer:
                 process_one()
             waited = 0.0
 
-        batches = _batches(self.train_loader, self.tp)
+        batches = _batches(self.train_loader)
         i = -1
         try:
             while True:
@@ -443,7 +498,7 @@ class LeoTrainer:
                 if len(group) == self.accum_steps:
                     flush(i + 1)
                 # one process stops at once; ranks only where they agreed to
-                if self._preempted if self.dp * self.tp == 1 else (self._stop and not group):
+                if self._preempted if mesh.world_size() == 1 else (self._stop and not group):
                     if group:
                         flush(i + 1)
                     while pending:
@@ -460,7 +515,7 @@ class LeoTrainer:
         return {"loss": float(np.mean(losses)) if losses else float("nan")}
 
     def _agree_step(self, n_micro: int) -> None:
-        """One host collective over every rank (dp x tp) before each step of
+        """One host collective over every rank (dp x tp x pp) before each step of
         more than one rank: every rank must bring the same number of
         micro-batches (equal-length shards guarantee it), and a preemption
         flag raised on any rank stops them all after this step."""
@@ -517,7 +572,46 @@ class LeoTrainer:
         ``eval_pipeline_depth`` batches unfinalized (the texts are the
         blocking loop's), or through the continuous engines with
         ``eval_engine: continuous``; retrieval through
-        ``MSR3D.predict_answers`` over the loader's ``answer_cands``."""
+        ``MSR3D.predict_answers`` over the loader's ``answer_cands``.
+        Under pp every rank calls it: the ranks of pp rank 0 evaluate with
+        the whole LLM (``_whole_llm``), the others wait for their results."""
+        if self.pp == 1:
+            return self._eval_task(task, split)
+        with self._whole_llm():
+            results = self._eval_task(task, split) if mesh.pp_rank() == 0 else None
+            return mesh.broadcast_object(results, mesh.global_rank("pp", 0),
+                                         mesh.pp_control_group())
+
+    @contextlib.contextmanager
+    def _whole_llm(self):
+        """pp > 1: for the duration the ranks of pp rank 0 hold the whole LLM
+        (their stage's blocks and the other stages', received over the pp
+        group, ``llm_pp.gather_whole_llm``) and run generation as at pp = 1;
+        the received blocks go at its end. Every pp rank enters it;
+        re-entrant."""
+        if self.pp == 1 or self._whole_depth:
+            self._whole_depth += 1
+            try:
+                yield
+            finally:
+                self._whole_depth -= 1
+            return
+        from msr3d_tpu_torch.parallel.llm_pp import gather_whole_llm
+
+        model = self.model
+        stage_llm, stage_cfg = model.network.llm, model.cfg
+        whole = gather_whole_llm(stage_llm)
+        if whole is not None:
+            model.cfg = dataclasses.replace(stage_cfg, llm=whole.cfg)
+            model.network.llm, model.network.cfg = whole, model.cfg
+        self._whole_depth += 1
+        try:
+            yield
+        finally:
+            self._whole_depth -= 1
+            model.network.llm, model.cfg, model.network.cfg = stage_llm, stage_cfg, stage_cfg
+
+    def _eval_task(self, task: str, split: str) -> Dict[str, Any]:
         loader = self.loaders[task][split]
         evaluator = self.evaluators.get(task)
         if evaluator is not None:
@@ -554,7 +648,7 @@ class LeoTrainer:
             i, data_dict, finalize = pending.popleft()
             emit(i, data_dict, {"output_text": finalize()["output_text"]})
 
-        batches = _batches(loader, self.tp)
+        batches = _batches(loader, "tp")
         try:
             eval_engine = str(self.cfg.get("eval_engine", "") or "").lower()
             if generation and eval_engine == "continuous":
@@ -703,15 +797,17 @@ class LeoTrainer:
         ``{split}/{task}/{metric}`` at the current step, and after val save
         ``best`` when the best task target beats the tracker's."""
         best_metric = -float("inf")
-        for task, splits in self.loaders.items():
-            if split not in splits or task not in self.evaluators:
-                continue
-            results = self.eval_task(task, split)
-            self.logger.log({f"{split}/{task}/{k}": v for k, v in results.items()
-                             if isinstance(v, (int, float))}, step=self.step)
-            target = results.get("target_metric")
-            if target is not None and target > best_metric:
-                best_metric = target
+        tasks = [task for task, splits in self.loaders.items()
+                 if split in splits and task in self.evaluators]
+        # pp: the blocks gathered once for every task
+        with self._whole_llm() if tasks else contextlib.nullcontext():
+            for task in tasks:
+                results = self.eval_task(task, split)
+                self.logger.log({f"{split}/{task}/{k}": v for k, v in results.items()
+                                 if isinstance(v, (int, float))}, step=self.step)
+                target = results.get("target_metric")
+                if target is not None and target > best_metric:
+                    best_metric = target
         if split == "val" and best_metric > self.tracker.overall_best_result:
             self.tracker.overall_best_result = best_metric
             self._save_learnable("best")
@@ -756,6 +852,9 @@ class LeoTrainer:
             if self.tp > 1:
                 logger.info(f"the replicated trainable parameters agree across {self.tp} tp "
                             f"ranks after training (sha256 {self.replicated_digest})")
+            if self.pp > 1:
+                logger.info(f"the trainable parameters outside the blocks agree across "
+                            f"{self.pp} pp ranks after training (sha256 {self.pp_digest})")
         self._run_eval("test", self.epochs)
 
     def _preemption_handlers(self):
@@ -787,10 +886,32 @@ class LeoTrainer:
     # -- checkpoint plumbing --------------------------------------------
 
     def _learnable(self) -> Dict[str, torch.Tensor]:
-        """The learnable parameters, full (gathered over tp), on the CPU."""
-        return gather_full_state_dict(
+        """The learnable parameters, full (gathered over tp and pp), on the CPU."""
+        return self._gather_stages(gather_full_state_dict(
             filter_learnable(self.model.network, self.trainable_names),
-            self.model.network.tp_dims())
+            self.model.network.tp_dims()))
+
+    def _gather_stages(self, local: Dict[str, Any]) -> Dict[str, Any]:
+        """name → value of every pp stage's (the blocks' of each stage, the
+        rest of stage 0's), on every pp rank; the identity at pp = 1. The
+        values are moved to the CPU for the host gather."""
+        if self.pp == 1:
+            return local
+        stage = set(self._stage_names(local))
+        cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v  # noqa: E731
+        mine = {n: ({k: cpu(x) for k, x in v.items()} if isinstance(v, dict) else cpu(v))
+                for n, v in local.items() if n in stage or mesh.pp_rank() == 0}
+        merged: Dict[str, Any] = {}
+        for part in process_allgather_objects([mine], mesh.pp_control_group()):
+            merged.update(part)
+        return merged
+
+    def _own(self, full: Mapping[str, Any]) -> Dict[str, Any]:
+        """The entries of a full (every stage's) dict that this rank's model
+        holds: pp drops the other stages' blocks; any other name is kept."""
+        named = dict(self.model.network.named_parameters())
+        return {n: v for n, v in full.items()
+                if not (n.startswith("llm.layer.") and n not in named)}
 
     def _state_dict(self) -> Dict[str, Any]:
         """The full training state: full tensors (the sharded parameters and
@@ -798,8 +919,9 @@ class LeoTrainer:
         arrays. Every rank calls it (the gathers), rank 0 writes it."""
         opt_state = self.optimizer.state_dict()
         dims = self.model.network.tp_dims()
-        opt_state["state"] = {n: gather_full_state_dict(st, {k: dims.get(n) for k in st})
-                              for n, st in opt_state["state"].items()}
+        opt_state["state"] = self._gather_stages(
+            {n: gather_full_state_dict(st, {k: dims.get(n) for k in st})
+             for n, st in opt_state["state"].items()})
         state = {
             "params": self._learnable(),
             "opt_state": opt_state,
@@ -825,18 +947,19 @@ class LeoTrainer:
     def load_learnable(self, name: str) -> None:
         """Overlay the learnable weights saved as ``name`` on the model."""
         merge_learnable(self.model.network,
-                        shard_like(self.model.network, self.ckpt.load_weights(name)))
+                        shard_like(self.model.network, self._own(self.ckpt.load_weights(name))))
         logger.info(f"loaded the learnable weights {name!r} from {self.ckpt.dir}")
 
     def _try_resume(self) -> None:
         state = self.ckpt.restore_state(self.tracker)
         if state is None:
             return
-        merge_learnable(self.model.network, shard_like(self.model.network, state["params"]))
+        merge_learnable(self.model.network,
+                        shard_like(self.model.network, self._own(state["params"])))
         opt_state, dims, llm = state["opt_state"], self.model.network.tp_dims(), self.model.cfg.llm
         opt_state["state"] = {n: {k: shard_tensor(v, dims.get(n), llm.tp_rank, llm.tp_size)
                                   for k, v in st.items()}
-                              for n, st in opt_state["state"].items()}
+                              for n, st in self._own(opt_state["state"]).items()}
         self.optimizer.load_state_dict(opt_state)
         self._train_step.step_count = int(state["step"])
         generators = state.get("generators", [state["generator"]] if "generator" in state else [])

@@ -25,6 +25,15 @@ the sharded parameters' squares summed over the tp group, the replicated
 ones counted once. The optimizer's moments follow their parameters'
 shards.
 
+Under pipeline parallelism (``pp_local``: the trainable parameters of this
+rank's stage, its blocks'; the others are on every stage) the loss function
+runs the pipelined forward and backward itself (``parallel/llm_pp.py``) and
+returns the loss detached. The parameters outside the blocks get their
+gradient on stage 0 alone, so after the tp sum it is broadcast from stage 0
+over the pp group (one flat buffer) before the dp average, the norm and the
+clip; the global norm sums each stage's block gradients over pp (their
+tp-split ones over tp first) and adds the others once.
+
 The JAX step scans a fixed number of micro-batches, so it pads an epoch's
 tail group with weight-0 duplicates to keep one compiled program and then
 divides by the sum of the weights. Running just the real micro-batches
@@ -56,13 +65,18 @@ class TrainStep:
     ranks (of the dp group) that each run this step on their own
     micro-batches. ``tp_sharded`` and ``tp_partial`` name the trainable
     parameters split over the tp group and the replicated ones whose
-    gradient is a partial sum over it (none at tp = 1).
+    gradient is a partial sum over it (none at tp = 1). ``pp_local`` names
+    this pipeline stage's own trainable parameters; given (pp > 1, maybe
+    empty), the
+    loss function does its own backward and the others' gradients come
+    from stage 0.
     """
 
     def __init__(self, loss_fn: Callable[[Any], torch.Tensor],
                  params: Mapping[str, torch.nn.Parameter], optimizer: Optimizer,
                  grad_norm: Optional[float], data_parallel: int = 1,
-                 tp_sharded: Iterable[str] = (), tp_partial: Iterable[str] = ()):
+                 tp_sharded: Iterable[str] = (), tp_partial: Iterable[str] = (),
+                 pp_local: Optional[Iterable[str]] = None):
         self.loss_fn = loss_fn
         self.params = dict(params)
         self.optimizer = optimizer
@@ -70,6 +84,10 @@ class TrainStep:
         self.data_parallel = data_parallel
         self.tp_sharded = [n for n in self.params if n in set(tp_sharded)]
         self.tp_partial = [n for n in self.params if n in set(tp_partial)]
+        self.pipelined = pp_local is not None
+        self.pp_local = [n for n in self.params if n in set(pp_local or ())]
+        self.pp_replicated = ([n for n in self.params if n not in set(self.pp_local)]
+                              if self.pipelined else [])
         # a per-tensor norm of the optimizer (Lamb's trust ratio) of a split
         # parameter is its whole tensor's
         optimizer.tp_sharded = frozenset(self.tp_sharded)
@@ -83,7 +101,8 @@ class TrainStep:
         loss_sum = None
         for mb in micro_batches:
             loss = self.loss_fn(mb)
-            loss.backward()
+            if not self.pipelined:  # the pipelined loss took its backward
+                loss.backward()
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         scale = 1.0 / len(micro_batches)
@@ -97,6 +116,8 @@ class TrainStep:
         loss = loss_sum * scale
         if self.tp_partial:
             grads = self._sum_partial_over_tp(names, grads)
+        if self.pp_replicated:
+            grads = self._broadcast_from_stage0(names, grads)
         if self.data_parallel > 1:
             grads, loss = self._average_over_ranks(grads, loss)
         norm = self._global_norm(names, grads)
@@ -123,18 +144,40 @@ class TrainStep:
             grads[at[n]] = g
         return grads
 
+    def _broadcast_from_stage0(self, names: List[str], grads: List[torch.Tensor]):
+        at = {n: i for i, n in enumerate(names)}
+        part = [grads[at[n]] for n in self.pp_replicated]
+        flat = torch.cat([g.reshape(-1).float() for g in part])
+        mesh.broadcast_(flat, mesh.global_rank("pp", 0), mesh.pp_group())
+        grads = list(grads)
+        for n, g in zip(self.pp_replicated, _unflatten(flat, part)):
+            grads[at[n]] = g
+        return grads
+
     def _global_norm(self, names: List[str], grads: List[torch.Tensor]) -> torch.Tensor:
         """The norm of the full gradients: a sharded parameter's squares
-        summed over the tp group, a replicated one's counted once."""
-        if not self.tp_sharded:
+        summed over the tp group, a replicated one's counted once; under pp
+        a stage's own parameters' summed over the pp group, the others'
+        counted once."""
+        if not self.tp_sharded and not self.pipelined:
             return global_norm(grads)
-        sharded = set(self.tp_sharded)
+        sharded, local = set(self.tp_sharded), set(self.pp_local)
 
-        def squares(keep: bool) -> torch.Tensor:
-            sq = [g.float().square().sum() for n, g in zip(names, grads) if (n in sharded) == keep]
+        def squares(keep) -> torch.Tensor:
+            sq = [g.float().square().sum() for n, g in zip(names, grads) if keep(n)]
             return torch.stack(sq).sum() if sq else torch.zeros((), device=grads[0].device)
 
-        return torch.sqrt(sum_over_tp_(squares(True).reshape(1))[0] + squares(False))
+        if not self.pipelined:
+            return torch.sqrt(sum_over_tp_(squares(lambda n: n in sharded).reshape(1))[0]
+                              + squares(lambda n: n not in sharded))
+
+        def over_tp(on_stage: bool) -> torch.Tensor:
+            return (sum_over_tp_(squares(lambda n: n in sharded and (n in local) == on_stage)
+                                 .reshape(1))[0]
+                    + squares(lambda n: n not in sharded and (n in local) == on_stage))
+
+        stages = all_reduce_sum_(over_tp(True).reshape(1), group=mesh.pp_group())[0]
+        return torch.sqrt(stages + over_tp(False))
 
 
 def _unflatten(flat: torch.Tensor, like: List[torch.Tensor]) -> List[torch.Tensor]:

@@ -480,14 +480,13 @@ def test_mode_test_and_eval_splits_raise(tmp_path, monkeypatch):
     assert pooled.step == 0 and pooled.cfg["eval_engine_opts"]["prefix_pool"]
     assert [sorted(k for k in m if k.startswith("test/")) != [] for m in
             _metrics(tmp_path / "pool")] == [True]
-    # parallel.tp is read from the overrides; one process cannot hold tp = 2
-    # ranks (tests/test_torch_tp.py runs them); pp still raises
-    with pytest.raises(ValueError, match="1 ranks not divisible by tp"):
-        port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
-                       "parallel.tp=2"])
-    with pytest.raises(NotImplementedError, match="parallel.pp > 1.*ROADMAP"):
-        port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
-                       "parallel.pp=2"])
+    # parallel.tp and parallel.pp are read from the overrides; one process
+    # cannot hold two tp or pp ranks (tests/test_torch_tp.py and
+    # tests/test_torch_pp.py run them)
+    for axis in ("tp", "pp"):
+        with pytest.raises(ValueError, match="1 ranks not divisible by tp"):
+            port_run.main(["--config", str(DEBUG), "device=cpu", *ovs, "mode=test",
+                           f"parallel.{axis}=2"])
     from msr3d_tpu_torch.data.build import build_task_loaders
 
     with monkeypatch.context() as m:  # two ranks, this one rank 1

@@ -4,8 +4,9 @@ JAX package's ``parallel/sharding.py`` and ``parallel/mesh.py``, in one
 process:
 
 * ``MeshConfig.resolve`` and the rank layout against JAX's ``MeshConfig``
-  and ``make_mesh`` (tp the fastest-varying index); pp, sp and a quantized
-  base under tp raise, naming ROADMAP.md;
+  and ``make_mesh`` (tp the fastest-varying index at pp = 1; the pp layout
+  is ``tests/test_torch_pp.py``'s); sp raises, naming ROADMAP.md, and so
+  does a split inside a head;
 * ``llama_param_spec`` / ``network_param_spec`` against JAX's
   ``llama_param_spec`` / ``network_param_specs`` on every leaf of the tiny
   MSR3D (its quantized base's names too), and the divisibility fallback
@@ -68,9 +69,9 @@ def test_mesh_resolves_and_lays_out_ranks_as_jax(n, tp, cpu_devices):
     # dp groups the columns (rank r is device r)
     ids = np.vectorize(lambda d: d.id)(
         make_mesh(JaxMeshConfig(dp=-1, tp=tp), devices=jax.devices("cpu")[:n]).devices)
-    tp_groups, dp_groups = mesh.mesh_groups(got[0], tp)
-    assert tp_groups == ids[:, :, 0, 0].tolist()
-    assert dp_groups == ids[:, :, 0, 0].T.tolist()
+    groups = mesh.mesh_groups(got[0], tp)
+    assert groups["tp"] == groups["mp"] == ids[:, :, 0, 0].tolist()
+    assert groups["dp"] == ids[:, :, 0, 0].T.tolist()
 
 
 def test_mesh_refusals():
@@ -78,11 +79,11 @@ def test_mesh_refusals():
         mesh.MeshConfig(tp=2).resolve(3)
     with pytest.raises(ValueError, match="!= 4 ranks"):
         mesh.MeshConfig(dp=3, tp=2).resolve(4)
-    for axis in ("pp", "sp"):
-        with pytest.raises(NotImplementedError, match=f"parallel.{axis} > 1.*ROADMAP"):
-            mesh.MeshConfig(**{axis: 2}).resolve(4)
-    with pytest.raises(NotImplementedError, match="quantized base under tp.*ROADMAP"):
-        LlamaConfig.tiny(quantize=True, tp_size=2, tp_rank=0)
+    with pytest.raises(NotImplementedError, match="parallel.sp > 1.*ROADMAP"):
+        mesh.MeshConfig(sp=2).resolve(4)
+    # pp and a quantized base under tp are ported
+    assert mesh.MeshConfig(pp=2).resolve(4) == (2, 1, 2, 1)
+    LlamaConfig.tiny(quantize=True, tp_size=2, tp_rank=0)
     with pytest.raises(NotImplementedError, match="inside a head"):
         LlamaModel(LlamaConfig.tiny(num_attention_heads=2, hidden_size=64, tp_size=4,
                                     tp_rank=0), device="meta")

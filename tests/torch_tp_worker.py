@@ -136,7 +136,7 @@ def dropout_runs(job: dict, out_dir: Path, runs=("shared", "own", "preempt")) ->
         np.random.seed(mesh.rank())
         batches = leo_trainer._batches
         if run == "own":
-            leo_trainer._batches = lambda loader, tp: iter(loader)
+            leo_trainer._batches = lambda loader, axis="mp": iter(loader)
         try:
             trainer = leo_trainer.LeoTrainer(
                 dict(job["cfg"], exp_dir=str(out_dir / f"dropout_{run}")),
