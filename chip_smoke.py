@@ -31,7 +31,7 @@ must give the same test texts; retrieval over the SQA3D answer vocabulary
 with ``predict_answers``), and serving (phase 12: the serve entry's
 ``create_frontend`` on the same YAML; (a) the greedy and beam-5 slot-refill
 engines against ``generate`` at matched shapes, tokens equal; (b) 12
-requests with images over HTTP from 4 client threads at budgets of 8-32
+requests with images over HTTP from 4 client threads at budgets of 4-16
 tokens, one over SSE; (c) ``python -m msr3d_tpu_torch.serve`` on the debug
 config as a subprocess, SIGTERM, a drain, exit 0), and the LEO configs'
 situation mode (phase 13: (a) the prompter in each of its six situation
@@ -103,9 +103,17 @@ the stages' replicated parameters bit-equal; (b) greedy generate of the
 int8 and the int4-grouped flagship at tp = 2, ms a token and peak beside
 phase 8's; (c) fp32 at the flagship's width and 2 layers: pp = 2's loss and
 LoRA gradients within 1e-5 and 1e-4 relative of one process's, the tp = 2
-greedy tokens of int8, int4, int4 by group and s8xs8 equal to tp = 1's), and
-checks that each path launched its kernels. Any failed check exits
-non-zero. The last two lines of standard output are the per-kernel JSON
+greedy tokens of int8, int4, int4 by group and s8xs8 equal to tp = 1's),
+sequence parallelism (phase 21, two ranks over gloo on the one card: (a) the
+launcher with ``parallel.sp=2``, one step through ring attention (no flash
+kernel launched in it) and a val batch generated on both ranks and scored
+once, each rank's peak, its step's share in the host-routed ring hops, the
+ranks' parameters bit-equal; (b) the flagship's LLM at 8 layers, T = 4096,
+batch 1, forward and backward at sp = 1 (K2f, K2dq, K2dkv) and at sp = 2
+(the ring), each rank's peak and ms; (c) fp32 at the flagship's width and 2
+layers: sp = 2's loss and gradients within 1e-5 and 1e-4 relative of one
+process's), and checks that each path launched its kernels. Any failed
+check exits non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
 or without the package beside it, it exits non-zero and prints no result.
 ``--profile`` adds the device time by kernel of one more generate (bf16
@@ -194,10 +202,16 @@ SHAPES_7B = ((4096, 4096), (4096, 11008), (11008, 4096))  # (K, N): q/k/v/o, gat
 # weight from HBM as a decode step does
 L2_SPAN_BYTES = 256 * 2**20
 N_REQUESTS, NEW_TOKENS, REP_PENALTY = 4, 32, 3.0
-# phases 15 and 16 decode ENGINE_TOKENS tokens a request (their exact gates
-# in fp32 too, phase 15's NEW_TOKENS): their engines' decode steps, bound by
-# the host's dispatch, were a third of the script's time
-ENGINE_TOKENS = 16
+# phases 15, 16, 19 (b) and 20 (b) decode ENGINE_TOKENS tokens a request
+# (their exact gates in fp32 too, phase 15's NEW_TOKENS): their engines'
+# decode steps, bound by the host's dispatch, were a third of the script's
+# time (32, cut to 16 for phase 18, to 8 for phase 21). Their engines decode
+# in chunks of ENGINE_CHUNK steps (POOL_CHUNK for the pool engines), fewer
+# than ENGINE_TOKENS, so that live slots cross a chunk boundary
+ENGINE_TOKENS, ENGINE_CHUNK = 8, 4
+# phases 11 and 13's eval answers (the entry's model.llm.max_out_len), cut
+# from NEW_TOKENS for phase 21
+EVAL_TOKENS = 16
 # the reference's eval decode (msr3d_tpu/models/build.py:101-105): beam 5,
 # repetition penalty 3.0, length penalty 1.0; cut from 256 to NEW_TOKENS tokens
 BEAMS, LENGTH_PENALTY = 5, 1.0
@@ -1553,7 +1567,7 @@ def eval_argv(exp_root: Path, exp: Path, *extra: str):
             f"model.llm.cfg_path={root / 'vicuna7b'}", "model.llm.flash_attention=true",
             "debug.flag=true", "debug.debug_size=4", "data.msr3dmix.args.mix=[msqa_scannet]",
             "solver.gradient_accumulation_steps=1", "solver.epochs=1",
-            "solver.num_batch_eval=1", f"model.llm.max_out_len={NEW_TOKENS}", f"exp_dir={exp}",
+            "solver.num_batch_eval=1", f"model.llm.max_out_len={EVAL_TOKENS}", f"exp_dir={exp}",
             *extra]
 
 
@@ -1589,10 +1603,10 @@ class EvalRecorder:
             rec.prefill_ms = 0.0
             ms = wall_ms(lambda: data_dict.update(generate_async(model, data_dict, **kw)()))
             eos = model.tokenizer.eos_id
-            ends = [list(row).index(eos) if eos in row else NEW_TOKENS
+            ends = [list(row).index(eos) if eos in row else EVAL_TOKENS
                     for row in data_dict["output_tokens"]]
             rec.calls.append(dict(task=rec.current, ms=ms, prefill_ms=rec.prefill_ms,
-                                  steps=max(1, min(NEW_TOKENS, max(ends) + 1) - 1),
+                                  steps=max(1, min(EVAL_TOKENS, max(ends) + 1) - 1),
                                   fps=FPS_KERNEL.launches - k1,
                                   flash=FLASH_FWD_KERNEL.launches - k2,
                                   text=list(data_dict["output_text"])))
@@ -1668,8 +1682,8 @@ def phase_eval(exp_root: Path):
     print(f"== phase 11: evaluation at the flagship width (python -m msr3d_tpu_torch.run on "
           f"configs/msr3d.yaml with its three MSQA eval tasks on: one optimizer step of "
           f"{N_REQUESTS}, then val and test over one batch of {N_REQUESTS} each, beam "
-          f"{BEAMS}, repetition penalty {REP_PENALTY}; cut: {NEW_TOKENS} new tokens, not 256 "
-          f"(model.llm.max_out_len={NEW_TOKENS}), on {card_line()})")
+          f"{BEAMS}, repetition penalty {REP_PENALTY}; cut: {EVAL_TOKENS} new tokens, not 256 "
+          f"(model.llm.max_out_len={EVAL_TOKENS}), on {card_line()})")
     import msr3d_tpu_torch.ops.flash_attention as fa
     from msr3d_tpu_torch.ops.fps import FPS_KERNEL
 
@@ -1866,14 +1880,15 @@ def phase_retrieval(trainer, exp: Path):
 # Phase 12: serving at the flagship width through the serve entry's
 # create_frontend on configs/msr3d.yaml, over phase 10's cfg_path. (b) sends
 # SERVE_REQUESTS requests from SERVE_CLIENTS client threads, budgets cycling
-# over SERVE_BUDGETS (the reference's 256 tokens cut to NEW_TOKENS); request
-# SERVE_STREAMED (budget 32, so that chunks of 8 end before it does) streams
-# over SSE
-SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUDGETS, SERVE_STREAMED = 12, 4, (8, 16, 24, 32), 3
+# over SERVE_BUDGETS (the reference's 256 tokens cut to SERVE_TOKENS: 32, 16
+# since phase 21); request SERVE_STREAMED (budget 16, so that a chunk of 8
+# ends before it does) streams over SSE
+SERVE_TOKENS = 16
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUDGETS, SERVE_STREAMED = 12, 4, (4, 8, 12, 16), 3
 SERVE_BATCH1 = 1  # (b)'s answers held (not gated) to a batch-1 generate
 
 
-def serve_argv(exp_root: Path, *extra: str, tokens: int = NEW_TOKENS):
+def serve_argv(exp_root: Path, *extra: str, tokens: int = SERVE_TOKENS):
     """The serve entry's arguments of phase 12: configs/msr3d.yaml with
     phase 10's ``cfg_path``, random weights, an ephemeral port, ``tokens``
     new tokens."""
@@ -1914,7 +1929,7 @@ def timed_decode(model, fn):
 
 def serve_matched(model):
     """(a) Both engines at generate's shapes: phase 4's four requests in one
-    refill group of 4 slots, prompt_len generate's bucket + 1, 32 tokens.
+    refill group of 4 slots, prompt_len generate's bucket + 1, SERVE_TOKENS tokens.
     Gates: the greedy engine's tokens equal greedy generate's, the beam-5
     engine's equal beam-5 generate's (ancestry map on), request by request."""
     from msr3d_tpu_torch.serving import (
@@ -1934,9 +1949,9 @@ def serve_matched(model):
                                  (f"beam {BEAMS}", True, ContinuousBeamBatchingServer)):
         gen, gen_ms, gen_prefill, gen_steps = timed_decode(
             model, lambda: model.generate(dict(data), use_beam=use_beam,
-                                          max_new_tokens=NEW_TOKENS))
+                                          max_new_tokens=SERVE_TOKENS))
         engine = cls(model, num_slots=N_REQUESTS, refill_group=N_REQUESTS, chunk_steps=8,
-                     max_new_tokens=NEW_TOKENS, prompt_len=prompt_len)
+                     max_new_tokens=SERVE_TOKENS, prompt_len=prompt_len)
         res, eng_ms, eng_prefill, eng_steps = timed_decode(model, lambda: engine.run(samples))
         want = gen["output_tokens"]
         same = [bool(np.array_equal(r.output_tokens, want[r.id])) for r in res]
@@ -3191,7 +3206,7 @@ def spec_runs(model):
     engines = {}
     for spec_k in (0, SPEC_K):
         engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=N_REQUESTS,
-                                          chunk_steps=8, max_new_tokens=ENGINE_TOKENS,
+                                          chunk_steps=ENGINE_CHUNK, max_new_tokens=ENGINE_TOKENS,
                                           prompt_len=prompt_len, spec_k=spec_k,
                                           spec_ngram=SPEC_NGRAM)
         res, ms, pre, calls = timed_decode(model, lambda: engine.run(samples))
@@ -3268,7 +3283,8 @@ def sampled_runs(model, greedy_decode_ms: float, greedy_steps: int):
         engine_runs = []
         for _ in range(2):
             engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=2,
-                                              chunk_steps=8, max_new_tokens=ENGINE_TOKENS)
+                                              chunk_steps=ENGINE_CHUNK,
+                                              max_new_tokens=ENGINE_TOKENS)
             res, ms, pre, calls = timed_decode(model, lambda: engine.run(samples))
             engine_runs.append((np.stack([r.output_tokens for r in res]), ms - pre, calls))
         check(np.array_equal(engine_runs[0][0], engine_runs[1][0]),
@@ -3545,7 +3561,7 @@ def phase_serving2(exp_root: Path):
 # answer from the continuous beam engine's only where either search made a
 # top-k decision of that request within BF16_MARGIN
 POOL_SCENES, POOL_QUESTIONS, POOL_BLOCKS = 3, 4, 2
-POOL_SLOTS, POOL_GROUP, POOL_SUFFIX, POOL_CHUNK = 8, 4, 64, 8
+POOL_SLOTS, POOL_GROUP, POOL_SUFFIX, POOL_CHUNK = 8, 4, 64, 4
 POOL_SPEC_REQUESTS, POOL_HTTP = 6, 8
 
 
@@ -4922,7 +4938,7 @@ def tp_exact(out: Path) -> dict:
     prompt_len = model._pad_to_bucket(*model._encode_prompts(model.build_text_prompt(data)),
                                       side="left")[0].shape[1] + 1
     engine = ContinuousBatchingServer(model, num_slots=N_REQUESTS, refill_group=N_REQUESTS,
-                                      chunk_steps=8, max_new_tokens=ENGINE_TOKENS,
+                                      chunk_steps=ENGINE_CHUNK, max_new_tokens=ENGINE_TOKENS,
                                       prompt_len=prompt_len)
     res["engine"] = [np.asarray(r.output_tokens).tolist()
                      for r in engine.run(uncollate_batch(data))]
@@ -5184,10 +5200,11 @@ def tpq_generate(out: Path) -> dict:
 PP_LR = 1e-3  # (c)'s SGD rate: its updates are not gated, its gradients are
 
 
-def pp_exact(out: Path) -> dict:
-    """(c)'s pipeline half, at pp = 1 (the parent process) or on one of two
-    pp ranks: ``build_exact_model`` with random LoRA B, one ``TrainStep`` of
-    one micro-batch of N_REQUESTS (PP micro-batches under pp) in eval mode
+def exact_step(out: Path, axis: str) -> dict:
+    """(c)'s training half of phases 20 (``axis`` pp) and 21 (sp), at one
+    process (the parent) or on one of two ranks of ``axis``:
+    ``build_exact_model`` with random LoRA B, one ``TrainStep`` of one
+    micro-batch of N_REQUESTS (PP micro-batches under pp) in eval mode
     through ``LeoTrainer`` (SGD, no clip): its loss and the gradients the
     optimizer took, gathered whole over the stages (rank 0 writes them)."""
     from msr3d_tpu_torch.models.llm.tokenizer import ByteTokenizer
@@ -5195,17 +5212,17 @@ def pp_exact(out: Path) -> dict:
     from msr3d_tpu_torch.trainer.leo_trainer import LeoTrainer
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    pp = mesh.pp_size()
+    size = {"pp": mesh.pp_size, "sp": mesh.sp_size}[axis]()
     model = build_exact_model(dev, ByteTokenizer())
     gen = torch.Generator(device=dev).manual_seed(7)
     with torch.no_grad():
         for name, p in model.network.named_parameters():
             if name.endswith("lora_b"):
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 1e-2)
-    cfg = trainer_cfg(out / f"exp_pp{pp}", accum=1, lr=PP_LR, warmup=1)
+    cfg = trainer_cfg(out / f"exp_{axis}{size}", accum=1, lr=PP_LR, warmup=1)
     cfg["solver"].update(grad_norm=None, optim={"name": "SGD", "args": {"lr": PP_LR}})
     batches = make_train_batches(1, images=False)
-    trainer = LeoTrainer(dict(cfg, parallel={"pp": pp}),
+    trainer = LeoTrainer(dict(cfg, parallel={axis: size}),
                          loaders={"msr3d_train": {"train": batches}}, evaluators={}, model=model)
     taken, step = [], trainer.optimizer.step
 
@@ -5216,10 +5233,42 @@ def pp_exact(out: Path) -> dict:
     trainer.optimizer.step = record
     metrics = trainer._train_step(trainer._device_batch(batches))
     if mesh.rank() == 0:
-        torch.save(taken[0], out / f"exact_grads_pp{pp}.pt")
-    return dict(rank=mesh.rank(), pp=pp, loss=float(metrics["loss"]),
+        torch.save(taken[0], out / f"exact_grads_{axis}{size}.pt")
+    return dict(rank=mesh.rank(), size=size, loss=float(metrics["loss"]),
                 blocks=sorted({n.split(".")[2] for n, _ in model.network.named_parameters()
                                if n.startswith("llm.layer.")}))
+
+
+def pp_exact(out: Path) -> dict:
+    return exact_step(out, "pp")
+
+
+def exact_grad_errors(want: dict, got: dict) -> dict:
+    """(c)'s gradients of one process (``want``) against the ranks'
+    (``got``), by name. A gradient that the model's invariance makes zero is
+    rounding noise on both sides (the spatial attention's key biases:
+    softmax over the keys is blind to a shift); such a one, below
+    PP_GRAD_FLOOR of the whole gradient's norm in one process, is held to
+    that floor (``noise``: |diff| / whole), every other to its own norm:
+    the max relative error (a tensor, in norm) over all (``all``), the LoRA
+    ones (``lora``) and those outside the blocks (``outside``)."""
+    whole = math.sqrt(sum(float(g.double().square().sum()) for g in want.values()))
+    norms = {n: float(g.double().norm()) for n, g in want.items()}
+    errs = {n: float((got[n] - want[n]).double().norm()) for n in want}
+    noise = sorted(n for n in want if norms[n] <= PP_GRAD_FLOOR * whole)
+
+    def rel(names):
+        return max((errs[n] / norms[n] for n in names if n not in noise), default=0.0)
+
+    worst = sorted((n for n in want if n not in noise), key=lambda n: -errs[n] / norms[n])[:3]
+    return dict(
+        whole=whole, all=rel(want), lora=rel([n for n in want if "lora_" in n]),
+        outside=rel([n for n in want if not n.startswith("llm.layer.")]),
+        noise=max((errs[n] / whole for n in noise), default=0.0),
+        worst=[(n, f"{errs[n] / norms[n]:.3e}") for n in worst],
+        noise_names=[(n, f"{norms[n]:.3e}") for n in noise],
+        n_lora=sum("lora_" in n for n in want),
+        n_outside=sum(not n.startswith("llm.layer.") for n in want))
 
 
 def tpq_exact(out: Path) -> dict:
@@ -5354,34 +5403,18 @@ def phase_pp(exp_root: Path, tp: "dict | None" = None, quantized: "dict | None" 
     want = torch.load(out_c / "pp" / "exact_grads_pp1.pt")
     got = torch.load(out_c / "pp" / f"exact_grads_pp{PP}.pt")
     check(sorted(got) == sorted(want), "(c) the gathered gradients name every trainable tensor")
-    # a gradient that the model's invariance makes zero is rounding noise on
-    # both sides (the spatial attention's key biases: softmax over the keys
-    # is blind to a shift); such a one, below PP_GRAD_FLOOR of the whole
-    # gradient's norm in one process, is held to that floor, every other to
-    # 1e-4 of its own norm
-    whole = math.sqrt(sum(float(g.double().square().sum()) for g in want.values()))
-    norms = {n: float(g.double().norm()) for n, g in want.items()}
-    errs = {n: float((got[n] - want[n]).double().norm()) for n in want}
-    noise = sorted(n for n in want if norms[n] <= PP_GRAD_FLOOR * whole)
-
-    def rel(names):  # max relative error (a tensor, in norm) over those above the floor
-        return max((errs[n] / norms[n] for n in names if n not in noise), default=0.0)
-
-    lora = [n for n in want if "lora_" in n]
-    outside = [n for n in want if not n.startswith("llm.layer.")]
-    grad_err, outside_err, all_err = rel(lora), rel(outside), rel(want)
-    noise_err = max((errs[n] / whole for n in noise), default=0.0)
+    e = exact_grad_errors(want, got)
+    grad_err, outside_err, all_err, noise_err = e["lora"], e["outside"], e["all"], e["noise"]
     loss_err = abs(ranks_pp[0]["loss"] - one_pp["loss"]) / abs(one_pp["loss"])
-    worst = sorted((n for n in want if n not in noise), key=lambda n: -errs[n] / norms[n])[:3]
     print(f"  (c) fp32, {EXACT_LAYERS} layers at the flagship width, pp = {PP} (stages hold blocks "
           f"{[r['blocks'] for r in ranks_pp]}) against one process: loss {one_pp['loss']!r} "
           f"against {ranks_pp[0]['loss']!r}, relative {loss_err:.3e}; the {len(want)} trainable "
-          f"gradients, gathered (whole norm {whole:.6g}), max relative (a tensor, in norm) "
-          f"{all_err:.3e}: the {len(lora)} LoRA ones' {grad_err:.3e}, the {len(outside)} outside "
-          f"the blocks' (stage 0's backward from the pipe's input gradients, broadcast over pp) "
-          f"{outside_err:.3e}; the largest {[(n, f'{errs[n] / norms[n]:.3e}') for n in worst]}; "
-          f"{len(noise)} at rounding noise {[(n, f'{norms[n]:.3e}') for n in noise]}, their "
-          f"|diff| / whole norm at most {noise_err:.3e}")
+          f"gradients, gathered (whole norm {e['whole']:.6g}), max relative (a tensor, in norm) "
+          f"{all_err:.3e}: the {e['n_lora']} LoRA ones' {grad_err:.3e}, the {e['n_outside']} "
+          f"outside the blocks' (stage 0's backward from the pipe's input gradients, broadcast "
+          f"over pp) {outside_err:.3e}; the largest {e['worst']}; {len(e['noise_names'])} at "
+          f"rounding noise {e['noise_names']}, their |diff| / whole norm at most "
+          f"{noise_err:.3e}")
     check(ranks_pp[0]["loss"] == ranks_pp[1]["loss"], "(c) both pp ranks report the same loss")
     check(loss_err <= 1e-5 and all_err <= 1e-4 and noise_err <= PP_GRAD_FLOOR,
           f"(c) the pp = {PP} loss within 1e-5 and every trainable gradient within 1e-4 "
@@ -5397,6 +5430,286 @@ def phase_pp(exp_root: Path, tp: "dict | None" = None, quantized: "dict | None" 
                                            lora_grad_err=grad_err, outside_grad_err=outside_err,
                                            noise_grad_err=noise_err),
                 seconds=dict(a=took_a, b=took_b))
+
+
+# phase 21: sequence parallelism at sp = SP, two ranks sharing the card over
+# gloo: (a) the launcher with parallel.sp=SP over phase 18's arguments (one
+# step, one val batch); (b) the long context sp exists for, at sp = 1 (one
+# process, K2f/K2dq/K2dkv) and sp = SP (the ring); (c) fp32 gates
+SP = 2
+# (b): JAX's long-context test length, batch 1, the flagship LLM's width at
+# a depth that fits the script's time
+SP_LONG_T, SP_LONG_LAYERS = 4096, 8
+SP_LONG_STEPS = 1  # timed steps after a warm-up
+# (b)'s gates in bf16 (the ring rounds q·k to bf16, K2f keeps fp32 scores):
+# the loss at sp = SP relative to sp = 1's; each LoRA gradient relative to
+# its own norm at sp = 1, the largest within SP_LONG_SPREAD times the largest
+# of the dense route's (two routes without the ring: bf16's spread)
+SP_LONG_RTOL, SP_LONG_SPREAD = 1e-3, 2.0
+
+
+def sp_long(out: Path) -> dict:
+    """(b) at sp = 1 (the parent) or on one of SP ranks: the flagship's LLM
+    (4096, 32 heads, bf16, LoRA r16 on the seven projections, flash
+    attention) at SP_LONG_LAYERS layers, random weights and LoRA B from one
+    seed; forward and backward of a mean token CE over SP_LONG_T tokens of
+    batch 1 (the rank's block under sp, the LoRA gradients summed over sp),
+    a warm-up and SP_LONG_STEPS timed steps: ms, peak, launches and the
+    ring's hops a step. The last step's LoRA gradients (summed over sp) go
+    to ``out/long_grads_sp<sp>.pt`` (rank 0 writes them); at sp = 1 one
+    more step through the dense route (the same weights, flash off; the
+    scores rounded to bf16 as the ring rounds them) gives
+    ``out/long_grads_dense.pt``, the spread of two routes without the ring
+    and its loss."""
+    import torch.nn.functional as F
+
+    from msr3d_tpu_torch.models.llm.llama import LlamaConfig, LlamaModel
+    from msr3d_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV_KERNEL,
+        FLASH_BWD_DQ_KERNEL,
+        FLASH_FWD_KERNEL,
+    )
+    from msr3d_tpu_torch.parallel import mesh, ring_attention
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out.mkdir(parents=True, exist_ok=True)
+    sp, t = mesh.sp_size(), SP_LONG_T
+    kernels = (FLASH_FWD_KERNEL, FLASH_BWD_DQ_KERNEL, FLASH_BWD_DKV_KERNEL)
+    t0 = time.perf_counter()
+    llm = LlamaModel(LlamaConfig(num_hidden_layers=SP_LONG_LAYERS, lora_rank=16,
+                                 param_dtype=torch.bfloat16, flash_attention=True, sp_size=sp,
+                                 sp_rank=mesh.sp_rank()), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    with torch.no_grad():
+        for name, p in llm.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    build_s = time.perf_counter() - t0
+    names, lora = zip(*((n, p) for n, p in llm.named_parameters() if p.requires_grad))
+    embeds = torch.randn((1, t, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.ones((1, t), dtype=torch.int32, device=dev)
+    targets = torch.randint(0, 32000, (1, t), generator=gen, device=dev)
+    lo, hi = llm.sp_window(t)
+
+    def step(model=llm, params=lora) -> tuple:
+        for p in params:
+            p.grad = None
+        logits = model(embeds, mask)
+        loss = F.cross_entropy(logits.float().flatten(0, 1), targets[0, lo:hi],
+                               reduction="sum") / t
+        loss.backward()
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        if sp > 1:  # as TrainStep sums every gradient over sp
+            mesh.all_reduce_sum_(flat, group=mesh.sp_group())
+            loss = mesh.all_reduce_sum_(loss.detach().reshape(1), group=mesh.sp_group())[0]
+        return float(loss.detach()), flat
+
+    step()  # warm-up
+    ms, hops = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in kernels:
+        kernel.launches = 0
+    for _ in range(SP_LONG_STEPS):
+        calls, nbytes, secs = (ring_attention.COMM[k] for k in ("calls", "bytes", "seconds"))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss, flat = step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - start))
+        hops.append(dict(calls=ring_attention.COMM["calls"] - calls,
+                         bytes=ring_attention.COMM["bytes"] - nbytes,
+                         seconds=ring_attention.COMM["seconds"] - secs))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    def save(flat, name: str) -> None:
+        grads = flat.float().cpu().split([p.numel() for p in lora])
+        torch.save({n: g.view(p.shape) for n, g, p in zip(names, grads, lora)},
+                   out / f"long_grads_{name}.pt")
+
+    if mesh.rank() == 0:
+        save(flat, f"sp{sp}")
+    norm, dense_loss = float(flat.float().norm()), None
+    if sp == 1:
+        del flat
+        dense = LlamaModel(dataclasses.replace(llm.cfg, flash_attention=False), device=dev)
+        dense.load_state_dict(llm.state_dict())
+        dense_loss, flat = step(dense, [p for p in dense.parameters() if p.requires_grad])
+        save(flat, "dense")
+    return dict(rank=mesh.rank(), sp=sp, window=[lo, hi], ms=ms, hops=hops, loss=loss,
+                dense_loss=dense_loss, grad_norm=norm, peak_gib=peak_gib,
+                build_s=build_s, launches={k.symbol.replace("_launch", ""): k.launches
+                                           for k in kernels})
+
+
+def sp_exact(out: Path) -> dict:
+    return exact_step(out, "sp")
+
+
+def sp_long_rank(out: str) -> None:
+    _rank_main(sp_long, out, {"sp": SP})
+
+
+def sp_exact_rank(out: str) -> None:
+    _rank_main(sp_exact, out, {"sp": SP})
+
+
+def sp_long_gates(out: Path) -> dict:
+    """Phase 21 (b): the long context, one process (flash), then SP ranks
+    (the ring); the launches, the loss and every LoRA gradient of sp = SP
+    held against sp = 1's."""
+    t0 = time.perf_counter()
+    one = sp_long(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = wait_ranks(spawn_ranks("sp_long_rank", out), out, "sp_long", "b")
+    took_b = time.perf_counter() - t0
+    for r in [one] + ranks:
+        hop = r["hops"][-1]
+        print(f"  (b) sp = {r['sp']} rank {r['rank']} (positions {r['window'][0]}.."
+              f"{r['window'][1] - 1}): step {' / '.join(f'{x:.1f}' for x in r['ms'])} ms, peak "
+              f"{r['peak_gib']:.2f} GiB, loss {r['loss']!r}, LoRA grad norm "
+              f"{r['grad_norm']:.6g}, ring hops a step {hop['calls']} "
+              f"({hop['bytes'] / 2**20:.1f} MiB, {1e3 * hop['seconds']:.1f} ms), launches over "
+              f"the {SP_LONG_STEPS} steps {r['launches']}, built in {r['build_s']:.1f} s")
+    layers = SP_LONG_LAYERS * SP_LONG_STEPS
+    check(one["launches"] == {"flash_attn_fwd": layers, "flash_attn_bwd_dq": layers,
+                              "flash_attn_bwd_dkv": layers},
+          "(b) sp = 1 runs K2f, K2dq and K2dkv once a layer and step")
+    check(all(r["launches"] == dict.fromkeys(one["launches"], 0) for r in ranks),
+          f"(b) sp = {SP} launches no flash kernel (the ring)")
+    check(ranks[0]["loss"] == ranks[1]["loss"], "(b) both sp ranks hold the whole loss")
+    loss_err = abs(ranks[0]["loss"] - one["loss"]) / abs(one["loss"])
+    print(f"  (b) loss at sp = {SP} against sp = 1, relative {loss_err:.3e} (bf16; the ring "
+          f"rounds q·k to bf16 as JAX's ring does, K2f keeps fp32 scores); {took_b:.1f} s")
+    check(loss_err <= SP_LONG_RTOL, f"(b) the sp = {SP} loss within {SP_LONG_RTOL} of sp = 1's")
+    flash, dense, ring = (torch.load(out / f"long_grads_{name}.pt")
+                          for name in ("sp1", "dense", f"sp{SP}"))
+    check(sorted(ring) == sorted(flash) == sorted(dense),
+          "(b) the gradients name every LoRA tensor")
+
+    def errors(got: dict, want: dict) -> dict:
+        """Each LoRA gradient's relative error in norm, and the whole's."""
+        rel = {n: float((got[n] - g).double().norm() / g.double().norm()) for n, g in want.items()}
+        worst = sorted(rel, key=rel.get, reverse=True)
+        whole = math.sqrt(sum(float((got[n] - g).double().square().sum()) for n, g in want.items())
+                          / sum(float(g.double().square().sum()) for g in want.values()))
+        return dict(max=rel[worst[0]], median=rel[worst[len(rel) // 2]], whole=whole,
+                    worst=[(n, f"{rel[n]:.3e}") for n in worst[:3]])
+
+    errs = {"ring against flash": errors(ring, flash), "dense against flash": errors(dense, flash),
+            "ring against dense": errors(ring, dense)}
+    dense_err = abs(one["dense_loss"] - one["loss"]) / abs(one["loss"])
+    print(f"  (b) the {len(flash)} LoRA gradients, relative in norm (a tensor: max, median; "
+          f"the whole): " + "; ".join(f"{k} {e['max']:.3e}, {e['median']:.3e}; {e['whole']:.3e}"
+                                      for k, e in errs.items())
+          + f"; the largest of the ring's {errs['ring against flash']['worst']}; the dense "
+          f"route's loss {dense_err:.3e} from flash's")
+    grad_err, spread = errs["ring against flash"]["max"], errs["dense against flash"]["max"]
+    check(grad_err <= SP_LONG_SPREAD * spread,
+          f"(b) every LoRA gradient at sp = {SP} within {SP_LONG_SPREAD:g} x {spread:.3e} (the "
+          f"dense route's largest, bf16's spread) relative of sp = 1's")
+    return dict(one=one, ranks=ranks, loss_err=loss_err, grad_err=grad_err, spread=spread,
+                seconds=took_b)
+
+
+def phase_sp(exp_root: Path, dp: "dict | None" = None):
+    print(f"== phase 21: sequence parallelism at sp = {SP} on one card (two ranks over gloo: (a) "
+          f"python -m msr3d_tpu_torch.launch --mode accelerate parallel.sp={SP} on "
+          f"configs/msr3d.yaml over phase 10's tree, one step of {N_REQUESTS} x {TRAIN_ACCUM} "
+          f"and a val batch of {N_REQUESTS}; (b) the flagship's LLM at {SP_LONG_LAYERS} layers, "
+          f"T = {SP_LONG_T}, batch 1, forward and backward at sp = 1 and {SP}; (c) fp32 gates; "
+          f"on {card_line()})")
+    root = exp_root / "sp"
+    exp_a = root / "a"
+    summaries, _, took_a = run_launcher(
+        ["--mode", "accelerate", "--port", str(free_port()),
+         *dp_argv(exp_root, exp_a, f"parallel.sp={SP}", "solver.num_batch_eval=1")], "a")
+    print(f"  (a) {took_a:.1f} s (start, build, init, data, one step, val)")
+    check([(m["rank"], m["world"], m["backend"], m["dp"], m["tp"], m["pp"], m["sp"],
+            m["sp_rank"]) for m in summaries]
+          == [(r, SP, "gloo", 1, 1, 1, SP, r) for r in range(SP)],
+          f"(a) the launcher started dp 1 x sp {SP} ranks over gloo from parallel.sp={SP}")
+    check(all(m["steps"] == 1 for m in summaries), "(a) one optimizer step on each rank")
+    results = json.loads((exp_a / "eval" / "msqa_scannet" / "results.json").read_text())
+    indices = sorted(str(r["index"]) for r in results)
+    check(len(results) == N_REQUESTS and len(set(indices)) == N_REQUESTS,
+          f"(a) results.json scores each of the {N_REQUESTS} val samples once (both sp ranks "
+          f"generate the batch rank 0 broadcasts; the records gather over dp)")
+    metrics = [json.loads(line) for line in (exp_a / "metrics.jsonl").read_text().splitlines()]
+    check([m["step"] for m in metrics if "train/loss" in m] == [1]
+          and sorted(q.name for q in (exp_a / "ckpt" / "state").iterdir()) == ["1.pt"]
+          and (exp_a / "ckpt" / "latest.pt").exists(),
+          "(a) metrics.jsonl and the checkpoint written once, by rank 0")
+    sp_digests = re.findall(r"agree across \d+ sp ranks after training \(sha256 (\w+)\)",
+                            run_launcher.last_out)
+    print(f"  (a) the sp replicas' digests after the step: {sp_digests}")
+    check(len(sp_digests) == SP and len(set(sp_digests)) == 1,
+          f"(a) the ranks' trainable parameters bit-equal after the step ({len(sp_digests)} "
+          f"digests, {len(set(sp_digests))} distinct)")
+    b18 = dp["b"][0] if dp else dict(peak_gib=float("nan"), step_ms=[float("nan")])
+    # K1 in each micro-batch's scene encode and the eval's; K2f in the eval's
+    # prefill only: the step's attention is the ring, as in JAX
+    want = {"fps": 2 * (TRAIN_ACCUM + 1), "flash_attn_fwd": 32, "flash_attn_bwd_dq": 0,
+            "flash_attn_bwd_dkv": 0}
+    for m in summaries:
+        share = m["step_sp_comm_s"][0] / m["step_ms"][0] * 1e3
+        print(f"  (a) rank {m['rank']} (sp rank {m['sp_rank']}): peak {m['peak_gib']:.2f} GiB "
+              f"against phase 18 (b)'s {b18['peak_gib']:.2f}, step {m['step_ms'][0]:.1f} ms "
+              f"against {b18['step_ms'][0]:.1f}, of it {1e3 * m['step_sp_comm_s'][0]:.1f} ms "
+              f"({share:.1%}) in the ring's host-routed hops ({m['sp_comm']['calls']} over the "
+              f"run, {m['sp_comm']['bytes'] / 2**30:.3f} GiB, {m['sp_comm']['seconds']:.2f} s); "
+              f"data wait {m['data_wait_ms'][0]:.1f} ms; launches {m['launches']}")
+        check(m["launches"] == want,
+              f"(a) rank {m['rank']} launched K1, K2f, K2dq, K2dkv {want} (no flash kernel in "
+              f"the step: {TRAIN_ACCUM} micro-batches through the ring; K2f in the eval's prefill)")
+
+    b = sp_long_gates(root / "b")
+
+    # (c) fp32 gates: two sp ranks against one process, the one process
+    # running while the ranks do
+    t0 = time.perf_counter()
+    out_c = root / "c"
+    procs = spawn_ranks("sp_exact_rank", out_c)
+    try:
+        one_c = sp_exact(out_c)
+    finally:  # the ranks end, whatever happened here
+        ranks_c = wait_ranks(procs, out_c, "sp_exact", "c")
+    want = torch.load(out_c / "exact_grads_sp1.pt")
+    got = torch.load(out_c / f"exact_grads_sp{SP}.pt")
+    check(sorted(got) == sorted(want), "(c) the gradients name every trainable tensor")
+    e = exact_grad_errors(want, got)
+    loss_err_c = abs(ranks_c[0]["loss"] - one_c["loss"]) / abs(one_c["loss"])
+    print(f"  (c) fp32, {EXACT_LAYERS} layers at the flagship width, sp = {SP} against one "
+          f"process: loss {one_c['loss']!r} against {ranks_c[0]['loss']!r}, relative "
+          f"{loss_err_c:.3e}; the {len(want)} trainable gradients (whole norm "
+          f"{e['whole']:.6g}, summed over sp), max relative (a tensor, in norm) {e['all']:.3e}: "
+          f"the {e['n_lora']} LoRA ones' {e['lora']:.3e}, the {e['n_outside']} outside the "
+          f"LLM's blocks' (the prompter's, each sp rank's part through its block) "
+          f"{e['outside']:.3e}; the largest {e['worst']}; {len(e['noise_names'])} at rounding "
+          f"noise {e['noise_names']}, their |diff| / whole norm at most {e['noise']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(ranks_c[0]["loss"] == ranks_c[1]["loss"], "(c) both sp ranks report the same loss")
+    check(loss_err_c <= 1e-5 and e["all"] <= 1e-4 and e["noise"] <= PP_GRAD_FLOOR,
+          f"(c) the sp = {SP} loss within 1e-5 and every trainable gradient within 1e-4 "
+          f"relative of one process's (those at rounding noise within {PP_GRAD_FLOOR:g} of the "
+          "whole gradient's norm)")
+    return dict(a=summaries, b=b,
+                c=dict(loss_err=loss_err_c, grad_err=e["all"], lora_grad_err=e["lora"],
+                       noise_grad_err=e["noise"]),
+                seconds=dict(a=took_a, b=b["seconds"]))
+
+
+def phase21_launches(out, kernel: str) -> dict:
+    """Phase 21's launches of one kernel for the kernels line: each sp rank's
+    run of (a) and, the flash kernels, (b)'s long-context steps at sp = 1
+    and on each sp rank."""
+    row = dict(launches_sp=[m["launches"][kernel] for m in out["a"]])
+    if kernel != "fps":
+        row["launches_sp_long"] = dict(sp1=out["b"]["one"]["launches"][kernel],
+                                       sp2=[r["launches"][kernel] for r in out["b"]["ranks"]])
+    return row
 
 
 def phase20_launches(out, kernel: str) -> dict:
@@ -5538,6 +5851,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         pp = timed(phase_pp, exp_root, tp, quantized)  # on phase 10's tree and cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp = timed(phase_sp, exp_root, dp)  # on phase 10's tree and cfg_path
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5575,7 +5891,10 @@ def main() -> int:
         # stage's 16 layers at 2 pipeline micro-batches a loader batch, the
         # eval batch on stage 0 with the whole LLM),
         # launches_tp_quantized_generate (b) each tp rank's greedy generate
-        # of the int8 (a) and int4-grouped (c) flagship
+        # of the int8 (a) and int4-grouped (c) flagship; launches_sp: phase
+        # 21 (a), each sp rank's run (the step through the ring, an eval
+        # batch on each rank), launches_sp_long (b) the long-context steps at
+        # sp = 1 and on each sp rank
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -5588,7 +5907,7 @@ def main() -> int:
              **phase15_launches(serving2, "fps"), **phase16_launches(pool, "fps"),
              **phase17_launches(options, "fps"), **phase18_launches(dp, "fps"),
              **phase19_launches(tp, "fps"),
-             **phase20_launches(pp, "fps"), **fps_row),
+             **phase20_launches(pp, "fps"), **phase21_launches(sp, "fps"), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -5606,7 +5925,7 @@ def main() -> int:
              **phase17_launches(options, "flash_attn_fwd"),
              **phase18_launches(dp, "flash_attn_fwd"),
              **phase19_launches(tp, "flash_attn_fwd"),
-             **phase20_launches(pp, "flash_attn_fwd"), **flash_row),
+             **phase20_launches(pp, "flash_attn_fwd"), **phase21_launches(sp, "flash_attn_fwd"), **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
@@ -5617,7 +5936,7 @@ def main() -> int:
              **phase17_launches(options, "flash_attn_bwd_dq"),
              **phase18_launches(dp, "flash_attn_bwd_dq"),
              **phase19_launches(tp, "flash_attn_bwd_dq"),
-             **phase20_launches(pp, "flash_attn_bwd_dq"), **dq_row),
+             **phase20_launches(pp, "flash_attn_bwd_dq"), **phase21_launches(sp, "flash_attn_bwd_dq"), **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
@@ -5628,7 +5947,7 @@ def main() -> int:
              **phase17_launches(options, "flash_attn_bwd_dkv"),
              **phase18_launches(dp, "flash_attn_bwd_dkv"),
              **phase19_launches(tp, "flash_attn_bwd_dkv"),
-             **phase20_launches(pp, "flash_attn_bwd_dkv"), **dkv_row),
+             **phase20_launches(pp, "flash_attn_bwd_dkv"), **phase21_launches(sp, "flash_attn_bwd_dkv"), **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands

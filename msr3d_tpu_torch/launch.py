@@ -5,6 +5,7 @@
         --config configs/debug_synthetic.yaml device=cpu
     python -m msr3d_tpu_torch.launch --mode accelerate --config configs/msr3d.yaml parallel.tp=2
     python -m msr3d_tpu_torch.launch --mode accelerate --config configs/msr3d.yaml parallel.pp=2
+    python -m msr3d_tpu_torch.launch --mode accelerate --config configs/msr3d.yaml parallel.sp=2
     python -m msr3d_tpu_torch.launch --mode submitit --num_nodes 2 --partition P --config ...
 
 Counterpart of the JAX package's root ``launch.py``, with its three modes:
@@ -13,8 +14,9 @@ Counterpart of the JAX package's root ``launch.py``, with its three modes:
   accelerate  one process a rank on this node (``--num_processes``, the
               reference's ``accelerate launch`` flag; by default the card
               count rounded up to a multiple of ``parallel.tp`` x
-              ``parallel.pp``, so ``parallel.tp=2`` or ``parallel.pp=2`` on
-              one card starts two ranks that share it over gloo), each ``python -m msr3d_tpu_torch.run`` under the
+              ``parallel.pp`` x ``parallel.sp``, so ``parallel.tp=2``,
+              ``parallel.pp=2`` or ``parallel.sp=2`` on one card starts two
+              ranks that share it over gloo), each ``python -m msr3d_tpu_torch.run`` under the
               ``torch.distributed`` env contract with node 0 at
               127.0.0.1:``--port``. It waits for every rank; when one fails
               it ends the others and exits with the first failure's code.
@@ -99,18 +101,18 @@ def run_ranks(argv: List[str], envs: List[Dict[str, str]], grace_s: float = 30.0
 
 
 def _model_parallel(args) -> int:
-    """``parallel.tp`` x ``parallel.pp`` of the config with its overrides (1
-    when unset)."""
+    """``parallel.tp`` x ``parallel.pp`` x ``parallel.sp`` of the config with
+    its overrides (1 when unset)."""
     from msr3d_tpu_torch.config import load_config
 
     cfg = load_config(args.config, overrides=[o for o in args.opts if "=" in o])
     parallel = cfg.get("parallel") or {}
-    return int(parallel.get("tp", 1)) * int(parallel.get("pp", 1))
+    return int(parallel.get("tp", 1)) * int(parallel.get("pp", 1)) * int(parallel.get("sp", 1))
 
 
 def _per_node(args) -> int:
     """``--num_processes``, else a rank a card rounded up to a multiple of
-    tp x pp (tp and pp ranks share a card where there are fewer cards)."""
+    tp x pp x sp (those ranks share a card where there are fewer cards)."""
     if args.num_processes is not None:
         return args.num_processes
     import torch

@@ -19,9 +19,9 @@ names (``model.name: MSR3D``; the prompter nodes ``OSE3DSituation``,
 ``parallel.tp`` > 1 builds the rank's tensor-parallel shard of the LLM over
 the process group's tp ranks (``parallel/mesh.py``), a quantized base
 included; ``parallel.pp`` > 1 builds the rank's pipeline stage (its blocks,
-with everything outside them). What the port does not
-run raises ``NotImplementedError`` when it is set to anything but its
-default: ``parallel.sp > 1`` (ROADMAP.md, parallelism).
+with everything outside them); ``parallel.sp`` > 1 gives the LLM the rank's
+place in its sp group, so that its training forward runs the ring over the
+sequence (JAX's builder sets ``sp_axis="sp", sp_data_axis="dp"``).
 
 The model lands on ``cfg.device`` (``cuda`` when unset; ``device=cpu``
 picks the CPU), through ``resolve_device``.
@@ -74,31 +74,26 @@ def build_llm_config(llm_cfg, tokenizer: BaseTokenizer,
                             **lora_kw, **extra)
 
 
-def _check_ported(cfg) -> None:
-    if int(cfg.get("parallel", {}).get("sp", 1)) > 1:
-        raise NotImplementedError("parallel.sp > 1 (ring attention) is not ported yet "
-                                  "(ROADMAP.md, queue: parallelism)")
-
-
 def _model_parallel(cfg, llama_cfg: LlamaConfig) -> LlamaConfig:
-    """``parallel.tp`` or ``parallel.pp`` > 1: the mesh's layout over the
-    process group (``parallel/mesh.py``'s ``init_mesh``), the rank's index
-    in its tp group and its pipeline stage into the LLM config."""
+    """``parallel.tp``, ``parallel.pp`` or ``parallel.sp`` > 1: the mesh's
+    layout over the process group (``parallel/mesh.py``'s ``init_mesh``), the
+    rank's index in its tp group, its pipeline stage and its sequence block
+    into the LLM config."""
     parallel = cfg.get("parallel") or {}
-    if int(parallel.get("tp", 1)) == 1 and int(parallel.get("pp", 1)) == 1:
+    if all(int(parallel.get(axis, 1)) == 1 for axis in ("tp", "pp", "sp")):
         return llama_cfg
     from msr3d_tpu_torch.parallel import mesh
 
     _, tp = mesh.init_mesh(parallel)
     return dataclasses.replace(llama_cfg, tp_size=tp, tp_rank=mesh.tp_rank(),
-                               pp_size=mesh.pp_size(), pp_rank=mesh.pp_rank())
+                               pp_size=mesh.pp_size(), pp_rank=mesh.pp_rank(),
+                               sp_size=mesh.sp_size(), sp_rank=mesh.sp_rank())
 
 
 def build_msr3d_from_config(cfg, device=None) -> MSR3D:
     """The full config (``configs/msr3d.yaml`` layout) → a port MSR3D on
     ``device`` (default ``cfg.device``, else CUDA), parameters not yet
     initialised."""
-    _check_ported(cfg)
     model_cfg = cfg.model
     llm_cfg = model_cfg.llm
     tokenizer = build_tokenizer(llm_cfg.get("cfg_path", ""),

@@ -69,7 +69,17 @@ indices, ``layer.16`` …) beside the whole embedding, final norm and head,
 and ``parallel/llm_pp.py`` drives them; the model's own forward, prefill
 and decode need every block and raise on a stage.
 
-Not ported yet (raises): sequence parallelism.
+Sequence parallelism (``sp_size`` > 1, this rank ``sp_rank`` of the sp
+group of ``parallel/mesh.py``): the training forward takes this rank's
+block of the sequence (the whole embeddings and mask are given; positions
+are cut from the whole mask's cumsum) and its attention runs
+``parallel/ring_attention.py`` over the sp group, before the flash check,
+as JAX's ``sp_axis`` route does, so the step launches no K2f, K2dq or
+K2dkv. Its logits cover the positions this rank holds (``sp_window``).
+Prefill and decode run the whole sequence, dense or flash, as JAX's
+generation never takes the ring. In ``train()`` mode under sp (the training
+forward, the only train-mode path) LoRA dropout draws each input's mask for
+the whole sequence and keeps the block's rows, so the masks are sp = 1's.
 """
 
 from __future__ import annotations
@@ -92,6 +102,7 @@ from msr3d_tpu_torch.parallel.tensor_parallel import (
     sum_int_over_tp,
     vocab_parallel_embed,
 )
+from msr3d_tpu_torch.parallel.ring_attention import ring_attention, sequence_block
 from msr3d_tpu_torch.parallel.sharding import Spec, llm_tp_dims
 
 _NEG_INF = -1e30
@@ -131,20 +142,23 @@ class LlamaConfig:
     # output saved, each branch recomputed from its input)
     remat: bool = False
     remat_policy: str = "full"
-    # JAX-package option this port does not run yet; setting it raises
-    sp_axis: Optional[str] = None
     # tensor parallelism: this rank's index in a tp group of tp_size ranks
     tp_size: int = 1
     tp_rank: int = 0
     # pipeline parallelism: this rank's stage of pp_size (its blocks only)
     pp_size: int = 1
     pp_rank: int = 0
+    # sequence parallelism: this rank's block of a sequence split over an sp
+    # group of sp_size ranks (JAX's sp_axis): the training forward's ring
+    sp_size: int = 1
+    sp_rank: int = 0
 
     def __post_init__(self):
-        if self.sp_axis:
-            raise NotImplementedError(
-                "LlamaConfig option sp_axis is not ported yet (see ROADMAP.md)"
-            )
+        if not 0 <= self.sp_rank < self.sp_size:
+            raise ValueError(f"sp_rank {self.sp_rank} outside an sp group of {self.sp_size}")
+        if self.sp_size > 1 and self.pp_size > 1:
+            raise NotImplementedError("pp × sp: the JAX package's pipeline asserts 'pp × sp "
+                                      "composition not supported yet', and so does the port")
         if not 0 <= self.tp_rank < self.tp_size:
             raise ValueError(f"tp_rank {self.tp_rank} outside a tp group of {self.tp_size}")
         if not 0 <= self.pp_rank < self.pp_size:
@@ -327,6 +341,7 @@ class LoraDense(nn.Module):
             )
         self.scale = 0.0
         self.lora_dropout = cfg.lora_dropout
+        self.sp_size, self.sp_rank = cfg.sp_size, cfg.sp_rank
         if use_lora:
             r = cfg.lora_rank
             self.lora_a = nn.Parameter(torch.empty(r, in_features, device=device))
@@ -492,11 +507,14 @@ class LoraDense(nn.Module):
         # base has summed its integer partials already
         row_partial = self.tp_mode == "row" and not self.act_quant
         if self.scale:
-            # a row-parallel input is the rank's slice of the full one: its
+            # a row-parallel input is the rank's slice of the full one, and
+            # under sp (train mode) its rows the rank's sequence block: its
             # dropout mask is the full mask's slice
             whole = ((self.full_in, self.tp_rank * self.in_features)
                      if self.tp_mode == "row" else None)
-            h = F.linear(dropout(x, self.lora_dropout, self.training, generator, whole),
+            block = ((x.shape[1] * self.sp_size, self.sp_rank * x.shape[1])
+                     if self.sp_size > 1 else None)
+            h = F.linear(dropout(x, self.lora_dropout, self.training, generator, whole, block),
                          self.lora_a.to(self.dtype))
             if self.tp_mode == "row" and not row_partial:
                 # beside the reduced s8×s8 base, the LoRA's (rows, r) partial
@@ -600,11 +618,16 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, positions, attn_bias: Optional[torch.Tensor],
                 key_valid: Optional[torch.Tensor], generator=None) -> torch.Tensor:
-        """Training attention. ``attn_bias`` None → the flash autograd
-        Function (K2f forward, K2dq/K2dkv backward) with causality and
-        ``key_valid`` applied inside; else dense with the additive bias."""
+        """Training attention. Under sp, x is this rank's sequence block and
+        ``key_valid`` the whole sequence's: ring attention over the sp group
+        (the un-repeated kv heads travel). Else ``attn_bias`` None → the
+        flash autograd Function (K2f forward, K2dq/K2dkv backward) with
+        causality and ``key_valid`` applied inside; else dense with the
+        additive bias."""
         q, k, v = self._qkv(x, positions, generator)
-        if attn_bias is None:
+        if self.cfg.sp_size > 1:
+            out = ring_attention(q, k, v, causal=True, key_valid=key_valid)
+        elif attn_bias is None:
             out = flash_attention_train(q, k, v, key_valid=key_valid)
         else:
             out = self._dense(q, k, v, attn_bias)
@@ -957,12 +980,13 @@ class LlamaModel(nn.Module):
         """HF left-padding positions: cumsum(mask) - 1, floored at 0."""
         return (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp(min=0)
 
-    def _attention_masks(self, attention_mask: torch.Tensor):
+    def _attention_masks(self, attention_mask: torch.Tensor, ring: bool = False):
         """(attn_bias, key_valid) of a causal pass over the whole sequence:
-        the flash kernels take the key mask and apply causality themselves;
-        the dense route takes the (B, 1, T, T) additive bias."""
+        the ring (``ring``) and the flash kernels take the key mask and apply
+        causality themselves; the dense route takes the (B, 1, T, T)
+        additive bias."""
         mask = attention_mask.bool()
-        if self.cfg.flash_attention:
+        if ring or self.cfg.flash_attention:
             return None, mask
         t = mask.shape[1]
         causal = torch.ones((t, t), dtype=torch.bool, device=mask.device).tril()
@@ -980,11 +1004,21 @@ class LlamaModel(nn.Module):
         logits only for positions ``answer_start-1 .. T-2``, the
         answer-predicting window (every target before it is -100).
         ``generator`` feeds LoRA dropout in ``train()`` mode. With ``remat``
-        and grad enabled each block runs under activation checkpointing."""
+        and grad enabled each block runs under activation checkpointing.
+
+        Under sp the whole ``inputs_embeds`` and ``attention_mask`` are
+        given; the blocks run on this rank's sequence block, and the logits
+        cover the positions ``sp_window(T, answer_start)`` of it (every
+        position of the block without a window)."""
         self._whole("the training forward")
+        cfg = self.cfg
         positions = self._positions(attention_mask)
-        attn_bias, key_valid = self._attention_masks(attention_mask)
-        x = inputs_embeds.to(self.cfg.dtype)
+        attn_bias, key_valid = self._attention_masks(attention_mask, ring=cfg.sp_size > 1)
+        x = inputs_embeds.to(cfg.dtype)
+        if cfg.sp_size > 1:
+            t = x.shape[1]
+            x = sequence_block(x, cfg.sp_size, cfg.sp_rank)
+            positions = sequence_block(positions, cfg.sp_size, cfg.sp_rank)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.layer:
             if remat:
@@ -993,7 +1027,23 @@ class LlamaModel(nn.Module):
             else:
                 x = block(x, positions, attn_bias, key_valid, generator)
         x = self.final_norm(x)
+        if cfg.sp_size > 1:
+            lo, hi = self.sp_window(t, answer_start)
+            first = cfg.sp_rank * x.shape[1]
+            return self.logits(x[:, lo - first:hi - first])
         return self.logits(x if answer_start is None else x[:, answer_start - 1:-1])
+
+    def sp_window(self, t: int, answer_start: Optional[int] = None) -> Tuple[int, int]:
+        """The global positions [lo, hi) whose logits this rank's sp forward
+        computes over a sequence of ``t``: its block's, or those of them
+        inside the answer window ``answer_start-1 .. t-2`` (lo = hi where
+        the block holds none)."""
+        s = t // self.cfg.sp_size
+        first = self.cfg.sp_rank * s
+        if answer_start is None:
+            return first, first + s
+        lo = max(first, answer_start - 1)
+        return lo, max(lo, min(first + s, t - 1))
 
     def prefill_with_cache(
         self,

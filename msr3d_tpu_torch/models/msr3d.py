@@ -23,7 +23,17 @@ Counterpart of ``msr3d_tpu/models/msr3d.py``:
 
 The serving engines over this model (slot refill, the prefix-pool engines,
 the fixed and the scene-grouped batchers, the HTTP front end) are in
-``msr3d_tpu_torch/serving.py``. Not ported yet: ``layered_gen_cache``.
+``msr3d_tpu_torch/serving.py``. JAX's ``layered_gen_cache`` (greedy's
+generated KV as a tuple of per-layer caches) works around XLA's copies of
+the stacked cache; this port writes the stacked cache in place, so it has no
+such option.
+
+Under sequence parallelism (the LLM's ``sp_size`` > 1) the point encoder,
+the prompter, the image encoder and the splices run whole on every sp rank
+of a dp index, on one batch with one generator (so their dropout masks
+agree); the LLM's training forward runs on the rank's sequence block and
+the per-sequence CE sums its token NLLs over the sp group before dividing
+by the whole sequence's count (``sequence_ce_loss_sp``).
 """
 
 from __future__ import annotations
@@ -132,6 +142,26 @@ def sequence_ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tenso
     return _per_sequence_nll(logits[:, :-1], targets[:, 1:])
 
 
+def sequence_ce_loss_sp(logits: torch.Tensor, targets: torch.Tensor, lo: int,
+                        hi: int) -> torch.Tensor:
+    """Per-sequence CE (B,) under sequence parallelism: ``logits`` (B, hi -
+    lo, V) fp32 cover the global positions [lo, hi) this sp rank holds
+    (``LlamaModel.sp_window``); their token NLLs against ``targets[:, lo+1 :
+    hi+1]`` (the sequence's last position predicts nothing) are summed over
+    the sp group (each position on exactly one rank), then divided by the
+    number of targets >= 0 of the whole sequence (the whole ``targets`` is
+    on every rank). Equals :func:`sequence_ce_loss` on the whole logits;
+    every sp rank returns it."""
+    from msr3d_tpu_torch.parallel.ring_attention import sum_over_sp
+
+    window = targets[:, lo + 1:hi + 1]
+    valid = window >= 0
+    logp = torch.log_softmax(logits[:, :window.shape[1]], dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, window, 0)[..., None])[..., 0]
+    total = sum_over_sp(torch.where(valid, nll, 0.0).sum(dim=1))
+    return total / (targets[:, 1:] >= 0).sum(dim=1).clamp(min=1)
+
+
 def sequence_ce_loss_windowed(window_logits: torch.Tensor, targets: torch.Tensor,
                               start: int) -> torch.Tensor:
     """Per-sequence CE from logits covering only positions ``start-1 ..
@@ -212,11 +242,19 @@ class MSR3DNetwork(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Teacher-forced pass over ``[prompt ‖ answer]`` → {"loss": per-
         sequence CE (B,), "logits": fp32}. In ``train()`` mode dropout draws
-        from ``generator``."""
+        from ``generator``. Under sp the logits are this rank's positions
+        (``LlamaModel.sp_window``) and the loss is the whole sequence's on
+        every sp rank."""
         full_embeds, full_attn, targets = self.embeds_for_loss(
             input_ids, attention_mask, output_ids, output_mask, obj_fts, obj_masks, obj_locs,
             anchor_locs, anchor_orientation, images, image_masks, generator,
         )
+        if self.cfg.llm.sp_size > 1:
+            start = input_ids.shape[1] if self.cfg.answer_window_loss else None
+            logits = self.llm(full_embeds, full_attn, answer_start=start,
+                              generator=generator).float()
+            lo, hi = self.llm.sp_window(full_embeds.shape[1], start)
+            return {"loss": sequence_ce_loss_sp(logits, targets, lo, hi), "logits": logits}
         if self.cfg.answer_window_loss:
             start = input_ids.shape[1]
             logits = self.llm(full_embeds, full_attn, answer_start=start,
@@ -503,19 +541,24 @@ class MSR3D:
         """Split this full model over the mesh's tp and pp ranks (after
         ``init_mesh``): the LLM keeps this rank's tp shards of its pipeline
         stage's blocks (``LlamaConfig.pp_size``/``pp_rank``) beside the
-        embedding, norm and head; everything else stays whole. ``LeoTrainer``
-        does it for a full model it is given under pp."""
+        embedding, norm and head, and takes its sp block
+        (``sp_size``/``sp_rank``: nothing splits over sp); everything else
+        stays whole. ``LeoTrainer`` does it for a full model it is given
+        under pp or sp."""
         from msr3d_tpu_torch.parallel import mesh
 
-        if (self.cfg.llm.tp_size, self.cfg.llm.pp_size) != (1, 1):
+        llm = self.cfg.llm
+        if (llm.tp_size, llm.pp_size, llm.sp_size) != (1, 1, 1):
             raise ValueError("shard_for_training: the LLM is split already")
-        self._reshard_llm(mesh.tp_size(), mesh.tp_rank(), mesh.pp_size(), mesh.pp_rank())
+        self._reshard_llm(mesh.tp_size(), mesh.tp_rank(), mesh.pp_size(), mesh.pp_rank(),
+                          mesh.sp_size(), mesh.sp_rank())
 
-    def _reshard_llm(self, tp: int, tp_rank: int, pp: int, pp_rank: int) -> None:
+    def _reshard_llm(self, tp: int, tp_rank: int, pp: int, pp_rank: int, sp: int = 1,
+                     sp_rank: int = 0) -> None:
         from msr3d_tpu_torch.parallel.sharding import shard_like
 
         llm_cfg = dataclasses.replace(self.cfg.llm, tp_size=tp, tp_rank=tp_rank, pp_size=pp,
-                                      pp_rank=pp_rank)
+                                      pp_rank=pp_rank, sp_size=sp, sp_rank=sp_rank)
         llm = LlamaModel(llm_cfg, device=self.device)
         keep = set(llm.state_dict())
         llm.load_state_dict(shard_like(llm, {n: t for n, t in self.network.llm.state_dict()

@@ -28,24 +28,32 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator],
-            slice_of: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            slice_of: Optional[Tuple[int, int]] = None,
+            rows_of: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale it by ``1 / (1 - rate)``. Active only when ``training``, and
     then it draws from ``generator`` (never from PyTorch's global RNG).
     ``slice_of`` (width, start): x is the last-dim slice ``start ..`` of a
-    tensor ``width`` wide (a tensor-parallel rank's part), whose mask is
-    drawn whole and sliced, so the draws and the mask are the whole's."""
+    tensor ``width`` wide (a tensor-parallel rank's part); ``rows_of``
+    (length, start): x is the dim-1 slice ``start ..`` of a tensor ``length``
+    long (a sequence-parallel rank's block). The mask is drawn whole and
+    sliced, so the draws and the mask are the whole's."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train() mode draws from an explicit torch.Generator: "
                          "pass generator=")
-    if slice_of is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    else:
-        width, start = slice_of
-        keep = torch.rand(x.shape[:-1] + (width,), generator=generator,
-                          device=x.device)[..., start:start + x.shape[-1]] < 1.0 - rate
+    shape = list(x.shape)
+    if slice_of is not None:
+        shape[-1] = slice_of[0]
+    if rows_of is not None:
+        shape[1] = rows_of[0]
+    keep = torch.rand(shape, generator=generator, device=x.device)
+    if slice_of is not None:
+        keep = keep[..., slice_of[1]:slice_of[1] + x.shape[-1]]
+    if rows_of is not None:
+        keep = keep[:, rows_of[1]:rows_of[1] + x.shape[1]]
+    keep = keep < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -1,24 +1,29 @@
-"""The process mesh over ``torch.distributed``: one process a rank, dp × tp × pp.
+"""The process mesh over ``torch.distributed``: one process a rank, dp × tp × pp × sp.
 
 Counterpart of ``msr3d_tpu/parallel/mesh.py``. JAX lays one mesh over the
 devices and lets XLA insert the collectives; here each rank is a process.
 ``MeshConfig.resolve`` is JAX's arithmetic (dp is what tp·pp·sp leave of
 the ranks), and the ranks are laid out as JAX reshapes its device array,
-``(dp, tp, pp, sp)`` row-major: pp is the fastest-varying rank index, then
-tp, then dp, so rank ``(d·tp + t)·pp + p`` is pp rank ``p`` of tp rank ``t``
-of dp group ``d`` (at pp = 1, ``d·tp + t``). ``init_mesh`` builds, over
-every rank in one order:
+``(dp, tp, pp, sp)`` row-major: sp is the fastest-varying rank index, then
+pp, then tp, then dp, so rank ``((d·tp + t)·pp + p)·sp + s`` is sp rank
+``s`` of pp rank ``p`` of tp rank ``t`` of dp group ``d`` (at sp = pp = 1,
+``d·tp + t``). ``init_mesh`` builds, over every rank in one order:
 
-* a pp group over each run of ``pp`` consecutive ranks (the stages of one
-  (d, t)), which hands activations down the pipeline
-  (``parallel/pipeline.py``);
-* a tp group over the ranks of one (d, p), strided by pp, whose ranks hold
-  one shard each of the LLM's weights (``parallel/sharding.py``) and meet
-  in the collectives of ``parallel/tensor_parallel.py``;
-* a dp group over the ranks of one (t, p), strided by tp·pp, over which the
-  trainable gradients are averaged (``trainer/train_state.py``);
-* the model-parallel group of a dp index: its tp·pp consecutive ranks, over
-  which the first of them broadcasts each batch.
+* an sp group over each run of ``sp`` consecutive ranks (the sequence
+  blocks of one (d, t, p)), around which ring attention passes its key and
+  value blocks (``parallel/ring_attention.py``);
+* a pp group over the ranks of one (d, t, s), strided by sp (the stages),
+  which hands activations down the pipeline (``parallel/pipeline.py``);
+* a tp group over the ranks of one (d, p, s), strided by pp·sp, whose ranks
+  hold one shard each of the LLM's weights (``parallel/sharding.py``) and
+  meet in the collectives of ``parallel/tensor_parallel.py``;
+* a dp group over the ranks of one (t, p, s), strided by tp·pp·sp, over
+  which the trainable gradients are averaged (``trainer/train_state.py``);
+* the model-parallel group of a dp index: its tp·pp·sp consecutive ranks,
+  over which the first of them broadcasts each batch.
+
+pp and sp together raise ``NotImplementedError``, as JAX's pipeline asserts
+("pp × sp composition not supported yet", ``msr3d_tpu/parallel/llm_pp.py``).
 
 The env contract is torch's own, as ``torchrun`` and the port's launcher
 (``msr3d_tpu_torch/launch.py``) set it: ``RANK``, ``WORLD_SIZE``,
@@ -32,12 +37,9 @@ card of its own, ``gloo`` when ranks share a card (NCCL refuses two ranks on
 one device) and on the CPU. Beside the default group a ``gloo`` group over
 the same ranks carries the host-side traffic (object gathers, barriers,
 flags), so none of it waits on a card; with a ``gloo`` default group it is
-that group. The dp, tp, pp and model-parallel groups take the default
+that group. The dp, tp, pp, sp and model-parallel groups take the default
 group's backend, each with a gloo twin for its host-side traffic when that
 backend is ``nccl``.
-
-sp above 1 is not ported: ``MeshConfig.resolve`` raises
-``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -51,9 +53,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-_NOT_PORTED = "ROADMAP.md, queue: parallelism"
 _CONTROL_GROUP = None  # the gloo group of host-side collectives, once initialised
-AXES = ("dp", "tp", "pp", "mp")  # mp: the tp·pp ranks of one dp index
+AXES = ("dp", "tp", "pp", "sp", "mp")  # mp: the tp·pp·sp ranks of one dp index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +76,7 @@ class MeshConfig:
 
     def resolve(self, n_ranks: int) -> Tuple[int, int, int, int]:
         """(dp, tp, pp, sp) over ``n_ranks``, as JAX's ``MeshConfig.resolve``
-        computes it; sp above 1 raises (not ported)."""
-        if self.sp > 1:
-            raise NotImplementedError(f"parallel.sp > 1 is not ported yet ({_NOT_PORTED})")
+        computes it; pp and sp both above 1 raise, as JAX's pipeline does."""
         tp, pp, sp, dp = self.tp, self.pp, self.sp, self.dp
         if min(tp, pp, sp) < 1:
             raise ValueError(f"mesh axes must be >= 1, got tp={tp} pp={pp} sp={sp}")
@@ -87,6 +86,11 @@ class MeshConfig:
             dp = n_ranks // (tp * pp * sp)
         if dp * tp * pp * sp != n_ranks:
             raise ValueError(f"mesh {dp}x{tp}x{pp}x{sp} != {n_ranks} ranks")
+        if pp > 1 and sp > 1:
+            raise NotImplementedError(
+                f"parallel.pp={pp} with parallel.sp={sp}: the JAX package's pipeline asserts "
+                "'pp × sp composition not supported yet' (msr3d_tpu/parallel/llm_pp.py), and "
+                "the port refuses it as well")
         return dp, tp, pp, sp
 
 
@@ -95,9 +99,11 @@ class _Mesh:
     dp: int
     tp: int
     pp: int
+    sp: int
     dp_rank: int
     tp_rank: int
     pp_rank: int
+    sp_rank: int
     # axis → (the compute group of this rank's ranks on it, its gloo twin:
     # the group itself under gloo)
     groups: Dict[str, Tuple[object, object]]
@@ -108,24 +114,25 @@ _MESH: Optional[_Mesh] = None  # set by init_mesh
 
 def data_parallel_size(parallel: Optional[Mapping]) -> int:
     """dp over the ranks of the group, as JAX's ``MeshConfig`` resolves it
-    from the config's ``parallel`` section; sp above 1 raises."""
+    from the config's ``parallel`` section."""
     return MeshConfig.from_parallel(parallel).resolve(world_size())[0]
 
 
 def init_mesh(parallel: Optional[Mapping]) -> Tuple[int, int]:
     """Resolve the config's ``parallel`` section over the ranks and build the
-    dp, tp, pp and model-parallel groups (every rank builds every group, in
-    one order); returns (dp, tp). Idempotent for one layout; another layout
-    raises."""
+    dp, tp, pp, sp and model-parallel groups (every rank builds every group,
+    in one order); returns (dp, tp). Idempotent for one layout; another
+    layout raises."""
     global _MESH
-    dp, tp, pp, _ = MeshConfig.from_parallel(parallel).resolve(world_size())
+    dp, tp, pp, sp = MeshConfig.from_parallel(parallel).resolve(world_size())
     if _MESH is not None:
-        if (_MESH.dp, _MESH.tp, _MESH.pp) != (dp, tp, pp):
-            raise RuntimeError(f"the mesh is dp={_MESH.dp} x tp={_MESH.tp} x pp={_MESH.pp} "
-                               f"already, not dp={dp} x tp={tp} x pp={pp}")
+        have = (_MESH.dp, _MESH.tp, _MESH.pp, _MESH.sp)
+        if have != (dp, tp, pp, sp):
+            raise RuntimeError("the mesh is dp={} x tp={} x pp={} x sp={} already, not "
+                               "dp={} x tp={} x pp={} x sp={}".format(*have, dp, tp, pp, sp))
         return dp, tp
     r = rank()
-    if world_size() == 1:  # nothing to build: dp = tp = pp = 1
+    if world_size() == 1:  # nothing to build: dp = tp = pp = sp = 1
         return dp, tp
     gloo = dist.get_backend() == "gloo"
 
@@ -138,32 +145,37 @@ def init_mesh(parallel: Optional[Mapping]) -> Tuple[int, int]:
                 mine = (compute, control)
         return mine
 
-    layout = mesh_groups(dp, tp, pp)
-    sizes = {"dp": dp, "tp": tp, "pp": pp, "mp": tp * pp}
+    layout = mesh_groups(dp, tp, pp, sp)
+    sizes = {"dp": dp, "tp": tp, "pp": pp, "sp": sp, "mp": tp * pp * sp}
     # an axis of one rank needs no group (its accessors answer without one)
     mine = {axis: groups(layout[axis]) for axis in AXES if axis == "dp" or sizes[axis] > 1}
-    _MESH = _Mesh(dp, tp, pp, r // (tp * pp), r // pp % tp, r % pp, mine)
+    _MESH = _Mesh(dp, tp, pp, sp, r // (tp * pp * sp), r // (pp * sp) % tp, r // sp % pp,
+                  r % sp, mine)
     return dp, tp
 
 
-def mesh_groups(dp: int, tp: int, pp: int = 1) -> Dict[str, List[List[int]]]:
-    """axis → the ranks of each of its groups, from JAX's (dp, tp, pp) device
-    array (rank ``(d·tp + t)·pp + p``): ``tp`` the ranks of one (d, p),
-    ``dp`` of one (t, p), ``pp`` of one (d, t), ``mp`` (the model-parallel
-    ranks) of one d."""
-    at = lambda d, t, p: (d * tp + t) * pp + p  # noqa: E731
-    return {
-        "tp": [[at(d, t, p) for t in range(tp)] for d in range(dp) for p in range(pp)],
-        "dp": [[at(d, t, p) for d in range(dp)] for t in range(tp) for p in range(pp)],
-        "pp": [[at(d, t, p) for p in range(pp)] for d in range(dp) for t in range(tp)],
-        "mp": [list(range(d * tp * pp, (d + 1) * tp * pp)) for d in range(dp)],
-    }
+def mesh_groups(dp: int, tp: int, pp: int = 1, sp: int = 1) -> Dict[str, List[List[int]]]:
+    """axis → the ranks of each of its groups, from JAX's (dp, tp, pp, sp)
+    device array (rank ``((d·tp + t)·pp + p)·sp + s``): ``tp`` the ranks of
+    one (d, p, s), ``dp`` of one (t, p, s), ``pp`` of one (d, t, s), ``sp``
+    of one (d, t, p), ``mp`` (the model-parallel ranks) of one d."""
+    at = lambda d, t, p, s: ((d * tp + t) * pp + p) * sp + s  # noqa: E731
+    cells = [(d, t, p, s) for d in range(dp) for t in range(tp) for p in range(pp)
+             for s in range(sp)]
+
+    def along(axis: int, size: int) -> List[List[int]]:
+        # the groups of one axis: every other index fixed, in row-major order
+        return [[at(*c[:axis], i, *c[axis + 1:]) for i in range(size)]
+                for c in cells if c[axis] == 0]
+
+    return {"tp": along(1, tp), "dp": along(0, dp), "pp": along(2, pp), "sp": along(3, sp),
+            "mp": [list(range(d * tp * pp * sp, (d + 1) * tp * pp * sp)) for d in range(dp)]}
 
 
 def _mesh() -> _Mesh:
     if _MESH is not None:
         return _MESH
-    return _Mesh(world_size(), 1, 1, rank(), 0, 0, {})
+    return _Mesh(world_size(), 1, 1, 1, rank(), 0, 0, 0, {})
 
 
 def _group(axis: str, control: bool = False):
@@ -201,9 +213,20 @@ def pp_rank() -> int:
     return _mesh().pp_rank
 
 
+def sp_size() -> int:
+    """Sequence blocks in this rank's ring (1 before ``init_mesh``)."""
+    return _mesh().sp
+
+
+def sp_rank() -> int:
+    """This rank's sequence block: its index in its sp group."""
+    return _mesh().sp_rank
+
+
 def mp_size() -> int:
-    """The model-parallel ranks of a dp index: tp · pp."""
-    return _mesh().tp * _mesh().pp
+    """The model-parallel ranks of a dp index: tp · pp · sp."""
+    m = _mesh()
+    return m.tp * m.pp * m.sp
 
 
 def tp_group():
@@ -216,13 +239,23 @@ def pp_group():
     return _group("pp") if pp_size() > 1 else None
 
 
+def sp_group():
+    """The sp group's compute group (None at sp = 1)."""
+    return _group("sp") if sp_size() > 1 else None
+
+
+def sp_control_group():
+    """The gloo group of the sp ranks' host-side traffic (None at sp = 1)."""
+    return _group("sp", control=True) if sp_size() > 1 else None
+
+
 def pp_control_group():
     """The gloo group of the pp ranks' host-side traffic (None at pp = 1)."""
     return _group("pp", control=True) if pp_size() > 1 else None
 
 
 def dp_group():
-    """The dp group's compute group: the default group at tp = pp = 1."""
+    """The dp group's compute group: the default group at tp = pp = sp = 1."""
     return _group("dp") if mp_size() > 1 else None
 
 
@@ -247,9 +280,10 @@ def mp_control_group():
 def global_rank(axis: str, index: int) -> int:
     """The rank of the ``index``-th member of this rank's ``axis`` group."""
     m = _mesh()
-    d, t, p = m.dp_rank, m.tp_rank, m.pp_rank
-    d, t, p = {"dp": (index, t, p), "tp": (d, index, p), "pp": (d, t, index)}[axis]
-    return (d * m.tp + t) * m.pp + p
+    at = {"dp": 0, "tp": 1, "pp": 2, "sp": 3}[axis]
+    d, t, p, s = (index if i == at else v
+                  for i, v in enumerate((m.dp_rank, m.tp_rank, m.pp_rank, m.sp_rank)))
+    return ((d * m.tp + t) * m.pp + p) * m.sp + s
 
 
 def _initialised() -> bool:
@@ -349,9 +383,9 @@ def process_allgather_objects(objs: list, group=None) -> list:
 def broadcast_from_first(obj, axis: str = "mp"):
     """The ``obj`` of the first rank of this rank's ``axis`` group on every
     rank of it (the identity where the group has one rank). ``mp``: rank
-    (d, 0, 0)'s on the tp × pp ranks of dp index d, which must compute on
-    the same batch (a loader draws its points and answers from each
-    process's own global generators); ``tp``: tp rank 0's."""
+    (d, 0, 0, 0)'s on the tp × pp × sp ranks of dp index d, which must
+    compute on the same batch (a loader draws its points and answers from
+    each process's own global generators); ``tp``: tp rank 0's."""
     if first_group_size(axis) == 1:
         return obj
     src = _mesh().dp_rank * mp_size() if axis == "mp" else global_rank("tp", 0)
@@ -360,7 +394,7 @@ def broadcast_from_first(obj, axis: str = "mp"):
 
 def first_group_size(axis: str) -> int:
     """Ranks in this rank's ``axis`` group of ``broadcast_from_first``:
-    ``mp`` (the tp × pp ranks of its dp index) or ``tp``."""
+    ``mp`` (the tp × pp × sp ranks of its dp index) or ``tp``."""
     return {"mp": mp_size, "tp": tp_size}[axis]()
 
 

@@ -25,7 +25,10 @@ holds the batch), so a transfer is one tensor with no header.
 A CUDA tensor under a ``gloo`` group (pp ranks that share a card; NCCL
 refuses two ranks on one device) goes through the host. ``COMM`` counts the
 transfers, their bytes and the host seconds spent in them (a host-routed
-send waits for the card, so its seconds hold the copies).
+send waits for the card, so its seconds hold the copies). ``exchange`` is
+the same host-routed transfer for a ring of ranks that each send and
+receive at once (ring attention's hops, ``parallel/ring_attention.py``,
+which keeps its own count).
 """
 
 from __future__ import annotations
@@ -41,22 +44,27 @@ from msr3d_tpu_torch.parallel import mesh
 COMM = {"calls": 0, "seconds": 0.0, "bytes": 0}
 
 
-def _counted(fn):
-    def run(t: torch.Tensor, *args):
-        t0 = time.perf_counter()
-        out = fn(t, *args)
-        COMM["calls"] += 1
-        COMM["bytes"] += t.numel() * t.element_size()
-        COMM["seconds"] += time.perf_counter() - t0
-        return out
-    return run
+def counted(counter: dict):
+    """A decorator that adds each call of a transfer ``fn(t, ...)`` to
+    ``counter``: one call, ``t``'s bytes, the host seconds."""
+    def wrap(fn):
+        def run(t: torch.Tensor, *args):
+            t0 = time.perf_counter()
+            out = fn(t, *args)
+            counter["calls"] += 1
+            counter["bytes"] += t.numel() * t.element_size()
+            counter["seconds"] += time.perf_counter() - t0
+            return out
+        return run
+    return wrap
 
 
-def _via_host(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda" and dist.get_backend(mesh.pp_group()) == "gloo"
+def _via_host(t: torch.Tensor, group=None) -> bool:
+    group = mesh.pp_group() if group is None else group
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
-@_counted
+@counted(COMM)
 def send(t: torch.Tensor, stage: int) -> None:
     """Send ``t`` to pipeline stage ``stage`` of this rank's pp group."""
     t = t.detach().contiguous()
@@ -64,7 +72,7 @@ def send(t: torch.Tensor, stage: int) -> None:
               group=mesh.pp_group())
 
 
-@_counted
+@counted(COMM)
 def recv_into(t: torch.Tensor, stage: int) -> torch.Tensor:
     """Receive into ``t`` (its shape and dtype are the sender's) from stage
     ``stage``; returns ``t``."""
@@ -73,6 +81,21 @@ def recv_into(t: torch.Tensor, stage: int) -> torch.Tensor:
     if host is not t:
         t.copy_(host)
     return t
+
+
+def exchange(t: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
+    """Send ``t`` to global rank ``dst`` and return a tensor like it received
+    from global rank ``src``, over ``group``. The two are posted as one batch
+    (NCCL groups them), so every rank of a ring may call it at once; a CUDA
+    tensor under gloo goes through the host."""
+    via_host = _via_host(t, group)
+    out = t.detach().contiguous()
+    out = out.cpu() if via_host else out
+    into = torch.empty_like(out)
+    for req in dist.batch_isend_irecv([dist.P2POp(dist.irecv, into, src, group),
+                                       dist.P2POp(dist.isend, out, dst, group)]):
+        req.wait()
+    return into.to(t.device) if via_host else into
 
 
 def recv(shape, dtype: torch.dtype, device, stage: int) -> torch.Tensor:

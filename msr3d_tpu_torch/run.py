@@ -18,12 +18,14 @@ Under the ``torch.distributed`` env contract (``RANK``, ``WORLD_SIZE``,
 --mode accelerate`` sets it) the process joins the group as one rank of a
 run on the card ``cuda:LOCAL_RANK % cards``, rank 0 alone writes the
 snapshot, and the group is left on the way out, also on an exception. The
-ranks form dp × tp × pp with ``parallel.tp`` and ``parallel.pp`` from the
-YAML or an override (``parallel.tp=2``, ``parallel.pp=2``; dp is what they
-leave). Each rank ends with a ``run summary`` log line: its rank, dp, tp,
-pp and its tp rank and stage, backend, device, the LLM parameters it holds,
-the tp collectives' and the pp transfers' counts and host seconds (a step's
-too), steps and their ms, peak device memory and its kernels' launches.
+ranks form dp × tp × pp × sp with ``parallel.tp``, ``parallel.pp`` and
+``parallel.sp`` from the YAML or an override (``parallel.tp=2``,
+``parallel.pp=2``, ``parallel.sp=2``; dp is what they leave). Each rank
+ends with a ``run summary`` log line: its rank, dp, tp, pp, sp and its tp
+rank, stage and sequence block, backend, device, the LLM parameters it
+holds, the tp collectives', the pp transfers' and the ring's hops' counts
+and host seconds (a step's too), steps and their ms, peak device memory
+and its kernels' launches.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from msr3d_tpu_torch.config import load_config, save_config
 from msr3d_tpu_torch.device import resolve_device
-from msr3d_tpu_torch.parallel import mesh, pipeline, tensor_parallel
+from msr3d_tpu_torch.parallel import mesh, pipeline, ring_attention, tensor_parallel
 from msr3d_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("msr3d_tpu_torch.run")
@@ -102,6 +104,7 @@ def run_summary(trainer, device: torch.device) -> dict:
     return {
         "rank": mesh.rank(), "world": mesh.world_size(), "dp": trainer.dp, "tp": trainer.tp,
         "tp_rank": mesh.tp_rank(), "pp": trainer.pp, "pp_rank": mesh.pp_rank(),
+        "sp": trainer.sp, "sp_rank": mesh.sp_rank(),
         "backend": dist.get_backend() if dist.is_initialized() else None,
         # the LLM's parameters this rank holds (its shards under tp), and
         # the tp operators' collectives with their host seconds
@@ -110,6 +113,9 @@ def run_summary(trainer, device: torch.device) -> dict:
         # the pp transfers (activations, their gradients, the masks) with
         # their host seconds, the step's, and their bytes
         "pp_comm": dict(pipeline.COMM), "step_pp_comm_s": trainer.pp_comm_history,
+        # the ring's hops (key/value blocks, their gradients) and the loss's
+        # sums over sp, with their host seconds, the step's, and their bytes
+        "sp_comm": dict(ring_attention.COMM), "step_sp_comm_s": trainer.sp_comm_history,
         "device": str(device), "steps": trainer.step,
         "step_ms": [1e3 * t for t in trainer.timer.history],
         # the loop's wait on the loader a step (under tp, tp rank 0's loading

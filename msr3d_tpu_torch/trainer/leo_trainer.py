@@ -105,8 +105,24 @@ once. Checkpoints hold the full tensors, gathered over tp and pp (rank 0
 writes), so a run saved at one pp resumes at another; JAX saves its stacked
 layout instead, a deliberate difference beside the rank-0 writes.
 
-Not ported yet: ``parallel.sp > 1`` (``NotImplementedError`` naming
-ROADMAP.md's queue). Training with the point encoder unfrozen
+Sequence parallelism (``parallel.sp`` > 1): the ranks form dp × tp × sp (sp
+the fastest-varying rank index; pp × sp raises, as JAX's pipeline asserts),
+and each rank's LLM knows its sequence block (an injected model with sp = 1
+in its config takes it, ``MSR3D.shard_for_training``). Rank (d, 0, 0, 0)
+iterates the loader and broadcasts each batch over the dp index's tp × sp
+ranks, which seed their generator by dp rank, so the point encoder, the
+prompter and the splices run whole and alike on each; the LLM's training
+forward runs on the rank's sequence block with ring attention, the loss is
+the whole sequence's on every sp rank, and ``TrainStep`` sums every
+trainable gradient over sp before the dp average, the norm and the clip.
+The replica checks compare every trainable parameter across the sp group
+too. Evaluation runs on every rank (the tp × sp ranks of a dp index on one
+broadcast batch); generation is dense or flash, never the ring, and the
+records gather over the dp group, so each sample counts once. Checkpoints
+hold full tensors (nothing splits over sp), so a run saved at one sp
+resumes at another.
+
+Training with the point encoder unfrozen
 (``vision.args.freeze: False``) raises ``ValueError``: the JAX trainer fails
 on it (its train step does not make ``batch_stats`` mutable), so the port
 does not run it either; evaluation with it runs.
@@ -128,7 +144,7 @@ import torch
 
 from msr3d_tpu_torch.config import Config, cfg2dict, config_from_dict
 from msr3d_tpu_torch.optim.build import build_optim
-from msr3d_tpu_torch.parallel import mesh, pipeline, tensor_parallel
+from msr3d_tpu_torch.parallel import mesh, pipeline, ring_attention, tensor_parallel
 from msr3d_tpu_torch.parallel.mesh import (
     all_reduce_max,
     barrier,
@@ -171,7 +187,7 @@ def _round_up(n: int, m: int) -> int:
 
 def _batches(loader, axis: str = "mp"):
     """An iterator over ``loader``'s batches. Where this rank's ``axis``
-    group has more than one rank (the tp·pp model-parallel ranks of a dp
+    group has more than one rank (the tp·pp·sp model-parallel ranks of a dp
     index for ``mp``, the tp ranks for ``tp``) only its first rank
     iterates the loader (its reads, augmentation and workers) and broadcasts
     each batch over the group, then None at its end; the other ranks take
@@ -180,7 +196,7 @@ def _batches(loader, axis: str = "mp"):
     global generators). Closing it closes the loader's iterator."""
     if mesh.first_group_size(axis) == 1:
         return iter(loader)
-    first = mesh.tp_rank() == 0 and (axis == "tp" or mesh.pp_rank() == 0)
+    first = mesh.tp_rank() == 0 and (axis == "tp" or mesh.pp_rank() == mesh.sp_rank() == 0)
     return _first_rank_batches(loader, axis) if first else _broadcast_batches(axis)
 
 
@@ -235,10 +251,10 @@ class LeoTrainer:
         # generation (the configs' route) or retrieval scoring over the
         # dataset's answer vocabulary
         self.inference_mode = _cfg(cfg, "model.llm.inference_mode", "generation")
-        # dp x tp x pp over the ranks (sp still raises)
+        # dp x tp x pp x sp over the ranks
         parallel = cfg.get("parallel") or {}
         self.dp, self.tp = mesh.init_mesh(parallel)
-        self.pp = mesh.pp_size()
+        self.pp, self.sp = mesh.pp_size(), mesh.sp_size()
         self.microbatches = int(parallel.get("microbatches", self.pp))
         self.fixed_text_buckets = self.dp > 1 or bool(cfg.get("fixed_text_buckets", False))
         if loaders is None:
@@ -257,13 +273,13 @@ class LeoTrainer:
             for src in load_pretrained_from_config(model, config):
                 logger.info(f"loaded pretrained weights: {src}")
         llm = model.cfg.llm
-        if (llm.tp_size, llm.pp_size) == (1, 1) and self.pp > 1:
-            model.shard_for_training()  # a full model: this rank's stage (and tp shard)
+        if (llm.tp_size, llm.pp_size, llm.sp_size) == (1, 1, 1) and (self.pp > 1 or self.sp > 1):
+            model.shard_for_training()  # a full model: this rank's stage, tp shard, sp block
             llm = model.cfg.llm
-        if (llm.tp_size, llm.pp_size) != (self.tp, self.pp):
+        if (llm.tp_size, llm.pp_size, llm.sp_size) != (self.tp, self.pp, self.sp):
             raise ValueError(f"the model's LLM is split over tp={llm.tp_size} x pp="
-                             f"{llm.pp_size}, the config's parallel.tp x pp is {self.tp} x "
-                             f"{self.pp}")
+                             f"{llm.pp_size} x sp={llm.sp_size}, the config's parallel.tp x pp "
+                             f"x sp is {self.tp} x {self.pp} x {self.sp}")
         self.model = model
         self.loaders = loaders
         self.exp_dir = Path(cfg.get("exp_dir") or "./exp_default")
@@ -281,6 +297,7 @@ class LeoTrainer:
         self._stop = False  # the ranks' agreed preemption flag (more than one rank)
         self.replicated_digest: Optional[str] = None  # of the last tp replica check
         self.pp_digest: Optional[str] = None  # of the last pp replica check
+        self.sp_digest: Optional[str] = None  # of the last sp replica check
         self._whole_depth = 0  # open _whole_llm contexts (pp: the other stages' blocks held)
 
         solver = cfg["solver"]
@@ -340,6 +357,7 @@ class LeoTrainer:
         self.data_wait_history: List[float] = []  # seconds the loop waited on the loader, a step
         self.tp_comm_history: List[float] = []  # host seconds in tp collectives, a step
         self.pp_comm_history: List[float] = []  # host seconds in pp transfers, a step
+        self.sp_comm_history: List[float] = []  # host seconds in the ring's hops, a step
         if cfg.get("resume", False) and self._train_step is not None:
             self._try_resume()
         if mesh.world_size() > 1:
@@ -358,10 +376,14 @@ class LeoTrainer:
 
     def _check_replicas(self, when: str) -> str:
         """Raise unless each trainable parameter is bit-equal on the ranks of
-        its dp group, a tp-replicated one on the tp ranks too and one outside
-        the blocks on the pp ranks too; returns the digest of this rank's."""
+        its dp group and of its sp group, a tp-replicated one on the tp ranks
+        too and one outside the blocks on the pp ranks too; returns the
+        digest of this rank's."""
         named = dict(self.model.network.named_parameters())
         mine = {n: named[n] for n in self.trainable_names}
+        if self.sp > 1:
+            self.sp_digest = check_replicas_equal(mine, f"the trainable parameters {when}",
+                                                  group=mesh.sp_control_group())
         if self.pp > 1:
             stage = set(self._stage_names(mine))
             self.pp_digest = check_replicas_equal(
@@ -463,11 +485,13 @@ class LeoTrainer:
             try:
                 t0 = time.perf_counter()
                 comm0, pp0 = tensor_parallel.COMM["seconds"], pipeline.COMM["seconds"]
+                sp0 = ring_attention.COMM["seconds"]
                 metrics = self._train_step(batches)
-                # host seconds in the tp collectives and the pp transfers
-                # (each waits for the card)
+                # host seconds in the tp collectives, the pp transfers and
+                # the ring's hops (each waits for the card)
                 self.tp_comm_history.append(tensor_parallel.COMM["seconds"] - comm0)
                 self.pp_comm_history.append(pipeline.COMM["seconds"] - pp0)
+                self.sp_comm_history.append(ring_attention.COMM["seconds"] - sp0)
             finally:
                 network.eval()
             step = self._train_step.step_count
@@ -515,7 +539,7 @@ class LeoTrainer:
         return {"loss": float(np.mean(losses)) if losses else float("nan")}
 
     def _agree_step(self, n_micro: int) -> None:
-        """One host collective over every rank (dp x tp x pp) before each step of
+        """One host collective over every rank (dp x tp x pp x sp) before each step of
         more than one rank: every rank must bring the same number of
         micro-batches (equal-length shards guarantee it), and a preemption
         flag raised on any rank stops them all after this step."""
@@ -574,7 +598,10 @@ class LeoTrainer:
         ``eval_engine: continuous``; retrieval through
         ``MSR3D.predict_answers`` over the loader's ``answer_cands``.
         Under pp every rank calls it: the ranks of pp rank 0 evaluate with
-        the whole LLM (``_whole_llm``), the others wait for their results."""
+        the whole LLM (``_whole_llm``), the others wait for their results.
+        Under sp every rank evaluates, the tp × sp ranks of a dp index on the
+        batches their first rank broadcasts (retrieval's loss forward runs
+        the ring, so they must)."""
         if self.pp == 1:
             return self._eval_task(task, split)
         with self._whole_llm():
@@ -636,8 +663,8 @@ class LeoTrainer:
             if padded_tail and n_batches is not None and i == n_batches - 1:
                 b = len(record.get("output_text", record.get("answers_id", [])))
                 record = self._trim_record(record, b, b - padded_tail)
-            # over the dp group: the tp ranks of a dp group hold the same
-            # samples, so each counts once
+            # over the dp group: the tp and sp ranks of a dp group hold the
+            # same samples, so each counts once
             for gathered in process_allgather_objects([record], mesh.dp_control_group()):
                 evaluator.update(gathered)
 
@@ -648,7 +675,7 @@ class LeoTrainer:
             i, data_dict, finalize = pending.popleft()
             emit(i, data_dict, {"output_text": finalize()["output_text"]})
 
-        batches = _batches(loader, "tp")
+        batches = _batches(loader, "mp" if self.sp > 1 else "tp")
         try:
             eval_engine = str(self.cfg.get("eval_engine", "") or "").lower()
             if generation and eval_engine == "continuous":
@@ -855,6 +882,9 @@ class LeoTrainer:
             if self.pp > 1:
                 logger.info(f"the trainable parameters outside the blocks agree across "
                             f"{self.pp} pp ranks after training (sha256 {self.pp_digest})")
+            if self.sp > 1:
+                logger.info(f"the trainable parameters agree across {self.sp} sp ranks after "
+                            f"training (sha256 {self.sp_digest})")
         self._run_eval("test", self.epochs)
 
     def _preemption_handlers(self):

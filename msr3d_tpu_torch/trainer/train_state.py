@@ -34,6 +34,13 @@ over the pp group (one flat buffer) before the dp average, the norm and the
 clip; the global norm sums each stage's block gradients over pp (their
 tp-split ones over tp first) and adds the others once.
 
+Under sequence parallelism (the mesh's sp > 1: the sp ranks of a dp
+index compute one batch, each its block of every sequence) every trainable
+gradient on a rank is the part its block's tokens contribute, so all of
+them are summed over the sp group (one flat buffer), after the tp sum and
+before the dp average, the norm and the clip; the loss is already the whole
+sequence's on every sp rank.
+
 The JAX step scans a fixed number of micro-batches, so it pads an epoch's
 tail group with weight-0 duplicates to keep one compiled program and then
 divides by the sum of the weights. Running just the real micro-batches
@@ -69,7 +76,8 @@ class TrainStep:
     this pipeline stage's own trainable parameters; given (pp > 1, maybe
     empty), the
     loss function does its own backward and the others' gradients come
-    from stage 0.
+    from stage 0. Where the mesh has sp > 1, every gradient is summed
+    over the sp group.
     """
 
     def __init__(self, loss_fn: Callable[[Any], torch.Tensor],
@@ -116,6 +124,9 @@ class TrainStep:
         loss = loss_sum * scale
         if self.tp_partial:
             grads = self._sum_partial_over_tp(names, grads)
+        if mesh.sp_size() > 1:
+            flat = torch.cat([g.reshape(-1).float() for g in grads])
+            grads = _unflatten(all_reduce_sum_(flat, group=mesh.sp_group()), grads)
         if self.pp_replicated:
             grads = self._broadcast_from_stage0(names, grads)
         if self.data_parallel > 1:

@@ -71,12 +71,16 @@ def test_data_parallel_size_resolves_as_jax(n, monkeypatch):
                 JaxMeshConfig(dp=-1, tp=tp).resolve(n)
             with pytest.raises(ValueError, match="not divisible by tp"):
                 mesh.data_parallel_size({"tp": tp})
-    # pp resolves as JAX's; sp is not ported yet
+    # pp and sp resolve as JAX's; pp and sp together raise, as JAX's pipeline
+    # asserts
     if n % 2 == 0:
         assert mesh.data_parallel_size({"pp": 2}) == JaxMeshConfig(
             dp=-1, pp=2).resolve(n)[0] == n // 2
-    with pytest.raises(NotImplementedError, match="parallel.sp > 1.*ROADMAP"):
-        mesh.data_parallel_size({"sp": 2})
+        assert mesh.data_parallel_size({"sp": 2}) == JaxMeshConfig(
+            dp=-1, sp=2).resolve(n)[0] == n // 2
+    if n % 4 == 0:
+        with pytest.raises(NotImplementedError, match="pp × sp composition not supported"):
+            mesh.data_parallel_size({"pp": 2, "sp": 2})
 
 
 def test_backend_rule_and_env_contract(monkeypatch):

@@ -199,7 +199,8 @@ _SERVING_KNOBS = {"eval_spec_k": "spec_k", "eval_do_sample": "do_sample", "eval_
     ("model.prompter.model.attn_flat.use_attn_flat=true", "AttFlat"),
 ])
 def test_unported_knobs_raise(override, match):
-    """What the port does not run raises. The serving knobs (``eval_spec_k``,
+    """What the port does not run raises. ``parallel.sp`` is ported: one
+    process refuses sp = 2 as JAX's mesh does. The serving knobs (``eval_spec_k``,
     ``eval_do_sample``, ``eval_top_k``, ``eval_top_p``, ``compact_transfer``)
     are ported: the model is built as JAX's ``build_model`` builds it, or
     refused where JAX's refuses it (``eval_spec_k`` under the penalty 3.0).
@@ -229,6 +230,17 @@ def test_unported_knobs_raise(override, match):
             assert getattr(got, attr) == getattr(want, attr), attr
         assert getattr(got, _SERVING_KNOBS[match]) != getattr(MSR3D, "__init__").__kwdefaults__[
             _SERVING_KNOBS[match]]
+        return
+    if match == "parallel.sp":
+        # sp is ported (tests/test_torch_sp.py): JAX's builder names the mesh
+        # axis, the port's gives the LLM its block of the mesh's sp group, and
+        # one process cannot hold two sp ranks (as JAX's MeshConfig cannot
+        # resolve sp = 2 over one device)
+        cfg = ["device=cpu", override]
+        want = jax_build.build_model(jax_load_config(DEBUG, cfg)).cfg.llm
+        assert (want.sp_axis, want.sp_data_axis) == ("sp", "dp")
+        with pytest.raises(ValueError, match=r"1 ranks not divisible by tp\*pp\*sp=2"):
+            port_build.build_model(load_config(DEBUG, cfg))
         return
     error = ValueError if match == "AttFlat" else NotImplementedError
     with pytest.raises(error, match=match):

@@ -170,8 +170,16 @@ def test_converter_lists_skipped_keys_and_rejects_unknown():
 
 
 def test_unported_llama_options_raise():
-    with pytest.raises(NotImplementedError):
-        torch_llama_config(JaxLlamaConfig.tiny(sp_axis="sp"))
+    # sp is ported (tests/test_torch_sp.py): where JAX's config names the
+    # mesh axis (sp_axis), the port's holds the ring's size and this rank's
+    # block, which the build sets from the mesh; pp x sp raises as JAX's
+    # pipeline asserts
+    cfg = torch_llama_config(JaxLlamaConfig.tiny(sp_axis="sp"), sp_size=4, sp_rank=3)
+    assert (cfg.sp_size, cfg.sp_rank) == (4, 3)
+    with pytest.raises(ValueError, match="sp_rank"):
+        torch_llama_config(JaxLlamaConfig.tiny(), sp_size=2, sp_rank=2)
+    with pytest.raises(NotImplementedError, match="pp × sp"):
+        torch_llama_config(JaxLlamaConfig.tiny(), sp_size=2, pp_size=2)
     # remat is ported (tests/test_torch_remat.py): its policy is carried over,
     # and what JAX cannot run raises
     cfg = torch_llama_config(JaxLlamaConfig.tiny(remat=True, remat_policy="dots"))

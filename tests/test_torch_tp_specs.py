@@ -79,10 +79,12 @@ def test_mesh_refusals():
         mesh.MeshConfig(tp=2).resolve(3)
     with pytest.raises(ValueError, match="!= 4 ranks"):
         mesh.MeshConfig(dp=3, tp=2).resolve(4)
-    with pytest.raises(NotImplementedError, match="parallel.sp > 1.*ROADMAP"):
-        mesh.MeshConfig(sp=2).resolve(4)
-    # pp and a quantized base under tp are ported
+    # pp x sp raises, as JAX's pipeline asserts
+    with pytest.raises(NotImplementedError, match="pp × sp composition not supported"):
+        mesh.MeshConfig(pp=2, sp=2).resolve(4)
+    # pp, sp and a quantized base under tp are ported
     assert mesh.MeshConfig(pp=2).resolve(4) == (2, 1, 2, 1)
+    assert mesh.MeshConfig(sp=2).resolve(4) == (2, 1, 1, 2)
     LlamaConfig.tiny(quantize=True, tp_size=2, tp_rank=0)
     with pytest.raises(NotImplementedError, match="inside a head"):
         LlamaModel(LlamaConfig.tiny(num_attention_heads=2, hidden_size=64, tp_size=4,

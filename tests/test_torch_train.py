@@ -528,14 +528,12 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     assert pooled.cfg["eval_engine_opts"] == {"prefix_pool": True}
     assert LeoTrainer(dict(cfg, eval_engine="grouped"), loaders=loaders,
                       model=model).cfg["eval_engine"] == "grouped"
-    # tp and pp are ported (tests/test_torch_tp.py, tests/test_torch_pp.py);
-    # one process cannot hold two tp or pp ranks, as JAX's MeshConfig cannot
-    # resolve them over one device; sp still raises
-    for axis in ("tp", "pp"):
+    # tp, pp and sp are ported (tests/test_torch_tp.py, tests/test_torch_pp.py,
+    # tests/test_torch_sp.py); one process cannot hold two tp, pp or sp
+    # ranks, as JAX's MeshConfig cannot resolve them over one device
+    for axis in ("tp", "pp", "sp"):
         with pytest.raises(ValueError, match="1 ranks not divisible by tp"):
             LeoTrainer(dict(cfg, parallel={axis: 2}), loaders=loaders, model=model)
-    with pytest.raises(NotImplementedError, match="parallel.sp > 1.*ROADMAP"):
-        LeoTrainer(dict(cfg, parallel={"sp": 2}), loaders=loaders, model=model)
     # remat is ported (tests/test_torch_remat.py); training the point encoder
     # unfrozen is refused, as the JAX trainer fails on it
     # (tests/test_torch_train_options.py)
