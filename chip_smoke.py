@@ -112,7 +112,18 @@ ranks' parameters bit-equal; (b) the flagship's LLM at 8 layers, T = 4096,
 batch 1, forward and backward at sp = 1 (K2f, K2dq, K2dkv) and at sp = 2
 (the ring), each rank's peak and ms; (c) fp32 at the flagship's width and 2
 layers: sp = 2's loss and gradients within 1e-5 and 1e-4 relative of one
-process's), and checks that each path launched its kernels. Any failed
+process's), the legacy ScanNet grounding and QA stack (phase 22: (a) a
+synthetic tree of 8 scans x 64 objects with predicted masks written as CSR
+arrays, one micro-batch of 8 from ScanRefer (train, and val over the
+predicted masks), ScanQA, SGQA, the pretraining captions through
+``MaskDatasetWrapper`` and the multi-view Referit3D; (b)
+PointTokenizeEncoder, BERT, UnifiedSpatialCrossEncoderV2, GroundHeadV1 and
+QAHeadV1 at the JAX modules' widths, 8 x 60 objects x 1024 points, text 80,
+three AdamW steps, the eval forward on the val batch scored at IoU 0.25 and
+0.5, PointBERT forward and backward, K1 at npoint 32, 16 and 64 and its picks
+there equal to the plain version's; (c) fp32 at 1 layer a stack, batch 2,
+three draws, on the card against the CPU: K1's picks and the kNN equal, the losses and every gradient within their tolerances), and
+checks that each path launched its kernels. Any failed
 check exits non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
 or without the package beside it, it exits non-zero and prints no result.
@@ -210,8 +221,8 @@ N_REQUESTS, NEW_TOKENS, REP_PENALTY = 4, 32, 3.0
 # than ENGINE_TOKENS, so that live slots cross a chunk boundary
 ENGINE_TOKENS, ENGINE_CHUNK = 8, 4
 # phases 11 and 13's eval answers (the entry's model.llm.max_out_len), cut
-# from NEW_TOKENS for phase 21
-EVAL_TOKENS = 16
+# from NEW_TOKENS for phase 21 (16), and to 8 for phase 22
+EVAL_TOKENS = 8
 # the reference's eval decode (msr3d_tpu/models/build.py:101-105): beam 5,
 # repetition penalty 3.0, length penalty 1.0; cut from 256 to NEW_TOKENS tokens
 BEAMS, LENGTH_PENALTY = 5, 1.0
@@ -4385,7 +4396,7 @@ DP_EXACT_ACCUM, DP_EXACT_EVAL = 2, 5
 # the flagship's trainable gradient values (phase 6 prints the count), in as
 # many tensors as a LoRA set of some size
 DP_FLAT_VALUES, DP_FLAT_TENSORS = 49427856, 256
-DP_NEW_TOKENS = 16  # (a), (b): val's answers, cut from NEW_TOKENS for the script's time
+DP_NEW_TOKENS = 8  # (a), (b): val's answers, cut from NEW_TOKENS (16, then 8 for phase 22)
 
 
 def dp_argv(exp_root: Path, exp: Path, *extra: str):
@@ -5701,6 +5712,472 @@ def phase_sp(exp_root: Path, dp: "dict | None" = None):
                 seconds=dict(a=took_a, b=b["seconds"]))
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the legacy ScanNet grounding, QA and pretraining stack
+
+# 8 scenes of 64 objects, cropped to the wrapper's 60 (dataset_wrapper.py's
+# max_obj_len default) x 1024 points x 6, text 80 (scannet_legacy.py's
+# num_points, the wrapper's max_seq_len); QAHeadV1's 8864 ScanQA answers
+LEGACY_SCANS, LEGACY_OBJECTS, LEGACY_OBJ_LEN, LEGACY_POINTS = 8, 64, 60, 1024
+LEGACY_TEXT, LEGACY_ANSWERS, LEGACY_STEPS, N_LEGACY_BATCH = 80, 8864, 3, 8
+LEGACY_LOSSES = ["og3d_loss", "txt_cls_loss", "obj_cls_pre_loss", "obj_cls_post_loss",
+                 "answer_loss"]
+# (c): one fp32 stack on the card and on the CPU, 1 layer a stack at the
+# full widths. Both sides take the same fp32 arithmetic (TF32 off) in other
+# reduction orders: the losses agree to some 1e-7 relative. Some gradients
+# magnify that rounding: q's and k's pass through softmax's Jacobian, a
+# difference of nearly equal terms, and a max-pool's backward sends a
+# group's gradient to one point, so a near-tie decided the other way moves
+# it whole (the card's scatter-adds also sum in a varying order). Each
+# tensor is held to LEGACY_GRAD_RTOL of its own norm: over four draws on an
+# H100 the worst stood at 9.0e-5 to 6.5e-4 (PointBERT's MiniPointNet conv1a,
+# then its q and k), the stack's at 1.3e-6 to 1.0e-4, so the gate is about
+# 3x the worst. A fault stands far above it: on the CPU, the fusion's
+# padding mask dropped, its token types swapped, the locations one slot off,
+# PointBERT's groups not centred, MiniPointNet's max over the wrong axis, or
+# a gradient halved (block 0's k path, conv1a) with the forward bit-equal,
+# each put a tensor at 0.5 to 2.0. The tensors of
+# LEGACY_ZERO_GRADS have a true gradient of 0 by a softmax's shift
+# invariance: an attention key bias (q·b_k is the same for every key),
+# og3d's last bias and the LayerNorm bias before it (one shift of every
+# object's logit), AttFlat's single-glimpse bias (one shift over the
+# tokens). Their computed gradient is rounding alone, so each is held, on
+# the card and on the CPU, to LEGACY_GRAD_ATOL of its module's whole
+# gradient norm (the stack's or PointBERT's), as is a tensor whose CPU
+# gradient is exactly 0. A wrong K1 pick is caught by the bit-equality gates
+# of (b) and (c).
+LEGACY_LOSS_RTOL, LEGACY_GRAD_RTOL, LEGACY_GRAD_ATOL = 1e-5, 2e-3, 1e-6
+# (c)'s draws: the weights' seed and the batch's two scenes
+LEGACY_DRAWS = ((23, slice(0, 2)), (25, slice(2, 4)), (26, slice(4, 6)))
+LEGACY_ZERO_GRADS = re.compile(
+    r"\.(k_proj|w_ks)\.bias$|og3d_head\.(norm|fc2)\.bias$|attflat_\w+\.mlp\.linear\.bias$")
+
+
+def legacy_names(n: int):
+    """Instance names of a phase-22 scan: 0 a chair (ScanRefer's target), 1
+    a table (Nr3D's and ScanQA's), two background objects that the datasets
+    drop, the rest mixed, so that the grounding datasets crop 62 objects to
+    59."""
+    cycle = ["lamp", "sofa", "chair", "table", "sofa", "lamp", "table", "chair"]
+    names = ["chair", "table"] + [cycle[i % len(cycle)] for i in range(n - 2)]
+    names[10], names[20] = "wall", "floor"
+    return names
+
+
+def write_pred_csr(base: Path, scan_id: str, inst: np.ndarray, rng) -> int:
+    """The predicted masks of one scan as ``scipy.sparse.save_npz`` writes a
+    CSR matrix, but written with numpy: each of the first 50 instances with a
+    random 80% of its points, then its label. Returns the mask count."""
+    n_inst = min(50, int(inst.max()) + 1)
+    rows = [np.flatnonzero((inst == i) & (rng.random(inst.shape[0]) < 0.8))
+            for i in range(n_inst)]
+    indptr = np.cumsum([0] + [len(r) for r in rows]).astype(np.int32)
+    (base / "mask").mkdir(exist_ok=True)
+    np.savez_compressed(base / "mask" / f"{scan_id}.mask.npz", format=np.bytes_(b"csr"),
+                        shape=np.array([n_inst, inst.shape[0]]),
+                        data=np.ones(int(indptr[-1]), np.int8),
+                        indices=np.concatenate(rows).astype(np.int32), indptr=indptr)
+    np.save(base / "mask" / f"{scan_id}.label.npy", rng.integers(0, 7, n_inst))
+    return n_inst
+
+
+def legacy_tree(root: Path):
+    """The synthetic legacy tree of phase 22 (scans, legacy annotations,
+    multi-view info, predicted masks) and its port config."""
+    from msr3d_tpu_torch.config import config_from_dict
+    from msr3d_tpu_torch.data import synthetic
+
+    shutil.rmtree(root, ignore_errors=True)
+    scans = [f"scene{i:04d}_00" for i in range(LEGACY_SCANS)]
+    rng = np.random.default_rng(22)
+    base = synthetic.build_scannet_tree(root, rng, scan_ids=scans, n_objects=LEGACY_OBJECTS)
+    synthetic.build_legacy_annotations(base, scans)
+    synthetic.build_multiview_tree(base, scans)
+    for scan_id in scans:
+        (base / "scan_data" / "instance_id_to_name" / f"{scan_id}.json").write_text(
+            json.dumps(legacy_names(LEGACY_OBJECTS)))
+        inst = torch.load(base / "scan_data" / "pcd_with_global_alignment" / f"{scan_id}.pth",
+                          weights_only=False)[-1].numpy()
+        write_pred_csr(base, scan_id, inst, rng)
+    d = synthetic.mv_config_dict(base)
+    # the grounding datasets keep max_obj_len - 1 objects: the last of the
+    # wrapper's slots is the "no target" index
+    common = dict(max_obj_len=LEGACY_OBJ_LEN, num_points=LEGACY_POINTS,
+                  max_seq_len=LEGACY_TEXT)
+    for task in ("scanrefer", "referit3d", "spatialrefer", "scanqa"):
+        d["data"][task]["args"].update(common)
+    d["data"]["scanrefer"]["args"]["pc_type"] = "pred"  # its val split
+    d["data"]["pretrain"]["args"].update(max_obj_len=LEGACY_OBJ_LEN, num_points=LEGACY_POINTS)
+    d["data"]["scannet_sgqa"]["args"].update(max_obj_len=LEGACY_OBJ_LEN,
+                                             num_points=LEGACY_POINTS)
+    d["data"]["mvreferit3d"]["args"]["max_obj_len"] = LEGACY_OBJ_LEN
+    return base, config_from_dict(d)
+
+
+def legacy_batches(cfg):
+    """(a): one micro-batch of 8 from each dataset through its wrapper, and
+    the ms each took on the host (items and collate)."""
+    from msr3d_tpu_torch.data.datasets import dataset_wrapper as dw
+    from msr3d_tpu_torch.data.datasets import scannet_legacy as sl
+    from msr3d_tpu_torch.data.datasets import scannet_mv as mv
+
+    args = {"max_seq_len": LEGACY_TEXT, "max_obj_len": LEGACY_OBJ_LEN}
+    plan = {
+        "scanrefer_train_gt": (sl.ScanNetScanRefer, "train", dw.ScanFamilyDatasetWrapper),
+        "scanrefer_val_pred": (sl.ScanNetScanRefer, "val", dw.ScanFamilyDatasetWrapper),
+        "scanqa_train": (sl.ScanNetScanQA, "train", dw.ScanFamilyDatasetWrapper),
+        "sgqa_train": (sl.ScanNetSGQA, "train", dw.LeoScanFamilyDatasetWrapper),
+        "pretrain_mask": (sl.ScanNetPretrain, "train", dw.MaskDatasetWrapper),
+        "mv_referit3d": (mv.ScanNetMVReferit3D, "train", dw.ScanFamilyDatasetWrapper),
+    }
+    random.seed(22)
+    np.random.seed(22)
+    batches, ms, datasets = {}, {}, {}
+    for name, (cls, split, wrapper) in plan.items():
+        ds = cls(cfg, split)
+        w = wrapper(cfg, ds, args)
+        t0 = time.perf_counter()
+        batches[name] = w.collate_fn([w[i] for i in range(N_LEGACY_BATCH)])
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        datasets[name] = ds
+    return batches, ms, datasets
+
+
+
+def legacy_modules(dev, layers: "int | None" = None, seed: int = 22):
+    """The stack at the JAX modules' own widths (``layers`` cuts each stack's
+    depth for (c)): PointTokenizeEncoder, BERTLanguageEncoder,
+    UnifiedSpatialCrossEncoderV2, GroundHeadV1, QAHeadV1; then PointBERT."""
+    from msr3d_tpu_torch.nn.grounding import (BERTLanguageEncoder, GroundHeadV1, QAHeadV1,
+                                              UnifiedSpatialCrossEncoderV2)
+    from msr3d_tpu_torch.nn.pcd_tokenize import PointTokenizeEncoder
+    from msr3d_tpu_torch.nn.pointbert import PointBERTPcdObjEncoder
+
+    torch.manual_seed(seed)
+    deep = {} if layers is None else {"num_layers": layers}
+    stack = torch.nn.ModuleDict(dict(
+        enc=PointTokenizeEncoder(**deep),
+        bert=BERTLanguageEncoder(**({} if layers is None else {"num_hidden_layers": layers})),
+        fusion=UnifiedSpatialCrossEncoderV2(**deep),
+        ground=GroundHeadV1(sem_cls_size=607),
+        qa=QAHeadV1(num_answers=LEGACY_ANSWERS)))
+    pointbert = PointBERTPcdObjEncoder(**({} if layers is None else {"depth": layers}))
+    return stack.to(dev), pointbert.to(dev)
+
+
+def legacy_inputs(batch, answers, dev, rows=None):
+    """The step's tensors from a ScanRefer batch and a ScanQA answer
+    multi-hot padded to LEGACY_ANSWERS."""
+    keys = ["obj_fts", "obj_locs", "obj_masks", "obj_sem_masks", "obj_labels", "obj_boxes",
+            "txt_ids", "txt_masks", "tgt_object_id", "tgt_object_label"]
+    rows = slice(None) if rows is None else rows
+    out = {k: torch.from_numpy(np.ascontiguousarray(batch[k][rows])).to(dev) for k in keys}
+    ans = np.zeros((len(batch["txt_ids"][rows]), LEGACY_ANSWERS), np.int64)
+    a = answers[rows]
+    ans[:, :a.shape[1]] = a
+    out["answer_label"] = torch.from_numpy(ans).to(dev)
+    out["obj_labels_ce"] = out["obj_labels"].clamp_min(0)
+    return out
+
+
+def legacy_forward(stack, b, generator=None):
+    """encoder → BERT → fusion → heads: the loss dict of ``get_losses``."""
+    obj, obj_pre, _ = stack["enc"](b["obj_fts"], b["obj_locs"], b["obj_masks"],
+                                   b["obj_sem_masks"], b["obj_labels"], generator=generator)
+    txt = stack["bert"](b["txt_ids"], b["txt_masks"], generator=generator)
+    txt, obj = stack["fusion"](txt, b["txt_masks"], obj, b["obj_locs"], b["obj_masks"],
+                               generator=generator)
+    txt_cls, obj_cls, obj_cls_pre, og3d = stack["ground"](txt, obj, obj_pre, b["obj_masks"],
+                                                          generator=generator)
+    scores = stack["qa"](obj, b["obj_masks"], txt, b["txt_masks"], generator=generator)
+    return {"og3d_logits": og3d, "txt_cls_logits": txt_cls, "obj_cls_post_logits": obj_cls,
+            "obj_cls_pre_logits": obj_cls_pre, "answer_scores": scores,
+            "tgt_object_id": b["tgt_object_id"], "tgt_object_label": b["tgt_object_label"],
+            "obj_labels": b["obj_labels_ce"], "obj_masks": b["obj_masks"],
+            "answer_label": b["answer_label"]}
+
+
+def legacy_optimizers(stack):
+    """AdamW over the stack with the legacy no-decay mask: two groups."""
+    from msr3d_tpu_torch.optim.build import AdamW
+    from msr3d_tpu_torch.optim.losses import no_decay_mask
+
+    named = dict(stack.named_parameters())
+    mask = no_decay_mask(stack)
+    return [AdamW({k: p for k, p in named.items() if mask[k] == decays}, lambda step: 1e-4,
+                  weight_decay=0.05 if decays else 0.0) for decays in (True, False)]
+
+
+def legacy_eval(stack, batch, ds):
+    """The eval forward on the ``pred`` val batch: og3d's pick scored by
+    ``eval_ref_one_sample`` against the target's gt box."""
+    from msr3d_tpu_torch.data.box_utils import (construct_bbox_corners, convert_pc_to_box,
+                                                eval_ref_one_sample)
+
+    dev = next(stack.parameters()).device
+    b = legacy_inputs(batch, np.zeros((len(batch["txt_ids"]), 1), np.int64), dev)
+    stack.eval()
+    with torch.no_grad():
+        og3d = legacy_forward(stack, b)["og3d_logits"]
+    picks = og3d.argmax(dim=1).cpu().numpy()
+    ious = []
+    for i, pick in enumerate(picks):
+        item = ds.lang_data[i]
+        gt = convert_pc_to_box(ds._scan(item["scan_id"])["obj_pcds"][int(item["target_id"])])
+        box = batch["obj_boxes"][i, pick]
+        ious.append(eval_ref_one_sample(construct_bbox_corners(box[:3], box[3:]),
+                                        construct_bbox_corners(*gt)))
+    ious = np.asarray(ious)
+    finite = bool(torch.isfinite(og3d[b["obj_masks"]]).all())
+    return dict(acc25=float((ious >= 0.25).mean()), acc50=float((ious >= 0.5).mean()),
+                finite=finite, picks=picks.tolist())
+
+
+def legacy_picks(clouds):
+    """The main path's K1 calls over the batch's object clouds (B·O, P, 3):
+    npoint 32, then 16 over those 32 (PointTokenizeEncoder's PointNet++
+    stages), 64 (PointBERT's GroupDivider), and the kNN of those 64 centers
+    (PointBERT's groups of 32). A CUDA tensor launches K1, a CPU one runs
+    the plain version. Returned on the CPU."""
+    from msr3d_tpu_torch.nn.pointbert import knn_point
+    from msr3d_tpu_torch.ops.pointnet2 import fps, gather_points
+
+    p32 = fps(clouds, 32)
+    p64 = fps(clouds, 64)
+    out = {32: p32, 16: fps(gather_points(clouds, p32), 16), 64: p64,
+           "knn": knn_point(32, clouds, gather_points(clouds, p64))}
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def legacy_grad_errors(want: dict, got: dict) -> dict:
+    """(c)'s gate over one module's gradients by name (``want`` the CPU's,
+    ``got`` the card's): each tensor's ‖got − want‖ / ‖want‖, held to
+    LEGACY_GRAD_RTOL; a tensor of LEGACY_ZERO_GRADS, or one whose CPU
+    gradient is exactly 0, is held instead on both sides to LEGACY_GRAD_ATOL
+    of the module's whole gradient norm (``noise``: the larger share)."""
+    whole = math.sqrt(sum(float(w.double().square().sum()) for w in want.values()))
+    zero = sorted(n for n, w in want.items() if LEGACY_ZERO_GRADS.search(n) or not w.any())
+    rel = {n: float((got[n] - w).norm() / w.norm()) for n, w in want.items() if n not in zero}
+    noise = max((max(float(want[n].norm()), float(got[n].norm())) / whole for n in zero),
+                default=0.0)
+    worst = sorted(rel, key=rel.get, reverse=True)[:3]
+    return dict(whole=whole, rel=rel, worst={n: rel[n] for n in worst}, max=rel[worst[0]],
+                zero=zero, noise=noise,
+                ok=rel[worst[0]] <= LEGACY_GRAD_RTOL and noise <= LEGACY_GRAD_ATOL)
+
+
+def legacy_exact(stack_cpu, pointbert_cpu, b_cpu, dev):
+    """(c): the same fp32 stack (1 layer a stack) and batch of 2 on the card
+    and on the CPU: K1's picks and the kNN over the batch's clouds on the
+    card against the CPU's plain versions, the losses and every gradient."""
+    from msr3d_tpu_torch.ops.pointnet2 import gather_points
+    from msr3d_tpu_torch.optim.losses import get_losses
+
+    clouds = b_cpu["obj_fts"].reshape(-1, LEGACY_POINTS, 6)[..., :3].contiguous()
+    want, got = legacy_picks(clouds), legacy_picks(clouds.to(dev))
+    k1_equal = all(torch.equal(got[m], want[m]) for m in (32, 16, 64))
+    differ = got["knn"] != want["knn"]
+    d2 = ((gather_points(clouds, want[64])[:, :, None, :] - clouds[:, None, :, :]) ** 2).sum(-1)
+    tie = d2.gather(2, got["knn"].long()) == d2.gather(2, want["knn"].long())
+    runs = {}
+    for where, (stack, pointbert) in {
+            "cpu": (stack_cpu, pointbert_cpu),
+            "card": (copy.deepcopy(stack_cpu).to(dev), copy.deepcopy(pointbert_cpu).to(dev))
+    }.items():
+        b = {k: v.to(next(stack.parameters()).device) for k, v in b_cpu.items()}
+        stack.eval()
+        pointbert.eval()
+        loss, losses = get_losses(legacy_forward(stack, b), LEGACY_LOSSES, LEGACY_LOSSES)
+        emb = pointbert(b["obj_fts"])[0]
+        (loss + (emb * torch.linspace(-1, 1, emb.shape[-1], device=emb.device)).mean()
+         ).backward()
+        runs[where] = dict(losses={k: v.item() for k, v in losses.items()}, emb=emb.detach().cpu(),
+                           grads={name: {n: p.grad.detach().cpu()
+                                         for n, p in module.named_parameters()
+                                         if p.grad is not None}
+                                  for name, module in (("stack", stack),
+                                                       ("pointbert", pointbert))})
+    cpu, card = runs["cpu"], runs["card"]
+    same_grads = all(set(cpu["grads"][m]) == set(card["grads"][m]) for m in cpu["grads"])
+    check(same_grads, "(c) the card's gradients name the CPU's tensors")
+    loss_err = max(abs(card["losses"][k] - v) / max(abs(v), 1e-30)
+                   for k, v in cpu["losses"].items())
+    grads = {m: legacy_grad_errors(cpu["grads"][m], card["grads"][m]) for m in cpu["grads"]}
+    emb_err = ((card["emb"] - cpu["emb"]).norm() / cpu["emb"].norm()).item()
+    return dict(k1_equal=k1_equal, k1_clouds=int(clouds.shape[0]), knn_diff=int(differ.sum()),
+                knn_ties=int((differ & tie).sum()), loss_rel_err=loss_err, grads=grads,
+                pointbert_rel_err=emb_err, losses=cpu["losses"])
+
+
+def phase_legacy(exp_root: Path, dev=None):
+    dev = dev or torch.device("cuda", 0)
+    print(f"== phase 22: the legacy ScanNet grounding/QA stack ((a) {LEGACY_SCANS} synthetic "
+          f"scans of {LEGACY_OBJECTS} objects, predicted masks, a micro-batch of "
+          f"{N_LEGACY_BATCH} from six datasets; (b) PointTokenizeEncoder + BERT + "
+          f"UnifiedSpatialCrossEncoderV2 + GroundHeadV1 + QAHeadV1 at 768, {N_LEGACY_BATCH} x "
+          f"{LEGACY_OBJ_LEN} x {LEGACY_POINTS} x 6, text {LEGACY_TEXT}, {LEGACY_STEPS} AdamW "
+          f"steps, the pred val batch scored, PointBERT forward and backward; (c) fp32 gates; "
+          f"on {card_line()})")
+    from msr3d_tpu_torch.data.scan_loader import ScanCache
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL, furthest_point_sample
+    from msr3d_tpu_torch.optim.losses import get_losses
+
+    t0 = time.perf_counter()
+    base, cfg = legacy_tree(exp_root / "legacy")
+    ScanCache.clear()
+    batches, batch_ms, datasets = legacy_batches(cfg)
+    print(f"  (a) tree written in {time.perf_counter() - t0:.1f} s; a batch of "
+          f"{N_LEGACY_BATCH} (items + collate, host ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in batch_ms.items()))
+    train, val = batches["scanrefer_train_gt"], batches["scanrefer_val_pred"]
+    check(train["obj_fts"].shape == (N_LEGACY_BATCH, LEGACY_OBJ_LEN, LEGACY_POINTS, 6)
+          and train["txt_ids"].shape == (N_LEGACY_BATCH, LEGACY_TEXT)
+          and bool((train["obj_masks"].sum(1) == LEGACY_OBJ_LEN - 1).all()),
+          f"(a) ScanRefer train: {LEGACY_OBJ_LEN} object slots a scene ({LEGACY_OBJECTS} "
+          f"objects, 62 not background, cropped to {LEGACY_OBJ_LEN - 1}) x {LEGACY_POINTS} x 6, "
+          f"text {LEGACY_TEXT}")
+    n_pred = val["obj_masks"].sum(1)
+    check(bool(((n_pred > 0) & (n_pred <= 50)).all())
+          and bool((val["tgt_object_id_iou25"].sum(1) >= 1).all()),
+          f"(a) ScanRefer val over the predicted masks: {int(n_pred.min())}-{int(n_pred.max())} "
+          "objects a scene, each target matched at IoU >= 0.25")
+    pre = batches["pretrain_mask"]
+    check(bool((pre["masked_lm_labels"] != -1).any()) and not bool(pre["obj_sem_masks"].all())
+          and batches["scanqa_train"]["answer_label"].sum() > 0
+          and batches["sgqa_train"]["obj_fts"].shape[1] == LEGACY_OBJ_LEN
+          and batches["mv_referit3d"]["obj_fts"].shape[-1] == 16,
+          "(a) MaskDatasetWrapper masked words and objects; ScanQA answers; SGQA and the "
+          "multi-view Referit3D batches padded")
+
+    # (b) the stack at the JAX modules' widths
+    stack, pointbert = legacy_modules(dev)
+    b = legacy_inputs(train, batches["scanqa_train"]["answer_label"], dev)
+    opts = legacy_optimizers(stack)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stack.train()
+    FPS_KERNEL.launches = 0
+    step_ms, step_losses = [], []
+    for _ in range(LEGACY_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, losses = get_losses(legacy_forward(stack, b, gen), LEGACY_LOSSES, LEGACY_LOSSES)
+        stack.zero_grad(set_to_none=True)
+        loss.backward()
+        named = dict(stack.named_parameters())
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in named.items()}
+        for opt in opts:
+            opt.step({k: grads[k] for k in opt.params})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_losses.append({k: v.item() for k, v in losses.items()})
+    tokenize_launches = FPS_KERNEL.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = statistics.median(step_ms[1:])
+    print(f"  (b) {LEGACY_STEPS} AdamW steps: {', '.join(f'{t:.1f}' for t in step_ms)} ms "
+          f"(median of 2-3 {ms:.1f} ms), peak {peak:.2f} GiB, K1 {tokenize_launches}; losses "
+          + ", ".join(f"{k} {step_losses[0][k]:.4f} -> {step_losses[-1][k]:.4f}"
+                      for k in LEGACY_LOSSES + ["total_loss"]))
+    check(tokenize_launches == 2 * LEGACY_STEPS,
+          "(b) K1 launched by PointTokenizeEncoder's two SA stages in each step")
+    check(all(math.isfinite(v) for s in step_losses for v in s.values()),
+          "(b) every loss finite")
+    FPS_KERNEL.launches = 0
+    scores = legacy_eval(stack, val, datasets["scanrefer_val_pred"])
+    eval_launches = FPS_KERNEL.launches
+    print(f"  (b) eval on the pred val batch: acc@0.25 {scores['acc25']:.3f}, acc@0.5 "
+          f"{scores['acc50']:.3f} (random weights), K1 {eval_launches}")
+    check(scores["finite"] and eval_launches == 2 and 0 <= scores["acc25"] <= 1,
+          "(b) the eval forward's og3d logits finite over the real objects, K1 twice")
+    del opts, grads, named, stack
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    FPS_KERNEL.launches = 0
+    pointbert.train()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    emb = pointbert(b["obj_fts"])[0]
+    (emb * torch.linspace(-1, 1, emb.shape[-1], device=dev)).mean().backward()
+    torch.cuda.synchronize()
+    pb_ms = (time.perf_counter() - t1) * 1e3
+    pb_launches = FPS_KERNEL.launches
+    pb_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"  (b) PointBERT (384, depth 12, 64 groups x 32) forward and backward over "
+          f"{tuple(b['obj_fts'].shape)}: {pb_ms:.1f} ms, peak {pb_peak:.2f} GiB, K1 {pb_launches}")
+    check(pb_launches == 1 and emb.shape == (N_LEGACY_BATCH, LEGACY_OBJ_LEN, 768)
+          and bool(torch.isfinite(emb).all())
+          and all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  for p in pointbert.parameters()),
+          "(b) PointBERT's GroupDivider launched K1 once; embeddings and gradients finite")
+    clouds = b["obj_fts"].reshape(-1, LEGACY_POINTS, 6)[..., :3].contiguous()
+    got, want = legacy_picks(clouds), legacy_picks(clouds.cpu())
+    check(all(torch.equal(got[m], want[m]) for m in (32, 16, 64)),
+          f"(b) K1's picks over the main path's {clouds.shape[0]} clouds of {LEGACY_POINTS} "
+          "(npoint 32, 16 over those 32, 64) bit-equal to the plain version's")
+    k1_ms = device_ms(lambda: furthest_point_sample(clouds, 64), iters=20)
+    k1_bound, k1_by = fps_bound((clouds, 64))
+    print(f"  K1 at PointBERT's shape, {clouds.shape[0]}x{LEGACY_POINTS}->64: {k1_ms:.5f} ms of "
+          f"device time a launch, bound {k1_bound:.6f} ms ({k1_by})")
+    del pointbert, emb, b
+    torch.cuda.empty_cache()
+
+    print(f"  (a) and (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # (c) exactness: 1 layer a stack, batch 2, on the card and on the CPU
+    exact = []
+    for seed, rows in LEGACY_DRAWS:
+        t1 = time.perf_counter()
+        stack_c, pointbert_c = legacy_modules(torch.device("cpu"), layers=1, seed=seed)
+        b_cpu = legacy_inputs(train, batches["scanqa_train"]["answer_label"], "cpu", rows=rows)
+        ex = legacy_exact(stack_c, pointbert_c, b_cpu, dev)
+        exact.append(ex)
+        print(f"  (c) seed {seed}, scenes {rows.start}-{rows.stop - 1}: K1 over {ex['k1_clouds']} "
+              f"clouds (npoint 32, 16, 64) bit-equal to the CPU's: {ex['k1_equal']}; kNN "
+              f"entries that differ {ex['knn_diff']}, of them distance ties {ex['knn_ties']}; "
+              f"losses within {ex['loss_rel_err']:.3e} relative; PointBERT embeddings "
+              f"{ex['pointbert_rel_err']:.3e}; "
+              + "; ".join(f"{m}: {len(e['rel'])} gradients, the worst relative in norm "
+                          + ", ".join(f"{n} {v:.3e}" for n, v in e["worst"].items())
+                          + f", the median {statistics.median(e['rel'].values()):.3e}; "
+                          f"{len(e['zero'])} at rounding noise {e['zero']}, at most "
+                          f"{e['noise']:.3e} of the whole norm {e['whole']:.6g}"
+                          for m, e in ex["grads"].items())
+              + f" ({time.perf_counter() - t1:.1f} s)")
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    check(all(ex["k1_equal"] for ex in exact),
+          "(c) K1's picks at npoint 32, 16 and 64 bit-equal to the CPU's plain version's")
+    check(all(ex["knn_diff"] == ex["knn_ties"] for ex in exact),
+          "(c) PointBERT's kNN equal to the CPU's but for distance ties")
+    check(all(ex["loss_rel_err"] <= LEGACY_LOSS_RTOL and ex["pointbert_rel_err"] <= LEGACY_LOSS_RTOL
+              for ex in exact),
+          f"(c) the five losses and PointBERT's embeddings within {LEGACY_LOSS_RTOL} relative "
+          "of the CPU's")
+    check(all(e["ok"] for ex in exact for e in ex["grads"].values()),
+          f"(c) every gradient within {LEGACY_GRAD_RTOL} of the CPU's in norm (those at "
+          f"rounding noise within {LEGACY_GRAD_ATOL} of their module's whole gradient norm)")
+    ScanCache.clear()
+    shutil.rmtree(exp_root / "legacy", ignore_errors=True)
+    return dict(batch_ms=batch_ms, step_ms=ms, step_ms_all=step_ms, peak_gib=peak,
+                losses=step_losses, launches_tokenize=tokenize_launches,
+                launches_eval=eval_launches, launches_pointbert=pb_launches,
+                pointbert_ms=pb_ms, pointbert_peak_gib=pb_peak, acc25=scores["acc25"],
+                acc50=scores["acc50"], k1_ms_npoint64=k1_ms, k1_bound_ms_npoint64=k1_bound,
+                k1_clouds=int(clouds.shape[0]), exact=exact)
+
+
+def phase22_launches(out) -> dict:
+    """Phase 22's launches of K1 for the kernels line: PointTokenizeEncoder's
+    LEGACY_STEPS training steps, its eval forward, PointBERT's forward; and
+    K1's device time at PointBERT's shape."""
+    return dict(launches_legacy_tokenize=out["launches_tokenize"],
+                launches_legacy_eval=out["launches_eval"],
+                launches_legacy_pointbert=out["launches_pointbert"],
+                legacy_ms_npoint64=out["k1_ms_npoint64"],
+                legacy_bound_ms_npoint64=out["k1_bound_ms_npoint64"],
+                legacy_clouds_npoint64=out["k1_clouds"])
+
+
 def phase21_launches(out, kernel: str) -> dict:
     """Phase 21's launches of one kernel for the kernels line: each sp rank's
     run of (a) and, the flash kernels, (b)'s long-context steps at sp = 1
@@ -5792,13 +6269,16 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     t0 = time.perf_counter()
+    seconds = {}
+
     def timed(phase, *args):
         """Run one phase and print the seconds it took, so a growing script
-        shows where its time limit goes."""
+        shows where its time limit goes (all of them again at the end)."""
         start = time.perf_counter()
         out = phase(*args)
         torch.cuda.synchronize()
-        print(f"  {phase.__name__} took {time.perf_counter() - start:.1f} s")
+        seconds[phase.__name__] = round(time.perf_counter() - start, 1)
+        print(f"  {phase.__name__} took {seconds[phase.__name__]:.1f} s")
         return out
 
     try:
@@ -5854,6 +6334,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         sp = timed(phase_sp, exp_root, dp)  # on phase 10's tree and cfg_path
+        gc.collect()
+        torch.cuda.empty_cache()
+        legacy = timed(phase_legacy, exp_root)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5894,7 +6377,10 @@ def main() -> int:
         # of the int8 (a) and int4-grouped (c) flagship; launches_sp: phase
         # 21 (a), each sp rank's run (the step through the ring, an eval
         # batch on each rank), launches_sp_long (b) the long-context steps at
-        # sp = 1 and on each sp rank
+        # sp = 1 and on each sp rank; launches_legacy_tokenize,
+        # launches_legacy_eval, launches_legacy_pointbert: phase 22 (b), the
+        # legacy stack's LEGACY_STEPS steps, its eval forward and PointBERT's
+        # forward, legacy_ms_npoint64 K1's device time at PointBERT's shape
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -5907,7 +6393,8 @@ def main() -> int:
              **phase15_launches(serving2, "fps"), **phase16_launches(pool, "fps"),
              **phase17_launches(options, "fps"), **phase18_launches(dp, "fps"),
              **phase19_launches(tp, "fps"),
-             **phase20_launches(pp, "fps"), **phase21_launches(sp, "fps"), **fps_row),
+             **phase20_launches(pp, "fps"), **phase21_launches(sp, "fps"),
+             **phase22_launches(legacy), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -5962,6 +6449,7 @@ def main() -> int:
              held_on_path_operands=quantized["w4"][0], **quantized["w4"][1],
              phase7=phase7_rows(dequant_rows, 4)),
     ]
+    print(f"seconds by phase: {json.dumps(seconds)}")
     print(f"total {time.perf_counter() - t0:.1f} s on {card_line()}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

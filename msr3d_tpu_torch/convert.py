@@ -1,7 +1,9 @@
 """Turn the JAX package's parameter tree into this port's state dict.
 
-Input: the flax variables of ``MSR3DNetwork`` as nested dicts of numpy
-arrays (``{"params": ..., "batch_stats": ...}``). Rules, per leaf:
+Input: the flax variables of ``MSR3DNetwork``, or of any module of the
+legacy grounding stack (``nn/grounding.py``, ``nn/pcd_tokenize.py``,
+``nn/pointbert.py``), as nested dicts of numpy arrays (``{"params": ...,
+"batch_stats": ...}``). Rules, per leaf:
 
   * a path segment ``name_<i>`` (``layer_3``, ``sa_0``, ``dense_1``) is
     entry ``i`` of the port's ``nn.ModuleList`` ``name``;
@@ -20,8 +22,9 @@ arrays (``{"params": ..., "batch_stats": ...}``). Rules, per leaf:
     load alike;
   * ``scale`` (LayerNorm, BatchNorm, RMSNorm) → ``weight``; ``embedding``
     (Embed) → ``weight``; ``bias``, the prompter's ``object_orientation_feat``,
-    ``anchor_feat`` and ``anchor_size``, and ConvNeXt's layer scale ``gamma``
-    keep their names;
+    ``anchor_feat`` and ``anchor_size``, ConvNeXt's layer scale ``gamma``,
+    PointBERT's ``cls_token`` and ``cls_pos`` and PointTokenizeEncoder's
+    ``int2mat`` keep their names;
   * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
 Subtrees the port does not run would be skipped and listed
@@ -61,6 +64,11 @@ _PARAM_LEAVES = {
     "anchor_feat": ("anchor_feat", False),
     "anchor_size": ("anchor_size", False),
     "gamma": ("gamma", False),
+    # PointBERT's class token and its position, PointTokenizeEncoder's
+    # learned category table
+    "cls_token": ("cls_token", False),
+    "cls_pos": ("cls_pos", False),
+    "int2mat": ("int2mat", False),
 }
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 

@@ -24,8 +24,11 @@ from typing import Dict, Iterator, List
 import numpy as np
 
 from msr3d_tpu_torch.data.datasets import dataset_wrapper as _dw  # noqa: F401 (registers)
+from msr3d_tpu_torch.data.datasets import default as _default  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import msr3d as _msr3d  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import one_step_navi as _osn  # noqa: F401 (registers)
+from msr3d_tpu_torch.data.datasets import scannet_legacy as _legacy  # noqa: F401 (registers)
+from msr3d_tpu_torch.data.datasets import scannet_mv as _mv  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import sqa3d as _sqa  # noqa: F401 (registers)
 from msr3d_tpu_torch.parallel.mesh import dp_rank, dp_size
 from msr3d_tpu_torch.registry import DATASET_REGISTRY, DATASETWRAPPER_REGISTRY

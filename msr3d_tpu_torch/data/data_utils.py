@@ -1,11 +1,13 @@
-"""Data-side utilities of the MSQA path (numpy).
+"""Data-side utilities of the datasets (numpy).
 
-Copy of the parts of ``msr3d_tpu/data/data_utils.py`` that the MSQA
-datasets call: the rotation augmentation (0/90/180/270° about z, drawn from
-Python's ``random``), face-vector → quaternion, the quaternion co-rotation
-of the situation, 2D image preprocessing (a copy of Pillow's bilinear
-resample, then ImageNet statistics), tensor padding and the SQA3D question
-type. The legacy-task helpers stay in the JAX package.
+Copy of ``msr3d_tpu/data/data_utils.py`` but ``transform_points``: the
+rotation augmentation (0/90/180/270° about z, drawn from Python's
+``random``), face-vector → quaternion, the quaternion co-rotation of the
+situation, 2D image preprocessing (a copy of Pillow's bilinear resample,
+then ImageNet statistics), tensor padding, the SQA3D question type, and the
+legacy tasks' helpers: the view-dependence test of a Referit3D utterance,
+the ScanNet label tables, the ScanQA answer vocabulary and the pretraining
+corruptions (BERT-style masked words, masked object semantics).
 """
 
 from __future__ import annotations
@@ -257,3 +259,122 @@ def get_sqa_question_type(question: str) -> int:
     if question[:5].lower() == "which":
         return 4
     return 5
+
+
+# ---------------------------------------------------------------------------
+# the legacy scan-family tasks' helpers
+
+VIEW_DEPENDENT_WORDS = {
+    "front", "behind", "back", "right", "left", "facing", "leftmost",
+    "rightmost", "looking", "across",
+}
+
+
+def is_explicitly_view_dependent(tokens) -> bool:
+    """True if any token names a viewpoint-relative relation."""
+    return any(t in VIEW_DEPENDENT_WORDS for t in tokens)
+
+
+class LabelConverter:
+    """``scannetv2-labels.combined.tsv`` lookup tables: raw category id ↔
+    nyu40 ↔ the 18-class ScanNet benchmark set."""
+
+    SCANNET_NAME_TO_SCANNET_ID = {
+        "cabinet": 0, "bed": 1, "chair": 2, "sofa": 3, "table": 4, "door": 5,
+        "window": 6, "bookshelf": 7, "picture": 8, "counter": 9, "desk": 10,
+        "curtain": 11, "refrigerator": 12, "shower curtain": 13, "toilet": 14,
+        "sink": 15, "bathtub": 16, "others": 17,
+    }
+
+    def __init__(self, file_path):
+        import csv
+
+        self.raw_name_to_id = {}
+        self.nyu40id_to_id = {}
+        self.nyu40_name_to_id = {}
+        self.scannet_name_to_scannet_id = dict(self.SCANNET_NAME_TO_SCANNET_ID)
+        self.id_to_scannetid = {}
+
+        with open(file_path, encoding="utf-8") as fd:
+            rows = list(csv.reader(fd, delimiter="\t", quotechar='"'))
+        for i in range(1, len(rows)):
+            raw_id = i - 1
+            raw_name = rows[i][1]
+            nyu40_id = int(rows[i][4])
+            nyu40_name = rows[i][7]
+            self.raw_name_to_id[raw_name] = raw_id
+            self.nyu40id_to_id[nyu40_id] = raw_id
+            self.nyu40_name_to_id[nyu40_name] = raw_id
+            self.id_to_scannetid[raw_id] = self.scannet_name_to_scannet_id.get(
+                nyu40_name, self.scannet_name_to_scannet_id["others"]
+            )
+
+        # instance ids in the original frames are 1-based
+        self.orgInstID_to_id = {i: i - 1 for i in range(1, 257)}
+        self.orgInstID_to_id[0] = -100
+
+
+class IdentityLabelConverter:
+    """Stands in when the labels TSV is absent: every raw id maps to itself."""
+
+    class _Identity(dict):
+        def __missing__(self, key):
+            return key
+
+    def __init__(self):
+        self.id_to_scannetid = self._Identity()
+        self.raw_name_to_id = {}
+        self.nyu40id_to_id = self._Identity()
+
+
+class ScanQAAnswer:
+    """Answer vocabulary; an unknown answer is ``ignore_idx``."""
+
+    def __init__(self, answers=None, unk_token="<unk>", ignore_idx=-100):
+        self.unk_token = unk_token
+        self.ignore_idx = ignore_idx
+        self.vocab = {x: i for i, x in enumerate(list(answers or []))}
+        self.rev_vocab = {v: k for k, v in self.vocab.items()}
+
+    def itos(self, i):
+        if i == self.ignore_idx:
+            return self.unk_token
+        return self.rev_vocab[i]
+
+    def stoi(self, v):
+        if v not in self.vocab:
+            return self.ignore_idx
+        return self.vocab[v]
+
+    def __len__(self):
+        return len(self.vocab)
+
+
+def random_word(token_ids, token_mask, mask_token_id, vocab_size, rng, mask_ratio=0.15):
+    """BERT-style masked-word corruption: each real token is picked with
+    probability ``mask_ratio``, then masked (80%), replaced by a random id
+    (10%) or kept (10%); labels are -1 where not picked or padded. ``rng``
+    is a numpy ``Generator``."""
+    ids = np.array(token_ids, copy=True)
+    labels = np.full(len(ids), -1, dtype=np.int64)
+    for i in range(len(ids)):
+        if token_mask[i] == 0:
+            continue
+        prob = rng.random()
+        if prob < mask_ratio:
+            prob /= mask_ratio
+            labels[i] = ids[i]
+            if prob < 0.8:
+                ids[i] = mask_token_id
+            elif prob < 0.9:
+                ids[i] = rng.integers(0, vocab_size)
+    return ids, labels
+
+
+def random_point_cloud(n_objects, obj_mask, rng, mask_ratio=0.1):
+    """Per-object semantic masking: False = masked (and every padded slot)."""
+    out = np.zeros(n_objects, dtype=bool)
+    for i in range(n_objects):
+        if obj_mask[i]:
+            out[i] = rng.random() >= mask_ratio
+    return out

@@ -1,7 +1,6 @@
 """Scan data access for ScanNet / 3RScan / ARKitScenes ``gt`` clouds.
 
-Counterpart of ``msr3d_tpu/data/scan_loader.py`` on the MSQA path. File
-layouts per domain:
+Counterpart of ``msr3d_tpu/data/scan_loader.py``. File layouts per domain:
 
   ScanNet:  {scan_family_base}/scan_data/pcd_with_global_alignment/{scan}.pth
             → torch pickle (points, colors, ..., instance_labels); objects
@@ -10,11 +9,15 @@ layouts per domain:
   ARKit:    {ARkit_base}/scan_data/pcd-align/{scan}.pth +
             instance_id_to_label/{scan}_inst_to_label.pth (objects < 10 pts
             dropped)
+  predicted instances (``pc_type: pred``, ScanNet):
+            {scan_family_base}/mask/{scan}.mask.npz (a sparse (instances,
+            points) 0/1 matrix as ``scipy.sparse.save_npz`` writes it: CSR,
+            CSC or COO, read here with numpy alone) + {scan}.label.npy
   object images: {obj_img_base}/{dataset}/{scan}_inst{id}_{label}_0.jpg
 
 Colors normalize to [-1, 1] (colors/127.5 - 1). All outputs are numpy. The
-predicted-mask branch (``pc_type: pred``) raises; the multi-view frame crops
-of the legacy tasks (``get_one_img``, which nothing calls) are not ported.
+multi-view frame crops of the legacy tasks (``get_one_img``, which nothing
+calls) are not ported.
 Object crops are decoded by the port's own JPEG decoder (``data/jpeg.py``)
 and resized by its copy of Pillow's bilinear resample (``preprocess_2d``),
 bit-equal to the JAX package's Pillow path.
@@ -90,11 +93,24 @@ class ScanDataLoader:
 
     @staticmethod
     def _load_pred_masks(base: Path, scan_id: str, points, colors) -> Dict[str, Any]:
-        """Predicted instance masks (``pc_type: pred``): not on the MSQA path."""
-        raise NotImplementedError(
-            "pc_type='pred' (the predicted-mask scan branch) is not ported yet "
-            "(ROADMAP.md, queue: the training entry's loader branches)"
-        )
+        """Predicted instances: the first 50 masks and labels, each non-empty
+        mask's points (colours mapped to [-1, 1]) and label; ``{}`` when the
+        mask or the label file is missing."""
+        mask_path = base / "mask" / f"{scan_id}.mask.npz"
+        label_path = base / "mask" / f"{scan_id}.label.npy"
+        if not (mask_path.exists() and label_path.exists()):
+            return {}
+        colors_n = colors / 127.5 - 1
+        pcds = np.concatenate([points, colors_n], axis=1).astype(np.float32)
+        obj_mask = load_sparse_npz(mask_path)[:50, :]
+        obj_labels = np.load(label_path)[:50]
+        obj_pcds_pred, labels_pred = [], []
+        for i in range(obj_mask.shape[0]):
+            sel = pcds[obj_mask[i] == 1, :]
+            if sel.shape[0] > 0:
+                obj_pcds_pred.append(sel)
+                labels_pred.append(int(obj_labels[i]))
+        return {"obj_pcds_pred": obj_pcds_pred, "inst_labels_pred": labels_pred}
 
     def _get_rscan_data(self, scan_id: str, data_type) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
@@ -142,6 +158,32 @@ class ScanDataLoader:
         if not path.exists():
             return None
         return preprocess_2d(decode_jpeg(path), size=self.tgt_img_size)
+
+
+def load_sparse_npz(path) -> np.ndarray:
+    """The dense 2-D array of a ``scipy.sparse.save_npz`` file, read with
+    numpy: ``format`` ``csr`` or ``csc`` (``indices``/``indptr``) or ``coo``
+    (``row``/``col``, or the newer ``coords``), ``shape`` and ``data``.
+    Duplicate entries add up, as ``todense`` sums them. Any other format
+    raises ``ValueError``."""
+    with np.load(path, allow_pickle=False) as f:
+        fmt = f["format"].item()
+        fmt = fmt.decode("ascii") if isinstance(fmt, bytes) else str(fmt)
+        shape = tuple(int(n) for n in f["shape"])
+        data = f["data"]
+        if fmt in ("csr", "csc"):
+            indptr = f["indptr"]
+            major = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+            rows, cols = (major, f["indices"]) if fmt == "csr" else (f["indices"], major)
+        elif fmt == "coo":
+            rows, cols = (f["row"], f["col"]) if "row" in f.files else tuple(f["coords"])
+        else:
+            raise ValueError(f"{path}: sparse format {fmt!r} (expected csr, csc or coo)")
+    if len(shape) != 2:
+        raise ValueError(f"{path}: a sparse matrix of shape {shape} (expected 2-D)")
+    out = np.zeros(shape, dtype=data.dtype)
+    np.add.at(out, (np.asarray(rows, np.int64), np.asarray(cols, np.int64)), data)
+    return out
 
 
 class ScanCache:

@@ -2,9 +2,9 @@
 
 Counterpart of ``msr3d_tpu/data/synthetic.py`` (the ScanNet, 3RScan and
 ARKit trees, the MSQA and MSNN annotations, ``full_config_dict`` and
-``build_full_tree``): for the same ``rng`` it writes the same files, so the
-real loaders of both packages parse the same miniature data sets. The legacy
-tasks' fixtures are not ported. ``build_msqa_crops`` is the port's own: it
+``build_full_tree``, and the legacy tasks' annotations, multi-view tree and
+config slices): for the same ``rng`` it writes the same files, so the real
+loaders of both packages parse the same miniature data sets. ``build_msqa_crops`` is the port's own: it
 gives the MSQA annotations object-image placeholders and copies the
 committed fixture crops (``data/fixtures/crops``) to the names they ask for.
 
@@ -289,6 +289,194 @@ def build_full_tree(tmp_path: Path, rng):
     build_arkit_tree(root, rng)
     build_msnn_annotations(root, ["scene0000_00"])
     return root
+
+
+def build_legacy_annotations(base: Path, scan_ids):
+    """Legacy-task annotation fixtures in the reference formats:
+    ScanRefer/Referit3D jsonl, ScanQA json, SGQA json, ssg captions, labels
+    TSV. ``base`` is the scan_family tree root."""
+    refer_dir = base / "annotations" / "refer"
+    qa_dir = base / "annotations" / "qa"
+    refer_dir.mkdir(parents=True, exist_ok=True)
+    qa_dir.mkdir(parents=True, exist_ok=True)
+
+    # labels TSV aligned with scannetv2_raw_categories.json row order
+    categories = json.load(
+        open(base / "annotations" / "meta_data" / "scannetv2_raw_categories.json")
+    )
+    nyu40 = {"wall": ("wall", 1), "floor": ("floor", 2), "ceiling": ("ceiling", 22),
+             "chair": ("chair", 5), "table": ("table", 7), "lamp": ("lamp", 35),
+             "sofa": ("sofa", 6)}
+    with open(base / "annotations" / "meta_data" / "scannetv2-labels.combined.tsv", "w") as f:
+        f.write("id\traw_category\tcategory\tcount\tnyu40id\teigen13id\tnyuClass\tnyu40class\n")
+        for cat in categories:
+            name, nid = nyu40.get(cat, ("otherprop", 40))
+            f.write(f"1\t{cat}\t{cat}\t1\t{nid}\t1\t{cat}\t{name}\n")
+
+    # ScanRefer: target instance 0 is 'chair' in every synthetic scan
+    with open(refer_dir / "scanrefer.jsonl", "w") as f:
+        for i, scan_id in enumerate(scan_ids):
+            for j in range(2):
+                f.write(json.dumps({
+                    "item_id": f"scanrefer_{i}_{j}",
+                    "scan_id": scan_id,
+                    "target_id": 0,
+                    "instance_type": "chair",
+                    "utterance": "the chair next to the table on the left",
+                }) + "\n")
+
+    # Referit3D (nr3d + sr3d+): tokens field, ≤24 tokens
+    for fname in ("nr3d.jsonl", "sr3d+.jsonl"):
+        with open(refer_dir / fname, "w") as f:
+            for i, scan_id in enumerate(scan_ids):
+                utt = "find the table behind the chair"
+                f.write(json.dumps({
+                    "item_id": f"{fname[:-6]}_{i}",
+                    "scan_id": scan_id,
+                    "target_id": 1,
+                    "instance_type": "table",
+                    "utterance": utt,
+                    "tokens": utt.split(),
+                }) + "\n")
+
+    # ScanQA
+    for split in ("train", "val", "test"):
+        json.dump(
+            [
+                {
+                    "question_id": f"{split}-{scan_id}-{k}",
+                    "scene_id": scan_id,
+                    "question": "What is next to the chair?",
+                    "object_ids": [1],
+                    "object_names": ["table"],
+                    "answers": ["table", "a table"],
+                }
+                for scan_id in scan_ids
+                for k in range(2)
+            ],
+            open(qa_dir / f"ScanQA_v1.0_{split}.json", "w"),
+        )
+
+    # SGQA (scene-graph situated QA)
+    sgqa_dir = base / "annotations" / "sgqa"
+    sgqa_dir.mkdir(parents=True, exist_ok=True)
+    for split in ("train", "val", "test"):
+        payload = {
+            scan_id: {
+                "response": [
+                    {
+                        "Q": "What is the color of the chair in front of me?",
+                        "A": [" gray "],
+                        "T": f"{scan_id}-0, {scan_id}-1",
+                        "type": "attribute-color",
+                        "situation": "A chair is to my left.",
+                        "location": [0.1, -0.2, 0.0],
+                        "orientation": [0.6, 0.77, 0],
+                        "query_type": "qa_4_directions",
+                        "mode": "txt",
+                    }
+                ]
+            }
+            for scan_id in scan_ids
+        }
+        json.dump(payload, open(sgqa_dir / f"sgqa_{split}.json", "w"))
+
+    # pretrain scene captions
+    json.dump(
+        [{"scan_id": s, "utterance": "a room with a chair and a table"} for s in scan_ids],
+        open(refer_dir / "ssg_caption_gpt.json", "w"),
+    )
+    return base
+
+
+def legacy_config_dict(base: Path):
+    """Config slice for the legacy datasets (the keys their inits read)."""
+    common = {
+        "pc_type": "gt", "sem_type": "607", "max_obj_len": 10,
+        "num_points": 64, "filter_lang": False, "max_seq_len": 32,
+    }
+    return {
+        "rng_seed": 42,
+        "debug": {"flag": False, "debug_size": -1},
+        "data": {
+            "scan_family_base": str(base),
+            "process_args": {"img_process_args": {"tgt_img_size": [32, 32]}},
+            "pretrain": {"args": {
+                "pc_type": "gt", "max_obj_len": 10, "num_points": 64,
+                "max_seq_len": 32, "txt_mask_ratio": 0.15, "pc_mask_ratio": 0.1,
+                "scannet_train": {"anno_type": ["gpt"]},
+                "scannet_val": {"anno_type": ["gpt"]},
+            }},
+            "scanrefer": {"args": dict(common)},
+            "referit3d": {"args": dict(common, anno_type="nr3d", sr3d_plus_aug=True)},
+            "spatialrefer": {"args": dict(
+                common,
+                scannet_train={"sources": ["referit3d", "scanrefer"],
+                               "referit3d": {"anno_type": ["nr3d"]}},
+                scannet_val={"sources": ["scanrefer"]},
+            )},
+            "scanqa": {"args": dict(common, use_unanswer=True)},
+            "scannet_sgqa": {"args": {
+                "pc_type": "gt", "max_obj_len": 10, "num_points": 64,
+                "anno_dir": str(base / "annotations" / "sgqa"),
+            }},
+        },
+    }
+
+
+def build_multiview_tree(base: Path, scan_ids, n_frames=3, feat_len=16):
+    """MultiViewInfo_numpy fixture: per scan a multiview_info_refined.json
+    whose instance entries index rows of clip.npy, plus identity camera
+    poses."""
+    rng = np.random.default_rng(0)
+    for scan_id in scan_ids:
+        d = base / "ScanNetV2-RGBD" / "MultiViewInfo_numpy" / scan_id
+        d.mkdir(parents=True, exist_ok=True)
+        feats, mv = [], {}
+        for f in range(n_frames):
+            insts = []
+            # frame f sees instances f..f+2 (org ids are 1-based)
+            for org in range(f + 1, f + 4):
+                insts.append({
+                    "org_inst_id": org,
+                    "is_need_process": True,
+                    "clip": len(feats),
+                })
+                feats.append(rng.normal(size=feat_len).astype(np.float32))
+            mv[f"frame_{f:04d}"] = {
+                "instance_info": insts,
+                "camera_pose": list(np.eye(4).reshape(-1)),
+            }
+        json.dump({"multiview_info": mv}, open(d / "multiview_info_refined.json", "w"))
+        np.save(d / "clip.npy", np.stack(feats, 0))
+    return base
+
+
+def mv_config_dict(base: Path):
+    """Config slice for the MV datasets (cfg.data.mvdatasettings +
+    mvpretrain/mvreferit3d args)."""
+    cfg = legacy_config_dict(base)
+    cfg["data"]["mvdatasettings"] = {
+        "pc_type": "gt",
+        "max_inst_per_frame": 4,
+        "max_frame_num": 2,
+        "inst_feat_type": "clip",
+        "inst_feat_len": 16,
+        "frame_sample_mode": "even",
+        "inst_sample_mode": "even",
+        "inst_position_type": "pc_gt",
+        "is_pool_obj_feature": True,
+        "pooling_strategy": "average_all",
+        "use_cache": False,
+        "use_multi_process": False,
+        "process_num": 0,
+    }
+    cfg["data"]["mvpretrain"] = {"scan_caption": {"anno_type": ["gpt"]}}
+    cfg["data"]["mvreferit3d"] = {"args": {
+        "max_obj_len": 3, "sem_type": "607", "anno_type": "nr3d",
+        "filter_lang": False, "num_points": 64, "max_seq_len": 32,
+    }}
+    return cfg
 
 
 def main(argv=None) -> None:

@@ -216,9 +216,11 @@ def test_loader_left_early_stops_its_prefetch_thread():
 def test_unported_branches_raise(tmp_path):
     synthetic.build_full_tree(tmp_path, np.random.default_rng(7))
     cfg = load_config(REPO / "configs" / "debug_synthetic.yaml", _overrides(tmp_path))
-    with pytest.raises(NotImplementedError, match="pred"):
-        ScanDataLoader(cfg, "ScanNet").get_data("ScanNet", "scene0000_00", ["obj_pcds"],
-                                                pc_type="pred")
+    # pc_type 'pred' is ported since (tests/test_torch_legacy_data.py): a tree
+    # without predicted masks gives the gt objects alone
+    pred = ScanDataLoader(cfg, "ScanNet").get_data("ScanNet", "scene0000_00", ["obj_pcds"],
+                                                   pc_type="pred")
+    assert set(pred) == {"obj_pcds"} and len(pred["obj_pcds"]) == 5
     for member, config in (("sqa3d", "debug_synthetic_sqa3d.yaml"),
                            ("scannet_one_step_navi", "debug_synthetic_msnn.yaml")):
         # ported since (tests/test_torch_eval.py)
