@@ -122,7 +122,21 @@ QAHeadV1 at the JAX modules' widths, 8 x 60 objects x 1024 points, text 80,
 three AdamW steps, the eval forward on the val batch scored at IoU 0.25 and
 0.5, PointBERT forward and backward, K1 at npoint 32, 16 and 64 and its picks
 there equal to the plain version's; (c) fp32 at 1 layer a stack, batch 2,
-three draws, on the card against the CPU: K1's picks and the kNN equal, the losses and every gradient within their tolerances), and
+three draws, on the card against the CPU: K1's picks and the kNN equal, the losses and every gradient within their tolerances),
+multi-view reconstruction and the sparse-voxel stack (phase 23: (a) an NMR
+tree of 32 scenes x 24 views of 64² written with the port's PNG encoder, a
+batch of 32 ``NMRMVRecon`` items of 8192 rays, ``SRTEncoder`` and
+``SRTDecoder`` at 768, forward and the MSE's backward, peak against the
+reckoned activations; (b) Swin3D-S through ``PCDSwin3DEncoder`` over two
+~100 000-voxel rooms of ``build_room_scene``: host plans (the repo's
+``native/geometry.cc``), each stage's windows W and K, eval forward, then
+one room forward and backward with training BatchNorm and its kernels by
+device time; (c) SoftGroup's voxelization, ball query and BFS clusters on
+the host and its device ops over the clusters; (d) small widths on the card
+against the CPU: SRT's pixels and gradients, the ray encodings by octave,
+Swin3D's outputs, gradients and running statistics, the cRSE indices equal
+and the restructured cRSE against its literal formula, SoftGroup's results;
+none of K1-K4 launched, as in JAX), and
 checks that each path launched its kernels. Any failed
 check exits non-zero. The last two lines of standard output are the per-kernel JSON
 line and the result line ``{"ok": true, "device": {...}}``; without a GPU,
@@ -6166,6 +6180,549 @@ def phase_legacy(exp_root: Path, dev=None):
                 k1_clouds=int(clouds.shape[0]), exact=exact)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: multi-view reconstruction (NMR -> SRT) and the sparse-voxel stack
+# (host geometry plans, Swin3D, SoftGroup). JAX computes all of it with plain
+# XLA, so the path launches none of K1-K4
+
+# (a) NMR's layout, the 13-class ShapeNet renders SRT trains on: 32 scenes
+# (8 classes x 4) of 24 views of 64² RGBA, a batch of 32 train items of 8192
+# target rays each; SRTEncoder and SRTDecoder at their defaults (768 wide)
+NMR_CLASSES_USED, NMR_SCENES_PER_CLASS, NMR_VIEWS, NMR_SIZE = 8, 4, 24, 64
+NMR_RAYS, NMR_BATCH = 8192, 32
+NMR_KEYS = ("input_images", "input_camera_pos", "input_rays", "target_images",
+            "target_camera_pos", "target_rays")
+# (b) Swin3D-S of Yang et al., Swin3D (2023), for ScanNet segmentation, over
+# two rooms of build_room_scene (8 x 8 x 3 m, ~100 000 voxels of 2 cm each)
+SWIN3D_S = dict(depths=[2, 4, 9, 4, 4], channels=[48, 96, 192, 384, 384],
+                num_heads=[6, 6, 12, 24, 24], window_sizes=[5, 7, 7, 7, 7], quant_size=4,
+                num_layers=5, num_classes=13, stem_transformer=True, upsample="linear_attn",
+                down_stride=3, up_k=3)
+# (c) SoftGroup's grouping over the boxes' voxels: ball radius 2 voxels (its
+# 0.04 m at 2 cm), components of at least 100 voxels, mask IoU threshold 0.5
+SG_RADIUS, SG_MIN_VOXELS, SG_IOU_THR = 2.0, 100, 0.5
+# (d) the same modules at small widths, on the card and on the CPU with the
+# same weights and inputs (fp32, TF32 off): outputs within P23_OUT_RTOL
+# relative L2 (other summation orders, some 1e-7 a sum, through a few
+# layers); each gradient within P23_GRAD_RTOL of its own norm, those that are
+# 0 in exact arithmetic (a key bias under the softmax, a bias that shifts
+# every row before a training BatchNorm) within P23_GRAD_RTOL of the largest;
+# running statistics within P23_STATS_RTOL relative L2; each octave of the
+# ray encodings within P23_ENC_ATOL (the same fp32 arguments, up to ~1e5, in
+# sinf and the CPU's sin); the restructured cRSE against its literal formula
+# on the card within P23_CRSE_RTOL; SoftGroup's counts and labels equal, its
+# means and IoUs within P23_IOU_ATOL
+SRT_SMALL = dict(num_att_blocks=1, hidden_dim=64, num_heads=4, mlp_dim=128)
+SWIN_SMALL = dict(depths=[1, 1, 1], channels=[16, 24, 32], num_heads=[2, 2, 2],
+                  window_sizes=[5, 5, 5], quant_size=4, num_layers=3, num_classes=13,
+                  stem_transformer=True, upsample="linear_attn", down_stride=2, up_k=3)
+P23_OUT_RTOL, P23_GRAD_RTOL, P23_STATS_RTOL = 1e-4, 1e-3, 1e-4
+P23_ENC_ATOL, P23_CRSE_RTOL, P23_IOU_ATOL = 1e-5, 1e-5, 1e-6
+# SoftGroup's means (voxels, and the clusters' pools over ~10 000 voxels):
+# fp32 sums in another order, relative to the largest value (call 2: 5.0e-06)
+P23_MEAN_RTOL = 2e-5
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def grad_errors(card, cpu, zero_in_exact=()) -> dict:
+    """Each parameter's gradient on the card against the CPU's: relative to
+    its own norm, or to the largest norm for the ``zero_in_exact`` names."""
+    want = {n: p.grad.double() for n, p in cpu.named_parameters()}
+    largest = max(float(g.norm()) for g in want.values())
+    out = {}
+    for n, p in card.named_parameters():
+        ref = largest if n in zero_in_exact else max(float(want[n].norm()), 1e-30)
+        out[n] = float((p.grad.double().cpu() - want[n]).norm()) / ref
+    return out
+
+
+def median_ms(fn, n: int = 3) -> float:
+    return statistics.median(wall_ms(fn) for _ in range(n))
+
+
+def srt_reckon_gib(rows: int, hidden: int = 768) -> float:
+    """fp32 activations the backward keeps a query row: the input MLP (180 +
+    360), two cross-attention blocks (five 180-wide tensors, 12 heads x 16
+    patch weights, the FFN's 2·hidden pre-gelu and post-gelu), the render
+    MLP (four 2·hidden ReLU outputs) and the sigmoid's 3."""
+    floats = 180 + 360 + 2 * (5 * 180 + 12 * 16 + 2 * 2 * hidden) + 4 * 2 * hidden + 3
+    return rows * 4 * floats / 2**30
+
+
+def nmr_batch(root: Path, n: int, rays: int, seed: int):
+    """``n`` train items of ``NMRMVRecon`` over ``root``, stacked (numpy), and
+    the host ms an item."""
+    from msr3d_tpu_torch import registry
+    from msr3d_tpu_torch.config import config_from_dict
+    from msr3d_tpu_torch.data import build as _data_build  # noqa: F401 (registers NMR)
+    from msr3d_tpu_torch.data.synthetic import nmr_config_dict
+
+    cfg = config_from_dict(nmr_config_dict(root, rays, NMR_VIEWS))
+    ds = registry.DATASET_REGISTRY.get("NMRMVRecon")(cfg, "train")
+    random.seed(seed)
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(n)]
+    item_ms = (time.perf_counter() - t0) * 1e3 / n
+    return {k: np.stack([it[k] for it in items]) for k in NMR_KEYS}, item_ms
+
+
+def srt_modules(dev, **kw):
+    from msr3d_tpu_torch import registry
+    from msr3d_tpu_torch.nn import build as _nn_build  # noqa: F401 (registers SRT)
+
+    enc = registry.VISION_REGISTRY.get("SRTEncoder")(device=dev, **kw).eval()
+    dec_kw = {"hidden_dim": kw["hidden_dim"]} if kw else {}
+    dec = registry.HEADS_REGISTRY.get("SRTDecoder")(device=dev, **dec_kw).eval()
+    return enc, dec
+
+
+def srt_loss(enc, dec, b):
+    """The reference's SRT objective, composed here: the mean squared error
+    of the rendered target rays to their pixels → (loss, pixels)."""
+    z = enc(b["input_images"], b["input_camera_pos"], b["input_rays"])
+    pix = dec(z, b["target_camera_pos"], b["target_rays"])
+    return ((pix - b["target_images"]) ** 2).mean(), pix
+
+
+def nmr_srt_run(root: Path, dev) -> dict:
+    from msr3d_tpu_torch.data.synthetic import build_nmr_tree
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    build_nmr_tree(root, np.random.default_rng(23), n_classes=NMR_CLASSES_USED,
+                   scenes_per_class=NMR_SCENES_PER_CLASS, n_views=NMR_VIEWS, size=NMR_SIZE)
+    write_s = time.perf_counter() - t0
+    batch, item_ms = nmr_batch(root, NMR_BATCH, NMR_RAYS, 23)
+    check(batch["input_images"].shape == (NMR_BATCH, 1, NMR_SIZE, NMR_SIZE, 3)
+          and batch["target_rays"].shape == (NMR_BATCH, NMR_RAYS, 3)
+          and np.allclose(np.linalg.norm(batch["target_rays"], axis=-1), 1.0, atol=1e-5),
+          f"(a) {NMR_BATCH} NMR items: one input view of {NMR_SIZE}² and {NMR_RAYS} unit "
+          f"target rays each ({item_ms:.1f} host ms an item, {NMR_VIEWS} PNGs read by "
+          f"data/png.py; "
+          f"tree written in {write_s:.1f} s)")
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    torch.manual_seed(23)
+    enc, dec = srt_modules(dev)
+    with torch.no_grad():
+        srt_loss(enc, dec, b)
+        fwd_ms = median_ms(lambda: srt_loss(enc, dec, b))
+        loss0, pix = srt_loss(enc, dec, b)
+    check(pix.shape == (NMR_BATCH, NMR_RAYS, 3) and bool(((pix > 0) & (pix < 1)).all())
+          and bool(torch.isfinite(loss0)),
+          f"(a) SRTEncoder (768, 5 layers, {NMR_SIZE}² → {NMR_SIZE // 16}² patches) → "
+          f"SRTDecoder: "
+          f"{NMR_BATCH} x {NMR_RAYS} pixels in (0, 1), MSE {float(loss0):.4f}")
+
+    def step():
+        enc.zero_grad(set_to_none=True)
+        dec.zero_grad(set_to_none=True)
+        loss, _ = srt_loss(enc, dec, b)
+        loss.backward()
+
+    step()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = median_ms(step)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    grads = {n: p.grad for m in (enc, dec) for n, p in m.named_parameters()}
+    zero = [n for n, g in grads.items() if g is None or not bool((g != 0).any())]
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
+          and all(n.endswith("k_proj.bias") for n in zero),
+          f"(a) the MSE's backward reaches all {len(grads)} parameters of both modules with "
+          f"finite gradients, nonzero but for the {len(zero)} key projections' biases (0 "
+          "under the softmax)")
+    reckon = srt_reckon_gib(NMR_BATCH * NMR_RAYS)
+    print(f"  (a) forward {fwd_ms:.1f} ms, forward + backward {step_ms:.1f} ms (median of 3), "
+          f"peak {peak:.2f} GiB (reckoned {reckon:.1f} GiB of activations for "
+          f"{NMR_BATCH * NMR_RAYS} rows)")
+    return dict(item_ms=item_ms, fwd_ms=fwd_ms, fwd_bwd_ms=step_ms, peak_gib=peak,
+                reckon_gib=reckon, write_s=write_s)
+
+
+def stage_shapes(plans) -> list:
+    """(W, K) of the plain and the shifted windows of every stage."""
+    return [{name: list(st[name]["windows"].shape) for name in ("win", "win_shift")}
+            for st in plans["stages"]]
+
+
+def step_kernels(fn, top: int = 6):
+    """One call of ``fn`` under ``torch.profiler``: its ``top`` kernels by
+    device time (ms, launches, name) and the device ms of all of them."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(kernel_rows(prof), reverse=True)
+    return rows[:top], sum(ms for ms, _, _ in rows)
+
+
+def timed_prepare(enc, record: dict):
+    """``enc.prepare`` that records its host ms and its result."""
+    prepare = enc.prepare
+
+    def run(feats, xyz):
+        t0 = time.perf_counter()
+        out = prepare(feats, xyz)
+        record.update(ms=(time.perf_counter() - t0) * 1e3, out=out)
+        return out
+
+    return run
+
+
+def swin3d_run(dev):
+    from msr3d_tpu_torch import registry
+    from msr3d_tpu_torch.config import config_from_dict
+    from msr3d_tpu_torch.data.synthetic import build_room_scene
+    from msr3d_tpu_torch.nn import build as _nn_build  # noqa: F401 (registers the adapter)
+    from msr3d_tpu_torch.nn.swin3d import plans_to_torch
+
+    rooms = [build_room_scene(np.random.default_rng(seed)) for seed in (0, 1)]
+    xyz = np.concatenate([np.concatenate([r[0], np.full((len(r[0]), 1), b, np.float32)], 1)
+                          for b, r in enumerate(rooms)])
+    colors = np.concatenate([r[1] for r in rooms])
+    torch.manual_seed(23)
+    enc = registry.build_module("vision", config_from_dict(
+        {"name": "PCDSwin3DEncoder", "args": SWIN3D_S}), device=dev).eval()
+    rec: dict = {}
+    enc.prepare = timed_prepare(enc, rec)
+    with torch.no_grad():
+        feats, logits, keep = enc(colors, xyz)  # the entry point: host plans, then the UNet
+    sig, plans, _ = rec["out"]
+    plan_ms = rec["ms"]
+    voxels = np.bincount(xyz[keep, 3].astype(np.int64)).tolist()
+    shapes = stage_shapes(plans)
+    print(f"  (b) two rooms of {len(rooms[0][0])} and {len(rooms[1][0])} points → "
+          f"{voxels} voxels; host plans {plan_ms:.0f} ms; (W, K) by stage: "
+          + "; ".join(f"{s}: win {v['win']}, shifted {v['win_shift']}"
+                      for s, v in enumerate(shapes)))
+    width, classes = SWIN3D_S["channels"][0], SWIN3D_S["num_classes"]
+    check(feats.shape == (len(keep), width) and logits.shape == (len(keep), classes)
+          and bool(torch.isfinite(feats).all() & torch.isfinite(logits).all()),
+          f"(b) Swin3D-S eval forward of two rooms through PCDSwin3DEncoder: features "
+          f"({len(keep)}, {width}) and logits ({len(keep)}, {classes}), finite")
+    sig_t, plans_t = torch.from_numpy(sig).to(dev), plans_to_torch(plans, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        fwd_ms = median_ms(lambda: enc.unet(sig_t, plans_t))
+    fwd_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del sig_t, plans_t, feats, logits
+
+    # one room, training BatchNorm, forward and backward of sum(logits²)
+    one = np.concatenate([rooms[0][0], np.zeros((len(rooms[0][0]), 1), np.float32)], 1)
+    enc.train()
+    before = enc.unet.cls_bn.running_var.clone()
+    feats1, logits1, keep1 = enc(rooms[0][1], one, train=True)
+    (logits1 ** 2).sum().backward()
+    train_plan_ms = rec["ms"]
+    grads = [p.grad for p in enc.parameters()]
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+          and not torch.equal(before, enc.unet.cls_bn.running_var),
+          f"(b) one room ({len(keep1)} voxels) in training mode: finite gradients on all "
+          f"{len(grads)} parameters, the running statistics moved")
+    sig1, plans1, _ = rec["out"]
+    sig1_t, plans1_t = torch.from_numpy(sig1).to(dev), plans_to_torch(plans1, dev)
+    del feats1, logits1
+
+    def step():
+        enc.zero_grad(set_to_none=True)
+        _, lg = enc.unet(sig1_t, plans1_t, train=True)
+        (lg ** 2).sum().backward()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = median_ms(step)
+    step_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    top, busy = step_kernels(step)
+    print(f"  (b) one room's step by kernel (device ms, torch.profiler; {busy:.1f} ms busy in "
+          f"all): " + "; ".join(f"{name[:60]} {ms:.1f} ({n})" for ms, n, name in top))
+    print(f"  (b) eval forward of two rooms {fwd_ms:.1f} ms (median of 3), peak "
+          f"{fwd_peak:.2f} GiB; one room forward + backward {step_ms:.1f} ms (median of 3), "
+          f"peak {step_peak:.2f} GiB; host plans of one room {train_plan_ms:.0f} ms")
+    del enc.prepare
+    return dict(voxels=voxels, plan_ms=plan_ms, plan_ms_one=train_plan_ms, stages=shapes,
+                stages_one=stage_shapes(plans1), fwd_ms=fwd_ms, fwd_peak_gib=fwd_peak,
+                fwd_bwd_ms=step_ms, fwd_bwd_peak_gib=step_peak, step_busy_ms=busy,
+                step_top=[[round(ms, 3), n, name[:80]] for ms, n, name in top]), rooms[0]
+
+
+def softgroup_inputs(room):
+    """SoftGroup's host plans over one room → (numpy inputs of the device
+    functions, host ms of each plan)."""
+    from msr3d_tpu_torch.ops import softgroup as sg
+
+    xyz, colors, inst = room
+    coords = np.concatenate([np.zeros((len(xyz), 1), np.int64),
+                             np.floor(xyz).astype(np.int64)], 1)
+    ms = {}
+    t0 = time.perf_counter()
+    _, _, map1 = sg.voxelization_idx(coords, 1, mode=1)
+    ms["voxelization_idx_mode1"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, _, map4 = sg.voxelization_idx(coords, 1, mode=4)
+    ms["voxelization_idx_mode4"] = (time.perf_counter() - t0) * 1e3
+    v_inst = inst[map1[:, 1]]
+    fg = np.nonzero(v_inst >= 5)[0]  # the boxes' voxels
+    counts = map4[:, :1].astype(np.float64)
+    members = np.where(np.arange(map4.shape[1] - 1)[None] < counts, map4[:, 1:], -1)
+    centers = np.stack([np.where(members[fg] >= 0, xyz[np.maximum(members[fg], 0), a], 0)
+                        .sum(1) for a in range(3)], 1) / counts[fg]
+    centers = centers.astype(np.float32)
+    t0 = time.perf_counter()
+    idx, start_len = sg.ballquery_batch_p(centers, np.zeros(len(fg), np.int32),
+                                          np.array([0, len(fg)], np.int32), SG_RADIUS)
+    ms["ballquery_batch_p"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    clusters, offsets = sg.bfs_cluster(np.array([-1.0], np.float32), idx, start_len,
+                                       SG_MIN_VOXELS, 0)
+    ms["bfs_cluster"] = (time.perf_counter() - t0) * 1e3
+    labels = (v_inst[fg] - 5).astype(np.int64)
+    n_inst = int(labels.max()) + 1
+    return dict(feats=np.concatenate([colors, xyz], 1).astype(np.float32), map4=map4, fg=fg,
+                prop_idx=clusters[:, 1].astype(np.int64), prop_off=offsets, labels=labels,
+                pointnum=np.bincount(labels, minlength=n_inst).astype(np.int32),
+                cls=np.arange(3, 3 + n_inst, dtype=np.int64),
+                scores=np.random.default_rng(23).uniform(size=len(clusters)).astype(np.float32),
+                n_neighbours=len(idx)), ms
+
+
+def softgroup_device(x: dict, dev, timings: "dict | None" = None) -> dict:
+    """SoftGroup's device functions on ``x``'s arrays on ``dev`` → results;
+    with ``timings``, each one's ms (median of 3)."""
+    from msr3d_tpu_torch.ops import softgroup as sg
+
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in x.items()
+         if isinstance(v, np.ndarray)}
+    out = {}
+    calls = [
+        ("voxelization", lambda: sg.voxelization(t["feats"], t["map4"], 4)),
+        ("fg_feats", lambda: out["voxelization"][t["fg"]][t["prop_idx"]]),
+        ("global_avg_pool", lambda: sg.global_avg_pool(out["fg_feats"], t["prop_off"])),
+        ("sec_mean", lambda: sg.sec_mean(out["fg_feats"], t["prop_off"])),
+        ("sec_min", lambda: sg.sec_min(out["fg_feats"], t["prop_off"])),
+        ("sec_max", lambda: sg.sec_max(out["fg_feats"], t["prop_off"])),
+        ("iou_on_cluster", lambda: sg.get_mask_iou_on_cluster(
+            t["prop_idx"], t["prop_off"], t["labels"], t["pointnum"])),
+        ("iou_on_pred", lambda: sg.get_mask_iou_on_pred(
+            t["prop_idx"], t["prop_off"], t["labels"], t["pointnum"], t["scores"])),
+        ("mask_label", lambda: sg.get_mask_label(
+            t["prop_idx"], t["prop_off"], t["labels"], t["cls"], t["pointnum"],
+            out["iou_on_cluster"], SG_IOU_THR)),
+    ]
+    for name, fn in calls:
+        out[name] = fn()
+        if timings is not None and name != "fg_feats":
+            timings[name] = median_ms(fn)
+    return out
+
+
+def softgroup_run(room, dev):
+    x, ms = softgroup_inputs(room)
+    res = softgroup_device(x, dev, ms)
+    n_clusters = len(x["prop_off"]) - 1
+    best = res["iou_on_cluster"].max(dim=0).values
+    check(res["voxelization"].shape == (x["map4"].shape[0], 6) and n_clusters >= 1
+          and bool((best >= 0.9).all()) and bool((res["mask_label"] >= 0).any()),
+          f"(c) SoftGroup over one room: {x['map4'].shape[0]} voxels of 6-channel means, "
+          f"{len(x['fg'])} box voxels, {x['n_neighbours']} ball-query pairs, {n_clusters} "
+          f"clusters, each box matched by one at IoU >= 0.9 "
+          f"({[round(float(v), 4) for v in best]})")
+    print("  (c) ms (host plans, then device functions, median of 3): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    return dict(ms=ms, clusters=n_clusters, box_voxels=len(x["fg"])), x
+
+
+def crse_literal(attn, feats, plan):
+    """JAX's ``WindowAttentionCRSE`` as written (msr3d_tpu/nn/swin3d.py:
+    267-344): three (W, K, K, H, hd) bias tensors."""
+    from msr3d_tpu_torch.nn.swin3d import _masked_gather
+
+    h = attn.num_heads
+    hd = attn.dim // h
+    windows, mask = plan["windows"], plan["mask"]
+    w, k = windows.shape
+    qkv = attn.qkv(feats).reshape(-1, 3, h, hd)
+    q, key, val = qkv[:, 0] * hd ** -0.5, qkv[:, 1], qkv[:, 2]
+    qg, kg, vg = (_masked_gather(x.reshape(-1, h * hd), windows).reshape(w, k, h, hd)
+                  for x in (q, key, val))
+    nc = _masked_gather(plan["n_coords"], windows)
+    rel = nc[:, :, None, :] - nc[:, None, :, :]
+    bias = {p: feats.new_zeros(w, k, k, h, hd) for p in ("query", "key", "value")}
+    for name, length, sl in attn.groups:
+        idx = torch.floor(rel[..., sl] + length).clamp(0, 2 * length - 1).long()
+        for p in bias:
+            table = getattr(attn, f"{p}_{name}_table")
+            bias[p] = bias[p] + sum(table[a][idx[..., a]] for a in range(3))
+    logits = (torch.einsum("wihd,wjhd->wijh", qg, kg)
+              + torch.einsum("wihd,wijhd->wijh", qg, bias["query"])
+              + torch.einsum("wjhd,wijhd->wijh", kg, bias["key"]))
+    logits = torch.where(mask[:, None, :, None], logits,
+                         logits.new_full((), torch.finfo(logits.dtype).min))
+    a = torch.softmax(logits, dim=2)
+    a = torch.where(mask[:, :, None, None], a, a.new_zeros(()))
+    out = torch.einsum("wijh,wjhd->wihd", a, vg) + torch.einsum("wijh,wijhd->wihd", a,
+                                                                bias["value"])
+    n = feats.shape[0]
+    flat = torch.where(mask, windows, n).reshape(-1)
+    scattered = out.new_zeros(n + 1, attn.dim).index_put((flat,), out.reshape(w * k, -1))[:n]
+    return attn.proj(scattered)
+
+
+def p23_exact(nmr_root: Path, sg_inputs: dict, dev) -> dict:
+    from msr3d_tpu_torch.data.synthetic import build_room_scene
+    from msr3d_tpu_torch.nn.srt import ray_encoding
+    from msr3d_tpu_torch.nn.swin3d import PCDSwin3DEncoder, crse_indices, plans_to_torch
+
+    res = {}
+    # SRT at hidden 64: 2 items x 1024 rays of (a)'s tree
+    batch, _ = nmr_batch(nmr_root, 2, 1024, 24)
+    cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    card_b = {k: v.to(dev) for k, v in cpu_b.items()}
+    enc = ray_encoding(cpu_b["target_camera_pos"], cpu_b["target_rays"])
+    enc_card = ray_encoding(card_b["target_camera_pos"], card_b["target_rays"]).cpu()
+    octave_err = ((enc_card - enc).abs().reshape(-1, 2, 2, 3, 15).amax(dim=(0, 2, 3))
+                  .amax(dim=0).tolist())
+    torch.manual_seed(24)
+    cpu_mods = srt_modules("cpu", **SRT_SMALL)
+    # He-normal convolutions keep the images' variance through the pyramid:
+    # under torch's default init each conv shrinks it by 3, after eight the
+    # patches are all the per-patch bias, alike, and the decoder's q and k
+    # gradients 0 in exact arithmetic (some 1e-10, noise to compare)
+    with torch.no_grad():
+        for mod in cpu_mods[0].modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                torch.nn.init.kaiming_normal_(mod.weight, nonlinearity="relu")
+    card_mods = tuple(copy.deepcopy(m).to(dev) for m in cpu_mods)
+    (loss_c, pix_c), (loss_g, pix_g) = srt_loss(*cpu_mods, cpu_b), srt_loss(*card_mods, card_b)
+    loss_c.backward()
+    loss_g.backward()
+    srt_grads = {}
+    for cm, gm in zip(cpu_mods, card_mods):
+        srt_grads.update(grad_errors(gm, cm, [n for n, _ in cm.named_parameters()
+                                              if n.endswith("k_proj.bias")]))
+    res["srt"] = dict(pixels=rel_l2(pix_g, pix_c), worst_grad=max(srt_grads.values()),
+                      octave_err=octave_err)
+    check(max(octave_err) <= P23_ENC_ATOL,
+          f"(d) the ray encodings' 15 octaves on the card against the CPU within "
+          f"{P23_ENC_ATOL} (worst by octave: {[f'{e:.1e}' for e in octave_err]})")
+    check(res["srt"]["pixels"] <= P23_OUT_RTOL and res["srt"]["worst_grad"] <= P23_GRAD_RTOL,
+          f"(d) SRT at hidden 64 on the card against the CPU: pixels {res['srt']['pixels']:.1e} "
+          f"(<= {P23_OUT_RTOL}), worst gradient {res['srt']['worst_grad']:.1e} "
+          f"(<= {P23_GRAD_RTOL})")
+
+    # Swin3D at channels (16, 24, 32), transformer stem, linear_attn upsampling
+    xyz, colors, _ = build_room_scene(np.random.default_rng(24), room=(1.2, 1.2, 0.8),
+                                      coverage=0.3, n_boxes=1)
+    pts = np.concatenate([xyz, np.zeros((len(xyz), 1), np.float32)], 1)
+    torch.manual_seed(25)
+    cpu_enc = PCDSwin3DEncoder(**SWIN_SMALL, device="cpu").train()
+    card_enc = copy.deepcopy(cpu_enc).to(dev)
+    f_c, l_c, keep = cpu_enc(colors, pts, train=True)
+    f_g, l_g, keep_g = card_enc(colors, pts, train=True)
+    (l_c ** 2).sum().backward()
+    (l_g ** 2).sum().backward()
+    shift = ["unet.cls_fc1.bias", "unet.upsamples.1.block.attn.proj.bias",
+             "unet.upsamples.1.block.mlp.fc2.bias"]
+    swin_grads = grad_errors(card_enc, cpu_enc, shift)
+    stats = max(rel_l2(b_g, b_c) for (n, b_g), (_, b_c)
+                in zip(card_enc.named_buffers(), cpu_enc.named_buffers()) if "running" in n)
+    res["swin3d"] = dict(voxels=len(keep), features=rel_l2(f_g, f_c), logits=rel_l2(l_g, l_c),
+                         worst_grad=max(swin_grads.values()), stats=stats)
+    check(np.array_equal(keep, keep_g) and res["swin3d"]["features"] <= P23_OUT_RTOL
+          and res["swin3d"]["logits"] <= P23_OUT_RTOL
+          and res["swin3d"]["worst_grad"] <= P23_GRAD_RTOL and stats <= P23_STATS_RTOL,
+          f"(d) Swin3D at (16, 24, 32) over {len(keep)} voxels, training BatchNorm, on the card "
+          f"against the CPU: features {res['swin3d']['features']:.1e}, logits "
+          f"{res['swin3d']['logits']:.1e}, worst gradient {res['swin3d']['worst_grad']:.1e}, "
+          f"running statistics {stats:.1e}")
+    _, plans, _ = cpu_enc.prepare(colors, pts)
+    same, pairs = True, 0
+    for s, st in enumerate(plans["stages"]):
+        for name in ("win", "win_shift"):
+            ws = SWIN_SMALL["window_sizes"][s]
+            a = crse_indices(plans_to_torch(st[name], "cpu"), ws, 4)
+            b = crse_indices(plans_to_torch(st[name], dev), ws, 4)
+            same &= all(torch.equal(a[g], b[g].cpu()) for g in a)
+            pairs += sum(v.numel() for v in a.values())
+    attn = card_enc.unet.layers[0].blocks[0].attn
+    plan0 = plans_to_torch(plans["stages"][0]["win"], dev)
+    x = torch.randn(len(keep), SWIN_SMALL["channels"][0], device=dev)
+    with torch.no_grad():
+        crse = rel_l2(attn(x, plan0), crse_literal(attn, x, plan0))
+    res["swin3d"].update(crse_pairs=pairs, crse_vs_literal=crse)
+    check(same and crse <= P23_CRSE_RTOL,
+          f"(d) cRSE: the {pairs} table indices of every stage's windows equal on the card and "
+          f"the CPU; stage 0's attention against the literal formula (three (W, K, K, H, hd) "
+          f"tensors) on the card {crse:.1e} (<= {P23_CRSE_RTOL})")
+
+    # SoftGroup's device functions, (c)'s inputs, on the card and the CPU
+    from msr3d_tpu_torch.ops import softgroup as sg
+
+    card = softgroup_device(sg_inputs, dev)
+    cpu = softgroup_device(sg_inputs, torch.device("cpu"))
+    # the minima and maxima again on the card from the CPU's rows: the voxel
+    # means they read differ in the last bits (summed in another order)
+    rows, off = cpu["fg_feats"].to(dev), torch.from_numpy(sg_inputs["prop_off"]).to(dev)
+    card.update(sec_min=sg.sec_min(rows, off), sec_max=sg.sec_max(rows, off))
+    exact = all(torch.equal(card[k].cpu(), cpu[k]) for k in ("sec_min", "sec_max", "mask_label"))
+    means = max(float((card[k].cpu() - cpu[k]).abs().max() / cpu[k].abs().max())
+                for k in ("voxelization", "global_avg_pool", "sec_mean"))
+    iou = max(float((card[k].cpu() - cpu[k]).abs().max()) for k in ("iou_on_cluster",
+                                                                     "iou_on_pred"))
+    res["softgroup"] = dict(exact=exact, means=means, iou=iou)
+    check(exact and means <= P23_MEAN_RTOL and iou <= P23_IOU_ATOL,
+          f"(d) SoftGroup on the card against the CPU: mask labels equal, minima and maxima of "
+          f"the same rows equal; means within {means:.1e} of the largest (<= {P23_MEAN_RTOL}), IoU tables within "
+          f"{iou:.1e} (<= {P23_IOU_ATOL})")
+    return res
+
+
+def phase_nmr_swin3d(exp_root: Path, dev=None):
+    dev = dev or torch.device("cuda", 0)
+    print(f"== phase 23: multi-view reconstruction and the sparse-voxel stack ((a) NMR → "
+          f"SRTEncoder → SRTDecoder at 768, {NMR_BATCH} x {NMR_RAYS} rays, forward and the "
+          f"MSE's backward; (b) Swin3D-S over two ~100 000-voxel rooms, eval forward, then one "
+          f"room forward and backward; (c) SoftGroup's plans and ops on one room; (d) small "
+          f"widths on the card against the CPU; on {card_line()})")
+    from msr3d_tpu_torch.ops import flash_attention as fa
+    from msr3d_tpu_torch.ops import host_geometry
+    from msr3d_tpu_torch.ops.fps import FPS_KERNEL
+    from msr3d_tpu_torch.ops.w4_matmul import W4_MATMUL_KERNEL
+    from msr3d_tpu_torch.ops.w8_matmul import W8_MATMUL_KERNEL
+
+    kernels = (FPS_KERNEL, fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_DQ_KERNEL, fa.FLASH_BWD_DKV_KERNEL,
+               W8_MATMUL_KERNEL, W4_MATMUL_KERNEL)
+    for kernel in kernels:
+        kernel.launches = 0
+    out = {"a": nmr_srt_run(exp_root / "nmr", dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"], room = swin3d_run(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c"], sg_inputs = softgroup_run(room, dev)
+    out["launches"] = kernel_launches(kernels)
+    check(not any(out["launches"].values()),
+          f"(a)-(c) launched none of K1-K4 ({out['launches']}): SRT, cRSE and SoftGroup "
+          "reach no Pallas kernel in the JAX package either")
+    check(host_geometry.native_loaded(),
+          "the plans came from native/geometry.cc, built into build/native/ (not the numpy "
+          "versions)")
+    out["d"] = p23_exact(exp_root / "nmr", sg_inputs, dev)
+    print(f"  phase 23 figures: {json.dumps({k: out[k] for k in ('a', 'b', 'c', 'd')})}")
+    return out
+
+
+def phase23_launches(out, kernel: str) -> dict:
+    """Phase 23's launches of one kernel for the kernels line: (a)-(c), none."""
+    return dict(launches_nmr_swin3d=out["launches"][kernel])
+
+
 def phase22_launches(out) -> dict:
     """Phase 22's launches of K1 for the kernels line: PointTokenizeEncoder's
     LEGACY_STEPS training steps, its eval forward, PointBERT's forward; and
@@ -6337,6 +6894,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         legacy = timed(phase_legacy, exp_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        recon = timed(phase_nmr_swin3d, exp_root)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -6380,7 +6940,9 @@ def main() -> int:
         # sp = 1 and on each sp rank; launches_legacy_tokenize,
         # launches_legacy_eval, launches_legacy_pointbert: phase 22 (b), the
         # legacy stack's LEGACY_STEPS steps, its eval forward and PointBERT's
-        # forward, legacy_ms_npoint64 K1's device time at PointBERT's shape
+        # forward, legacy_ms_npoint64 K1's device time at PointBERT's shape;
+        # launches_nmr_swin3d: phase 23 (a)-(c), NMR → SRT, Swin3D-S and
+        # SoftGroup, which reach no kernel (0 in both packages)
         dict(name="fps", route="cuda", source="msr3d_tpu_torch/csrc/fps.cu",
              replaces="msr3d_tpu/ops/pallas/fps.py:28", launches=launches["fps"],
              launches_beam=beam[True]["launches"]["fps"],
@@ -6394,7 +6956,7 @@ def main() -> int:
              **phase17_launches(options, "fps"), **phase18_launches(dp, "fps"),
              **phase19_launches(tp, "fps"),
              **phase20_launches(pp, "fps"), **phase21_launches(sp, "fps"),
-             **phase22_launches(legacy), **fps_row),
+             **phase22_launches(legacy), **phase23_launches(recon, "fps"), **fps_row),
         dict(name="flash_attn_fwd", route="cuda", source="msr3d_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="msr3d_tpu/ops/flash_attention.py:97",
              launches=launches["flash_attn_fwd"],
@@ -6412,7 +6974,8 @@ def main() -> int:
              **phase17_launches(options, "flash_attn_fwd"),
              **phase18_launches(dp, "flash_attn_fwd"),
              **phase19_launches(tp, "flash_attn_fwd"),
-             **phase20_launches(pp, "flash_attn_fwd"), **phase21_launches(sp, "flash_attn_fwd"), **flash_row),
+             **phase20_launches(pp, "flash_attn_fwd"), **phase21_launches(sp, "flash_attn_fwd"),
+             **phase23_launches(recon, "flash_attn_fwd"), **flash_row),
         dict(name="flash_attn_bwd_dq", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:152",
              launches=train_launches["flash_attn_bwd_dq"],
@@ -6423,7 +6986,8 @@ def main() -> int:
              **phase17_launches(options, "flash_attn_bwd_dq"),
              **phase18_launches(dp, "flash_attn_bwd_dq"),
              **phase19_launches(tp, "flash_attn_bwd_dq"),
-             **phase20_launches(pp, "flash_attn_bwd_dq"), **phase21_launches(sp, "flash_attn_bwd_dq"), **dq_row),
+             **phase20_launches(pp, "flash_attn_bwd_dq"), **phase21_launches(sp, "flash_attn_bwd_dq"),
+             **phase23_launches(recon, "flash_attn_bwd_dq"), **dq_row),
         dict(name="flash_attn_bwd_dkv", route="cuda", source=source,
              replaces="msr3d_tpu/ops/flash_attention.py:193",
              launches=train_launches["flash_attn_bwd_dkv"],
@@ -6434,7 +6998,8 @@ def main() -> int:
              **phase17_launches(options, "flash_attn_bwd_dkv"),
              **phase18_launches(dp, "flash_attn_bwd_dkv"),
              **phase19_launches(tp, "flash_attn_bwd_dkv"),
-             **phase20_launches(pp, "flash_attn_bwd_dkv"), **phase21_launches(sp, "flash_attn_bwd_dkv"), **dkv_row),
+             **phase20_launches(pp, "flash_attn_bwd_dkv"), **phase21_launches(sp, "flash_attn_bwd_dkv"),
+             **phase23_launches(recon, "flash_attn_bwd_dkv"), **dkv_row),
         # K3/K4: no serving path calls them, in either package, so their
         # launches over generate (a) and (b) are 0; held_on_path_operands
         # counts the launches on the 224 projections' own decode operands
@@ -6442,12 +7007,12 @@ def main() -> int:
              replaces="msr3d_tpu/ops/pallas/w8_matmul.py:36",
              launches=quantized["a"]["launches"]["w8_matmul"],
              held_on_path_operands=quantized["w8"][0], **quantized["w8"][1],
-             phase7=phase7_rows(dequant_rows, 8)),
+             **phase23_launches(recon, "w8_matmul"), phase7=phase7_rows(dequant_rows, 8)),
         dict(name="w4_matmul", route="cuda", source="msr3d_tpu_torch/csrc/w4_matmul.cu",
              replaces="msr3d_tpu/ops/pallas/w4_matmul.py:94",
              launches=quantized["b"]["launches"]["w4_matmul"],
              held_on_path_operands=quantized["w4"][0], **quantized["w4"][1],
-             phase7=phase7_rows(dequant_rows, 4)),
+             **phase23_launches(recon, "w4_matmul"), phase7=phase7_rows(dequant_rows, 4)),
     ]
     print(f"seconds by phase: {json.dumps(seconds)}")
     print(f"total {time.perf_counter() - t0:.1f} s on {card_line()}")

@@ -2,7 +2,8 @@
 
 Input: the flax variables of ``MSR3DNetwork``, or of any module of the
 legacy grounding stack (``nn/grounding.py``, ``nn/pcd_tokenize.py``,
-``nn/pointbert.py``), as nested dicts of numpy arrays (``{"params": ...,
+``nn/pointbert.py``), of SRT (``nn/srt.py``) or of the Swin3D UNet
+(``nn/swin3d.py``, its BatchNorms' ``batch_stats`` included), as nested dicts of numpy arrays (``{"params": ...,
 "batch_stats": ...}``). Rules, per leaf:
 
   * a path segment ``name_<i>`` (``layer_3``, ``sa_0``, ``dense_1``) is
@@ -10,7 +11,10 @@ legacy grounding stack (``nn/grounding.py``, ``nn/pcd_tokenize.py``,
   * ``kernel`` (Dense, flax (in, out)) → ``weight``, transposed to torch's
     (out, in); ``lora_a`` (in, r) and ``lora_b`` (r, out) are transposed
     the same way; a Conv ``kernel`` (kh, kw, I, O) becomes torch's (O, I,
-    kh, kw) (a depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw));
+    kh, kw) (a depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw)); the
+    sparse-voxel convolution's raw ``kernel`` (27, Cin, Cout) stays as it
+    is (``nn/swin3d.py``'s ``SparseConvBNRelu`` multiplies by it as JAX
+    does);
   * a quantized projection's ``kernel_q`` → ``weight_q`` and
     ``kernel_scale`` → ``weight_scale``, NOT transposed: the port keeps the
     JAX layout for the quantized base, int8 (in, out) or int4 split-nibble
@@ -23,8 +27,9 @@ legacy grounding stack (``nn/grounding.py``, ``nn/pcd_tokenize.py``,
   * ``scale`` (LayerNorm, BatchNorm, RMSNorm) → ``weight``; ``embedding``
     (Embed) → ``weight``; ``bias``, the prompter's ``object_orientation_feat``,
     ``anchor_feat`` and ``anchor_size``, ConvNeXt's layer scale ``gamma``,
-    PointBERT's ``cls_token`` and ``cls_pos`` and PointTokenizeEncoder's
-    ``int2mat`` keep their names;
+    PointBERT's ``cls_token`` and ``cls_pos``, PointTokenizeEncoder's
+    ``int2mat`` and Swin3D's cRSE tables ``{query,key,value}_{xyz,rgb}_table``
+    (3, 2L, H, hd) keep their names and layouts;
   * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
 Subtrees the port does not run would be skipped and listed
@@ -70,6 +75,8 @@ _PARAM_LEAVES = {
     "cls_pos": ("cls_pos", False),
     "int2mat": ("int2mat", False),
 }
+_PARAM_LEAVES.update({f"{p}_{g}_table": (f"{p}_{g}_table", False)
+                      for p in ("query", "key", "value") for g in ("xyz", "rgb")})
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -93,8 +100,8 @@ def _to_tensor(arr: Any, transpose: bool) -> torch.Tensor:
             arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 2:
             arr = arr.T
-        else:
-            raise ValueError(f"expected a 2-D or 4-D kernel, got shape {arr.shape}")
+        elif arr.ndim != 3:  # 3-D: the sparse convolution's taps, as they are
+            raise ValueError(f"expected a 2-, 3- or 4-D kernel, got shape {arr.shape}")
     return torch.from_numpy(np.array(arr, order="C"))  # a writable copy
 
 

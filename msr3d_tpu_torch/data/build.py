@@ -26,6 +26,7 @@ import numpy as np
 from msr3d_tpu_torch.data.datasets import dataset_wrapper as _dw  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import default as _default  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import msr3d as _msr3d  # noqa: F401 (registers)
+from msr3d_tpu_torch.data.datasets import nmr as _nmr  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import one_step_navi as _osn  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import scannet_legacy as _legacy  # noqa: F401 (registers)
 from msr3d_tpu_torch.data.datasets import scannet_mv as _mv  # noqa: F401 (registers)

@@ -1,13 +1,14 @@
 """Data-side utilities of the datasets (numpy).
 
-Copy of ``msr3d_tpu/data/data_utils.py`` but ``transform_points``: the
+Copy of ``msr3d_tpu/data/data_utils.py``: the
 rotation augmentation (0/90/180/270° about z, drawn from Python's
 ``random``), face-vector → quaternion, the quaternion co-rotation of the
 situation, 2D image preprocessing (a copy of Pillow's bilinear resample,
 then ImageNet statistics), tensor padding, the SQA3D question type, and the
 legacy tasks' helpers: the view-dependence test of a Referit3D utterance,
 the ScanNet label tables, the ScanQA answer vocabulary and the pretraining
-corruptions (BERT-style masked words, masked object semantics).
+corruptions (BERT-style masked words, masked object semantics), and
+``transform_points`` of the NMR cameras.
 """
 
 from __future__ import annotations
@@ -229,6 +230,17 @@ def preprocess_2d(img: np.ndarray, size: Tuple[int, int] = (224, 224)) -> np.nda
     for i in range(3):
         out[:, :, i] = (out[:, :, i] / 255.0 - PIX_MEAN[i]) / PIX_STD[i]
     return np.ascontiguousarray(out)
+
+
+def transform_points(points: np.ndarray, transform: np.ndarray,
+                     translate: bool = True) -> np.ndarray:
+    """Apply a (3,4)/(4,4) linear map to (..., 3) points; ``translate=False``
+    transforms directions (homogeneous coordinate 0). The einsum runs in
+    the inputs' promoted dtype (float64 wherever the caller passes it)."""
+    const = np.ones_like(points[..., :1]) if translate else np.zeros_like(points[..., :1])
+    homo = np.concatenate([points, const], axis=-1)
+    out = np.einsum("nm,...m->...n", transform, homo)
+    return out[..., :3]
 
 
 def pad_tensors(arr: np.ndarray, lens: int, pad: float = 0.0) -> np.ndarray:

@@ -7,6 +7,9 @@ config slices): for the same ``rng`` it writes the same files, so the real
 loaders of both packages parse the same miniature data sets. ``build_msqa_crops`` is the port's own: it
 gives the MSQA annotations object-image placeholders and copies the
 committed fixture crops (``data/fixtures/crops``) to the names they ask for.
+So are ``build_nmr_tree`` (NMR's layout, with PNGs written by the port's
+own encoder) and ``build_room_scene`` (a scanned room for the sparse-voxel
+encoder).
 
 Write the tree of ``configs/debug_synthetic.yaml`` (the seed of
 ``scripts/gen_synthetic_data.py``):
@@ -477,6 +480,145 @@ def mv_config_dict(base: Path):
         "filter_lang": False, "num_points": 64, "max_seq_len": 32,
     }}
     return cfg
+
+
+# the 13 ShapeNet classes of NMR's renders (their ids in its metadata.yaml)
+NMR_CLASSES = (
+    ("02691156", "airplane"), ("02828884", "bench"), ("02933112", "cabinet"),
+    ("02958343", "car"), ("03001627", "chair"), ("03211117", "display"),
+    ("03636649", "lamp"), ("03691459", "loudspeaker"), ("04090263", "rifle"),
+    ("04256520", "sofa"), ("04379243", "table"), ("04401088", "telephone"),
+    ("04530566", "vessel"),
+)
+
+
+def _look_at(eye: np.ndarray) -> np.ndarray:
+    """Camera-to-world (4, 4) of a camera at ``eye`` looking at the origin,
+    z up."""
+    forward = -eye / np.linalg.norm(eye)
+    right = np.cross(forward, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    up = np.cross(right, forward)
+    cam2world = np.eye(4)
+    cam2world[:3, :3] = np.stack([right, -up, forward], 1)
+    cam2world[:3, 3] = eye
+    return cam2world
+
+
+def build_nmr_tree(root: Path, rng, n_classes: int = 2, scenes_per_class: int = 2,
+                   n_views: int = 24, size: int = 64, rgba: bool = True,
+                   splits=("train", "val")) -> Path:
+    """An NMR tree: ``metadata.yaml`` (class ids quoted, since YAML 1.1 reads
+    an unquoted ``04256520`` as an octal integer),
+    ``<class>/softras_<split>.lst`` (each split lists every scene of the
+    class), and per scene ``cameras.npz`` (``world_mat_*``,
+    ``world_mat_inv_*``, ``camera_mat_inv_*``, (4, 4) float32; the 24 views
+    of NMR on a ring at 30° elevation, 2.732 from the object) and
+    ``image/<view:04d>.png``: ``size``² renders of a shaded blob on a
+    transparent background, RGBA (RGB without ``rgba``), written by
+    ``data/png.py::encode_png`` with the five row filters in turn."""
+    from msr3d_tpu_torch.data.png import encode_png
+
+    root.mkdir(parents=True, exist_ok=True)
+    meta = []
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1) * 2 - 1
+    fov = np.deg2rad(30.0)
+    camera_mat_inv = np.diag([np.tan(fov / 2), np.tan(fov / 2), 1.0, 1.0])
+    for class_id, name in NMR_CLASSES[:n_classes]:
+        meta.append(f"{class_id}:\n  id: '{class_id}'\n  name: {name}\n")
+        scenes = [f"{class_id[-4:]}{s:04d}" for s in range(scenes_per_class)]
+        for split in splits:
+            (root / class_id).mkdir(parents=True, exist_ok=True)
+            (root / class_id / f"softras_{split}.lst").write_text("\n".join(scenes) + "\n")
+        for scene in scenes:
+            sdir = root / class_id / scene
+            (sdir / "image").mkdir(parents=True, exist_ok=True)
+            colour = rng.uniform(0.2, 1.0, size=3)
+            radius = rng.uniform(0.4, 0.8)
+            cams = {}
+            for v in range(n_views):
+                az, el = 2 * np.pi * v / n_views, np.deg2rad(30.0)
+                eye = 2.732 * np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                                        np.sin(el)])
+                cam2world = _look_at(eye)
+                cams[f"world_mat_{v}"] = np.linalg.inv(cam2world).astype(np.float32)
+                cams[f"world_mat_inv_{v}"] = cam2world.astype(np.float32)
+                cams[f"camera_mat_inv_{v}"] = camera_mat_inv.astype(np.float32)
+                cx, cy = 0.2 * np.cos(az), 0.2 * np.sin(az)
+                d2 = ((xx - cx) ** 2 + (yy - cy) ** 2) / radius ** 2
+                inside = d2 < 1.0
+                shade = np.sqrt(np.clip(1.0 - d2, 0.0, 1.0))[..., None]
+                rgb = np.where(inside[..., None], colour * (0.3 + 0.7 * shade), 1.0)
+                rgb = rgb + rng.normal(scale=0.02, size=rgb.shape)
+                img = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
+                if rgba:
+                    alpha = np.where(inside, 255, 0).astype(np.uint8)[..., None]
+                    img = np.concatenate([img, alpha], -1)
+                (sdir / "image" / f"{v:04d}.png").write_bytes(encode_png(img))
+            np.savez(sdir / "cameras.npz", **cams)
+    (root / "metadata.yaml").write_text("".join(meta))
+    return root
+
+
+def nmr_config_dict(root: Path, points_per_item: int = 8192, n_views: int = 24,
+                    canonical: bool = True, full_scale: bool = False):
+    """The config slice ``NMRMVRecon`` reads."""
+    return {"data": {"nmr_base": str(root), "mvrecon": {"args": {
+        "canonical": canonical, "full_scale": full_scale, "points_per_item": points_per_item,
+        "num_views": n_views, "num_input_views": 1}}}, "debug": {"flag": False}}
+
+
+def _surface(rng, origin, u, v, spacing, coverage, tile, noise):
+    """Points on the rectangle ``origin + a·u + b·v`` on a grid of ``spacing``,
+    kept on a ``coverage`` share of its ``tile``-sized squares, jittered by
+    ``noise``."""
+    lu, lv = np.linalg.norm(u), np.linalg.norm(v)
+    a, b = np.meshgrid(np.arange(0.0, lu, spacing), np.arange(0.0, lv, spacing), indexing="ij")
+    a, b = a.reshape(-1), b.reshape(-1)
+    if coverage < 1.0:
+        nu, nv = int(np.ceil(lu / tile)), int(np.ceil(lv / tile))
+        keep = rng.uniform(size=(nu, nv)) < coverage
+        sel = keep[(a / tile).astype(int), (b / tile).astype(int)]
+        a, b = a[sel], b[sel]
+    pts = (origin + a[:, None] * (u / lu) + b[:, None] * (v / lv)
+           + rng.normal(scale=noise, size=(len(a), 3)))
+    return pts
+
+
+def build_room_scene(rng, room=(8.0, 8.0, 3.0), spacing: float = 0.01, voxel: float = 0.02,
+                     coverage: float = 0.1, n_boxes: int = 3, tile: float = 0.5,
+                     noise: float = 0.002):
+    """A scanned room as ``PCDSwin3DEncoder`` takes it: (xyz (N, 3) float32
+    in voxel units of ``voxel`` metres, colours (N, 3) float32 in [-1, 1],
+    instance (N,) int64: 0 the floor, 1-4 the walls, 5 on the boxes). The
+    floor and four walls are sampled every ``spacing`` metres on a
+    ``coverage`` share of their ``tile`` squares (a scan sees part of
+    them); ``n_boxes`` boxes on the floor are sampled whole (top and four
+    sides); every surface has a colour of its own with noise."""
+    x, y, z = room
+    e = np.eye(3)
+    surfaces = [(0, (0, 0, 0), x * e[0], y * e[1], coverage),
+                (1, (0, 0, 0), x * e[0], z * e[2], coverage),
+                (2, (0, y, 0), x * e[0], z * e[2], coverage),
+                (3, (0, 0, 0), y * e[1], z * e[2], coverage),
+                (4, (x, 0, 0), y * e[1], z * e[2], coverage)]
+    for b in range(n_boxes):
+        sx, sy, sz = np.minimum(rng.uniform(0.3, 1.2, size=3), (x / 2, y / 2, z))
+        ox, oy = rng.uniform(0.2, x - sx - 0.2), rng.uniform(0.2, y - sy - 0.2)
+        surfaces += [(5 + b, (ox, oy, sz), sx * e[0], sy * e[1], 1.0),
+                     (5 + b, (ox, oy, 0), sx * e[0], sz * e[2], 1.0),
+                     (5 + b, (ox, oy + sy, 0), sx * e[0], sz * e[2], 1.0),
+                     (5 + b, (ox, oy, 0), sy * e[1], sz * e[2], 1.0),
+                     (5 + b, (ox + sx, oy, 0), sy * e[1], sz * e[2], 1.0)]
+    xyz, rgb, inst = [], [], []
+    for instance, origin, u, v, cover in surfaces:
+        pts = _surface(rng, np.asarray(origin, np.float64), u, v, spacing, cover, tile, noise)
+        base = rng.uniform(-0.8, 0.8, size=3)
+        xyz.append(pts)
+        rgb.append(np.clip(base + rng.normal(scale=0.05, size=pts.shape), -1.0, 1.0))
+        inst.append(np.full(len(pts), instance, np.int64))
+    xyz = np.concatenate(xyz) / voxel
+    return xyz.astype(np.float32), np.concatenate(rgb).astype(np.float32), np.concatenate(inst)
 
 
 def main(argv=None) -> None:

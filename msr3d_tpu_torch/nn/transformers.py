@@ -53,13 +53,18 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, n_head: int, dropout: float = 0.1, device=None):
+    """``kv_dim`` is the width of the keys and values when it is not
+    ``d_model`` (SRT's rays attending into the scene's tokens)."""
+
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.1, device=None,
+                 kv_dim: Optional[int] = None):
         super().__init__()
         self.n_head = n_head
         self.dropout = dropout
+        kv_dim = d_model if kv_dim is None else kv_dim
         self.q_proj = nn.Linear(d_model, d_model, device=device)
-        self.k_proj = nn.Linear(d_model, d_model, device=device)
-        self.v_proj = nn.Linear(d_model, d_model, device=device)
+        self.k_proj = nn.Linear(kv_dim, d_model, device=device)
+        self.v_proj = nn.Linear(kv_dim, d_model, device=device)
         self.out_proj = nn.Linear(d_model, d_model, device=device)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
@@ -238,16 +243,17 @@ class TransformerSpatialEncoderLayer(nn.Module):
 
 
 class CrossAttentionLayer(nn.Module):
-    """Attention of ``tgt`` over ``memory``, then FFN. (The reference's
-    ``tgt_key_padding_mask`` is never read, so it is not taken here.)"""
+    """Attention of ``tgt`` over ``memory`` (of width ``kv_dim``, by default
+    ``d_model``), then FFN. (The reference's ``tgt_key_padding_mask`` is
+    never read, so it is not taken here.)"""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.1, activation: str = "relu", prenorm: bool = True,
-                 device=None):
+                 device=None, kv_dim: Optional[int] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout, device)
+        self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout, device, kv_dim)
         self.ffn = FeedForward(d_model, dim_feedforward, activation, dropout, device)
         self.dropout, self.prenorm = dropout, prenorm
 

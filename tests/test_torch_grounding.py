@@ -163,9 +163,16 @@ def test_vision_adapters_map_the_yaml_args_as_jax():
               registry.build_module("vision", config_from_dict(b2d), device="meta"))
     assert (tb.backbone_name, tb.freeze) == (jb.backbone_name, jb.freeze)
     assert tb.pooling == "attn" and jb.pooling == "attention"
-    with pytest.raises(NotImplementedError, match="swin3d"):
-        registry.build_module("vision", config_from_dict({"name": "PCDSwin3DEncoder",
-                                                          "args": {}}))
+    swin = {"name": "PCDSwin3DEncoder",
+            "args": {"depths": [1, 1], "channels": [12, 16], "num_heads": [2, 2],
+                     "window_sizes": [3, 3], "num_layers": 2, "quant_size": 2,
+                     "upsample": "linear"}}
+    js = JAX_VISION_REGISTRY.get("PCDSwin3DEncoder")(jax_config_from_dict(swin))
+    ts = registry.build_module("vision", config_from_dict(swin), device="cpu")
+    assert ts._cfg == js._cfg and (ts.signal, ts.use_offset) == (js.signal, js.use_offset)
+    assert ts.unet.stem_transformer is js.unet.stem_transformer is False
+    assert ts.unet.up_attn is js.unet.up_attn is False
+    assert [len(layer.blocks) for layer in ts.unet.layers] == list(js.unet.depths[1:])
     assert jax_build.build_swin3d_encoder is JAX_VISION_REGISTRY.get("PCDSwin3DEncoder")
 
 
